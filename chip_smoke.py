@@ -2,15 +2,26 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``, holds
-each kernel against its plain PyTorch version on the card, drives the main
-path — the adaptive AnEn ensemble (``repro_torch.apps.anen.workflow``) at
-the NCEP NAM 12 km CONUS grid, 428 x 614 points (AWIPS grid 218), with 365
-daily historical runs — and checks that every fused dispatch went through
-the kernels. Then it checks the run against the same run on the CPU at a
-small size. Every phase raises on failure, so a failed phase exits non-zero
-and prints no result. Without CUDA, or without the rest of the repository
-beside it, it fails.
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
+``nvcc`` per source, all started together), holds each kernel against its
+plain PyTorch version on the card, and drives the port's two paths:
+
+1. the adaptive AnEn ensemble (``repro_torch.apps.anen.workflow``) at the
+   NCEP NAM 12 km CONUS grid, 428 x 614 points (AWIPS grid 218), with 365
+   daily historical runs, through ``anen_distance``; then the same run on
+   the CPU at a small size;
+2. serving zamba2-7b at its published widths with random weights drawn on
+   the card (``repro_torch.launch.serve.run_managed``): 2 EnTK request
+   batches of 4 prompts x 512 tokens, 16 greedy new tokens each, whose
+   prefill goes through ``flash_attention`` (13 launches a batch) and
+   ``mamba2_ssd`` (81 launches a batch); then the smoke configuration on
+   the card against the CPU with the same weights.
+
+Each path runs with the launch counts set to 0 just before it and read
+just after, and fails unless every kernel of the path launched. Every
+phase raises on failure, so a failed phase exits non-zero and prints no
+result. Without CUDA, or without the rest of the repository beside it, it
+fails.
 
 The last two lines of standard output are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
@@ -29,11 +40,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 
 # every CUDA source of the port (src/repro_torch/kernels/csrc/<name>.cu)
-KERNEL_SOURCES = ("anen_distance",)
+KERNEL_SOURCES = ("anen_distance", "flash_attention", "mamba2_ssd")
 
 # published peaks of one H100 SXM (NVIDIA data sheet) at a 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12      # dense, tensor cores
 
 MAIN = dict(seed=0, ny=428, nx=614, n_hist=365, per_iter=1024, max_iters=4,
             n_tasks=8, slots=4, timeout=900.0)
@@ -42,6 +54,19 @@ SMALL = dict(seed=3, ny=20, nx=20, n_hist=30, per_iter=16, max_iters=2,
 EQUAL_SHAPES = ((60, 3, 37), (9, 2, 130), (365, 3, 1024), (365, 3, 4096))
 TIMED_SHAPES = ((365, 3, 1024), (365, 3, 4096))
 TIMED_REPS = 60
+
+# the serve path: zamba2-7b at full width, and the kernels' shapes on it
+SERVE = dict(arch="zamba2-7b", n_batches=2, batch_size=4, prompt_len=512,
+             max_new_tokens=16)
+FLASH_MAIN = (4, 512, 32, 112)            # (B, S, H, hd)
+SSD_MAIN = (4, 512, 112, 64, 1, 64)       # (B, T, H, P, G, N)
+FLASH_SHAPES = (FLASH_MAIN, (4, 100, 32, 112), (4, 300, 32, 112))
+SSD_SHAPES = (SSD_MAIN, (4, 100, 112, 64, 1, 64), (2, 128, 8, 64, 2, 64))
+# the JAX kernel tests' tolerances (tests/test_kernels.py), atol = rtol
+TOLERANCE = {"flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
+             "mamba2_ssd": {"float32": 1e-4, "bfloat16": 6e-2}}
+# the JAX package's kernel-vs-reference model tolerance
+MODEL_ATOL, MODEL_RTOL = 0.08, 0.05
 
 
 def check(cond: bool, what: str) -> None:
@@ -68,8 +93,9 @@ def build_kernels() -> float:
         out, err = proc.communicate()
         check(proc.returncode == 0, f"build of {name}.cu: {err}")
         print(f"built {name}: {out.strip()}\n{err.strip()}")
-    from repro_torch.kernels import anen_distance as kmod
-    kmod.build()
+    from repro_torch.kernels import anen_distance, flash_attention, mamba2_ssd
+    for kmod in (anen_distance, flash_attention, mamba2_ssd):
+        kmod.build()
     return time.perf_counter() - t0
 
 
@@ -79,16 +105,21 @@ def _median(xs):
 
 
 def device_ms(fn, reps: int = TIMED_REPS) -> float:
-    """Median device time of one call: ``reps`` calls queued back to back
-    behind a spin kernel, with a CUDA event between consecutive calls, so
-    the host's enqueue cost never shows as device time. The spin doubles
-    until it outlasts the enqueue (the first event must still be pending
-    when the host has queued everything)."""
+    """Median device time of one call that launches one kernel: ``reps``
+    calls queued back to back behind a spin kernel, with a CUDA event
+    between consecutive calls, so the host's enqueue cost never shows as
+    device time. The spin grows until it outlasts the enqueue (the first
+    event must still be pending when the host has queued everything). A
+    function of many launches can fill the launch queue, so the host waits
+    on the spin whatever its length: that raises rather than spins on
+    (time it with :func:`busy_ms`)."""
     import torch
     for _ in range(5):
         fn()
     cycles = 1 << 24
     while True:
+        check(cycles <= 1 << 32, "device_ms: the spin never outlasted the "
+                                 "enqueue (too many launches a call)")
         events = [torch.cuda.Event(enable_timing=True)
                   for _ in range(reps + 1)]
         torch.cuda.synchronize()
@@ -103,6 +134,26 @@ def device_ms(fn, reps: int = TIMED_REPS) -> float:
             return _median([events[i].elapsed_time(events[i + 1])
                             for i in range(reps)])
         cycles *= 4
+
+
+def busy_ms(fn, reps: int = 10) -> float:
+    """Device busy time of one call of a function that launches many
+    kernels (a plain version, a library call): the CUPTI device time of
+    every kernel and copy of ``reps`` calls under ``torch.profiler``,
+    over ``reps``. Gaps while the device waits for the host do not
+    count."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_ms = sum(r[2] for r in device_rows(prof))
+    check(total_ms > 0, "busy_ms: the profiler saw device time")
+    return total_ms / reps
 
 
 def call_ms(fn, reps: int = TIMED_REPS) -> float:
@@ -174,13 +225,22 @@ def time_distance(shape) -> dict:
     return row
 
 
+def reset_counts() -> None:
+    """Every kernel wrapper's launch count (and shape count) to 0."""
+    from repro_torch.kernels.anen_distance import anen_distance
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd
+    for fn in (anen_distance, flash_attention, mamba2_ssd):
+        fn.launches = 0
+        fn.shapes.clear()
+
+
 def run_main_path() -> dict:
     import torch
     from repro_torch.apps.anen import workflow as wf
     from repro_torch.kernels.anen_distance import anen_distance
     torch.cuda.reset_peak_memory_stats()
-    anen_distance.launches = 0
-    anen_distance.shapes.clear()
+    reset_counts()
     runs = {}
     for method in ("run_adaptive", "run_random"):
         before = anen_distance.launches
@@ -216,6 +276,21 @@ def run_main_path() -> dict:
     return {"launches": launches, "shapes": shapes, "runs": runs}
 
 
+def device_rows(prof) -> list:
+    """(name, count, device ms) of every kernel, copy and set that the
+    profiler saw on the device, largest first. CPU-side ops are left out
+    (their device time repeats their kernels'), and so is the "Command
+    Buffer Full" wait, which is host time."""
+    from torch.autograd import DeviceType
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0
+            and e.key != "Command Buffer Full"]
+    rows.sort(key=lambda r: -r[2])
+    return rows
+
+
 def profile_main_path() -> None:
     """One more adaptive run of the main path under ``torch.profiler``:
     device time by kernel and the device's busy share of the wall time
@@ -231,9 +306,7 @@ def profile_main_path() -> None:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     check(res["all_done"], "profiled run all_done")
-    rows = [(e.key, e.count, e.self_device_time_total / 1e3)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[2])
+    rows = device_rows(prof)
     busy_ms = sum(r[2] for r in rows)
     print(f"profiled run_adaptive: wall_s={wall} device_busy_ms={busy_ms} "
           f"busy_share={busy_ms / 1e3 / wall} "
@@ -257,7 +330,316 @@ def cross_check() -> None:
     check(diff <= 1e-5, f"cuda vs cpu errors within 1e-5 (got {diff})")
 
 
+# --------------------------------------------------------------------------- #
+# The model kernels: flash attention and the Mamba-2 SSD scan
+# --------------------------------------------------------------------------- #
+
+def _dtype(name: str):
+    import torch
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+def attention_inputs(shape, dtype: str, seed: int = 11):
+    """q, k, v ~ N(0, 1), as the JAX kernel tests draw them."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .cuda().to(_dtype(dtype)) for _ in range(3)]
+
+
+def ssd_inputs(shape, dtype: str, seed: int = 13):
+    """x, dt = softplus(N), A = -exp(N/2), B and C ~ N/2, state0 ~ N/10,
+    as the JAX kernel tests draw them; x, B, C in ``dtype``."""
+    import numpy as np
+    import torch
+    B, T, H, P, G, N = shape
+    rng = np.random.default_rng(seed)
+
+    def draw(*s):
+        return rng.standard_normal(s).astype(np.float32)
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa
+    dt = _dtype(dtype)
+    return [t(draw(B, T, H, P)).to(dt), t(np.log1p(np.exp(draw(B, T, H)))),
+            t(-np.exp(draw(H) * 0.5)), t(draw(B, T, G, N) * 0.5).to(dt),
+            t(draw(B, T, G, N) * 0.5).to(dt), t(draw(B, H, N, P) * 0.1)]
+
+
+def held_close(got, ref, tol: float, what: str) -> float:
+    """Raise unless |got - ref| <= tol + tol * |ref| everywhere; returns the
+    max abs error."""
+    import torch
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    excess = float((err - tol * ref.abs()).max())
+    check(bool(torch.isfinite(got).all()), f"{what}: finite")
+    check(excess <= tol, f"{what}: |err| <= {tol} + {tol}*|ref| "
+                         f"(worst excess {excess})")
+    return float(err.max())
+
+
+def compare_flash(shape, dtype: str) -> float:
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    q, k, v = attention_inputs(shape, dtype)
+    out, lse = flash_attention(q, k, v)
+    ref_out, ref_lse = flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    tol = TOLERANCE["flash_attention"][dtype]
+    err = held_close(out, ref_out, tol, f"flash_attention {shape} {dtype}")
+    lse_err = held_close(lse, ref_lse, 2e-5,
+                         f"flash_attention lse {shape} {dtype}")
+    print(f"flash_attention {shape} {dtype}: max abs err out {err} "
+          f"lse {lse_err} (tolerance {tol})")
+    return err
+
+
+def compare_ssd(shape, dtype: str) -> float:
+    import torch
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd, mamba2_ssd_plain
+    args = ssd_inputs(shape, dtype)
+    y, state = mamba2_ssd(*args)
+    ref_y, ref_state = mamba2_ssd_plain(*args)
+    torch.cuda.synchronize()
+    tol = TOLERANCE["mamba2_ssd"][dtype]
+    err = held_close(y, ref_y, tol, f"mamba2_ssd y {shape} {dtype}")
+    s_err = held_close(state, ref_state, tol,
+                       f"mamba2_ssd state {shape} {dtype}")
+    print(f"mamba2_ssd {shape} {dtype}: max abs err y {err} state {s_err} "
+          f"(tolerance {tol})")
+    return max(err, s_err)
+
+
+def _bound(bytes_: int, flops: float, rate: float) -> dict:
+    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / rate * 1e3
+    return {"bytes": bytes_, "flops": flops,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "f32_cuda_core_ops_ms": flops / FP32_FLOPS_PER_S * 1e3}
+
+
+def flash_bound(shape, elem: int) -> dict:
+    """q, k, v read once and out written once in the input type, lse in
+    f32; 2 products of 2 hd flops for each of the S(S+1)/2 causal (q, k)
+    pairs of each (b, h), at the tensor-core rate of bf16 inputs."""
+    B, S, H, hd = shape
+    bytes_ = 4 * B * S * H * hd * elem + 4 * B * S * H
+    flops = 4.0 * B * H * hd * S * (S + 1) / 2
+    return _bound(bytes_, flops, BF16_FLOPS_PER_S)
+
+
+def ssd_bound(shape, elem: int) -> dict:
+    """x, B, C read and y written once in the input type, dt, A, state0
+    read and the final state written once in f32; per chunk and head the
+    Pallas body's four products (C.B^T, scores.x, C.S, B^T.x), at the
+    tensor-core rate of bf16 inputs."""
+    from repro_torch.kernels.mamba2_ssd import pick_chunk
+    B, T, H, P, G, N = shape
+    c = pick_chunk(T)
+    bytes_ = (elem * (2 * B * T * H * P + 2 * B * T * G * N)
+              + 4 * (B * T * H + H + 2 * B * H * N * P))
+    flops = 2.0 * B * H * (T // c) * (c * c * N + c * c * P + 2 * c * N * P)
+    return _bound(bytes_, flops, BF16_FLOPS_PER_S)
+
+
+def time_flash(shape) -> dict:
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    q, k, v = attention_inputs(shape, "bfloat16")
+    # the library yardstick takes (B, H, S, hd); it is timed here only
+    qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+    kernel = lambda: flash_attention(q, k, v)                 # noqa: E731
+    plain = lambda: flash_attention_plain(q, k, v)            # noqa: E731
+    library = lambda: F.scaled_dot_product_attention(         # noqa: E731
+        qt, kt, vt, is_causal=True)
+    row = {"shape": list(shape), "dtype": "bfloat16",
+           "ms": device_ms(kernel), "busy_ms": busy_ms(kernel),
+           "plain_ms": busy_ms(plain), "library_ms": busy_ms(library),
+           "call_ms": call_ms(kernel)}
+    row.update(flash_bound(shape, 2))
+    return row
+
+
+def time_ssd(shape) -> dict:
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd, mamba2_ssd_plain
+    args = ssd_inputs(shape, "bfloat16")
+    kernel = lambda: mamba2_ssd(*args)                        # noqa: E731
+    plain = lambda: mamba2_ssd_plain(*args)                   # noqa: E731
+    row = {"shape": list(shape), "dtype": "bfloat16",
+           "ms": device_ms(kernel), "busy_ms": busy_ms(kernel),
+           "plain_ms": busy_ms(plain), "library_ms": None,
+           "call_ms": call_ms(kernel)}
+    row.update(ssd_bound(shape, 2))
+    return row
+
+
+# --------------------------------------------------------------------------- #
+# The serve path: zamba2-7b at full width
+# --------------------------------------------------------------------------- #
+
+def run_serve_path() -> dict:
+    import numpy as np
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd
+    from repro_torch.launch import serve
+    from repro_torch.models.config import get_config
+    cfg = get_config(SERVE["arch"])
+    per_batch = {"flash_attention": cfg.n_layers // cfg.attn_every,
+                 "mamba2_ssd": cfg.n_layers}
+    n = SERVE["n_batches"]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    amgr = serve.run_managed(SERVE["arch"], smoke=False, n_batches=n,
+                             batch_size=SERVE["batch_size"],
+                             prompt_len=SERVE["prompt_len"],
+                             max_new_tokens=SERVE["max_new_tokens"],
+                             device="cuda", timeout=600.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention.launches,
+                "mamba2_ssd": mamba2_ssd.launches}
+    shapes = {"flash_attention": dict(flash_attention.shapes),
+              "mamba2_ssd": dict(mamba2_ssd.shapes)}
+    sess = serve.get_session(SERVE["arch"], False, "cuda")
+    tasks = [t for p in amgr.workflow for s in p.stages for t in s.tasks]
+    print(f"serve {SERVE}: all_done={amgr.all_done} wall_s={wall} "
+          f"session build seconds={sess.build_seconds}")
+    print(f"max_memory_allocated bytes: {torch.cuda.max_memory_allocated()}")
+    print(f"serve path launches: {launches}, shapes: "
+          f"{ {k: {str(s): c for s, c in v.items()} for k, v in shapes.items()} }")
+    check(amgr.all_done, "serve all_done")
+    check(len(tasks) == n, f"{n} serve tasks")
+    check(all(t.retries == 0 for t in tasks), "no serve task retried")
+    for t in tasks:
+        tokens = np.asarray(t.result)
+        check(tokens.shape == (SERVE["batch_size"], SERVE["max_new_tokens"]),
+              f"{t.name} tokens shape {tokens.shape}")
+        check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
+              f"{t.name} tokens in [0, {cfg.vocab_size})")
+    stats = sess.stats[-n:]
+    for rec in stats:
+        print(f"  batch: prefill_s={rec['prefill_s']} decode_s_per_token="
+              f"{rec['decode_s_per_token']} flash_attention launches="
+              f"{rec['flash_attention_launches']} mamba2_ssd launches="
+              f"{rec['mamba2_ssd_launches']}")
+        check(rec["prefill_logits_finite"], "prefill logits finite")
+        check(rec["decode_logits_finite"], "decode logits finite")
+        for name, want in per_batch.items():
+            check(rec[f"{name}_launches"] == want,
+                  f"{name}: {want} launches per batch")
+    for name, want in per_batch.items():
+        check(launches[name] == want * n,
+              f"{name}: {want * n} launches on the serve path")
+    check(set(shapes["flash_attention"]) == {FLASH_MAIN},
+          f"flash_attention ran at {FLASH_MAIN}")
+    check(set(shapes["mamba2_ssd"]) == {SSD_MAIN},
+          f"mamba2_ssd ran at {SSD_MAIN}")
+    return {"launches": launches, "session": sess, "wall_s": wall,
+            "stats": stats}
+
+
+def profile_serve(sess) -> None:
+    """One more full-width prefill, then 4 decode steps, each under
+    ``torch.profiler``: device time by kernel and by kind, the device's
+    busy share of the wall time (profiler overhead included) and device
+    ops per decoded token. Their launches are not counted: the serve
+    path's counts were read before."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.serve import _merge_cache
+    from repro_torch.models import transformer
+    rng = np.random.default_rng(5)
+    B, S, steps = SERVE["batch_size"], SERVE["prompt_len"], 4
+    inputs = torch.from_numpy(rng.integers(0, sess.cfg.vocab_size, (B, S))
+                              ).cuda()
+
+    def prefill():
+        return sess.prefill(sess.params, {"inputs": inputs})
+
+    logits, cache = prefill()                                 # warm
+    state = {"full": _merge_cache(transformer.init_cache(
+        sess.cfg, B, S + steps, sess.device), cache),
+        "tok": torch.argmax(logits, -1)[:, None].to(torch.int32)}
+
+    def decode():
+        for _ in range(steps):
+            logits, state["full"] = sess.decode(sess.params, state["tok"],
+                                                state["full"])
+            state["tok"] = torch.argmax(logits, -1)[:, None].to(torch.int32)
+
+    torch.cuda.synchronize()
+    for phase, fn, n in (("prefill", prefill, 1), ("decode", decode, steps)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = device_rows(prof)
+        busy = sum(r[2] for r in rows)
+        kinds = {}
+        for key, count, ms in rows:
+            kind = ("flash_attention" if "flash_fwd" in key else
+                    "mamba2_ssd" if "ssd_kernel" in key else
+                    "matmul" if any(w in key.lower() for w in (
+                        "nvjet", "gemm", "gemv", "cutlass", "xmma", "sm90_"))
+                    else "other")
+            kinds[kind] = kinds.get(kind, 0.0) + ms
+        print(f"profiled {phase}: wall_ms={wall * 1e3 / n} per call, "
+              f"device_busy_ms={busy / n} per call, busy_share="
+              f"{busy / 1e3 / wall}, device ops per call "
+              f"{sum(r[1] for r in rows) / n}, device ms by kind per call: "
+              f"{ {k: v / n for k, v in kinds.items()} }")
+        for key, count, ms in rows[:12]:
+            print(f"  device {ms:.3f} ms  x{count}  {key[:90]}")
+
+
+def cross_check_serve() -> None:
+    """The smoke configuration on the card against the CPU, with the same
+    weights (drawn once on the CPU, copied to the card), at a prompt length
+    of 100 (a ragged last tile for the flash kernel, chunk 50 for SSD)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.serve import ServeSession
+    from repro_torch.models.config import get_config
+    from repro_torch.models.transformer import init_params
+    cfg = get_config(SERVE["arch"], smoke=True)
+    params = init_params(cfg, 0, torch.bfloat16, "cpu")
+
+    def to_cuda(tree):
+        return {k: to_cuda(v) if isinstance(v, dict) else v.cuda()
+                for k, v in tree.items()}
+
+    cpu = ServeSession(SERVE["arch"], smoke=True, device="cpu", params=params)
+    gpu = ServeSession(SERVE["arch"], smoke=True, device="cuda",
+                       params=to_cuda(params))
+    prompts = np.random.default_rng(7).integers(0, cfg.vocab_size, (4, 100))
+    lg, _ = gpu.prefill(gpu.params, {"inputs": torch.from_numpy(prompts)
+                                     .cuda()})
+    lc, _ = cpu.prefill(cpu.params, {"inputs": torch.from_numpy(prompts)})
+    lg = lg.cpu()
+    diff = float((lg - lc).abs().max())
+    excess = float(((lg - lc).abs() - MODEL_RTOL * lc.abs()).max())
+    check(bool(torch.isfinite(lg).all()), "smoke cuda logits finite")
+    check(excess <= MODEL_ATOL, f"smoke prefill logits cuda vs cpu within "
+                                f"atol {MODEL_ATOL} / rtol {MODEL_RTOL} "
+                                f"(worst excess {excess})")
+    tg = gpu.generate(prompts, 8)
+    tc = cpu.generate(prompts, 8)
+    print(f"serve cross-check (smoke, cuda vs cpu): prefill logits max abs "
+          f"diff {diff}; greedy tokens equal {float((tg == tc).mean())}")
+
+
 def main() -> None:
+    sys.stdout.reconfigure(line_buffering=True)   # a cut run keeps its log
     sys.path.insert(0, SRC)
     import torch
     check(torch.cuda.is_available(), "torch.cuda.is_available()")
@@ -289,6 +671,23 @@ def main() -> None:
     cross_check()
     profile_main_path()
 
+    # the model kernels against their plain versions, main-path and ragged
+    # shapes, f32 and bf16
+    errors = {"flash_attention": [], "mamba2_ssd": []}
+    for dtype in ("float32", "bfloat16"):
+        for shape in FLASH_SHAPES:
+            errors["flash_attention"].append(compare_flash(shape, dtype))
+        for shape in SSD_SHAPES:
+            errors["mamba2_ssd"].append(compare_ssd(shape, dtype))
+    timed = {"flash_attention": time_flash(FLASH_MAIN),
+             "mamba2_ssd": time_ssd(SSD_MAIN)}
+    for name, row in timed.items():
+        print(f"{name} at main-path shape {row}")
+
+    serve_path = run_serve_path()
+    profile_serve(serve_path["session"])
+    cross_check_serve()
+
     record = {"kernels": [{
         "name": "anen_distance",
         "route": "cuda",
@@ -304,6 +703,19 @@ def main() -> None:
         "library_ms": None,
         "shape": at_main["shape"],
     }]}
+    replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:103",
+                "mamba2_ssd": "src/repro/kernels/mamba2_ssd.py:106"}
+    for name, row in timed.items():
+        record["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": replaces[name],
+            "launches": serve_path["launches"][name],
+            "max_abs_err": max(errors[name]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "call_ms": row["call_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": row["shape"], "dtype": row["dtype"]})
     print(card_line())
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

@@ -29,5 +29,14 @@ Ported (the modules that touch arrays or devices):
 * :mod:`repro_torch.fusion.handles` — tensor-backed result handles;
 * :mod:`repro_torch.fusion.engine` — scalar and per-stage fused tiers;
 * :mod:`repro_torch.rts.torch_rts` — :class:`TorchRTS`, the device RTS;
-* :mod:`repro_torch.apps.anen` — the AnEn numerics and adaptive workflow.
+* :mod:`repro_torch.apps.anen` — the AnEn numerics and adaptive workflow;
+* :mod:`repro_torch.models` and :mod:`repro_torch.configs` — the model
+  registry (all ten configurations) and the hybrid (zamba2) family end to
+  end, in the JAX package's parameter layout;
+* :mod:`repro_torch.kernels.flash_attention`,
+  :mod:`repro_torch.kernels.mamba2_ssd` — the model kernels as
+  hand-written CUDA with their plain PyTorch versions; oracles in
+  :mod:`repro_torch.kernels.ref`;
+* :mod:`repro_torch.launch.serve` — batched prefill + greedy decode as
+  EnTK tasks over :class:`TorchRTS`.
 """

@@ -10,7 +10,7 @@ federated RTS fleet with failover, write-ahead journal resume).
 
 Quickstart::
 
-    from repro import api
+    from repro_torch import api
 
     def simulate(x, noise):  # a plain function IS a task body
         return x * x + noise

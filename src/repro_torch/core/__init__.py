@@ -9,8 +9,8 @@ Public API (mirrors the paper's user-facing constructs):
 
 Example::
 
-    from repro.core import AppManager, Pipeline, Stage, Task
-    from repro.rts.base import ResourceDescription
+    from repro_torch.core import AppManager, Pipeline, Stage, Task
+    from repro_torch.rts.base import ResourceDescription
 
     p = Pipeline("demo")
     s = Stage("s1")

@@ -1,0 +1,64 @@
+"""Attention: causal flash forward for prefill + the decode path.
+
+Prefill calls :func:`repro_torch.kernels.flash_attention.flash_attention`:
+the CUDA kernel for CUDA tensors, its plain version (the JAX package's
+chunked online softmax, ``models/attention.py::_flash_fwd_impl``) for CPU
+tensors. The backward (FlashAttention-2 recompute from the saved lse)
+waits for the training slice. Callers pass kv already repeated to the
+query head count. Decode attends one query against a (B, S, Hkv, hd)
+cache with a length mask.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from ..kernels.flash_attention import NEG_INF, flash_attention
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, length) -> torch.Tensor:
+    """One query position against a KV cache.
+
+    q (B, 1, Hq, hd); k_cache, v_cache (B, S, Hkv, hd); ``length`` — an
+    int or (B,) tensor of valid cache slots."""
+    B, _one, Hq, hd = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    g = Hq // Hkv
+    qg = q.reshape(B, Hkv, g, hd)
+    s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), k_cache.float()) * (
+        1.0 / math.sqrt(hd))
+    length = torch.as_tensor(length, device=q.device)
+    if length.dim() == 0:
+        length = length.expand(B)
+    valid = torch.arange(S, device=q.device)[None] < length[:, None]
+    s = torch.where(valid[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", p, v_cache.float())
+    return out.reshape(B, 1, Hq, hd).to(q.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+              ) -> torch.Tensor:
+    """Causal self-attention for prefill: the flash kernel's output.
+
+    q, k, v: (B, S, H, hd) with kv already repeated to H (MHA view).
+    """
+    return flash_attention(q, k, v)[0]
+
+
+def update_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,
+                 k_new: torch.Tensor, v_new: torch.Tensor, length: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Write (B, 1, Hkv, hd) new entries at position ``length``.
+
+    In place: the JAX reference returns updated copies
+    (``dynamic_update_slice``); here the one new slot is written into the
+    caller's cache, which the decode loop owns, so a decode step copies no
+    cache. Returns the same two tensors."""
+    k_cache[:, length:length + 1].copy_(k_new)
+    v_cache[:, length:length + 1].copy_(v_new)
+    return k_cache, v_cache

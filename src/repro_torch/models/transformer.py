@@ -1,0 +1,320 @@
+"""Model assembly: init / prefill / decode of the hybrid family (zamba2).
+
+The JAX package's parameter layout is kept at every public function:
+per-layer parameters stacked on a leading axis, ``x @ W`` with ``W`` shaped
+(in, out), the same dict keys, activations (B, S, H, hd). Where JAX scans
+over layers, the port runs a Python loop over the stacked slices.
+
+Hybrid (zamba2): groups of ``attn_every`` Mamba2 layers, each followed by
+one application of a single *shared* attention+MLP block (parameters
+reused across all applications — the Zamba trick); trailing Mamba layers
+after the last group. The other families (dense, MoE, SSM, audio, VLM) are
+not ported yet and raise ``NotImplementedError`` (``ROADMAP.md``).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from ..device import DeviceLike, resolve_device
+from . import mamba2
+from .attention import attention, decode_attention, update_cache
+from .config import ModelConfig
+from .mlp import gated_mlp, init_gated_mlp, normal, rms_norm
+from .rope import apply_rope, default_positions
+
+COMPUTE_DTYPE = torch.bfloat16
+
+
+def _require_hybrid(cfg: ModelConfig) -> None:
+    if cfg.family != "hybrid":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported to "
+            f"repro_torch yet (ROADMAP.md A12 lists the order); only "
+            f"'hybrid' (zamba2) runs")
+
+
+# --------------------------------------------------------------------------- #
+# Init
+# --------------------------------------------------------------------------- #
+
+def _init_attn(gen, cfg: ModelConfig, dtype, device) -> Dict:
+    D = cfg.d_model
+    hd = cfg.resolved_head_dim
+    Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+    s = math.sqrt(1.0 / D)
+    return {
+        "wq": normal((D, Hq * hd), s, gen, device, dtype),
+        "wk": normal((D, Hkv * hd), s, gen, device, dtype),
+        "wv": normal((D, Hkv * hd), s, gen, device, dtype),
+        "wo": normal((Hq * hd, D), math.sqrt(1.0 / (Hq * hd)), gen, device,
+                     dtype),
+    }
+
+
+def init_params(cfg: ModelConfig, seed: int = 0,
+                param_dtype: torch.dtype = torch.float32,
+                device: DeviceLike = None) -> Dict:
+    """Random parameters drawn on ``device`` from a ``torch.Generator``
+    there (seeded with ``seed``): nothing is drawn on the host for a CUDA
+    device. ``device="meta"`` gives shapes and dtypes without allocating.
+    The values differ from the JAX package's for the same seed; tests
+    carry JAX's parameters over with :mod:`repro_torch.models.convert`."""
+    _require_hybrid(cfg)
+    dev = (torch.device("meta") if str(device) == "meta"
+           else resolve_device(device))
+    gen = None
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+    D, V = cfg.d_model, cfg.vocab_size
+    params: Dict[str, Any] = {}
+    if not cfg.embedding_inputs:
+        params["embed"] = normal((V, D), 1.0 / math.sqrt(D), gen, dev,
+                                 param_dtype)
+    params["final_norm"] = torch.ones(D, dtype=torch.float32, device=dev)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = normal((D, V), 1.0 / math.sqrt(D), gen, dev,
+                                   param_dtype)
+    params["mamba"] = mamba2.init_mamba_layer(gen, cfg, cfg.n_layers,
+                                              param_dtype, dev)
+    params["shared_attn"] = {
+        "ln1": torch.ones(D, dtype=torch.float32, device=dev),
+        "ln2": torch.ones(D, dtype=torch.float32, device=dev),
+        "attn": _init_attn(gen, cfg, param_dtype, dev),
+        "mlp": init_gated_mlp(gen, D, cfg.d_ff, param_dtype, dev,
+                              gated=cfg.mlp_gated),
+    }
+    return params
+
+
+# matmul weights cast to bf16 for compute (mixed precision); norms, decays
+# and other numerics-sensitive leaves stay fp32
+_COMPUTE_CAST = frozenset({
+    "embed", "lm_head", "wq", "wk", "wv", "wo", "wg", "wu", "wd",
+    "wr", "ck", "cv", "cr", "wz", "wx", "wb", "wc", "wdt",
+    "out_proj", "conv_w", "conv_b",
+})
+
+
+def cast_for_compute(params: Dict) -> Dict:
+    """fp32 master params → bf16 compute copies for the matmul weights
+    (bf16 leaves are returned as they are, not copied)."""
+    out = {}
+    for name, leaf in params.items():
+        if isinstance(leaf, dict):
+            out[name] = cast_for_compute(leaf)
+        elif name in _COMPUTE_CAST and leaf.dtype == torch.float32:
+            out[name] = leaf.to(COMPUTE_DTYPE)
+        else:
+            out[name] = leaf
+    return out
+
+
+def _leaves(tree: Dict):
+    for leaf in tree.values():
+        if isinstance(leaf, dict):
+            yield from _leaves(leaf)
+        else:
+            yield leaf
+
+
+def count_params(cfg: ModelConfig) -> int:
+    """Parameter count from the meta device: nothing is allocated."""
+    return sum(leaf.numel()
+               for leaf in _leaves(init_params(cfg, device="meta")))
+
+
+# --------------------------------------------------------------------------- #
+# Attention sub-block (the hybrid family's shared block)
+# --------------------------------------------------------------------------- #
+
+def _project_qkv(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+                 positions: torch.Tensor):
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim
+    Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+    q = (x @ p["wq"]).reshape(B, S, Hq, hd)
+    k = (x @ p["wk"]).reshape(B, S, Hkv, hd)
+    v = (x @ p["wv"]).reshape(B, S, Hkv, hd)
+    q = apply_rope(q, positions, cfg)
+    k = apply_rope(k, positions, cfg)
+    return q, k, v
+
+
+def _repeat_heads(a: torch.Tensor, r: int) -> torch.Tensor:
+    return a.repeat_interleave(r, dim=2) if r > 1 else a
+
+
+def attn_block(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+               positions: torch.Tensor, want_cache: bool
+               ) -> Tuple[torch.Tensor, Optional[Tuple]]:
+    """Full-sequence attention. Returns (out, (k,v) for the cache or None)."""
+    B, S, _ = x.shape
+    Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    kr = _repeat_heads(k, Hq // Hkv).contiguous()
+    vr = _repeat_heads(v, Hq // Hkv).contiguous()
+    o = attention(q.contiguous(), kr, vr)
+    out = o.reshape(B, S, Hq * cfg.resolved_head_dim) @ p["wo"]
+    if want_cache:
+        r = cfg.kv_repeat
+        return out, (_repeat_heads(k, r).to(COMPUTE_DTYPE),
+                     _repeat_heads(v, r).to(COMPUTE_DTYPE))
+    return out, None
+
+
+def attn_decode_block(p: Dict, x: torch.Tensor, cfg: ModelConfig,
+                      positions: torch.Tensor, k_cache: torch.Tensor,
+                      v_cache: torch.Tensor, length: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Single-token attention against a cache. x: (B,1,D). The new k/v are
+    written into the cache in place (:func:`update_cache`)."""
+    B = x.shape[0]
+    hd = cfg.resolved_head_dim
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    k = _repeat_heads(k, cfg.kv_repeat)
+    v = _repeat_heads(v, cfg.kv_repeat)
+    k_cache, v_cache = update_cache(k_cache, v_cache, k, v, length)
+    o = decode_attention(q, k_cache, v_cache, length + 1)
+    out = o.reshape(B, 1, cfg.n_heads * hd) @ p["wo"]
+    return out, k_cache, v_cache
+
+
+def _shared_block(shared: Dict, x: torch.Tensor, cfg: ModelConfig,
+                  attn_out: torch.Tensor) -> torch.Tensor:
+    x = x + attn_out
+    return x + gated_mlp(shared["mlp"],
+                         rms_norm(x, shared["ln2"], cfg.norm_eps), cfg)
+
+
+def _layer(tree: Dict, i: int) -> Dict:
+    return {k: v[i] for k, v in tree.items()}
+
+
+# --------------------------------------------------------------------------- #
+# Backbone forward (prefill)
+# --------------------------------------------------------------------------- #
+
+def _apply_zamba(params: Dict, cfg: ModelConfig, h: torch.Tensor,
+                 positions: torch.Tensor):
+    """The layer stack for prefill: (hidden, cache in :func:`init_cache`'s
+    layout without ``length``)."""
+    B = h.shape[0]
+    E = cfg.attn_every
+    shared = params["shared_attn"]
+    state0 = mamba2.init_state(cfg, B, h.device)
+    states, ks, vs = [], [], []
+    for li in range(cfg.n_layers):
+        h, s_new = mamba2.mamba_block(_layer(params["mamba"], li), h, cfg,
+                                      state0)
+        states.append(s_new)
+        if (li + 1) % E == 0:      # end of a group; trailing layers pass
+            a, (k, v) = attn_block(shared["attn"],
+                                   rms_norm(h, shared["ln1"], cfg.norm_eps),
+                                   cfg, positions, want_cache=True)
+            h = _shared_block(shared, h, cfg, a)
+            ks.append(k)
+            vs.append(v)
+    cache = {"mamba": {k: torch.stack([s[k] for s in states])
+                       for k in ("conv", "ssm")},
+             "k": torch.stack(ks), "v": torch.stack(vs)}
+    return h, cache
+
+
+# --------------------------------------------------------------------------- #
+# Heads
+# --------------------------------------------------------------------------- #
+
+def embed_inputs(params: Dict, cfg: ModelConfig, inputs: torch.Tensor
+                 ) -> torch.Tensor:
+    if cfg.embedding_inputs:
+        return inputs.to(COMPUTE_DTYPE)
+    return params["embed"][inputs.long()].to(COMPUTE_DTYPE)
+
+
+def logits_head(params: Dict, cfg: ModelConfig, h: torch.Tensor
+                ) -> torch.Tensor:
+    h = rms_norm(h, params["final_norm"], cfg.norm_eps)
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return (h @ w.to(h.dtype)).float()
+
+
+# --------------------------------------------------------------------------- #
+# Prefill / decode
+# --------------------------------------------------------------------------- #
+
+def prefill(params: Dict, cfg: ModelConfig, inputs: torch.Tensor,
+            positions: Optional[torch.Tensor] = None):
+    """Returns (last-token logits (B, V) f32, cache)."""
+    _require_hybrid(cfg)
+    B, S = inputs.shape[:2]
+    if positions is None:
+        positions = default_positions(B, S, cfg, device=inputs.device)
+    h = embed_inputs(params, cfg, inputs)
+    h, cache = _apply_zamba(params, cfg, h, positions)
+    logits = logits_head(params, cfg, h[:, -1:])[:, 0]
+    cache["length"] = S
+    return logits, cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: DeviceLike = None) -> Dict:
+    """Decode cache of zeros: stacked Mamba states, the shared block's
+    (G, B, max_len, Hkv, hd) k/v, and ``length`` (a Python int)."""
+    _require_hybrid(cfg)
+    dev = resolve_device(device)
+    hd = cfg.resolved_head_dim
+    Hkv_eff = cfg.n_kv_heads * cfg.kv_repeat
+    G = cfg.n_layers // cfg.attn_every
+    state = mamba2.init_state(cfg, batch, dev)
+    return {
+        "length": 0,
+        "mamba": {k: v.new_zeros((cfg.n_layers, *v.shape))
+                  for k, v in state.items()},
+        "k": torch.zeros(G, batch, max_len, Hkv_eff, hd, dtype=COMPUTE_DTYPE,
+                         device=dev),
+        "v": torch.zeros(G, batch, max_len, Hkv_eff, hd, dtype=COMPUTE_DTYPE,
+                         device=dev),
+    }
+
+
+def decode(params: Dict, cfg: ModelConfig, token: torch.Tensor,
+           cache: Dict, positions: Optional[torch.Tensor] = None):
+    """One decode step. token: (B,1) ids or (B,1,D) embeddings.
+
+    Returns (logits (B, V) f32, cache). The cache's tensors are updated in
+    place (new k/v slot, new Mamba states) and returned in a new dict with
+    ``length + 1``."""
+    _require_hybrid(cfg)
+    B = token.shape[0]
+    length = cache["length"]
+    if positions is None:
+        positions = torch.full((B, 1), length, dtype=torch.int32,
+                               device=token.device)
+    h = embed_inputs(params, cfg, token)
+    h = _decode_zamba(params, cfg, h, positions, cache)
+    logits = logits_head(params, cfg, h)[:, 0]
+    return logits, {**cache, "length": length + 1}
+
+
+def _decode_zamba(params, cfg, h, positions, cache):
+    E = cfg.attn_every
+    length = cache["length"]
+    shared = params["shared_attn"]
+    states = cache["mamba"]
+    for li in range(cfg.n_layers):
+        h, s_new = mamba2.mamba_decode(_layer(params["mamba"], li), h, cfg,
+                                       _layer(states, li))
+        for key, val in s_new.items():
+            states[key][li].copy_(val)
+        if (li + 1) % E == 0:
+            gi = li // E
+            a, _, _ = attn_decode_block(
+                shared["attn"], rms_norm(h, shared["ln1"], cfg.norm_eps),
+                cfg, positions, cache["k"][gi], cache["v"][gi], length)
+            h = _shared_block(shared, h, cfg, a)
+    return h

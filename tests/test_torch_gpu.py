@@ -1,6 +1,6 @@
-"""Tests of the port that need an NVIDIA GPU: the CUDA kernel against its
-plain version, and the workflow on the card against the same workflow on
-the CPU. They skip where ``torch.cuda.is_available()`` is False. This file
+"""Tests of the port that need an NVIDIA GPU: each CUDA kernel against its
+plain version, and the AnEn workflow and the zamba2 serving path on the
+card against the same runs on the CPU. They skip where ``torch.cuda.is_available()`` is False. This file
 imports nothing of JAX, so it also runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -50,3 +50,92 @@ def test_workflow_on_card_matches_cpu(cuda):
     assert stats["fused"] > 0
     assert stats["scalar_fallback"] == 0 and stats["degraded"] == 0
     assert np.allclose(on_gpu["errors"], on_cpu["errors"], rtol=0, atol=1e-5)
+
+
+def _attention_inputs(shape, dtype, cuda, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to(cuda).to(dtype) for _ in range(3)]
+
+
+def _ssd_inputs(shape, dtype, cuda, seed=0):
+    B, T, H, P, G, N = shape
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    x, Bm, Cm = f(B, T, H, P), f(B, T, G, N) * 0.5, f(B, T, G, N) * 0.5
+    dt = np.log1p(np.exp(f(B, T, H)))
+    A = -np.exp(f(H) * 0.5)
+    s0 = f(B, H, N, P) * 0.1
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa
+    return [t(x).to(dtype), t(dt), t(A), t(Bm).to(dtype), t(Cm).to(dtype),
+            t(s0)]
+
+
+TOLERANCES = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 6e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 512, 32, 112), (1, 100, 2, 112),
+                                   (2, 300, 3, 64), (1, 128, 1, 32)])
+def test_flash_attention_kernel_matches_plain(cuda, shape, dtype):
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    q, k, v = _attention_inputs(shape, dtype, cuda)
+    before = flash_attention.launches
+    out, lse = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref_out, ref_lse = flash_attention_plain(q, k, v)
+    tol = TOLERANCES[dtype][0]
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 512, 112, 64, 1, 64),
+                                   (1, 100, 3, 16, 1, 8),
+                                   (2, 128, 4, 32, 2, 16)])
+def test_mamba2_ssd_kernel_matches_plain(cuda, shape, dtype):
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd, mamba2_ssd_plain
+    args = _ssd_inputs(shape, dtype, cuda)
+    before = mamba2_ssd.launches
+    y, state = mamba2_ssd(*args)
+    torch.cuda.synchronize()
+    assert mamba2_ssd.launches == before + 1
+    ref_y, ref_state = mamba2_ssd_plain(*args)
+    tol = TOLERANCES[dtype][1]
+    torch.testing.assert_close(y.float(), ref_y.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(state, ref_state, atol=tol, rtol=tol)
+
+
+def test_zamba2_smoke_serve_on_card_matches_cpu(cuda):
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd
+    from repro_torch.launch.serve import ServeSession
+    from repro_torch.models.config import get_config
+    from repro_torch.models.transformer import init_params
+    # the same weights on both devices: drawn once, then copied
+    params = init_params(get_config("zamba2-7b", smoke=True), 0,
+                         torch.bfloat16, "cpu")
+    cpu = ServeSession("zamba2-7b", smoke=True, device="cpu", params=params)
+    gpu = ServeSession("zamba2-7b", smoke=True, device=cuda,
+                       params=_to(params, cuda))
+    tokens = np.random.default_rng(0).integers(0, cpu.cfg.vocab_size,
+                                                (2, 100))
+    before = (flash_attention.launches, mamba2_ssd.launches)
+    lg, _ = gpu.prefill(gpu.params, {"inputs": torch.from_numpy(tokens)
+                                     .to(cuda)})
+    torch.cuda.synchronize()
+    cfg = gpu.cfg
+    assert flash_attention.launches - before[0] == \
+        cfg.n_layers // cfg.attn_every
+    assert mamba2_ssd.launches - before[1] == cfg.n_layers
+    lc, _ = cpu.prefill(cpu.params, {"inputs": torch.from_numpy(tokens)})
+    torch.testing.assert_close(lg.cpu(), lc, atol=0.08, rtol=0.05)
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)

@@ -42,13 +42,20 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
                   if m == "jax" or m.startswith(("jax.", "repro."))
                   or m == "repro"]
         assert not leaked, leaked
-        print(len(names))
+        print(" ".join(names))
     """)
     env = dict(os.environ, PYTHONPATH=SRC)
     proc = subprocess.run([sys.executable, "-c", script], env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip().splitlines()[-1]) >= 40
+    names = set(proc.stdout.strip().splitlines()[-1].split())
+    assert len(names) >= 40
+    for name in ("models.config", "models.transformer", "models.mamba2",
+                 "models.attention", "models.steps", "models.convert",
+                 "configs.zamba2_7b", "configs.rwkv6_3b",
+                 "kernels.flash_attention", "kernels.mamba2_ssd",
+                 "kernels.ref", "launch.serve"):
+        assert "repro_torch." + name in names, name
 
 
 def test_no_port_source_imports_jax_or_repro():
@@ -91,9 +98,12 @@ def test_default_device_raises_without_cuda():
         pytest.skip("this host has CUDA: the default device resolves")
     from repro_torch.apps.anen.workflow import run_adaptive
     from repro_torch.device import resolve_device
+    from repro_torch.launch.serve import ServeSession, run_managed
     from repro_torch.rts.torch_rts import TorchRTS
     for call in (TorchRTS, run_adaptive, resolve_device,
-                 lambda: TorchRTS(device="cuda:0")):
+                 lambda: TorchRTS(device="cuda:0"),
+                 lambda: ServeSession("zamba2-7b"),
+                 lambda: run_managed("zamba2-7b")):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
