@@ -4,7 +4,7 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all started together), holds each kernel against its
-plain PyTorch version on the card, and drives the port's two paths:
+plain PyTorch version on the card, and drives the port's three paths:
 
 1. the adaptive AnEn ensemble (``repro_torch.apps.anen.workflow``) at the
    NCEP NAM 12 km CONUS grid, 428 x 614 points (AWIPS grid 218), with 365
@@ -15,7 +15,10 @@ plain PyTorch version on the card, and drives the port's two paths:
    batches of 4 prompts x 512 tokens, 16 greedy new tokens each, whose
    prefill goes through ``flash_attention`` (13 launches a batch) and
    ``mamba2_ssd`` (81 launches a batch); then the smoke configuration on
-   the card against the CPU with the same weights.
+   the card against the CPU with the same weights;
+3. serving rwkv6-3b at its published widths the same way, with the same
+   traffic, whose prefill goes through ``rwkv6_wkv`` (32 launches a
+   batch); then its smoke configuration on the card against the CPU.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after, and fails unless every kernel of the path launched. Every
@@ -40,7 +43,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 
 # every CUDA source of the port (src/repro_torch/kernels/csrc/<name>.cu)
-KERNEL_SOURCES = ("anen_distance", "flash_attention", "mamba2_ssd")
+KERNEL_SOURCES = ("anen_distance", "flash_attention", "mamba2_ssd",
+                  "rwkv6_wkv")
 
 # published peaks of one H100 SXM (NVIDIA data sheet) at a 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -55,16 +59,26 @@ EQUAL_SHAPES = ((60, 3, 37), (9, 2, 130), (365, 3, 1024), (365, 3, 4096))
 TIMED_SHAPES = ((365, 3, 1024), (365, 3, 4096))
 TIMED_REPS = 60
 
-# the serve path: zamba2-7b at full width, and the kernels' shapes on it
+# the serve paths: zamba2-7b and rwkv6-3b at full width with the same
+# traffic, and the kernels' shapes on them
 SERVE = dict(arch="zamba2-7b", n_batches=2, batch_size=4, prompt_len=512,
              max_new_tokens=16)
+RWKV_SERVE = dict(SERVE, arch="rwkv6-3b")
 FLASH_MAIN = (4, 512, 32, 112)            # (B, S, H, hd)
 SSD_MAIN = (4, 512, 112, 64, 1, 64)       # (B, T, H, P, G, N)
+WKV_MAIN = (4, 512, 40, 64)               # (B, T, H, N)
+MAIN_SHAPES = {"zamba2-7b": {"flash_attention": FLASH_MAIN,
+                             "mamba2_ssd": SSD_MAIN},
+               "rwkv6-3b": {"rwkv6_wkv": WKV_MAIN}}
 FLASH_SHAPES = (FLASH_MAIN, (4, 100, 32, 112), (4, 300, 32, 112))
 SSD_SHAPES = (SSD_MAIN, (4, 100, 112, 64, 1, 64), (2, 128, 8, 64, 2, 64))
-# the JAX kernel tests' tolerances (tests/test_kernels.py), atol = rtol
+# the serve shape, a ragged T (chunk 50) and a prime T (chunk 1)
+WKV_SHAPES = (WKV_MAIN, (4, 100, 40, 64), (1, 97, 2, 64))
+# the JAX kernel tests' tolerances (tests/test_kernels.py), atol = rtol;
+# the WKV state's is 10x its output's
 TOLERANCE = {"flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
-             "mamba2_ssd": {"float32": 1e-4, "bfloat16": 6e-2}}
+             "mamba2_ssd": {"float32": 1e-4, "bfloat16": 6e-2},
+             "rwkv6_wkv": {"float32": 1e-4, "bfloat16": 5e-2}}
 # the JAX package's kernel-vs-reference model tolerance
 MODEL_ATOL, MODEL_RTOL = 0.08, 0.05
 
@@ -93,8 +107,9 @@ def build_kernels() -> float:
         out, err = proc.communicate()
         check(proc.returncode == 0, f"build of {name}.cu: {err}")
         print(f"built {name}: {out.strip()}\n{err.strip()}")
-    from repro_torch.kernels import anen_distance, flash_attention, mamba2_ssd
-    for kmod in (anen_distance, flash_attention, mamba2_ssd):
+    from repro_torch.kernels import (anen_distance, flash_attention,
+                                     mamba2_ssd, rwkv6_wkv)
+    for kmod in (anen_distance, flash_attention, mamba2_ssd, rwkv6_wkv):
         kmod.build()
     return time.perf_counter() - t0
 
@@ -141,19 +156,23 @@ def busy_ms(fn, reps: int = 10) -> float:
     kernels (a plain version, a library call): the CUPTI device time of
     every kernel and copy of ``reps`` calls under ``torch.profiler``,
     over ``reps``. Gaps while the device waits for the host do not
-    count."""
+    count. A trace with no device time at all is taken again, up to three
+    times: the profiler now and then hands one back empty."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    total_ms = sum(r[2] for r in device_rows(prof))
-    check(total_ms > 0, "busy_ms: the profiler saw device time")
-    return total_ms / reps
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total_ms = sum(r[2] for r in device_rows(prof))
+        if total_ms > 0:
+            return total_ms / reps
+    raise RuntimeError("check failed: busy_ms: the profiler saw no device "
+                       "time in three traces")
 
 
 def call_ms(fn, reps: int = TIMED_REPS) -> float:
@@ -228,9 +247,8 @@ def time_distance(shape) -> dict:
 def reset_counts() -> None:
     """Every kernel wrapper's launch count (and shape count) to 0."""
     from repro_torch.kernels.anen_distance import anen_distance
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.mamba2_ssd import mamba2_ssd
-    for fn in (anen_distance, flash_attention, mamba2_ssd):
+    from repro_torch.launch.serve import KERNELS
+    for fn in (anen_distance, *KERNELS.values()):
         fn.launches = 0
         fn.shapes.clear()
 
@@ -366,6 +384,24 @@ def ssd_inputs(shape, dtype: str, seed: int = 13):
             t(draw(B, T, G, N) * 0.5).to(dt), t(draw(B, H, N, P) * 0.1)]
 
 
+def wkv_inputs(shape, dtype: str, seed: int = 17):
+    """r, k, v ~ N/2, w = exp(-exp(N/2 - 2)), u ~ 0.3 N, state0 ~ N/10, as
+    the JAX kernel test draws them; r, k, v, w in ``dtype``."""
+    import numpy as np
+    import torch
+    B, T, H, N = shape
+    rng = np.random.default_rng(seed)
+
+    def draw(*s):
+        return rng.standard_normal(s).astype(np.float32)
+
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).cuda()  # noqa
+    dt = _dtype(dtype)
+    r, k, v = (t(draw(B, T, H, N) * 0.5).to(dt) for _ in range(3))
+    w = t(np.exp(-np.exp(draw(B, T, H, N) * 0.5 - 2.0))).to(dt)
+    return [r, k, v, w, t(draw(H, N) * 0.3), t(draw(B, H, N, N) * 0.1)]
+
+
 def held_close(got, ref, tol: float, what: str) -> float:
     """Raise unless |got - ref| <= tol + tol * |ref| everywhere; returns the
     max abs error."""
@@ -412,6 +448,22 @@ def compare_ssd(shape, dtype: str) -> float:
     return max(err, s_err)
 
 
+def compare_wkv(shape, dtype: str) -> float:
+    import torch
+    from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv, rwkv6_wkv_plain
+    args = wkv_inputs(shape, dtype)
+    out, state = rwkv6_wkv(*args)
+    ref_out, ref_state = rwkv6_wkv_plain(*args)
+    torch.cuda.synchronize()
+    tol = TOLERANCE["rwkv6_wkv"][dtype]
+    err = held_close(out, ref_out, tol, f"rwkv6_wkv out {shape} {dtype}")
+    s_err = held_close(state, ref_state, tol * 10,
+                       f"rwkv6_wkv state {shape} {dtype}")
+    print(f"rwkv6_wkv {shape} {dtype}: max abs err out {err} state {s_err} "
+          f"(tolerance {tol}, state {tol * 10})")
+    return err
+
+
 def _bound(bytes_: int, flops: float, rate: float) -> dict:
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = flops / rate * 1e3
@@ -442,6 +494,19 @@ def ssd_bound(shape, elem: int) -> dict:
     bytes_ = (elem * (2 * B * T * H * P + 2 * B * T * G * N)
               + 4 * (B * T * H + H + 2 * B * H * N * P))
     flops = 2.0 * B * H * (T // c) * (c * c * N + c * c * P + 2 * c * N * P)
+    return _bound(bytes_, flops, BF16_FLOPS_PER_S)
+
+
+def wkv_bound(shape, elem: int) -> dict:
+    """r, k, v, w read and out written once in the input type, u and
+    state0 read and the final state written once in f32; per chunk and head
+    the Pallas body's four products (scores, scores.v, the readout, the
+    state update), at the tensor-core rate of bf16 inputs."""
+    from repro_torch.kernels.rwkv6_wkv import pick_chunk
+    B, T, H, N = shape
+    c = pick_chunk(T)
+    bytes_ = elem * 5 * B * T * H * N + 4 * (H * N + 2 * B * H * N * N)
+    flops = 2.0 * B * H * (T // c) * (2 * c * c * N + 2 * c * N * N)
     return _bound(bytes_, flops, BF16_FLOPS_PER_S)
 
 
@@ -478,57 +543,89 @@ def time_ssd(shape) -> dict:
     return row
 
 
+def time_wkv(shape) -> dict:
+    from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv, rwkv6_wkv_plain
+    args = wkv_inputs(shape, "bfloat16")
+    kernel = lambda: rwkv6_wkv(*args)                         # noqa: E731
+    plain = lambda: rwkv6_wkv_plain(*args)                    # noqa: E731
+    row = {"shape": list(shape), "dtype": "bfloat16",
+           "ms": device_ms(kernel), "busy_ms": busy_ms(kernel),
+           "plain_ms": busy_ms(plain), "library_ms": None,
+           "call_ms": call_ms(kernel)}
+    row.update(wkv_bound(shape, 2))
+    return row
+
+
 # --------------------------------------------------------------------------- #
-# The serve path: zamba2-7b at full width
+# The serve paths: zamba2-7b and rwkv6-3b at full width
 # --------------------------------------------------------------------------- #
 
-def run_serve_path() -> dict:
+def per_batch_launches(cfg) -> dict:
+    """Kernel launches one served batch's prefill makes, by kernel."""
+    if cfg.family == "ssm":
+        return {"flash_attention": 0, "mamba2_ssd": 0,
+                "rwkv6_wkv": cfg.n_layers}
+    return {"flash_attention": cfg.n_layers // cfg.attn_every,
+            "mamba2_ssd": cfg.n_layers, "rwkv6_wkv": 0}
+
+
+def release_sessions() -> None:
+    """Drop the served models' weights, so that a serve phase's peak memory
+    is its own (the AnEn dataset stays cached)."""
+    import gc
+    import torch
+    from repro_torch.launch import serve
+    serve._SESSIONS.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_serve_path(traffic: dict) -> dict:
     import numpy as np
     import torch
-    from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.kernels.mamba2_ssd import mamba2_ssd
     from repro_torch.launch import serve
     from repro_torch.models.config import get_config
-    cfg = get_config(SERVE["arch"])
-    per_batch = {"flash_attention": cfg.n_layers // cfg.attn_every,
-                 "mamba2_ssd": cfg.n_layers}
-    n = SERVE["n_batches"]
+    arch = traffic["arch"]
+    cfg = get_config(arch)
+    per_batch = per_batch_launches(cfg)
+    n = traffic["n_batches"]
+    release_sessions()
+    held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     t0 = time.perf_counter()
-    amgr = serve.run_managed(SERVE["arch"], smoke=False, n_batches=n,
-                             batch_size=SERVE["batch_size"],
-                             prompt_len=SERVE["prompt_len"],
-                             max_new_tokens=SERVE["max_new_tokens"],
+    amgr = serve.run_managed(arch, smoke=False, n_batches=n,
+                             batch_size=traffic["batch_size"],
+                             prompt_len=traffic["prompt_len"],
+                             max_new_tokens=traffic["max_new_tokens"],
                              device="cuda", timeout=600.0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"flash_attention": flash_attention.launches,
-                "mamba2_ssd": mamba2_ssd.launches}
-    shapes = {"flash_attention": dict(flash_attention.shapes),
-              "mamba2_ssd": dict(mamba2_ssd.shapes)}
-    sess = serve.get_session(SERVE["arch"], False, "cuda")
+    launches = {k: fn.launches for k, fn in serve.KERNELS.items()}
+    shapes = {k: dict(fn.shapes) for k, fn in serve.KERNELS.items()}
+    sess = serve.get_session(arch, False, "cuda")
     tasks = [t for p in amgr.workflow for s in p.stages for t in s.tasks]
-    print(f"serve {SERVE}: all_done={amgr.all_done} wall_s={wall} "
+    print(f"serve {traffic}: all_done={amgr.all_done} wall_s={wall} "
           f"session build seconds={sess.build_seconds}")
-    print(f"max_memory_allocated bytes: {torch.cuda.max_memory_allocated()}")
+    print(f"max_memory_allocated bytes: {torch.cuda.max_memory_allocated()} "
+          f"(held before the phase: {held})")
     print(f"serve path launches: {launches}, shapes: "
           f"{ {k: {str(s): c for s, c in v.items()} for k, v in shapes.items()} }")
-    check(amgr.all_done, "serve all_done")
+    check(amgr.all_done, f"{arch} serve all_done")
     check(len(tasks) == n, f"{n} serve tasks")
     check(all(t.retries == 0 for t in tasks), "no serve task retried")
     for t in tasks:
         tokens = np.asarray(t.result)
-        check(tokens.shape == (SERVE["batch_size"], SERVE["max_new_tokens"]),
+        check(tokens.shape == (traffic["batch_size"],
+                               traffic["max_new_tokens"]),
               f"{t.name} tokens shape {tokens.shape}")
         check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
               f"{t.name} tokens in [0, {cfg.vocab_size})")
     stats = sess.stats[-n:]
     for rec in stats:
         print(f"  batch: prefill_s={rec['prefill_s']} decode_s_per_token="
-              f"{rec['decode_s_per_token']} flash_attention launches="
-              f"{rec['flash_attention_launches']} mamba2_ssd launches="
-              f"{rec['mamba2_ssd_launches']}")
+              f"{rec['decode_s_per_token']} launches="
+              f"{ {k: rec[k + '_launches'] for k in per_batch} }")
         check(rec["prefill_logits_finite"], "prefill logits finite")
         check(rec["decode_logits_finite"], "decode logits finite")
         for name, want in per_batch.items():
@@ -536,16 +633,14 @@ def run_serve_path() -> dict:
                   f"{name}: {want} launches per batch")
     for name, want in per_batch.items():
         check(launches[name] == want * n,
-              f"{name}: {want * n} launches on the serve path")
-    check(set(shapes["flash_attention"]) == {FLASH_MAIN},
-          f"flash_attention ran at {FLASH_MAIN}")
-    check(set(shapes["mamba2_ssd"]) == {SSD_MAIN},
-          f"mamba2_ssd ran at {SSD_MAIN}")
+              f"{name}: {want * n} launches on the {arch} serve path")
+    for name, shape in MAIN_SHAPES[arch].items():
+        check(set(shapes[name]) == {shape}, f"{name} ran at {shape}")
     return {"launches": launches, "session": sess, "wall_s": wall,
             "stats": stats}
 
 
-def profile_serve(sess) -> None:
+def profile_serve(sess, traffic: dict) -> None:
     """One more full-width prefill, then 4 decode steps, each under
     ``torch.profiler``: device time by kernel and by kind, the device's
     busy share of the wall time (profiler overhead included) and device
@@ -557,7 +652,7 @@ def profile_serve(sess) -> None:
     from repro_torch.launch.serve import _merge_cache
     from repro_torch.models import transformer
     rng = np.random.default_rng(5)
-    B, S, steps = SERVE["batch_size"], SERVE["prompt_len"], 4
+    B, S, steps = traffic["batch_size"], traffic["prompt_len"], 4
     inputs = torch.from_numpy(rng.integers(0, sess.cfg.vocab_size, (B, S))
                               ).cuda()
 
@@ -589,12 +684,13 @@ def profile_serve(sess) -> None:
         for key, count, ms in rows:
             kind = ("flash_attention" if "flash_fwd" in key else
                     "mamba2_ssd" if "ssd_kernel" in key else
+                    "rwkv6_wkv" if "wkv_kernel" in key else
                     "matmul" if any(w in key.lower() for w in (
                         "nvjet", "gemm", "gemv", "cutlass", "xmma", "sm90_"))
                     else "other")
             kinds[kind] = kinds.get(kind, 0.0) + ms
-        print(f"profiled {phase}: wall_ms={wall * 1e3 / n} per call, "
-              f"device_busy_ms={busy / n} per call, busy_share="
+        print(f"profiled {traffic['arch']} {phase}: wall_ms={wall * 1e3 / n} "
+              f"per call, device_busy_ms={busy / n} per call, busy_share="
               f"{busy / 1e3 / wall}, device ops per call "
               f"{sum(r[1] for r in rows) / n}, device ms by kind per call: "
               f"{ {k: v / n for k, v in kinds.items()} }")
@@ -602,24 +698,25 @@ def profile_serve(sess) -> None:
             print(f"  device {ms:.3f} ms  x{count}  {key[:90]}")
 
 
-def cross_check_serve() -> None:
+def cross_check_serve(arch: str) -> None:
     """The smoke configuration on the card against the CPU, with the same
     weights (drawn once on the CPU, copied to the card), at a prompt length
-    of 100 (a ragged last tile for the flash kernel, chunk 50 for SSD)."""
+    of 100 (a ragged last tile for the flash kernel, chunk 50 for SSD and
+    WKV)."""
     import numpy as np
     import torch
     from repro_torch.launch.serve import ServeSession
     from repro_torch.models.config import get_config
     from repro_torch.models.transformer import init_params
-    cfg = get_config(SERVE["arch"], smoke=True)
+    cfg = get_config(arch, smoke=True)
     params = init_params(cfg, 0, torch.bfloat16, "cpu")
 
     def to_cuda(tree):
         return {k: to_cuda(v) if isinstance(v, dict) else v.cuda()
                 for k, v in tree.items()}
 
-    cpu = ServeSession(SERVE["arch"], smoke=True, device="cpu", params=params)
-    gpu = ServeSession(SERVE["arch"], smoke=True, device="cuda",
+    cpu = ServeSession(arch, smoke=True, device="cpu", params=params)
+    gpu = ServeSession(arch, smoke=True, device="cuda",
                        params=to_cuda(params))
     prompts = np.random.default_rng(7).integers(0, cfg.vocab_size, (4, 100))
     lg, _ = gpu.prefill(gpu.params, {"inputs": torch.from_numpy(prompts)
@@ -628,14 +725,27 @@ def cross_check_serve() -> None:
     lg = lg.cpu()
     diff = float((lg - lc).abs().max())
     excess = float(((lg - lc).abs() - MODEL_RTOL * lc.abs()).max())
-    check(bool(torch.isfinite(lg).all()), "smoke cuda logits finite")
-    check(excess <= MODEL_ATOL, f"smoke prefill logits cuda vs cpu within "
-                                f"atol {MODEL_ATOL} / rtol {MODEL_RTOL} "
-                                f"(worst excess {excess})")
+    check(bool(torch.isfinite(lg).all()), f"{arch} smoke cuda logits finite")
+    check(excess <= MODEL_ATOL, f"{arch} smoke prefill logits cuda vs cpu "
+                                f"within atol {MODEL_ATOL} / rtol "
+                                f"{MODEL_RTOL} (worst excess {excess})")
     tg = gpu.generate(prompts, 8)
     tc = cpu.generate(prompts, 8)
-    print(f"serve cross-check (smoke, cuda vs cpu): prefill logits max abs "
-          f"diff {diff}; greedy tokens equal {float((tg == tc).mean())}")
+    print(f"serve cross-check {arch} (smoke, cuda vs cpu): prefill logits "
+          f"max abs diff {diff}; greedy tokens equal "
+          f"{float((tg == tc).mean())}")
+
+
+def serve_phase(traffic: dict) -> dict:
+    """The serve path of one model, its profile and its smoke cross-check;
+    returns the launches of the path's kernels. Nothing of the phase
+    outlives it, so the next phase's peak memory is its own."""
+    serve_path = run_serve_path(traffic)
+    sess = serve_path["session"]
+    profile_serve(sess, traffic)
+    cross_check_serve(traffic["arch"])
+    return {name: serve_path["launches"][name]
+            for name, want in per_batch_launches(sess.cfg).items() if want}
 
 
 def main() -> None:
@@ -645,6 +755,7 @@ def main() -> None:
     check(torch.cuda.is_available(), "torch.cuda.is_available()")
     import repro_torch  # noqa: F401  (fails outside a checkout)
 
+    t_start = time.perf_counter()
     card = card_line()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -673,20 +784,21 @@ def main() -> None:
 
     # the model kernels against their plain versions, main-path and ragged
     # shapes, f32 and bf16
-    errors = {"flash_attention": [], "mamba2_ssd": []}
+    errors = {"flash_attention": [], "mamba2_ssd": [], "rwkv6_wkv": []}
     for dtype in ("float32", "bfloat16"):
         for shape in FLASH_SHAPES:
             errors["flash_attention"].append(compare_flash(shape, dtype))
         for shape in SSD_SHAPES:
             errors["mamba2_ssd"].append(compare_ssd(shape, dtype))
+        for shape in WKV_SHAPES:
+            errors["rwkv6_wkv"].append(compare_wkv(shape, dtype))
     timed = {"flash_attention": time_flash(FLASH_MAIN),
-             "mamba2_ssd": time_ssd(SSD_MAIN)}
+             "mamba2_ssd": time_ssd(SSD_MAIN),
+             "rwkv6_wkv": time_wkv(WKV_MAIN)}
     for name, row in timed.items():
         print(f"{name} at main-path shape {row}")
 
-    serve_path = run_serve_path()
-    profile_serve(serve_path["session"])
-    cross_check_serve()
+    launches = {**serve_phase(SERVE), **serve_phase(RWKV_SERVE)}
 
     record = {"kernels": [{
         "name": "anen_distance",
@@ -704,18 +816,20 @@ def main() -> None:
         "shape": at_main["shape"],
     }]}
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:103",
-                "mamba2_ssd": "src/repro/kernels/mamba2_ssd.py:106"}
+                "mamba2_ssd": "src/repro/kernels/mamba2_ssd.py:106",
+                "rwkv6_wkv": "src/repro/kernels/rwkv6_wkv.py:109"}
     for name, row in timed.items():
         record["kernels"].append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces[name],
-            "launches": serve_path["launches"][name],
+            "launches": launches[name],
             "max_abs_err": max(errors[name]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "call_ms": row["call_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"], "dtype": row["dtype"]})
+    print(f"script seconds: {time.perf_counter() - t_start}")
     print(card_line())
     print(json.dumps(record))
     print(json.dumps({"ok": True, "device": {

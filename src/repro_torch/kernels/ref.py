@@ -1,7 +1,7 @@
 """Naive PyTorch oracles for the kernels (quadratic attention, step-by-step
 recurrences), independent of the chunked formulations in
 :mod:`repro_torch.models` and of the kernels' plain versions, so tests hold
-both against one ground truth. ``wkv_ref`` waits for the RWKV-6 kernel.
+both against one ground truth.
 """
 
 from __future__ import annotations

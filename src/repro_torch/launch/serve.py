@@ -5,12 +5,14 @@ Each request batch is an EnTK task (``reg://serve_batch``) run by
 prompt batch, then decode ``max_new_tokens`` greedily. Failed batches are
 resubmitted by the toolkit, as in the JAX package.
 
-Prefill on the card goes through the CUDA flash-attention and Mamba-2 SSD
-kernels (their plain versions on the CPU). Weights are
-random, drawn on the device at the configuration's widths from a seed: no
-published checkpoint is in the repository.
+Prefill on the card goes through the CUDA kernels of the model's family
+(their plain versions on the CPU): flash attention and the Mamba-2 SSD scan
+for zamba2, the RWKV-6 WKV for rwkv6. Weights are random, drawn on the
+device at the configuration's widths from a seed: no published checkpoint
+is in the repository.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --device cpu
 """
 
 from __future__ import annotations
@@ -27,10 +29,15 @@ from ..core import AppManager, Pipeline, Stage, Task, register_executable
 from ..device import DeviceLike, device_name, resolve_device
 from ..kernels.flash_attention import flash_attention
 from ..kernels.mamba2_ssd import mamba2_ssd
+from ..kernels.rwkv6_wkv import rwkv6_wkv
 from ..models import steps as steps_mod, transformer
 from ..models.config import get_config
 from ..rts.base import ResourceDescription
 from ..rts.torch_rts import TorchRTS
+
+# the kernels a prefill may launch, by the name its stats record uses
+KERNELS = {"flash_attention": flash_attention, "mamba2_ssd": mamba2_ssd,
+           "rwkv6_wkv": rwkv6_wkv}
 
 _SESSIONS: Dict[str, "ServeSession"] = {}
 _SESSIONS_LOCK = threading.Lock()
@@ -72,7 +79,7 @@ class ServeSession:
         cfg, dev = self.cfg, self.device
         B, S = prompts.shape
         inputs = torch.as_tensor(np.asarray(prompts), dtype=torch.int32)
-        launches = (flash_attention.launches, mamba2_ssd.launches)
+        launches = {name: fn.launches for name, fn in KERNELS.items()}
         t0 = time.perf_counter()
         logits, cache = self.prefill(self.params, {"inputs": inputs.to(dev)})
         # move the prefill cache into a cache with room for the new tokens
@@ -82,8 +89,8 @@ class ServeSession:
         tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
         _sync(dev)
         t1 = time.perf_counter()
-        flash_n = flash_attention.launches - launches[0]
-        ssd_n = mamba2_ssd.launches - launches[1]
+        launched = {f"{name}_launches": fn.launches - launches[name]
+                    for name, fn in KERNELS.items()}
         out = [tok]
         decode_finite = torch.ones((), dtype=torch.bool, device=dev)
         for _ in range(max_new_tokens - 1):
@@ -100,8 +107,7 @@ class ServeSession:
             "decode_s_per_token": (t2 - t1) / steps if steps else None,
             "prefill_logits_finite": bool(prefill_finite),
             "decode_logits_finite": bool(decode_finite),
-            "flash_attention_launches": flash_n,
-            "mamba2_ssd_launches": ssd_n,
+            **launched,
         })
         return tokens
 

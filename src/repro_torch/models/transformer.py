@@ -1,4 +1,5 @@
-"""Model assembly: init / prefill / decode of the hybrid family (zamba2).
+"""Model assembly: init / prefill / decode of the hybrid (zamba2) and SSM
+(rwkv6) families.
 
 The JAX package's parameter layout is kept at every public function:
 per-layer parameters stacked on a leading axis, ``x @ W`` with ``W`` shaped
@@ -8,8 +9,10 @@ over layers, the port runs a Python loop over the stacked slices.
 Hybrid (zamba2): groups of ``attn_every`` Mamba2 layers, each followed by
 one application of a single *shared* attention+MLP block (parameters
 reused across all applications — the Zamba trick); trailing Mamba layers
-after the last group. The other families (dense, MoE, SSM, audio, VLM) are
-not ported yet and raise ``NotImplementedError`` (``ROADMAP.md``).
+after the last group. SSM (rwkv6): a uniform stack of RWKV-6 layers, each
+carrying its token shifts and (H, N, N) WKV state. The other families
+(dense, MoE, audio, VLM) are not ported yet and raise
+``NotImplementedError`` (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ..device import DeviceLike, resolve_device
-from . import mamba2
+from . import mamba2, rwkv6
 from .attention import attention, decode_attention, update_cache
 from .config import ModelConfig
 from .mlp import gated_mlp, init_gated_mlp, normal, rms_norm
@@ -29,12 +32,15 @@ from .rope import apply_rope, default_positions
 COMPUTE_DTYPE = torch.bfloat16
 
 
-def _require_hybrid(cfg: ModelConfig) -> None:
-    if cfg.family != "hybrid":
+PORTED_FAMILIES = ("hybrid", "ssm")
+
+
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported to "
             f"repro_torch yet (ROADMAP.md A12 lists the order); only "
-            f"'hybrid' (zamba2) runs")
+            f"'hybrid' (zamba2) and 'ssm' (rwkv6) run")
 
 
 # --------------------------------------------------------------------------- #
@@ -63,7 +69,7 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     device. ``device="meta"`` gives shapes and dtypes without allocating.
     The values differ from the JAX package's for the same seed; tests
     carry JAX's parameters over with :mod:`repro_torch.models.convert`."""
-    _require_hybrid(cfg)
+    _require_ported(cfg)
     dev = (torch.device("meta") if str(device) == "meta"
            else resolve_device(device))
     gen = None
@@ -79,6 +85,10 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((D, V), 1.0 / math.sqrt(D), gen, dev,
                                    param_dtype)
+    if cfg.family == "ssm":
+        params["blocks"] = rwkv6.init_rwkv_layer(gen, cfg, cfg.n_layers,
+                                                 param_dtype, dev)
+        return params
     params["mamba"] = mamba2.init_mamba_layer(gen, cfg, cfg.n_layers,
                                               param_dtype, dev)
     params["shared_attn"] = {
@@ -199,6 +209,24 @@ def _layer(tree: Dict, i: int) -> Dict:
 # Backbone forward (prefill)
 # --------------------------------------------------------------------------- #
 
+def _stack(states) -> Dict:
+    """Per-layer state dicts → one dict of tensors stacked on a layer
+    axis."""
+    return {k: torch.stack([s[k] for s in states]) for k in states[0]}
+
+
+def _apply_rwkv(params: Dict, cfg: ModelConfig, h: torch.Tensor):
+    """The RWKV layer stack for prefill: (hidden, cache in
+    :func:`init_cache`'s layout without ``length``)."""
+    state0 = rwkv6.init_state(cfg, h.shape[0], h.device)
+    states = []
+    for li in range(cfg.n_layers):
+        h, s_new = rwkv6.rwkv_block(_layer(params["blocks"], li), h, cfg,
+                                    state0)
+        states.append(s_new)
+    return h, {"rwkv": _stack(states)}
+
+
 def _apply_zamba(params: Dict, cfg: ModelConfig, h: torch.Tensor,
                  positions: torch.Tensor):
     """The layer stack for prefill: (hidden, cache in :func:`init_cache`'s
@@ -219,9 +247,8 @@ def _apply_zamba(params: Dict, cfg: ModelConfig, h: torch.Tensor,
             h = _shared_block(shared, h, cfg, a)
             ks.append(k)
             vs.append(v)
-    cache = {"mamba": {k: torch.stack([s[k] for s in states])
-                       for k in ("conv", "ssm")},
-             "k": torch.stack(ks), "v": torch.stack(vs)}
+    cache = {"mamba": _stack(states), "k": torch.stack(ks),
+             "v": torch.stack(vs)}
     return h, cache
 
 
@@ -250,12 +277,15 @@ def logits_head(params: Dict, cfg: ModelConfig, h: torch.Tensor
 def prefill(params: Dict, cfg: ModelConfig, inputs: torch.Tensor,
             positions: Optional[torch.Tensor] = None):
     """Returns (last-token logits (B, V) f32, cache)."""
-    _require_hybrid(cfg)
+    _require_ported(cfg)
     B, S = inputs.shape[:2]
-    if positions is None:
-        positions = default_positions(B, S, cfg, device=inputs.device)
     h = embed_inputs(params, cfg, inputs)
-    h, cache = _apply_zamba(params, cfg, h, positions)
+    if cfg.family == "ssm":
+        h, cache = _apply_rwkv(params, cfg, h)
+    else:
+        if positions is None:
+            positions = default_positions(B, S, cfg, device=inputs.device)
+        h, cache = _apply_zamba(params, cfg, h, positions)
     logits = logits_head(params, cfg, h[:, -1:])[:, 0]
     cache["length"] = S
     return logits, cache
@@ -263,10 +293,16 @@ def prefill(params: Dict, cfg: ModelConfig, inputs: torch.Tensor,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: DeviceLike = None) -> Dict:
-    """Decode cache of zeros: stacked Mamba states, the shared block's
-    (G, B, max_len, Hkv, hd) k/v, and ``length`` (a Python int)."""
-    _require_hybrid(cfg)
+    """Decode cache of zeros and ``length`` (a Python int): the stacked
+    RWKV states (ssm), or the stacked Mamba states and the shared block's
+    (G, B, max_len, Hkv, hd) k/v (hybrid)."""
+    _require_ported(cfg)
     dev = resolve_device(device)
+    if cfg.family == "ssm":
+        state = rwkv6.init_state(cfg, batch, dev)
+        return {"length": 0,
+                "rwkv": {k: v.new_zeros((cfg.n_layers, *v.shape))
+                         for k, v in state.items()}}
     hd = cfg.resolved_head_dim
     Hkv_eff = cfg.n_kv_heads * cfg.kv_repeat
     G = cfg.n_layers // cfg.attn_every
@@ -287,18 +323,36 @@ def decode(params: Dict, cfg: ModelConfig, token: torch.Tensor,
     """One decode step. token: (B,1) ids or (B,1,D) embeddings.
 
     Returns (logits (B, V) f32, cache). The cache's tensors are updated in
-    place (new k/v slot, new Mamba states) and returned in a new dict with
-    ``length + 1``."""
-    _require_hybrid(cfg)
+    place (new k/v slot, new Mamba or RWKV states) and returned in a new
+    dict with ``length + 1``."""
+    _require_ported(cfg)
     B = token.shape[0]
     length = cache["length"]
-    if positions is None:
-        positions = torch.full((B, 1), length, dtype=torch.int32,
-                               device=token.device)
     h = embed_inputs(params, cfg, token)
-    h = _decode_zamba(params, cfg, h, positions, cache)
+    if cfg.family == "ssm":
+        h = _decode_rwkv(params, cfg, h, cache["rwkv"])
+    else:
+        if positions is None:
+            positions = torch.full((B, 1), length, dtype=torch.int32,
+                                   device=token.device)
+        h = _decode_zamba(params, cfg, h, positions, cache)
     logits = logits_head(params, cfg, h)[:, 0]
     return logits, {**cache, "length": length + 1}
+
+
+def _copy_states(states: Dict, li: int, new: Dict) -> None:
+    """Layer ``li``'s new states into the stacked cache, in place (bf16
+    token shifts into f32 slots are exact)."""
+    for key, val in new.items():
+        states[key][li].copy_(val)
+
+
+def _decode_rwkv(params, cfg, h, states):
+    for li in range(cfg.n_layers):
+        h, s_new = rwkv6.rwkv_decode(_layer(params["blocks"], li), h, cfg,
+                                     _layer(states, li))
+        _copy_states(states, li, s_new)
+    return h
 
 
 def _decode_zamba(params, cfg, h, positions, cache):
@@ -309,8 +363,7 @@ def _decode_zamba(params, cfg, h, positions, cache):
     for li in range(cfg.n_layers):
         h, s_new = mamba2.mamba_decode(_layer(params["mamba"], li), h, cfg,
                                        _layer(states, li))
-        for key, val in s_new.items():
-            states[key][li].copy_(val)
+        _copy_states(states, li, s_new)
         if (li + 1) % E == 0:
             gi = li // E
             a, _, _ = attn_decode_block(

@@ -1,6 +1,6 @@
 """Tests of the port that need an NVIDIA GPU: each CUDA kernel against its
-plain version, and the AnEn workflow and the zamba2 serving path on the
-card against the same runs on the CPU. They skip where ``torch.cuda.is_available()`` is False. This file
+plain version, and the AnEn workflow and the zamba2 and rwkv6 serving paths
+on the card against the same runs on the CPU. They skip where ``torch.cuda.is_available()`` is False. This file
 imports nothing of JAX, so it also runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -109,6 +109,40 @@ def test_mamba2_ssd_kernel_matches_plain(cuda, shape, dtype):
     torch.testing.assert_close(state, ref_state, atol=tol, rtol=tol)
 
 
+def _wkv_inputs(shape, dtype, cuda, seed=0):
+    B, T, H, N = shape
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)  # noqa: E731
+    r, k, v = f(B, T, H, N) * 0.5, f(B, T, H, N) * 0.5, f(B, T, H, N) * 0.5
+    w = np.exp(-np.exp(f(B, T, H, N) * 0.5 - 2.0))
+    u, s0 = f(H, N) * 0.3, f(B, H, N, N) * 0.1
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa
+    return [t(r).to(dtype), t(k).to(dtype), t(v).to(dtype), t(w).to(dtype),
+            t(u), t(s0)]
+
+
+# out tolerance of the JAX kernel test (tests/test_kernels.py); state x10
+WKV_TOLERANCES = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4, 512, 40, 64), (4, 100, 40, 64),
+                                   (1, 97, 2, 64), (2, 96, 3, 16)])
+def test_rwkv6_wkv_kernel_matches_plain(cuda, shape, dtype):
+    from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv, rwkv6_wkv_plain
+    args = _wkv_inputs(shape, dtype, cuda)
+    before = rwkv6_wkv.launches
+    out, state = rwkv6_wkv(*args)
+    torch.cuda.synchronize()
+    assert rwkv6_wkv.launches == before + 1
+    ref_out, ref_state = rwkv6_wkv_plain(*args)
+    tol = WKV_TOLERANCES[dtype]
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(state, ref_state, atol=tol * 10,
+                               rtol=tol * 10)
+
+
 def test_zamba2_smoke_serve_on_card_matches_cpu(cuda):
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.mamba2_ssd import mamba2_ssd
@@ -139,3 +173,24 @@ def _to(tree, device):
     if isinstance(tree, dict):
         return {k: _to(v, device) for k, v in tree.items()}
     return tree.to(device)
+
+
+def test_rwkv6_smoke_serve_on_card_matches_cpu(cuda):
+    from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv
+    from repro_torch.launch.serve import ServeSession
+    from repro_torch.models.config import get_config
+    from repro_torch.models.transformer import init_params
+    params = init_params(get_config("rwkv6-3b", smoke=True), 0,
+                         torch.bfloat16, "cpu")
+    cpu = ServeSession("rwkv6-3b", smoke=True, device="cpu", params=params)
+    gpu = ServeSession("rwkv6-3b", smoke=True, device=cuda,
+                       params=_to(params, cuda))
+    tokens = np.random.default_rng(0).integers(0, cpu.cfg.vocab_size,
+                                                (2, 100))
+    before = rwkv6_wkv.launches
+    lg, _ = gpu.prefill(gpu.params, {"inputs": torch.from_numpy(tokens)
+                                     .to(cuda)})
+    torch.cuda.synchronize()
+    assert rwkv6_wkv.launches - before == gpu.cfg.n_layers
+    lc, _ = cpu.prefill(cpu.params, {"inputs": torch.from_numpy(tokens)})
+    torch.testing.assert_close(lg.cpu(), lc, atol=0.08, rtol=0.05)

@@ -53,8 +53,9 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
     for name in ("models.config", "models.transformer", "models.mamba2",
                  "models.attention", "models.steps", "models.convert",
                  "configs.zamba2_7b", "configs.rwkv6_3b",
-                 "kernels.flash_attention", "kernels.mamba2_ssd",
-                 "kernels.ref", "launch.serve"):
+                 "models.rwkv6", "kernels.flash_attention",
+                 "kernels.mamba2_ssd", "kernels.rwkv6_wkv", "kernels.ref",
+                 "launch.serve"):
         assert "repro_torch." + name in names, name
 
 

@@ -94,7 +94,7 @@ def test_ragged_chunk_matches_step_by_step_ref():
 
 
 def test_wkv_ref_matches_jax_oracle():
-    """The RWKV-6 oracle, ported ahead of its kernel (the next slice)."""
+    """The RWKV-6 step-by-step oracle against JAX's."""
     rng = np.random.default_rng(6)
     r, k, v = (rng.standard_normal((2, 24, 2, 16)).astype(np.float32) * 0.5
                for _ in range(3))

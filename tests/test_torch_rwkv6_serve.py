@@ -1,0 +1,277 @@
+"""The port's rwkv6 serving path against the JAX package at smoke size.
+
+JAX draws the smoke configuration's bf16 parameters (the serving layout);
+``params_from_numpy`` carries them into the port bit for bit. Prompts come
+from numpy with a fixed seed. Both sides compute in bf16 and round in a
+different order, so logits and cache leaves are held at atol 0.08 /
+rtol 0.05, the JAX package's own kernel-vs-reference model tolerance
+(``tests/test_kernels.py``). The port calls its WKV kernel wrapper, which
+takes its plain version on the CPU; JAX runs both of its routes.
+
+The WKV state of a layer is held against JAX's layer run on the same layer
+input. Past the first layer the two prefills' inputs differ by an ulp here
+and there (a bf16 matmul's f32 summation order), and the bf16 decay, about
+one bf16 step (0.4 %) below 1, turns such an ulp into a different rounding
+of w for some channel and step: JAX's own model, fed the port's layer input,
+moves its state as far from JAX's prefill as the port's is.
+"""
+
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.launch.serve import _merge_cache as jax_merge_cache
+from repro.models import rwkv6 as jrwkv
+from repro.models import steps as jsteps
+from repro.models import transformer as jtf
+from repro.models.config import get_config as jconfig
+from repro_torch.launch import serve
+from repro_torch.models import rwkv6 as trwkv
+from repro_torch.models import steps as tsteps
+from repro_torch.models import transformer as ttf
+from repro_torch.models.config import get_config as tconfig
+from repro_torch.models.convert import params_from_numpy
+
+ARCH = "rwkv6-3b"
+TOL = dict(atol=0.08, rtol=0.05)
+B, S, N_DECODE = 2, 32, 4
+LEAVES = ("tm_shift", "cm_shift", "wkv")
+
+
+def _jax_params(seed, dtype):
+    cfg = jconfig(ARCH, smoke=True)
+    jp = jax.jit(lambda key: jtf.init_params(cfg, key, dtype))(
+        jax.random.PRNGKey(seed))
+    return jp, params_from_numpy(jax.tree.map(np.asarray, jp), "cpu")
+
+
+@pytest.fixture(scope="module")
+def weights():
+    return _jax_params(0, jnp.bfloat16)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_step(kind, impl="reference"):
+    """JAX's jitted bf16 prefill or decode step, compiled once per file."""
+    cfg = jconfig(ARCH, smoke=True, scan_impl=impl)
+    make = (jsteps.make_prefill_step if kind == "prefill"
+            else jsteps.make_decode_step)
+    return jax.jit(make(cfg))
+
+
+def _prompts(seed=0, n=S):
+    return np.random.default_rng(seed).integers(
+        0, jconfig(ARCH, smoke=True).vocab_size, (B, n)).astype(np.int32)
+
+
+def _f32(a):
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(a, np.float32)
+
+
+def _assert_cache_close(tc, jc, tol=TOL):
+    assert set(tc["rwkv"]) == set(jc["rwkv"]) == set(LEAVES)
+    for key in LEAVES:
+        assert tuple(tc["rwkv"][key].shape) == jc["rwkv"][key].shape
+        np.testing.assert_allclose(_f32(tc["rwkv"][key]),
+                                   _f32(jc["rwkv"][key]), **tol)
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_block(impl):
+    cfg = jconfig(ARCH, smoke=True, scan_impl=impl)
+    return jax.jit(lambda p, x, s: jrwkv.rwkv_block(p, x, cfg, s))
+
+
+@pytest.mark.parametrize("jax_impl", ["reference", "pallas_interpret"])
+def test_prefill_logits_and_cache_match_jax(weights, jax_impl):
+    jp, tp = weights
+    toks = _prompts()
+    jl, jc = _jax_step("prefill", jax_impl)(jp, {"inputs": jnp.asarray(toks)})
+    tcfg = tconfig(ARCH, smoke=True)
+    tl, tc = tsteps.make_prefill_step(tcfg)(
+        tp, {"inputs": torch.from_numpy(toks)})
+    assert tl.shape == (B, tcfg.vocab_size) and tl.dtype == torch.float32
+    np.testing.assert_allclose(tl.numpy(), _f32(jl), **TOL)
+    for key in ("tm_shift", "cm_shift"):
+        np.testing.assert_allclose(_f32(tc["rwkv"][key]),
+                                   _f32(jc["rwkv"][key]), **TOL)
+    np.testing.assert_allclose(_f32(tc["rwkv"]["wkv"][0]),
+                               _f32(jc["rwkv"]["wkv"][0]), **TOL)
+    # every layer's cache leaves against JAX's layer on the same input: the
+    # port's own hidden state entering that layer
+    tcp = ttf.cast_for_compute(tp)
+    h = ttf.embed_inputs(tcp, tcfg, torch.from_numpy(toks))
+    state0 = trwkv.init_state(tcfg, B, torch.device("cpu"))
+    jstate0 = jax.tree.map(jnp.asarray, {k: v.numpy()
+                                         for k, v in state0.items()})
+    for li in range(tcfg.n_layers):
+        x_j = jnp.asarray(_f32(h), jnp.bfloat16)
+        _, js = _jax_block(jax_impl)(jax.tree.map(lambda a: a[li],
+                                                  jp["blocks"]),
+                                     x_j, jstate0)
+        h, ts = trwkv.rwkv_block(ttf._layer(tcp["blocks"], li), h, tcfg,
+                                 state0)
+        for key in LEAVES:
+            assert torch.equal(ts[key], tc["rwkv"][key][li])
+            np.testing.assert_allclose(_f32(ts[key]), _f32(js[key]), **TOL)
+    # the token shifts are rows of the bf16 normed input, the state f32
+    assert tc["rwkv"]["tm_shift"].dtype == torch.bfloat16
+    assert tc["rwkv"]["wkv"].dtype == torch.float32
+    assert tc["length"] == int(jc["length"]) == S
+
+
+def _jax_cache_in_port(jc):
+    out = params_from_numpy(jax.tree.map(
+        np.asarray, {k: v for k, v in jc.items() if k != "length"}), "cpu")
+    out["length"] = int(jc["length"])
+    return out
+
+
+def test_teacher_forced_decode_matches_jax(weights):
+    """Prefill, then 4 decode steps. Each step both packages get JAX's
+    greedy token and JAX's cache, so the step is compared on its own: its
+    logits and every updated cache leaf. (Chained bf16 steps drift apart,
+    as for zamba2: the chained run is held in f32 below.)"""
+    jp, tp = weights
+    toks = _prompts(seed=1)
+    jcfg = jconfig(ARCH, smoke=True)
+    tcfg = tconfig(ARCH, smoke=True)
+    jl, jc = _jax_step("prefill")(jp, {"inputs": jnp.asarray(toks)})
+    jfull = jax_merge_cache(jtf.init_cache(jcfg, B, S + N_DECODE), jc)
+    tdec = tsteps.make_decode_step(tcfg)
+    for _ in range(N_DECODE):
+        tok = np.asarray(jnp.argmax(jl, axis=-1))[:, None].astype(np.int32)
+        # JAX's decode hands back its token shifts in bf16; back in the f32
+        # of init_cache (exact) so that one compiled step serves every step
+        for key in ("tm_shift", "cm_shift"):
+            jfull["rwkv"][key] = jfull["rwkv"][key].astype(jnp.float32)
+        tfull = _jax_cache_in_port(jfull)
+        jl, jfull = _jax_step("decode")(jp, jnp.asarray(tok), jfull)
+        tl, tfull = tdec(tp, torch.from_numpy(tok), tfull)
+        np.testing.assert_allclose(tl.numpy(), _f32(jl), **TOL)
+        _assert_cache_close(tfull, jfull)
+        # updated in place: the f32 slots hold the bf16 rows exactly
+        assert tfull["rwkv"]["tm_shift"].dtype == torch.float32
+        assert tfull["length"] == int(jfull["length"])
+    assert tfull["length"] == S + N_DECODE
+
+
+def test_f32_prefill_and_chained_decode_match_jax(monkeypatch):
+    """The algorithm itself, without bf16 rounding: both packages compute
+    in f32 (their ``COMPUTE_DTYPE`` set to f32, f32 weights), prefill and
+    then decode 4 steps each on its own cache, greedy on its own logits.
+    Logits and final caches agree within 1e-4; JAX runs its Pallas kernel
+    (interpret mode)."""
+    monkeypatch.setattr(jtf, "COMPUTE_DTYPE", jnp.float32)
+    monkeypatch.setattr(ttf, "COMPUTE_DTYPE", torch.float32)
+    jcfg = jconfig(ARCH, smoke=True, scan_impl="pallas_interpret")
+    tcfg = tconfig(ARCH, smoke=True)
+    jp, tp = _jax_params(1, jnp.float32)
+    toks = _prompts(seed=3)
+    tol = dict(atol=1e-4, rtol=1e-4)
+    with jax.default_matmul_precision("highest"):
+        jl, jc = jax.jit(jsteps.make_prefill_step(jcfg))(
+            jp, {"inputs": jnp.asarray(toks)})
+        jdec = jax.jit(jsteps.make_decode_step(jcfg))
+        jfull = jax_merge_cache(jtf.init_cache(jcfg, B, S + N_DECODE), jc)
+        tl, tc = tsteps.make_prefill_step(tcfg)(
+            tp, {"inputs": torch.from_numpy(toks)})
+        np.testing.assert_allclose(tl.numpy(), _f32(jl), **tol)
+        _assert_cache_close(tc, jc, tol)
+        tfull = serve._merge_cache(
+            ttf.init_cache(tcfg, B, S + N_DECODE, "cpu"), tc)
+        tdec = tsteps.make_decode_step(tcfg)
+        for _ in range(N_DECODE):
+            jtok = jnp.argmax(jl, axis=-1)[:, None].astype(jnp.int32)
+            ttok = torch.argmax(tl, dim=-1)[:, None].to(torch.int32)
+            np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+            jl, jfull = jdec(jp, jtok, jfull)
+            tl, tfull = tdec(tp, ttok, tfull)
+            np.testing.assert_allclose(tl.numpy(), _f32(jl), **tol)
+    _assert_cache_close(tfull, jfull, tol)
+
+
+def test_decode_consistent_with_prefill(weights):
+    """prefill(x[:S]) then decode(x[S]) ≈ prefill(x[:S+1]), as the JAX
+    package checks its own model (``tests/test_models.py``)."""
+    _, tp = weights
+    cfg = tconfig(ARCH, smoke=True)
+    tokens = torch.from_numpy(_prompts(seed=2, n=13)[:1])
+    pf, dec = tsteps.make_prefill_step(cfg), tsteps.make_decode_step(cfg)
+    logits_a, _ = pf(tp, {"inputs": tokens})
+    _, cache = pf(tp, {"inputs": tokens[:, :12]})
+    big = serve._merge_cache(ttf.init_cache(cfg, 1, 14, "cpu"), cache)
+    logits_b, big = dec(tp, tokens[:, 12:13], big)
+    a, b = logits_a.numpy(), logits_b.numpy()
+    assert np.argmax(a) == np.argmax(b)
+    assert float(np.max(np.abs(a - b))) < 0.15
+    assert big["length"] == 13
+
+
+def test_run_managed_on_cpu_serves_every_batch():
+    amgr = serve.run_managed(ARCH, n_batches=2, batch_size=2, prompt_len=16,
+                             max_new_tokens=4, smoke=True, device="cpu",
+                             timeout=120)
+    assert amgr.all_done
+    vocab = tconfig(ARCH, smoke=True).vocab_size
+    tasks = [t for p in amgr.workflow for s in p.stages for t in s.tasks]
+    assert len(tasks) == 2 and all(t.retries == 0 for t in tasks)
+    for t in tasks:
+        tokens = np.asarray(t.result)
+        assert tokens.shape == (2, 4)
+        assert ((tokens >= 0) & (tokens < vocab)).all()
+    for rec in serve.get_session(ARCH, True, "cpu").stats[-2:]:
+        assert rec["prefill_logits_finite"] and rec["decode_logits_finite"]
+        # CPU tensors take the plain versions: no kernel launches
+        assert rec["rwkv6_wkv_launches"] == 0
+        assert rec["flash_attention_launches"] == 0
+        assert rec["mamba2_ssd_launches"] == 0
+
+
+def test_count_params_at_full_width_allocates_nothing():
+    cfg = tconfig(ARCH)
+    assert ttf.count_params(cfg) == cfg.n_params() == 3_099_609_600
+    assert ttf.count_params(cfg) == jconfig(ARCH).n_params()
+    meta = ttf.init_params(cfg, device="meta")
+    assert set(meta) == {"embed", "final_norm", "lm_head", "blocks"}
+    leaves = list(ttf._leaves(meta))
+    assert leaves and all(leaf.is_meta for leaf in leaves)
+
+
+def test_params_carry_over_bit_for_bit(weights):
+    """JAX's bf16 rwkv parameters arrive in the port with the same keys,
+    shapes, dtypes and bits."""
+    jp, tp = weights
+    flat_j = dict(jax.tree_util.tree_leaves_with_path(jp))
+    assert len(flat_j) == len(list(ttf._leaves(tp)))
+    for path, leaf in flat_j.items():
+        t = tp
+        for p in path:
+            t = t[p.key]
+        a = np.asarray(leaf)
+        assert tuple(t.shape) == a.shape and str(t.dtype).endswith(
+            a.dtype.name)
+        if a.dtype.name == "bfloat16":
+            np.testing.assert_array_equal(t.view(torch.int16).numpy(),
+                                          a.view(np.int16))
+        else:
+            np.testing.assert_array_equal(t.numpy(), a)
+
+
+def test_sigmoid_and_silu_round_as_jax_does():
+    """The port's ``sigmoid``/``silu`` round after each op as
+    ``jax.nn.sigmoid``/``jax.nn.silu`` do in bf16: bit for bit equal."""
+    x = np.random.default_rng(4).standard_normal((64, 128)).astype(
+        np.float32) * 4
+    xj = jnp.asarray(x, jnp.bfloat16)
+    xt = torch.from_numpy(x).to(torch.bfloat16)
+    for port, ref in ((trwkv.sigmoid, jax.nn.sigmoid),
+                      (trwkv.silu, jax.nn.silu)):
+        np.testing.assert_array_equal(_f32(port(xt)),
+                                      _f32(jax.jit(ref)(xj)))
