@@ -20,6 +20,10 @@ plain PyTorch version on the card, and drives the port's three paths:
    traffic, whose prefill goes through ``rwkv6_wkv`` (32 launches a
    batch); then its smoke configuration on the card against the CPU.
 
+Before the serve paths it prints the compiled flash and SSD kernels'
+registers, shared memory and blocks an SM, for each route (f32 on the
+CUDA cores, bf16 on the tensor cores).
+
 Each path runs with the launch counts set to 0 just before it and read
 just after, and fails unless every kernel of the path launched. Every
 phase raises on failure, so a failed phase exits non-zero and prints no
@@ -70,8 +74,12 @@ WKV_MAIN = (4, 512, 40, 64)               # (B, T, H, N)
 MAIN_SHAPES = {"zamba2-7b": {"flash_attention": FLASH_MAIN,
                              "mamba2_ssd": SSD_MAIN},
                "rwkv6-3b": {"rwkv6_wkv": WKV_MAIN}}
-FLASH_SHAPES = (FLASH_MAIN, (4, 100, 32, 112), (4, 300, 32, 112))
-SSD_SHAPES = (SSD_MAIN, (4, 100, 112, 64, 1, 64), (2, 128, 8, 64, 2, 64))
+FLASH_SHAPES = (FLASH_MAIN, (4, 100, 32, 112), (4, 300, 32, 112),
+                # hd 32 and the tile edges S = 1, 63, 65
+                (1, 1, 2, 32), (2, 63, 3, 32), (2, 65, 3, 32))
+SSD_SHAPES = (SSD_MAIN, (4, 100, 112, 64, 1, 64), (2, 128, 8, 64, 2, 64),
+              # chunk 50 at N = 8, P = 16; G = 2 at N = 16, P = 32
+              (1, 100, 3, 16, 1, 8), (2, 128, 4, 32, 2, 16))
 # the serve shape, a ragged T (chunk 50) and a prime T (chunk 1)
 WKV_SHAPES = (WKV_MAIN, (4, 100, 40, 64), (1, 97, 2, 64))
 # the JAX kernel tests' tolerances (tests/test_kernels.py), atol = rtol;
@@ -510,6 +518,25 @@ def wkv_bound(shape, elem: int) -> dict:
     return _bound(bytes_, flops, BF16_FLOPS_PER_S)
 
 
+def compiled_kernels() -> dict:
+    """Registers, shared memory and blocks an SM of the compiled flash and
+    SSD kernels at the serve shapes, for each route (dtype)."""
+    import torch
+    from repro_torch.kernels import flash_attention, mamba2_ssd
+    from repro_torch.kernels.mamba2_ssd import pick_chunk
+    B, T, H, P, G, N = SSD_MAIN
+    info = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split(".")[-1]
+        info[("flash_attention", name)] = flash_attention.kernel_info(
+            FLASH_MAIN[3], dtype)
+        info[("mamba2_ssd", name)] = mamba2_ssd.kernel_info(
+            N, P, pick_chunk(T), dtype)
+    for (kernel, name), row in info.items():
+        print(f"compiled {kernel} {name} route: {row}")
+    return info
+
+
 def time_flash(shape) -> dict:
     import torch
     import torch.nn.functional as F
@@ -683,7 +710,8 @@ def profile_serve(sess, traffic: dict) -> None:
         kinds = {}
         for key, count, ms in rows:
             kind = ("flash_attention" if "flash_fwd" in key else
-                    "mamba2_ssd" if "ssd_kernel" in key else
+                    "mamba2_ssd" if "ssd_kernel" in key
+                    or "ssd_tc_kernel" in key else
                     "rwkv6_wkv" if "wkv_kernel" in key else
                     "matmul" if any(w in key.lower() for w in (
                         "nvjet", "gemm", "gemv", "cutlass", "xmma", "sm90_"))
@@ -792,6 +820,7 @@ def main() -> None:
             errors["mamba2_ssd"].append(compare_ssd(shape, dtype))
         for shape in WKV_SHAPES:
             errors["rwkv6_wkv"].append(compare_wkv(shape, dtype))
+    compiled = compiled_kernels()
     timed = {"flash_attention": time_flash(FLASH_MAIN),
              "mamba2_ssd": time_ssd(SSD_MAIN),
              "rwkv6_wkv": time_wkv(WKV_MAIN)}
@@ -829,6 +858,13 @@ def main() -> None:
             "call_ms": row["call_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"], "dtype": row["dtype"]})
+        info = compiled.get((name, row["dtype"]))
+        if info is not None:
+            record["kernels"][-1].update(
+                registers=info["registers"],
+                smem_bytes=info["static_smem_bytes"]
+                + info["dynamic_smem_bytes"],
+                blocks_per_sm=info["blocks_per_sm"])
     print(f"script seconds: {time.perf_counter() - t_start}")
     print(card_line())
     print(json.dumps(record))

@@ -2,8 +2,9 @@
 
 Each ``kernels/csrc/<name>.cu`` exposes a plain C launcher and compiles on
 its own into ``build/repro_torch_kernels/lib<name>-<digest>.so`` under the
-repository root, at first use. The digest covers the source and the flags,
-so an edited source never loads a stale library. A build or load failure
+repository root, at first use. The digest covers the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source never loads a
+stale library. A build or load failure
 raises; nothing here falls back to another implementation.
 """
 
@@ -42,10 +43,11 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    digest = hashlib.sha256()
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        digest.update(src.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def compile_library(name: str) -> Path:
@@ -75,6 +77,26 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(compile_library(name)))
             _loaded[name] = lib
         return lib
+
+
+INFO_KEYS = ("registers", "static_smem_bytes", "dynamic_smem_bytes",
+             "spill_bytes", "blocks_per_sm", "threads")
+
+
+def kernel_info(name: str, *args: int) -> dict:
+    """What the compiler and the card made of a kernel of
+    ``csrc/<name>.cu``, through its C function ``<name>_info(*args,
+    int* info)``: registers a thread, static and dynamic shared memory a
+    block, spill bytes a thread, blocks resident on one SM and threads a
+    block (``cudaFuncGetAttributes`` and the occupancy API)."""
+    fn = getattr(load(name), f"{name}_info")
+    fn.argtypes = [ctypes.c_int] * len(args) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    info = (ctypes.c_int * len(INFO_KEYS))()
+    err = fn(*args, ctypes.addressof(info))
+    if err != 0:
+        raise RuntimeError(f"{name}_info failed: CUDA error {err}")
+    return dict(zip(INFO_KEYS, info))
 
 
 if __name__ == "__main__":

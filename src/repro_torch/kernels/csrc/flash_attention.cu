@@ -6,40 +6,81 @@
 // Replaces the Pallas TPU kernel kernels/flash_attention.py::flash_attention
 // of the JAX package (forward body _flash_fwd_kernel, pallas_call at :103).
 // The TPU grid walks kv blocks in order with (acc, m, l) in VMEM scratch;
-// here one block owns one (b, h, 64-row q tile) and walks the kv tiles in a
-// loop with (acc, m, l) in registers.
+// here one block owns one (b, h, q tile) and walks the kv tiles in a loop
+// with (acc, m, l) in registers. One call is one CUDA launch.
 //
-// Bound: at zamba2-7b's prefill shape (B, S, H, hd) = (4, 512, 32, 112) in
-// bf16 the function moves q, k, v and out (58.7 MB) plus lse: about 17.6 us
+// Bound on an H100 SXM: at zamba2-7b's prefill shape (B, S, H, hd) =
+// (4, 512, 32, 112) in bf16 the function moves q, k, v and out (58.7 MB)
+// plus lse: about 17.6 us
 // at 3.35 TB/s. Its causal work is 2*B*H*S^2*hd ~ 7.5 GFLOP: 7.6 us on the
 // bf16 tensor cores (989 TFLOP/s), 112 us in f32 on the CUDA cores
-// (67 TFLOP/s). This kernel computes in f32 on the CUDA cores, so its bound
-// is the f32 rate, and it does not reach it: the products run out of shared
-// memory with two loads per FMA. wgmma tiles and TMA loads are later work.
+// (67 TFLOP/s). So the bf16 route is bound by bytes, and only a kernel on
+// the tensor cores can get near it.
 //
-// Design: 256 threads as 16 x 16. Thread (ty, tx) owns q rows ty*4..ty*4+3
-// of the tile. For S = Q K^T it computes the 4 x 4 scores at kv columns
-// tx + 16 j; for O += P V it accumulates 4 rows x 8 head columns
-// tx + 16 c, so any hd <= 128 works (hd = 112 is not a power of two: the
-// columns past hd are masked, never assumed). The 16 threads of a row group
-// sit in one half-warp and reduce the row max and row sum with shuffles.
-// Q, then K and V of each tile, are staged in shared memory as f32 with an
-// odd row pitch (no bank conflicts on the strided K reads); the probability
-// tile P goes through shared memory too. Inputs may be f32 or bf16; all
-// arithmetic and the running (acc, m, l) are f32; out is written in the
+// bf16 route (flash_fwd_tc_kernel, the serve path): one block of 4 warps
+// per (b, h, 128-row q tile), each warp owning 2 row blocks of 16 q rows.
+// S = Q K^T and O += P V run on the tensor cores as mma.sync.m16n8k16
+// (bf16 operands, f32 sums); Q, K and V fragments come from shared memory
+// through ldmatrix (V with .trans), and each K or V fragment serves both
+// row blocks of a warp. P is rounded to bf16 only as the A operand of
+// P V, while the row sum l and the lse come from the unrounded f32 P. The
+// TPU reference multiplies at the matrix unit's default precision (bf16
+// passes), so this is no looser. Loads: Q once per block, then K and V
+// tiles of 64 rows through a two-stage ring in shared memory, 16-byte
+// cp.async a thread: the copy of kv tile j + 1 is in flight while the
+// tensor cores work on tile j (two barriers a tile). The head dim is
+// padded to a multiple of 16 with zeros in shared memory only (rows of
+// hd + 8 elements: 16-byte aligned, ldmatrix conflict-free); columns past
+// hd are never stored. Where hd is not a multiple of 8 or an input is not
+// 16-byte aligned, the same tiles are filled element by element. Q tiles
+// are launched heaviest first (the q tile is blockIdx.y, reversed): tile i
+// reads 2 (i + 1) kv tiles.
+// Why mma.sync and not wgmma: its fragments live in one warp's registers,
+// so the online softmax, the causal mask and the P -> A-operand hand-off
+// are per-thread register code. A wgmma version (A from registers, K and
+// V through descriptors of unswizzled shared memory, one warpgroup a
+// block) was built and was correct on the card, but slower than this one;
+// swizzled tiles, TMA and warp-specialised warpgroups are the later work
+// that wgmma needs to pay off.
+//
+// f32 route (flash_fwd_kernel, unchanged from the first port): one block
+// per (b, h, 64-row q tile), 256 threads as 16 x 16, f32 on the CUDA cores
+// out of shared memory. It is kept for f32 inputs because it meets the f32
+// tolerance (2e-5), which TF32 tensor-core products cannot; the serve path
+// draws bf16 weights and never takes it, the tests and chip_smoke.py do. Thread (ty, tx) owns q rows
+// ty*4..ty*4+3; for S = Q K^T it computes the 4 x 4 scores at kv columns
+// tx + 16 j, for O += P V 4 rows x 8 head columns tx + 16 c (columns past
+// hd masked). Q, then K and V of each tile, are staged in shared memory as
+// f32 with an odd row pitch; P goes through shared memory too.
+//
+// Both routes: the causal skip comes from token positions: a q tile whose
+// last row is s_last reads kv tiles up to s_last only, and a score is
+// masked on kpos <= qpos and kpos < S (the bf16 route masks only the kv
+// tiles that cross the diagonal or the end of S: two of a 128-row q tile). The Pallas kernel's tile-index
+// skip (j <= i) is exact only for equal q and kv blocks and is not copied.
+// The last tile of a ragged S is short: rows past S load as zeros, are
+// masked, and are never stored, so any S works. out is written in the
 // input dtype (round to nearest), lse in f32.
 //
-// The causal skip comes from token positions: a q tile whose last row is
-// s_last reads kv tiles up to s_last only, and each score is masked on
-// kpos <= qpos and kpos < S. The Pallas kernel's tile-index skip (j <= i)
-// is exact only for equal q and kv blocks and is not copied. The last
-// tile of a ragged S is short: rows past S load as zeros, are masked, and
-// are never stored, so any S works.
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W), bf16 at
+// (4, 512, 32, 112): 0.0564 ms a launch (0.0472 ms CUPTI busy) against
+// scaled_dot_product_attention's 0.0318 ms busy on the same inputs; the
+// first design, f32 on the CUDA cores, took 0.6051 ms there. ptxas: 255
+// registers (24 bytes spilled), 92,160 bytes of shared memory, 2 blocks
+// an SM, so the 512 blocks of that shape run in about 2 waves.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "tensor_core.cuh"
+
 namespace {
+
+// --------------------------------------------------------------------------
+// f32 route: CUDA cores (the first port, unchanged)
+// --------------------------------------------------------------------------
 
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
@@ -50,13 +91,7 @@ constexpr int kPPitch = kBlockK + 1;
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 __device__ __forceinline__ float half_warp_max(float v) {
 #pragma unroll
@@ -227,6 +262,290 @@ int launch(const void* q, const void* k, const void* v, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// --------------------------------------------------------------------------
+// bf16 route: tensor cores (mma.sync), cp.async ring
+// --------------------------------------------------------------------------
+
+constexpr int kTcWarps = 4;
+constexpr int kTcMt = 2;                           // 16-row q tiles a warp
+constexpr int kTcBlockQ = 16 * kTcMt * kTcWarps;   // q rows a block
+constexpr int kTcBlockK = 64;                      // kv rows a tile
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr float kLn2 = 0.6931471805599453f;
+
+using bf16 = __nv_bfloat16;
+
+template <int kHdp>
+__host__ __device__ constexpr int tc_pitch() { return kHdp + 8; }
+
+// Q (kTcBlockQ rows), then K and V of two stages (kTcBlockK rows each),
+// rows of kHdp + 8 bf16
+template <int kHdp>
+constexpr size_t tc_smem_bytes() {
+  return sizeof(bf16) * (kTcBlockQ + 4 * kTcBlockK) * tc_pitch<kHdp>();
+}
+
+// kHdp: the head dim padded to a multiple of 16.
+template <int kHdp>
+__global__ void __launch_bounds__(kTcThreads)
+flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, bf16* __restrict__ out,
+                    float* __restrict__ lse, int S, int H, int hd,
+                    float scale_log2, bool vec) {
+  constexpr int kPitch = tc_pitch<kHdp>();
+  constexpr int kTile = kTcBlockK * kPitch;
+  constexpr int kSteps = kHdp / 16;      // k steps of Q K^T
+  constexpr int kCols = kTcBlockK / 8;   // C tiles of one S row block
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ring = q_s + kTcBlockQ * kPitch;
+  auto k_buf = [&](int st) { return ring + (2 * st) * kTile; };
+  auto v_buf = [&](int st) { return ring + (2 * st + 1) * kTile; };
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x - b * H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcBlockQ;  // heaviest first
+  const size_t row_stride = static_cast<size_t>(H) * hd;
+  const size_t base = (static_cast<size_t>(b) * S * H + h) * hd;
+  const bf16* kb = k + base;
+  const bf16* vb = v + base;
+
+  tc::load_rows<kTcBlockQ, kHdp, kPitch, kTcThreads>(q_s, q + base,
+                                                     row_stride, q0, S, hd,
+                                                     vec);
+  tc::load_rows<kTcBlockK, kHdp, kPitch, kTcThreads>(k_buf(0), kb, row_stride,
+                                                     0, S, hd, vec);
+  tc::load_rows<kTcBlockK, kHdp, kPitch, kTcThreads>(v_buf(0), vb, row_stride,
+                                                     0, S, hd, vec);
+  tc::cp_async_commit();
+
+  // this warp's q rows: warp * 16 * kTcMt + 16 mt + g (+ 8)
+  float o[kTcMt][kHdp / 8][4];
+  float m_r[kTcMt][2];   // running max, log2 domain
+  float l_r[kTcMt][2];
+#pragma unroll
+  for (int mt = 0; mt < kTcMt; ++mt) {
+#pragma unroll
+    for (int nd = 0; nd < kHdp / 8; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[mt][nd][e] = 0.0f;
+    m_r[mt][0] = m_r[mt][1] = kNegInf;
+    l_r[mt][0] = l_r[mt][1] = 0.0f;
+  }
+  const int qrow = q0 + warp * 16 * kTcMt + g;
+  // ldmatrix row addresses: Q (A, x4), K (B, x4), V (B, x4.trans)
+  const bf16* q_row = q_s + (warp * 16 * kTcMt + (lane & 15)) * kPitch +
+                      (lane >> 4) * 8;
+  const int k_off = ((lane >> 4) * 8 + (lane & 7)) * kPitch +
+                    ((lane >> 3) & 1) * 8;
+  const int v_off = (((lane >> 3) & 1) * 8 + (lane & 7)) * kPitch +
+                    (lane >> 4) * 8;
+
+  const int n_kv = (min(S, q0 + kTcBlockQ) + kTcBlockK - 1) / kTcBlockK;
+  for (int j = 0; j < n_kv; ++j) {
+    const int st = j & 1;
+    if (j + 1 < n_kv) {
+      const int k1 = (j + 1) * kTcBlockK;
+      tc::load_rows<kTcBlockK, kHdp, kPitch, kTcThreads>(
+          k_buf(st ^ 1), kb, row_stride, k1, S, hd, vec);
+      tc::load_rows<kTcBlockK, kHdp, kPitch, kTcThreads>(
+          v_buf(st ^ 1), vb, row_stride, k1, S, hd, vec);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();   // tile j has landed, tile j + 1 in flight
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* ks = k_buf(st) + k_off;
+    const bf16* vs = v_buf(st) + v_off;
+
+    // S = Q K^T: kTcMt x 16 rows x kTcBlockK kv columns a warp; each K
+    // fragment serves all kTcMt row blocks
+    float s[kTcMt][kCols][4];
+#pragma unroll
+    for (int mt = 0; mt < kTcMt; ++mt)
+#pragma unroll
+      for (int nb = 0; nb < kCols; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][nb][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      uint32_t qf[kTcMt][4];
+#pragma unroll
+      for (int mt = 0; mt < kTcMt; ++mt) {
+        tc::ldsm_x4(qf[mt], q_row + mt * 16 * kPitch + kk * 16);
+      }
+#pragma unroll
+      for (int nb2 = 0; nb2 < kCols / 2; ++nb2) {
+        uint32_t bk[4];
+        tc::ldsm_x4(bk, ks + nb2 * 16 * kPitch + kk * 16);
+#pragma unroll
+        for (int mt = 0; mt < kTcMt; ++mt) {
+          tc::mma_bf16(s[mt][2 * nb2], qf[mt], bk[0], bk[1]);
+          tc::mma_bf16(s[mt][2 * nb2 + 1], qf[mt], bk[2], bk[3]);
+        }
+      }
+    }
+
+    // scale to the log2 domain; mask only tiles that cross the diagonal
+    // or the end of the sequence
+    const int k0 = j * kTcBlockK;
+    const bool edge = k0 + kTcBlockK - 1 > q0 || k0 + kTcBlockK > S;
+#pragma unroll
+    for (int mt = 0; mt < kTcMt; ++mt) {
+#pragma unroll
+      for (int nb = 0; nb < kCols; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float val = s[mt][nb][e] * scale_log2;
+          if (edge) {
+            const int kpos = k0 + nb * 8 + 2 * t + (e & 1);
+            const int qpos = qrow + mt * 16 + (e >> 1) * 8;
+            if (kpos > qpos || kpos >= S) val = kNegInf;
+          }
+          s[mt][nb][e] = val;
+        }
+      }
+    }
+
+    // online softmax for rows g (r = 0) and g + 8 (r = 1) of each row
+    // block: the 4 threads of a quad hold one row's columns
+#pragma unroll
+    for (int mt = 0; mt < kTcMt; ++mt) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        float mx = m_r[mt][r];
+#pragma unroll
+        for (int nb = 0; nb < kCols; ++nb) {
+          mx = fmaxf(mx, fmaxf(s[mt][nb][2 * r], s[mt][nb][2 * r + 1]));
+        }
+        mx = tc::quad_max(mx);
+        const float corr = exp2f(m_r[mt][r] - mx);
+        float sum = 0.0f;
+#pragma unroll
+        for (int nb = 0; nb < kCols; ++nb) {
+          const float p0 = exp2f(s[mt][nb][2 * r] - mx);
+          const float p1 = exp2f(s[mt][nb][2 * r + 1] - mx);
+          s[mt][nb][2 * r] = p0;
+          s[mt][nb][2 * r + 1] = p1;
+          sum += p0 + p1;
+        }
+        l_r[mt][r] = l_r[mt][r] * corr + tc::quad_sum(sum);
+        m_r[mt][r] = mx;
+#pragma unroll
+        for (int nd = 0; nd < kHdp / 8; ++nd) {
+          o[mt][nd][2 * r] *= corr;
+          o[mt][nd][2 * r + 1] *= corr;
+        }
+      }
+    }
+
+    // O += P V: P (rounded to bf16) as A fragments straight from s; each
+    // V fragment serves all kTcMt row blocks
+#pragma unroll
+    for (int kk = 0; kk < kCols / 2; ++kk) {
+      uint32_t pa[kTcMt][4];
+#pragma unroll
+      for (int mt = 0; mt < kTcMt; ++mt) {
+        pa[mt][0] = tc::pack_bf16(s[mt][2 * kk][0], s[mt][2 * kk][1]);
+        pa[mt][1] = tc::pack_bf16(s[mt][2 * kk][2], s[mt][2 * kk][3]);
+        pa[mt][2] = tc::pack_bf16(s[mt][2 * kk + 1][0], s[mt][2 * kk + 1][1]);
+        pa[mt][3] = tc::pack_bf16(s[mt][2 * kk + 1][2], s[mt][2 * kk + 1][3]);
+      }
+#pragma unroll
+      for (int nd2 = 0; nd2 < kHdp / 16; ++nd2) {
+        uint32_t bv[4];
+        tc::ldsm_x4_trans(bv, vs + kk * 16 * kPitch + nd2 * 16);
+#pragma unroll
+        for (int mt = 0; mt < kTcMt; ++mt) {
+          tc::mma_bf16(o[mt][2 * nd2], pa[mt], bv[0], bv[1]);
+          tc::mma_bf16(o[mt][2 * nd2 + 1], pa[mt], bv[2], bv[3]);
+        }
+      }
+    }
+    __syncthreads();  // every read of stage st is done before its refill
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < kTcMt; ++mt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = qrow + mt * 16 + r * 8;
+      if (row >= S) continue;
+      const float l_safe = fmaxf(l_r[mt][r], 1e-30f);
+      const float inv = 1.0f / l_safe;
+      bf16* dst = out + base + static_cast<size_t>(row) * row_stride;
+#pragma unroll
+      for (int nd = 0; nd < kHdp / 8; ++nd) {
+        const int col = nd * 8 + 2 * t;
+        const float v0 = o[mt][nd][2 * r] * inv;
+        const float v1 = o[mt][nd][2 * r + 1] * inv;
+        if ((hd & 1) == 0) {
+          if (col < hd) {
+            *reinterpret_cast<uint32_t*>(dst + col) = tc::pack_bf16(v0, v1);
+          }
+        } else {
+          if (col < hd) dst[col] = __float2bfloat16_rn(v0);
+          if (col + 1 < hd) dst[col + 1] = __float2bfloat16_rn(v1);
+        }
+      }
+      if (t == 0) {
+        lse[(static_cast<size_t>(b) * S + row) * H + h] =
+            m_r[mt][r] * kLn2 + logf(l_safe);
+      }
+    }
+  }
+}
+
+template <int kHdp>
+int launch_tc(const void* q, const void* k, const void* v, void* out,
+              float* lse, int B, int S, int H, int hd, cudaStream_t stream) {
+  const size_t smem = tc_smem_bytes<kHdp>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tc_kernel<kHdp>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool vec = hd % 8 == 0 && tc::aligned16(q) && tc::aligned16(k) &&
+                   tc::aligned16(v);
+  const dim3 grid(B * H, (S + kTcBlockQ - 1) / kTcBlockQ);
+  flash_fwd_tc_kernel<kHdp><<<grid, kTcThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, S, H, hd,
+      1.4426950408889634f / sqrtf(static_cast<float>(hd)), vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kHdp>
+int info_tc(int* info) {
+  const size_t smem = tc_smem_bytes<kHdp>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tc_kernel<kHdp>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return tc::kernel_info(flash_fwd_tc_kernel<kHdp>, kTcThreads, smem, info);
+}
+
+// Dispatch on the head dim padded to a multiple of 16 (1..128 -> 16..128).
+template <typename Fn>
+int with_hdp(int hd, Fn&& fn) {
+  switch ((hd + 15) / 16) {
+    case 1: return fn(std::integral_constant<int, 16>{});
+    case 2: return fn(std::integral_constant<int, 32>{});
+    case 3: return fn(std::integral_constant<int, 48>{});
+    case 4: return fn(std::integral_constant<int, 64>{});
+    case 5: return fn(std::integral_constant<int, 80>{});
+    case 6: return fn(std::integral_constant<int, 96>{});
+    case 7: return fn(std::integral_constant<int, 112>{});
+    case 8: return fn(std::integral_constant<int, 128>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // q, k, v, out: (B, S, H, hd) contiguous, f32 (dtype 0) or bf16 (dtype 1);
@@ -237,13 +556,49 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int B, int S, int H, int hd, int dtype,
                                       void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
-  if (hd < 1 || hd > kMaxHeadDim || B * H > 65535) {
+  if (hd < 1 || hd > kMaxHeadDim) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(q, k, v, out, lse, B, S, H, hd, st);
+  if (dtype == 0) {
+    if (B * H > 65535) return static_cast<int>(cudaErrorInvalidValue);
+    return launch<float>(q, k, v, out, lse, B, S, H, hd, st);
+  }
   if (dtype == 1) {
-    return launch<__nv_bfloat16>(q, k, v, out, lse, B, S, H, hd, st);
+    if ((S + kTcBlockQ - 1) / kTcBlockQ > 65535) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return with_hdp(hd, [&](auto hdp) {
+      return launch_tc<decltype(hdp)::value>(q, k, v, out, lse, B, S, H, hd,
+                                             st);
+    });
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The compiled kernel of the route that `dtype` takes at head dim `hd`:
+// info[0..5] as tc::kernel_info gives them (registers, static and dynamic
+// shared memory, spill bytes, blocks an SM, threads a block). Returns a
+// CUDA error code (0 on success).
+extern "C" int flash_attention_info(int hd, int dtype, int* info) {
+  if (hd < 1 || hd > kMaxHeadDim) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (dtype == 0) {
+    const int pitch = hd | 1;
+    const size_t smem =
+        sizeof(float) * (static_cast<size_t>(kBlockQ + kBlockK) * pitch +
+                         kBlockQ * kPPitch);
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_fwd_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return tc::kernel_info(flash_fwd_kernel<float>, kThreads, smem, info);
+  }
+  if (dtype == 1) {
+    return with_hdp(hd, [&](auto hdp) {
+      return info_tc<decltype(hdp)::value>(info);
+    });
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

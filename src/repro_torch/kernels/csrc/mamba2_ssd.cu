@@ -7,50 +7,86 @@
 //   S_next = exp(cum_last) S + sum_s exp(cum_last - cum_s) dt_s B_s x_s^T
 //
 // with the (N, P) state S carried from chunk to chunk, from state0, and
-// written out at the end. Replaces the Pallas TPU kernel
+// written out at the end (both f32). Replaces the Pallas TPU kernel
 // kernels/mamba2_ssd.py::ssd of the JAX package (body _ssd_kernel,
 // pallas_call at :106). The TPU grid walks the chunks in order with the
-// state in VMEM scratch; here one block owns one (b, h) and walks the chunks
-// in a loop with the state in shared memory. B * H = 448 blocks at
-// zamba2-7b's prefill shape fill the 132 SMs.
+// state in VMEM scratch; here one block owns one (b, h) and walks the
+// chunks in a loop. One call is one CUDA launch. The B/C group of head h is
+// h / (H / G): the kernel indexes it and never materialises the per-head
+// repeat of the Pallas wrapper. The difference cum_t - cum_s is clamped at
+// 0 before exp, as in the Pallas body: exact for s <= t, no overflow on the
+// masked s > t entries. The chunk is the wrapper's: the largest c <= 64
+// that divides T.
 //
 // Bound: at (B, T, H, P, G, N) = (4, 512, 112, 64, 1, 64) with bf16 x, B, C
 // and f32 dt and states, the function moves about 75 MB (x and y 29 MB
 // each, the two f32 states 7.3 MB each): about 22 us at 3.35 TB/s. Its work
 // is about 7.5 GFLOP (four 64^3 products per chunk and head): 7.6 us on the
-// bf16 tensor cores, 112 us in f32 on the CUDA cores. This kernel computes
-// in f32 on the CUDA cores, one thread per output element with its inner
-// sum read from shared memory, so its bound is the f32 rate and it does not
-// reach it. Tensor-core tiles are later work.
+// bf16 tensor cores, 112 us in f32 on the CUDA cores. So the bf16 route is
+// bound by bytes once its products are on the tensor cores.
 //
-// Design: 256 threads. Each chunk stages x (c x P), B and C (c x N) as f32
-// in shared memory (odd row pitches), and dt. One thread per step builds the
-// inclusive cumsum of dt * A in time order, then the c x c decay-masked
-// score matrix, the readout y (inter-chunk part from the old state, intra-
-// chunk part from the scores), and last the state update, each separated by
-// a barrier. The B/C group of head h is h / (H / G): the kernel indexes it
-// and never materialises the per-head repeat of the Pallas wrapper. The
-// difference cum_t - cum_s is clamped at 0 before exp, as in the Pallas
-// body: exact for s <= t, no overflow on the masked s > t entries. The
-// chunk is the wrapper's: the largest c <= 64 that divides T.
+// bf16 route (ssd_tc_kernel, the serve path): the four products run on the
+// tensor cores as mma.sync.m16n8k16, bf16 operands and f32 sums:
+//   scores  = C . B^T           both operands bf16 inputs, exact;
+//   y_intra = (scores o decay o dt) . x   the f32 scores rounded to bf16;
+//   y_inter = exp(cum) o (C . S)          S's bf16 copy (S stays f32);
+//   dS      = (B o w)^T . x               B o w rounded to bf16,
+// where x, B, C are bf16 inputs. The TPU reference multiplies at the
+// matrix unit's default precision (bf16 passes), so this is no looser;
+// tests/test_torch_tensor_core_rounding.py holds these roundings within the
+// JAX package's bf16 tolerance. Design: one block per (b, h), the chunk loop
+// inside it (not the state-passing split, which writes and reads an f32
+// state per chunk: 8x the state bytes at T = 512), and the next chunk's x,
+// B, C and dt copied by cp.async (16 bytes a thread) into the other half of
+// a two-stage buffer while the tensor cores work on this one. The carried
+// state lives in registers as f32 C tiles, 16 state rows a warp, for the
+// whole scan: its update is one more mma accumulation onto it, scaled by
+// exp(cum_last) first; only its bf16 copy goes through shared memory, as
+// the B operand of y_inter. Each of 4 warps owns 16 rows of the chunk for
+// the scores and y, with the causally empty score tiles skipped; N and P
+// are padded to kD = 16, 32, 64 or 128 with zeros in shared memory and the
+// chunk to 64 rows (rows past c load as zeros with dt = 0 and are never
+// stored), so chunk 50, G = 2 and N, P <= 128 all run (kD = 128 takes 8
+// warps). The cumsum is one warp's shuffle scan (a lane holds rows lane and
+// lane + 32). Three barriers a chunk. Where N or P is not a multiple of 8,
+// or an input is not 16-byte aligned, the same tiles fill element by
+// element.
+//
+// f32 route (ssd_kernel, unchanged from the first port): 256 threads, f32
+// on the CUDA cores, one output element a thread. It is kept for f32 inputs
+// because it meets the f32 tolerance (1e-4), which TF32 tensor-core
+// products cannot; the serve path draws bf16 weights and never takes it,
+// the tests and chip_smoke.py do. Each chunk stages x (c x P), B and C
+// (c x N) as f32 in shared memory (odd row pitches), and dt; one thread per
+// step builds the inclusive cumsum of dt * A, then the c x c decay-masked
+// score matrix, the readout y and last the state update (in shared
+// memory), each separated by a barrier.
+//
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W), bf16 at
+// (4, 512, 112, 64, 1, 64): 0.1060 ms a launch (0.0915 ms CUPTI busy); the
+// first design, f32 on the CUDA cores, took 1.2390 ms there. ptxas at
+// kD = 64: 168 registers, 65,808 bytes of shared memory, 3 blocks an SM
+// (both limits), so B * H = 448 blocks are 1.13 waves of 396.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "tensor_core.cuh"
+
 namespace {
+
+// --------------------------------------------------------------------------
+// f32 route: CUDA cores (the first port, unchanged)
+// --------------------------------------------------------------------------
 
 constexpr int kThreads = 256;
 constexpr int kMaxChunk = 64;
 constexpr int kMaxDim = 128;   // N and P
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -168,6 +204,379 @@ int launch(const void* x, const float* dt, const float* A, const void* Bm,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// --------------------------------------------------------------------------
+// bf16 route: tensor cores (mma.sync), cp.async prefetch of the next chunk
+// --------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcRows = 64;   // chunk rows in shared memory (chunks <= 64)
+
+// kD: N and P padded to 16, 32, 64 or 128. One warp per 16 state rows
+// (at least 4 warps, so the 4 row tiles of the chunk each have one).
+template <int kD>
+__host__ __device__ constexpr int tc_warps() { return kD > 64 ? kD / 16 : 4; }
+
+template <int kD>
+__host__ __device__ constexpr int tc_pitch() { return kD + 8; }
+
+template <int kD>
+constexpr size_t tc_smem_bytes() {
+  // x, B, C of two chunks; the state's bf16 copy; dt of two chunks, cum,
+  // exp(cum), w and exp(cum_last)
+  return sizeof(bf16) * (6 * kTcRows + kD) * tc_pitch<kD>() +
+         sizeof(float) * (5 * kTcRows + 4);
+}
+
+template <int kD>
+__global__ void __launch_bounds__(32 * tc_warps<kD>())
+ssd_tc_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
+              const float* __restrict__ A, const bf16* __restrict__ Bm,
+              const bf16* __restrict__ Cm, const float* __restrict__ state0,
+              bf16* __restrict__ y, float* __restrict__ state_out, int T_len,
+              int H, int P, int G, int N, int c, bool vec) {
+  constexpr int kWarps = tc_warps<kD>();
+  constexpr int kThreads = 32 * kWarps;
+  constexpr int kPitch = tc_pitch<kD>();
+  constexpr int kTile = kTcRows * kPitch;
+  constexpr int kSteps = kD / 16;           // k steps over N
+  constexpr int kYCols = kD / (kWarps / 4); // y columns a warp
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  auto x_buf = [&](int st) { return smem + (3 * st) * kTile; };
+  auto b_buf = [&](int st) { return smem + (3 * st + 1) * kTile; };
+  auto c_buf = [&](int st) { return smem + (3 * st + 2) * kTile; };
+  bf16* s_bf = smem + 6 * kTile;             // kD x kPitch: bf16 state
+  float* dts = reinterpret_cast<float*>(s_bf + kD * kPitch);  // 2 x 64
+  float* cum = dts + 2 * kTcRows;
+  float* ecum = cum + kTcRows;               // exp(cum_t)
+  float* wts = ecum + kTcRows;               // exp(cum_last - cum_s) dt_s
+  float* last = wts + kTcRows;               // exp(cum_last)
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int grp = h / (H / G);
+  const float a = A[h];
+  const size_t x_stride = static_cast<size_t>(H) * P;
+  const size_t bc_stride = static_cast<size_t>(G) * N;
+  const bf16* xb = x + (static_cast<size_t>(b) * T_len * H + h) * P;
+  const bf16* bb = Bm + (static_cast<size_t>(b) * T_len * G + grp) * N;
+  const bf16* cb = Cm + (static_cast<size_t>(b) * T_len * G + grp) * N;
+  const float* dtb = dt + static_cast<size_t>(b) * T_len * H + h;
+  bf16* yb = y + (static_cast<size_t>(b) * T_len * H + h) * P;
+  const size_t state_base = (static_cast<size_t>(b) * H + h) * N * P;
+
+  // rows past the chunk load as zeros (and dt as 0, so they add nothing)
+  auto load_chunk = [&](int t0, int st) {
+    tc::load_rows<kTcRows, kD, kPitch, kThreads>(x_buf(st), xb, x_stride, t0,
+                                                 t0 + c, P, vec);
+    tc::load_rows<kTcRows, kD, kPitch, kThreads>(b_buf(st), bb, bc_stride,
+                                                 t0, t0 + c, N, vec);
+    tc::load_rows<kTcRows, kD, kPitch, kThreads>(c_buf(st), cb, bc_stride,
+                                                 t0, t0 + c, N, vec);
+    if (threadIdx.x < kTcRows) {
+      const int r = threadIdx.x;
+      const bool ok = r < c;
+      tc::cp_async4(dts + st * kTcRows + r,
+                    ok ? dtb + static_cast<size_t>(t0 + r) * H : dtb,
+                    ok ? 4 : 0);
+    }
+  };
+
+  // the state: warp w < kD / 16 holds rows 16 w..16 w + 15 (all kD columns)
+  // in f32 registers as C tiles, for the whole scan
+  const bool has_state = warp < kD / 16;
+  float sacc[kD / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < kD / 8; ++nd) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = warp * 16 + g + (e >> 1) * 8;
+      const int p = nd * 8 + 2 * t + (e & 1);
+      sacc[nd][e] = has_state && n < N && p < P
+                        ? state0[state_base + static_cast<size_t>(n) * P + p]
+                        : 0.0f;
+    }
+  }
+  auto store_state_bf16 = [&]() {
+#pragma unroll
+    for (int nd = 0; nd < kD / 8; ++nd) {
+      bf16* row = s_bf + (warp * 16 + g) * kPitch + nd * 8 + 2 * t;
+      *reinterpret_cast<uint32_t*>(row) =
+          tc::pack_bf16(sacc[nd][0], sacc[nd][1]);
+      *reinterpret_cast<uint32_t*>(row + 8 * kPitch) =
+          tc::pack_bf16(sacc[nd][2], sacc[nd][3]);
+    }
+  };
+  if (has_state) store_state_bf16();
+
+  load_chunk(0, 0);
+  tc::cp_async_commit();
+
+  const int mt = warp & 3;                  // y rows 16 mt..16 mt + 15
+  const int ycol0 = (warp >> 2) * kYCols;   // y columns ycol0..+kYCols-1
+  const int n_chunks = T_len / c;
+  for (int ci = 0; ci < n_chunks; ++ci) {
+    const int st = ci & 1;
+    const int t0 = ci * c;
+    if (ci + 1 < n_chunks) {
+      load_chunk(t0 + c, st ^ 1);
+      tc::cp_async_commit();
+      tc::cp_async_wait<1>();   // chunk ci has landed, ci + 1 in flight
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* xs = x_buf(st);
+    const bf16* bs = b_buf(st);
+    const bf16* cs = c_buf(st);
+    const float* dtc = dts + st * kTcRows;
+
+    // inclusive cumsum of dt * A over the chunk: one warp, a lane holding
+    // rows lane and lane + 32, 5 shuffle steps
+    if (warp == 0) {
+      const float d0 = dtc[lane];
+      const float d1 = dtc[lane + 32];
+      float c0 = d0 * a;
+      float c1 = d1 * a;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float u0 = __shfl_up_sync(0xffffffffu, c0, off);
+        const float u1 = __shfl_up_sync(0xffffffffu, c1, off);
+        if (lane >= off) {
+          c0 += u0;
+          c1 += u1;
+        }
+      }
+      c1 += __shfl_sync(0xffffffffu, c0, 31);
+      const float lo = __shfl_sync(0xffffffffu, c0, (c - 1) & 31);
+      const float hi = __shfl_sync(0xffffffffu, c1, (c - 1) & 31);
+      const float cl = c > 32 ? hi : lo;   // cum of the chunk's last row
+      cum[lane] = c0;
+      cum[lane + 32] = c1;
+      ecum[lane] = expf(c0);
+      ecum[lane + 32] = expf(c1);
+      wts[lane] = expf(cl - c0) * d0;
+      wts[lane + 32] = expf(cl - c1) * d1;
+      if (lane == 0) *last = expf(cl);
+    }
+    __syncthreads();
+
+    // y rows 16 mt..: C as A fragments (bf16 straight from the input)
+    {
+      uint32_t cf[kSteps][4];
+      const bf16* crow = cs + (mt * 16 + (lane & 15)) * kPitch +
+                         (lane >> 4) * 8;
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) tc::ldsm_x4(cf[kk], crow + kk * 16);
+
+      // y_inter = exp(cum_t) (C . S): S's bf16 copy as the B operand
+      float yacc[kYCols / 8][4];
+#pragma unroll
+      for (int nd = 0; nd < kYCols / 8; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) yacc[nd][e] = 0.0f;
+      const bf16* srow = s_bf + (((lane >> 3) & 1) * 8 + (lane & 7)) * kPitch +
+                         ycol0 + (lane >> 4) * 8;
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+#pragma unroll
+        for (int nd2 = 0; nd2 < kYCols / 16; ++nd2) {
+          uint32_t bv[4];
+          tc::ldsm_x4_trans(bv, srow + kk * 16 * kPitch + nd2 * 16);
+          tc::mma_bf16(yacc[2 * nd2], cf[kk], bv[0], bv[1]);
+          tc::mma_bf16(yacc[2 * nd2 + 1], cf[kk], bv[2], bv[3]);
+        }
+      }
+      const float e0 = ecum[mt * 16 + g];
+      const float e1 = ecum[mt * 16 + g + 8];
+#pragma unroll
+      for (int nd = 0; nd < kYCols / 8; ++nd) {
+        yacc[nd][0] *= e0;
+        yacc[nd][1] *= e0;
+        yacc[nd][2] *= e1;
+        yacc[nd][3] *= e1;
+      }
+
+      // scores = C . B^T for columns s <= 16 mt + 15 (the rest is masked)
+      float s[8][4];
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nb][e] = 0.0f;
+      const bf16* brow = bs + ((lane >> 4) * 8 + (lane & 7)) * kPitch +
+                         ((lane >> 3) & 1) * 8;
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+#pragma unroll
+        for (int nb2 = 0; nb2 < 4; ++nb2) {
+          if (nb2 > mt) continue;
+          uint32_t bk[4];
+          tc::ldsm_x4(bk, brow + nb2 * 16 * kPitch + kk * 16);
+          tc::mma_bf16(s[2 * nb2], cf[kk], bk[0], bk[1]);
+          tc::mma_bf16(s[2 * nb2 + 1], cf[kk], bk[2], bk[3]);
+        }
+      }
+      // ∘ exp(min(cum_t - cum_s, 0)) ∘ dt_s, masked to s <= t
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int tt = mt * 16 + g + (e >> 1) * 8;
+          const int ss = nb * 8 + 2 * t + (e & 1);
+          s[nb][e] = ss <= tt ? s[nb][e] *
+                                    expf(fminf(cum[tt] - cum[ss], 0.0f)) *
+                                    dtc[ss]
+                              : 0.0f;
+        }
+      }
+
+      // y_intra = scores . x: the scores (rounded to bf16) as A fragments
+      const bf16* xrow = xs + (((lane >> 3) & 1) * 8 + (lane & 7)) * kPitch +
+                         ycol0 + (lane >> 4) * 8;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (kk > mt) continue;
+        const uint32_t pa[4] = {
+            tc::pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+            tc::pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+            tc::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+            tc::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int nd2 = 0; nd2 < kYCols / 16; ++nd2) {
+          uint32_t bv[4];
+          tc::ldsm_x4_trans(bv, xrow + kk * 16 * kPitch + nd2 * 16);
+          tc::mma_bf16(yacc[2 * nd2], pa, bv[0], bv[1]);
+          tc::mma_bf16(yacc[2 * nd2 + 1], pa, bv[2], bv[3]);
+        }
+      }
+
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int tt = mt * 16 + g + r * 8;
+        if (tt >= c) continue;
+        bf16* dst = yb + static_cast<size_t>(t0 + tt) * x_stride;
+#pragma unroll
+        for (int nd = 0; nd < kYCols / 8; ++nd) {
+          const int p = ycol0 + nd * 8 + 2 * t;
+          const float v0 = yacc[nd][2 * r];
+          const float v1 = yacc[nd][2 * r + 1];
+          if ((P & 1) == 0) {
+            if (p < P) {
+              *reinterpret_cast<uint32_t*>(dst + p) = tc::pack_bf16(v0, v1);
+            }
+          } else {
+            if (p < P) dst[p] = __float2bfloat16_rn(v0);
+            if (p + 1 < P) dst[p + 1] = __float2bfloat16_rn(v1);
+          }
+        }
+      }
+    }
+
+    // S = exp(cum_last) S + (B ∘ w)^T . x: B^T through ldmatrix.trans,
+    // scaled by w_s and rounded to bf16 in the fragment
+    if (has_state) {
+      const float decay = *last;
+#pragma unroll
+      for (int nd = 0; nd < kD / 8; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sacc[nd][e] *= decay;
+      const bf16* arow = bs + ((lane >> 4) * 8 + (lane & 7)) * kPitch +
+                         warp * 16 + ((lane >> 3) & 1) * 8;
+      const bf16* xrow = xs + (((lane >> 3) & 1) * 8 + (lane & 7)) * kPitch +
+                         (lane >> 4) * 8;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t af[4];
+        tc::ldsm_x4_trans(af, arow + kk * 16 * kPitch);
+        const float w0 = wts[kk * 16 + 2 * t];
+        const float w1 = wts[kk * 16 + 2 * t + 1];
+        const float w2 = wts[kk * 16 + 8 + 2 * t];
+        const float w3 = wts[kk * 16 + 9 + 2 * t];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 f = tc::unpack_bf16(af[i]);
+          af[i] = i < 2 ? tc::pack_bf16(f.x * w0, f.y * w1)
+                        : tc::pack_bf16(f.x * w2, f.y * w3);
+        }
+#pragma unroll
+        for (int nd2 = 0; nd2 < kD / 16; ++nd2) {
+          uint32_t bv[4];
+          tc::ldsm_x4_trans(bv, xrow + kk * 16 * kPitch + nd2 * 16);
+          tc::mma_bf16(sacc[2 * nd2], af, bv[0], bv[1]);
+          tc::mma_bf16(sacc[2 * nd2 + 1], af, bv[2], bv[3]);
+        }
+      }
+    }
+    __syncthreads();  // the chunk's buffers and the old bf16 state are read
+    if (has_state) store_state_bf16();
+  }
+
+  if (has_state) {
+#pragma unroll
+    for (int nd = 0; nd < kD / 8; ++nd) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = warp * 16 + g + (e >> 1) * 8;
+        const int p = nd * 8 + 2 * t + (e & 1);
+        if (n < N && p < P) {
+          state_out[state_base + static_cast<size_t>(n) * P + p] =
+              sacc[nd][e];
+        }
+      }
+    }
+  }
+}
+
+template <int kD>
+int set_smem_tc() {
+  return static_cast<int>(cudaFuncSetAttribute(
+      ssd_tc_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(tc_smem_bytes<kD>())));
+}
+
+template <int kD>
+int launch_tc(const void* x, const float* dt, const float* A, const void* Bm,
+              const void* Cm, const float* state0, void* y, float* state_out,
+              int B, int T_len, int H, int P, int G, int N, int c,
+              cudaStream_t stream) {
+  const int err = set_smem_tc<kD>();
+  if (err != 0) return err;
+  const bool vec = P % 8 == 0 && N % 8 == 0 && tc::aligned16(x) &&
+                   tc::aligned16(Bm) && tc::aligned16(Cm);
+  const dim3 grid(H, B);
+  ssd_tc_kernel<kD><<<grid, 32 * tc_warps<kD>(), tc_smem_bytes<kD>(),
+                      stream>>>(
+      static_cast<const bf16*>(x), dt, A, static_cast<const bf16*>(Bm),
+      static_cast<const bf16*>(Cm), state0, static_cast<bf16*>(y), state_out,
+      T_len, H, P, G, N, c, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kD>
+int info_tc(int* info) {
+  const int err = set_smem_tc<kD>();
+  if (err != 0) return err;
+  return tc::kernel_info(ssd_tc_kernel<kD>, 32 * tc_warps<kD>(),
+                         tc_smem_bytes<kD>(), info);
+}
+
+// Dispatch on max(N, P) padded to 16, 32, 64 or 128.
+template <typename Fn>
+int with_dim(int N, int P, Fn&& fn) {
+  const int d = N > P ? N : P;
+  if (d <= 16) return fn(std::integral_constant<int, 16>{});
+  if (d <= 32) return fn(std::integral_constant<int, 32>{});
+  if (d <= 64) return fn(std::integral_constant<int, 64>{});
+  if (d <= 128) return fn(std::integral_constant<int, 128>{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // x, y: (B, T, H, P); dt: (B, T, H) f32; A: (H,) f32; Bm, Cm: (B, T, G, N);
@@ -192,8 +601,40 @@ extern "C" int mamba2_ssd_launch(const void* x, const float* dt,
                          P, G, N, chunk, st);
   }
   if (dtype == 1) {
-    return launch<__nv_bfloat16>(x, dt, A, Bm, Cm, state0, y, state_out, B,
-                                 T_len, H, P, G, N, chunk, st);
+    return with_dim(N, P, [&](auto d) {
+      return launch_tc<decltype(d)::value>(x, dt, A, Bm, Cm, state0, y,
+                                           state_out, B, T_len, H, P, G, N,
+                                           chunk, st);
+    });
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The compiled kernel of the route that `dtype` takes at (N, P, chunk):
+// info[0..5] as tc::kernel_info gives them (registers, static and dynamic
+// shared memory, spill bytes, blocks an SM, threads a block). Returns a
+// CUDA error code (0 on success).
+extern "C" int mamba2_ssd_info(int N, int P, int chunk, int dtype,
+                               int* info) {
+  if (P < 1 || P > kMaxDim || N < 1 || N > kMaxDim || chunk < 1 ||
+      chunk > kMaxChunk) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (dtype == 0) {
+    const int c = chunk;
+    const size_t smem =
+        sizeof(float) * (static_cast<size_t>(N) * (P + 1) + c * (P + 1) +
+                         2 * c * (N + 1) + c * (c + 1) + 3 * c);
+    cudaError_t err = cudaFuncSetAttribute(
+        ssd_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return tc::kernel_info(ssd_kernel<float>, kThreads, smem, info);
+  }
+  if (dtype == 1) {
+    return with_dim(N, P, [&](auto d) {
+      return info_tc<decltype(d)::value>(info);
+    });
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,7 +7,9 @@ for q, k, v of shape (B, S, H, hd) (MHA: kv already repeated to H heads),
 with an online softmax over kv tiles and fp32 running (acc, m, l). Replaces
 the Pallas kernel ``kernels/flash_attention.py::flash_attention`` of the
 JAX package (forward ``_flash_fwd_kernel``); the CUDA source, with its
-bound and design, is ``csrc/flash_attention.cu``.
+bound and design, is ``csrc/flash_attention.cu``. bf16 inputs (the serve
+path) run on the tensor cores, with P rounded to bf16 as the operand of
+P·V; f32 inputs keep an f32 CUDA-core kernel.
 
 :func:`flash_attention` launches the kernel for CUDA tensors and takes
 :func:`flash_attention_plain` only for CPU tensors. The plain version is
@@ -27,8 +29,8 @@ from typing import Tuple
 
 import torch
 
-BLOCK = 64             # the kernel's q and kv tile (rows)
-MAX_HEAD_DIM = 128     # the kernel keeps 8 output columns a thread, 16 wide
+BLOCK = 64             # the plain version's q and kv tile (rows)
+MAX_HEAD_DIM = 128     # the kernels' largest head dim
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -113,6 +115,14 @@ def _load():
 def build() -> None:
     """Build (or load) the CUDA library now rather than at first launch."""
     _load()
+
+
+def kernel_info(hd: int, dtype: torch.dtype) -> dict:
+    """Registers, shared memory and blocks an SM of the compiled kernel
+    that ``dtype`` takes at head dim ``hd`` (``_build.kernel_info``; needs
+    the card)."""
+    from ._build import kernel_info as info
+    return info("flash_attention", hd, _DTYPES[dtype])
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor

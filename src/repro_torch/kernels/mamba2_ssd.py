@@ -6,7 +6,9 @@ rank-1 input ``dt_t B_t x_tᵀ`` drive the state
 evaluated chunk by chunk: a decay-masked C·Bᵀ score matrix inside a chunk,
 the carried (N, P) state between chunks. Replaces the Pallas kernel
 ``kernels/mamba2_ssd.py::ssd`` of the JAX package (body ``_ssd_kernel``);
-the CUDA source, with its bound and design, is ``csrc/mamba2_ssd.cu``.
+the CUDA source, with its bound and design, is ``csrc/mamba2_ssd.cu``. bf16
+inputs (the serve path) run the four products on the tensor cores; f32
+inputs keep an f32 CUDA-core kernel. One call is one CUDA launch.
 
 :func:`mamba2_ssd` launches the kernel for CUDA tensors and takes
 :func:`mamba2_ssd_plain` only for CPU tensors. The plain version is the
@@ -130,6 +132,14 @@ def _load():
 def build() -> None:
     """Build (or load) the CUDA library now rather than at first launch."""
     _load()
+
+
+def kernel_info(N: int, P: int, chunk: int, dtype: torch.dtype) -> dict:
+    """Registers, shared memory and blocks an SM of the compiled kernel
+    that ``dtype`` takes at state N, head dim P and ``chunk``
+    (``_build.kernel_info``; needs the card)."""
+    from ._build import kernel_info as info
+    return info("mamba2_ssd", N, P, chunk, _DTYPES[dtype])
 
 
 def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,

@@ -74,9 +74,18 @@ def _ssd_inputs(shape, dtype, cuda, seed=0):
 TOLERANCES = {torch.float32: (2e-5, 1e-4), torch.bfloat16: (2e-2, 6e-2)}
 
 
+# the serve shape and ragged ones, then the shapes the tensor-core tiles
+# make awkward: every head dim in {32, 64, 112, 128} at S at and around the
+# 64-row tile edges, for one (b, h) and for 128 of them
+FLASH_SHAPES = [(4, 512, 32, 112), (1, 100, 2, 112), (2, 300, 3, 64),
+                (1, 128, 1, 32)]
+FLASH_SHAPES += [(B, S, H, hd) for hd in (32, 64, 112, 128)
+                 for S in (1, 63, 65, 100, 512) for B, H in ((1, 1), (4, 32))
+                 if (B, S, H, hd) not in FLASH_SHAPES]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(4, 512, 32, 112), (1, 100, 2, 112),
-                                   (2, 300, 3, 64), (1, 128, 1, 32)])
+@pytest.mark.parametrize("shape", FLASH_SHAPES)
 def test_flash_attention_kernel_matches_plain(cuda, shape, dtype):
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
@@ -95,7 +104,11 @@ def test_flash_attention_kernel_matches_plain(cuda, shape, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(4, 512, 112, 64, 1, 64),
                                    (1, 100, 3, 16, 1, 8),
-                                   (2, 128, 4, 32, 2, 16)])
+                                   (2, 128, 4, 32, 2, 16),
+                                   (2, 100, 4, 32, 2, 16),    # chunk 50, G 2
+                                   (1, 100, 2, 128, 1, 128),  # N = P = 128
+                                   (1, 128, 2, 128, 1, 128),
+                                   (2, 128, 4, 128, 2, 128)])
 def test_mamba2_ssd_kernel_matches_plain(cuda, shape, dtype):
     from repro_torch.kernels.mamba2_ssd import mamba2_ssd, mamba2_ssd_plain
     args = _ssd_inputs(shape, dtype, cuda)

@@ -1,0 +1,185 @@
+"""The rounding budget of the port's bf16 tensor-core kernels, on the CPU.
+
+The bf16 routes of ``csrc/flash_attention.cu`` and ``csrc/mamba2_ssd.cu``
+run their products on the tensor cores with bf16 operands and f32 sums.
+Where an operand is f32 inside the kernel, it is rounded to bf16 first:
+
+- flash: the probabilities P, as the A operand of P·V (the row sum l and
+  the lse come from the unrounded f32 P);
+- SSD: the decay-masked scores (scores ∘ decay ∘ dt) before ·X, the
+  carried state S before C·S (S itself stays f32; exp(cum) scales the f32
+  product's rows), and B ∘ w before Bᵀ·X.
+
+This file copies the port's plain versions with exactly those roundings
+added (the emulation lives here, not in the port) and holds them against
+the JAX package's oracles and its Pallas kernels in interpret mode, within
+the JAX kernel tests' bf16 tolerances (2e-2 flash, 6e-2 SSD), at zamba2's
+widths (hd 112; P = N = 64, chunk 64, T = 512) and a small B·H. Inputs
+come from numpy with a seed, drawn as the JAX kernel tests draw them.
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.mamba2_ssd import pick_chunk
+
+FLASH_TOL, SSD_TOL, LSE_TOL = 2e-2, 6e-2, 2e-5
+NEG_INF = -1e30
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """Round an f32 tensor to bf16 (nearest even) and back to f32."""
+    return t.to(torch.bfloat16).float()
+
+
+def flash_rounded(q, k, v, block=64):
+    """``flash_attention_plain`` with P rounded to bf16 as P·V's operand."""
+    B, S, H, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    out = torch.empty(B, S, H, hd)
+    lse = torch.empty(B, S, H)
+    for q0 in range(0, S, block):
+        q1 = min(q0 + block, S)
+        qpos = torch.arange(q0, q1)
+        acc = torch.zeros(B, q1 - q0, H, hd)
+        m = torch.full((B, q1 - q0, H), NEG_INF)
+        l = torch.zeros(B, q1 - q0, H)
+        for k0 in range(0, q1, block):
+            k1 = min(k0 + block, S)
+            s = torch.einsum("bqhd,bkhd->bhqk", qf[:, q0:q1],
+                             kf[:, k0:k1]) * scale
+            mask = qpos[:, None] >= torch.arange(k0, k1)[None, :]
+            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(-1).permute(0, 2, 1))
+            p = torch.exp(s - m_new.permute(0, 2, 1)[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1).permute(0, 2, 1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bqhd", _bf16(p), vf[:, k0:k1])
+            m = m_new
+        out[:, q0:q1] = acc / l[..., None]
+        lse[:, q0:q1] = m + torch.log(l)
+    return out.to(q.dtype), lse
+
+
+def ssd_rounded(x, dt, A, Bm, Cm, state0, chunk=64):
+    """``mamba2_ssd_plain`` with the three f32 operands rounded to bf16."""
+    Bsz, T, H, P = x.shape
+    hpg = H // Bm.shape[2]
+    c = pick_chunk(T, chunk)
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    Bh = Bm.float().repeat_interleave(hpg, dim=2)
+    Ch = Cm.float().repeat_interleave(hpg, dim=2)
+    tri = torch.ones(c, c, dtype=torch.bool).tril()
+    state = state0.float()
+    ys = []
+    for t0 in range(0, T, c):
+        xt, dtt = xf[:, t0:t0 + c], dtf[:, t0:t0 + c]
+        Bt, Ct = Bh[:, t0:t0 + c], Ch[:, t0:t0 + c]
+        cum = torch.cumsum(dtt * Af[None, None], dim=1)
+        y = torch.einsum("bthn,bhnp->bthp", Ct, _bf16(state)) \
+            * torch.exp(cum)[..., None]
+        sc = torch.einsum("bthn,bshn->bhts", Ct, Bt)
+        decay = torch.exp(torch.clamp(cum[:, :, None] - cum[:, None, :],
+                                      max=0.0)).permute(0, 3, 1, 2)
+        sc = sc * decay * dtt.permute(0, 2, 1)[:, :, None, :]
+        sc = torch.where(tri, sc, torch.zeros_like(sc))
+        ys.append(y + torch.einsum("bhts,bshp->bthp", _bf16(sc), xt))
+        last = torch.exp(cum[:, -1])
+        w_s = torch.exp(cum[:, -1:] - cum) * dtt
+        state = state * last[..., None, None] + torch.einsum(
+            "bshn,bshp->bhnp", _bf16(Bt * w_s[..., None]), xt)
+    return torch.cat(ys, dim=1).to(x.dtype), state
+
+
+def _qkv(shape, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(shape).astype(np.float32) for _ in range(3)]
+
+
+def _ssd_inputs(B, T, H, P, G, N, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, T, H, P)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((B, T, H)))).astype(np.float32)
+    A = (-np.exp(rng.standard_normal(H) * 0.5)).astype(np.float32)
+    Bm = (rng.standard_normal((B, T, G, N)) * 0.5).astype(np.float32)
+    Cm = (rng.standard_normal((B, T, G, N)) * 0.5).astype(np.float32)
+    s0 = (rng.standard_normal((B, H, N, P)) * 0.1).astype(np.float32)
+    return x, dt, A, Bm, Cm, s0
+
+
+def _ssd_both(arrays):
+    """x, Bm, Cm in bf16, dt, A, state0 in f32, for JAX and for torch."""
+    x, dt, A, Bm, Cm, s0 = arrays
+    low = {0, 3, 4}
+    j = [jnp.asarray(a, jnp.bfloat16 if i in low else jnp.float32)
+         for i, a in enumerate(arrays)]
+    t = [torch.from_numpy(a).to(torch.bfloat16 if i in low
+                                else torch.float32)
+         for i, a in enumerate(arrays)]
+    return j, t
+
+
+def _f32(a):
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(a, np.float32)
+
+
+@pytest.mark.parametrize("shape", [(1, 512, 2, 112), (2, 100, 1, 112),
+                                   (1, 65, 2, 32)])
+def test_flash_p_in_bf16_within_jax_bf16_tolerance(shape):
+    """P rounded to bf16 against JAX's naive oracle: out within 2e-2, and
+    the lse (from the unrounded P) equal to the plain version's within
+    2e-5."""
+    arrays = _qkv(shape, seed=21)
+    q, k, v = (torch.from_numpy(a).bfloat16() for a in arrays)
+    out, lse = flash_rounded(q, k, v)
+    expect = jref.attention_ref(*(jnp.asarray(a, jnp.bfloat16)
+                                  for a in arrays))
+    np.testing.assert_allclose(_f32(out), _f32(expect), atol=FLASH_TOL,
+                               rtol=FLASH_TOL)
+    _, plain_lse = flash_attention_plain(q, k, v)
+    np.testing.assert_allclose(lse.numpy(), plain_lse.numpy(), atol=LSE_TOL,
+                               rtol=LSE_TOL)
+
+
+def test_flash_p_in_bf16_matches_pallas_interpret():
+    arrays = _qkv((1, 128, 2, 112), seed=22)
+    out, _ = flash_rounded(*(torch.from_numpy(a).bfloat16() for a in arrays))
+    expect = jops.flash_attention(*(jnp.asarray(a, jnp.bfloat16)
+                                    for a in arrays), causal=True,
+                                  interpret=True, block_q=64, block_k=64)
+    np.testing.assert_allclose(_f32(out), _f32(expect), atol=FLASH_TOL,
+                               rtol=FLASH_TOL)
+
+
+@pytest.mark.parametrize("shape", [(1, 512, 2, 64, 1, 64),
+                                   (2, 100, 2, 64, 1, 64),
+                                   (1, 128, 4, 32, 2, 16)])
+def test_ssd_bf16_operands_within_jax_bf16_tolerance(shape):
+    """The three f32 operands rounded to bf16 against JAX's step-by-step
+    oracle: y and the final state within 6e-2."""
+    j, t = _ssd_both(_ssd_inputs(*shape, seed=23))
+    y, state = ssd_rounded(*t)
+    jy, jstate = jref.ssd_ref(*j)
+    np.testing.assert_allclose(_f32(y), _f32(jy), atol=SSD_TOL, rtol=SSD_TOL)
+    np.testing.assert_allclose(state.numpy(), _f32(jstate), atol=SSD_TOL,
+                               rtol=SSD_TOL)
+
+
+def test_ssd_bf16_operands_match_pallas_interpret():
+    j, t = _ssd_both(_ssd_inputs(1, 128, 2, 64, 1, 64, seed=24))
+    y, state = ssd_rounded(*t)
+    jy, jstate = jops.mamba2_ssd(*j, chunk=64, interpret=True)
+    np.testing.assert_allclose(_f32(y), _f32(jy), atol=SSD_TOL, rtol=SSD_TOL)
+    np.testing.assert_allclose(state.numpy(), _f32(jstate), atol=SSD_TOL,
+                               rtol=SSD_TOL)
