@@ -20,9 +20,10 @@ plain PyTorch version on the card, and drives the port's three paths:
    traffic, whose prefill goes through ``rwkv6_wkv`` (32 launches a
    batch); then its smoke configuration on the card against the CPU.
 
-Before the serve paths it prints the compiled flash and SSD kernels'
-registers, shared memory and blocks an SM, for each route (f32 on the
-CUDA cores, bf16 on the tensor cores).
+Before the serve paths it prints every compiled kernel's registers,
+shared memory and blocks an SM (for flash, SSD and WKV each route: f32 on
+the CUDA cores, bf16 on the tensor cores), and the device time of an
+empty kernel, the floor under every kernel time it prints.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after, and fails unless every kernel of the path launched. Every
@@ -59,7 +60,9 @@ MAIN = dict(seed=0, ny=428, nx=614, n_hist=365, per_iter=1024, max_iters=4,
             n_tasks=8, slots=4, timeout=900.0)
 SMALL = dict(seed=3, ny=20, nx=20, n_hist=30, per_iter=16, max_iters=2,
              n_tasks=4, slots=4, timeout=120.0)
-EQUAL_SHAPES = ((60, 3, 37), (9, 2, 130), (365, 3, 1024), (365, 3, 4096))
+# N % 4 != 0 (scalar loads), fewer than 4 columns, and the timed shapes
+EQUAL_SHAPES = ((60, 3, 37), (9, 2, 130), (365, 3, 510), (7, 3, 3),
+                (5, 1, 1), (365, 3, 1024), (365, 3, 4096))
 TIMED_SHAPES = ((365, 3, 1024), (365, 3, 4096))
 TIMED_REPS = 60
 
@@ -80,8 +83,12 @@ FLASH_SHAPES = (FLASH_MAIN, (4, 100, 32, 112), (4, 300, 32, 112),
 SSD_SHAPES = (SSD_MAIN, (4, 100, 112, 64, 1, 64), (2, 128, 8, 64, 2, 64),
               # chunk 50 at N = 8, P = 16; G = 2 at N = 16, P = 32
               (1, 100, 3, 16, 1, 8), (2, 128, 4, 32, 2, 16))
-# the serve shape, a ragged T (chunk 50) and a prime T (chunk 1)
-WKV_SHAPES = (WKV_MAIN, (4, 100, 40, 64), (1, 97, 2, 64))
+# the serve shape, a ragged T (chunk 50) and a prime T (chunk 1); then the
+# tensor-core route's padding: N = 16, 24 (element-wise tile fills), 32
+# and 5, at chunks 50 and 1
+WKV_SHAPES = (WKV_MAIN, (4, 100, 40, 64), (1, 97, 2, 64), (2, 100, 3, 16),
+              (1, 97, 2, 16), (2, 100, 3, 24), (1, 97, 2, 24),
+              (2, 100, 4, 32), (1, 100, 2, 5))
 # the JAX kernel tests' tolerances (tests/test_kernels.py), atol = rtol;
 # the WKV state's is 10x its output's
 TOLERANCE = {"flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
@@ -237,6 +244,13 @@ def compare_distance(shape) -> dict:
     check(err == 0.0, f"anen_distance bit-equal to plain at {shape} "
                       f"(max abs err {err})")
     return {"shape": list(shape), "max_abs_err": err}
+
+
+def empty_ms() -> float:
+    """Device time of an empty kernel (``torch.cuda._sleep`` of one
+    cycle) by :func:`device_ms`: the floor under every kernel time."""
+    import torch
+    return device_ms(lambda: torch.cuda._sleep(1))
 
 
 def time_distance(shape) -> dict:
@@ -505,33 +519,38 @@ def ssd_bound(shape, elem: int) -> dict:
     return _bound(bytes_, flops, BF16_FLOPS_PER_S)
 
 
-def wkv_bound(shape, elem: int) -> dict:
+def wkv_bound(shape, elem: int, rate: float = BF16_FLOPS_PER_S) -> dict:
     """r, k, v, w read and out written once in the input type, u and
     state0 read and the final state written once in f32; per chunk and head
     the Pallas body's four products (scores, scores.v, the readout, the
-    state update), at the tensor-core rate of bf16 inputs."""
+    state update), at ``rate`` (the tensor-core rate of bf16 inputs by
+    default)."""
     from repro_torch.kernels.rwkv6_wkv import pick_chunk
     B, T, H, N = shape
     c = pick_chunk(T)
     bytes_ = elem * 5 * B * T * H * N + 4 * (H * N + 2 * B * H * N * N)
     flops = 2.0 * B * H * (T // c) * (2 * c * c * N + 2 * c * N * N)
-    return _bound(bytes_, flops, BF16_FLOPS_PER_S)
+    return _bound(bytes_, flops, rate)
 
 
-def compiled_kernels() -> dict:
-    """Registers, shared memory and blocks an SM of the compiled flash and
-    SSD kernels at the serve shapes, for each route (dtype)."""
+def compiled_kernels(anen_n: int) -> dict:
+    """Registers, shared memory and blocks an SM of every compiled kernel
+    at its main path's shape: flash, SSD and WKV for each route (dtype),
+    and ``anen_distance`` at ``anen_n`` columns."""
     import torch
-    from repro_torch.kernels import flash_attention, mamba2_ssd
+    from repro_torch.kernels import (anen_distance, flash_attention,
+                                     mamba2_ssd, rwkv6_wkv)
     from repro_torch.kernels.mamba2_ssd import pick_chunk
     B, T, H, P, G, N = SSD_MAIN
-    info = {}
+    info = {("anen_distance", "float32"): anen_distance.kernel_info(anen_n)}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).split(".")[-1]
         info[("flash_attention", name)] = flash_attention.kernel_info(
             FLASH_MAIN[3], dtype)
         info[("mamba2_ssd", name)] = mamba2_ssd.kernel_info(
             N, P, pick_chunk(T), dtype)
+        info[("rwkv6_wkv", name)] = rwkv6_wkv.kernel_info(
+            WKV_MAIN[3], pick_chunk(WKV_MAIN[1]), dtype)
     for (kernel, name), row in info.items():
         print(f"compiled {kernel} {name} route: {row}")
     return info
@@ -570,16 +589,21 @@ def time_ssd(shape) -> dict:
     return row
 
 
-def time_wkv(shape) -> dict:
+def time_wkv(shape, dtype: str = "bfloat16") -> dict:
+    """The bf16 route (tensor cores) against its bound at the tensor-core
+    rate; the f32 route (CUDA cores) against its bound at the f32 rate."""
     from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv, rwkv6_wkv_plain
-    args = wkv_inputs(shape, "bfloat16")
+    args = wkv_inputs(shape, dtype)
     kernel = lambda: rwkv6_wkv(*args)                         # noqa: E731
     plain = lambda: rwkv6_wkv_plain(*args)                    # noqa: E731
-    row = {"shape": list(shape), "dtype": "bfloat16",
+    row = {"shape": list(shape), "dtype": dtype,
            "ms": device_ms(kernel), "busy_ms": busy_ms(kernel),
            "plain_ms": busy_ms(plain), "library_ms": None,
            "call_ms": call_ms(kernel)}
-    row.update(wkv_bound(shape, 2))
+    if dtype == "bfloat16":
+        row.update(wkv_bound(shape, 2))
+    else:
+        row.update(wkv_bound(shape, 4, FP32_FLOPS_PER_S))
     return row
 
 
@@ -712,7 +736,8 @@ def profile_serve(sess, traffic: dict) -> None:
             kind = ("flash_attention" if "flash_fwd" in key else
                     "mamba2_ssd" if "ssd_kernel" in key
                     or "ssd_tc_kernel" in key else
-                    "rwkv6_wkv" if "wkv_kernel" in key else
+                    "rwkv6_wkv" if "wkv_kernel" in key
+                    or "wkv_tc_kernel" in key else
                     "matmul" if any(w in key.lower() for w in (
                         "nvjet", "gemm", "gemv", "cutlass", "xmma", "sm90_"))
                     else "other")
@@ -797,6 +822,9 @@ def main() -> None:
     print(f"kernel build seconds: {build_s}")
 
     equal = [compare_distance(s) for s in EQUAL_SHAPES]
+    floor_ms = empty_ms()
+    print(f"empty kernel device_ms (the floor under kernel times): "
+          f"{floor_ms}")
     for row in [time_distance(s) for s in TIMED_SHAPES]:
         print(f"anen_distance {row}")
 
@@ -820,12 +848,14 @@ def main() -> None:
             errors["mamba2_ssd"].append(compare_ssd(shape, dtype))
         for shape in WKV_SHAPES:
             errors["rwkv6_wkv"].append(compare_wkv(shape, dtype))
-    compiled = compiled_kernels()
+    compiled = compiled_kernels(main_shape[2])
     timed = {"flash_attention": time_flash(FLASH_MAIN),
              "mamba2_ssd": time_ssd(SSD_MAIN),
              "rwkv6_wkv": time_wkv(WKV_MAIN)}
+    wkv_f32 = time_wkv(WKV_MAIN, "float32")
     for name, row in timed.items():
         print(f"{name} at main-path shape {row}")
+    print(f"rwkv6_wkv f32 route at main-path shape {wkv_f32}")
 
     launches = {**serve_phase(SERVE), **serve_phase(RWKV_SERVE)}
 
@@ -843,6 +873,7 @@ def main() -> None:
         "bound_by": at_main["bound_by"],
         "library_ms": None,
         "shape": at_main["shape"],
+        "empty_kernel_ms": floor_ms,
     }]}
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:103",
                 "mamba2_ssd": "src/repro/kernels/mamba2_ssd.py:106",
@@ -858,9 +889,15 @@ def main() -> None:
             "call_ms": row["call_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"], "dtype": row["dtype"]})
-        info = compiled.get((name, row["dtype"]))
+    wkv_entry = next(e for e in record["kernels"]
+                     if e["name"] == "rwkv6_wkv")
+    wkv_entry.update(
+        f32_ms=wkv_f32["ms"], f32_busy_ms=wkv_f32["busy_ms"],
+        f32_plain_ms=wkv_f32["plain_ms"], f32_bound_ms=wkv_f32["bound_ms"])
+    for entry in record["kernels"]:
+        info = compiled.get((entry["name"], entry.get("dtype", "float32")))
         if info is not None:
-            record["kernels"][-1].update(
+            entry.update(
                 registers=info["registers"],
                 smem_bytes=info["static_smem_bytes"]
                 + info["dynamic_smem_bytes"],

@@ -6,7 +6,8 @@ over H historical forecasts × V forecast variables × N query locations —
 the distance behind every fused AnEn member (:mod:`repro_torch.apps.anen`).
 Replaces the Pallas kernel ``kernels/anen_distance.py::anen_distance`` of
 the JAX package; the CUDA source, with its bound and design, is
-``csrc/anen_distance.cu``.
+``csrc/anen_distance.cu``: one thread per row and four neighbouring
+columns, whose loads are all independent (16 bytes each where N % 4 == 0).
 
 :func:`anen_distance` launches the kernel for CUDA tensors and takes
 :func:`anen_distance_plain` only for CPU tensors. Both accumulate in the
@@ -22,9 +23,7 @@ import threading
 
 import torch
 
-MAX_VARS = 16          # the kernel keeps f_now[:, n] in 16 registers
-ROWS_PER_BLOCK = 8     # h rows each thread walks
-_MAX_GRID_Y = 65535
+MAX_VARS = 16          # the kernel unrolls its loop over 16 variables
 
 _count_lock = threading.Lock()
 _launcher = None
@@ -73,7 +72,7 @@ def _load():
         fn = load("anen_distance").anen_distance_launch
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
+                       ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _launcher = fn
     return _launcher
@@ -82,6 +81,14 @@ def _load():
 def build() -> None:
     """Build (or load) the CUDA library now rather than at first launch."""
     _load()
+
+
+def kernel_info(n: int) -> dict:
+    """Registers, shared memory and blocks an SM of the compiled kernel
+    that ``n`` columns take with aligned inputs (``_build.kernel_info``;
+    needs the card)."""
+    from ._build import kernel_info as info
+    return info("anen_distance", n)
 
 
 def anen_distance(f_hist: torch.Tensor, f_now: torch.Tensor) -> torch.Tensor:
@@ -99,11 +106,10 @@ def anen_distance(f_hist: torch.Tensor, f_now: torch.Tensor) -> torch.Tensor:
     out = torch.empty(h, n, dtype=torch.float32, device=f_hist.device)
     if h == 0 or n == 0:
         return out
-    rows = max(ROWS_PER_BLOCK, -(-h // _MAX_GRID_Y))
     with torch.cuda.device(f_hist.device):
         stream = torch.cuda.current_stream(f_hist.device).cuda_stream
         err = launch(f_hist.data_ptr(), f_now.data_ptr(), out.data_ptr(),
-                     h, v, n, rows, stream)
+                     h, v, n, stream)
     if err != 0:
         raise RuntimeError(f"anen_distance kernel launch failed: CUDA error "
                            f"{err}")

@@ -16,38 +16,95 @@
 // end. Replaces the Pallas TPU kernel kernels/rwkv6_wkv.py::wkv of the JAX
 // package (body _wkv_kernel, pallas_call at :109). The TPU grid walks the
 // chunks in order with the state in VMEM scratch; here one block walks the
-// chunks in a loop with its part of the state in shared memory.
+// chunks in a loop. The kernels index (B, T, H, N) directly and need none
+// of the Pallas wrapper's (B*H, T, N) transposes. The chunk is the
+// wrapper's: the largest c <= 64 that divides T; any c from 1 to 64 is
+// right, and any N from 1 to 64.
 //
 // Bound: at (B, T, H, N) = (4, 512, 40, 64) with bf16 r, k, v, w and out,
 // and f32 u and states, the function moves about 57.7 MB: about 17 us at
 // 3.35 TB/s. Its work is about 2.7 GFLOP (four c x c x N or c x N x N
 // products per chunk and head): 2.7 us on the bf16 tensor cores, 40 us in
-// f32 on the CUDA cores. This kernel computes in f32 on the CUDA cores, so
-// its bound is the f32 rate; register tiles of 4 x 4 (scores) and 4 x 2
-// (readout, state) cut the shared-memory loads to one for every two FMAs
-// in the scores and three for every four elsewhere. Tensor-core tiles are
-// later work.
+// f32 on the CUDA cores. So the bf16 route is bound by bytes once its
+// products are on the tensor cores, and what stands between it and that
+// bound is latency: the chunks of a head form one dependent chain.
 //
-// Design: the value columns m of the state are independent (out[t, m] and
-// S[:, m] read only column m of v), so the grid is (column tile of 32, h,
-// b): 320 blocks at the serve shape instead of B * H = 160, which would be
-// 1.2 blocks per SM. Each block recomputes the c x c scores, which need
-// every key channel. 256 threads. Each chunk stages r, k, log w (c x N) and
-// the block's 32 columns of v as f32 in shared memory (odd row pitches, so
-// that column walks are free of bank conflicts). Then each warp takes every
-// 8th key channel n and scans log w down its c rows with shuffles (a lane
-// holds rows lane and lane + 32), so the cumsum is 5 shuffle steps, not a
-// serial loop; the same lane turns r, k into r_dec, k_over and k_scaled in
-// place and adds its r u k to a per-warp part of the diagonal. Then the
-// scores, the readout and last the state update, each after a barrier. The
-// kernel indexes (B, T, H, N) directly and needs none of the Pallas
-// wrapper's (B*H, T, N) transposes. The chunk is the wrapper's: the largest
-// c <= 64 that divides T; any c from 1 to 64 is right.
+// bf16 route (wkv_tc_kernel, the serve path): the four products run on the
+// tensor cores as mma.sync.m16n8k16, bf16 operands and f32 sums. Every
+// operand that is f32 inside the kernel (r_dec, k_over, the masked scores
+// and the carried state) is split into two bf16 parts, x = hi + lo with
+// lo = bf16(x - hi), about 16 bits of x, and a product of two such
+// operands takes three mma (hi.hi + hi.lo + lo.hi), one with the exact
+// bf16 v two. One bf16 rounding of each operand, as the flash and SSD
+// kernels do, misses the JAX package's bf16 tolerance (out 5e-2) where w
+// is near 1, as the served model draws it, and by far where cum reaches
+// the -30 clamp: the readout sums terms much larger than its result.
+// tests/test_torch_tensor_core_rounding.py holds both against the JAX
+// oracles, and shows that each of the lo parts is needed. Design, for one
+// block per (b, h) with 4 warps (160 blocks at the serve shape, 2 an SM:
+// one wave):
+//   - the chunk's r, k, w and v are copied by cp.async (16 bytes a
+//     thread) into shared memory, the next chunk's while the tensor cores
+//     work on this one (v has two stages); c and N pad to 64 rows and 16,
+//     32 or 64 columns with zeros in shared memory only, and where N is
+//     not a multiple of 8 (or an input not 16-byte aligned) the same tiles
+//     fill element by element;
+//   - warp w owns chunk rows 16w..16w+15 and computes their elementwise
+//     pass in f32, in base 2 (lg2 and ex2 need no scaling), in the lane
+//     order of an mma A fragment: log w, the clamped cumsum (a shuffle
+//     scan down the warp's rows, then the column totals of the earlier
+//     warps through shared memory), two exp, and the diagonal bonus
+//     sum_n r u k from the unscaled r and k (a quad shuffle sum). r_dec
+//     never leaves registers: its hi and lo parts are the A fragments of
+//     the scores and of the state readout. k_over goes to shared memory as
+//     hi and lo tiles, with a pitch of N + 8 so that ldmatrix is free of
+//     bank conflicts;
+//   - scores = r_dec . k_over^T, only on the tiles at or below the
+//     diagonal, masked strictly lower in f32, then split in registers as
+//     the A fragments of scores . v (as flash feeds P.V);
+//   - the state stays f32 in registers as C tiles, 16 state rows a warp,
+//     for the whole scan. Its update is S = exp(cum[c-1]) (S + k_over^T .
+//     v), row by row, the same as exp(cum[c-1]) S + k_scaled^T . v since
+//     k_scaled = exp(cum[c-1]) k_over: k_over^T comes through
+//     ldmatrix.trans and no k_scaled is formed. The state's hi and lo
+//     copies in shared memory are the B operand of r_dec . S, written
+//     after the readout behind a barrier;
+//   - the part products go round all of a warp's accumulators, so that no
+//     mma waits on the one before it.
+//   Four barriers a chunk: data landed; the column totals of the cumsum;
+//   the k_over tiles; the old state read. What sets its time is issue and
+//   latency, not bytes or tensor-core rate: PERF.md gives the measured
+//   parts.
+//
+// f32 route (wkv_kernel, unchanged from the first port): f32 on the CUDA
+// cores. It is kept for f32 inputs because it meets the f32 tolerance
+// (1e-4); the serve path draws bf16 weights and never takes it, the tests
+// and chip_smoke.py do. The value columns m of the state are independent
+// (out[t, m] and S[:, m] read only column m of v), so the grid is (column
+// tile of 32, h, b), and each block recomputes the c x c scores, which
+// need every key channel. 256 threads. Each chunk stages r, k, log w
+// (c x N) and the block's 32 columns of v as f32 in shared memory (odd row
+// pitches, so that column walks are free of bank conflicts). Then each
+// warp takes every 8th key channel n and scans log w down its c rows with
+// shuffles (a lane holds rows lane and lane + 32); the same lane turns r, k
+// into r_dec, k_over and k_scaled in place and adds its r u k to a
+// per-warp part of the diagonal. Then the scores, the readout and last the
+// state update, each after a barrier, in register tiles of 4 x 4 (scores)
+// and 4 x 2 (readout, state).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "tensor_core.cuh"
+
 namespace {
+
+// --------------------------------------------------------------------------
+// f32 route: CUDA cores (the first port, unchanged)
+// --------------------------------------------------------------------------
+
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -58,13 +115,7 @@ constexpr int kTile1 = kTile + 1;   // its row pitch in shared memory
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -288,13 +339,16 @@ wkv_kernel(const T* __restrict__ r, const T* __restrict__ k,
   }
 }
 
+size_t f32_smem_bytes(int N, int c) {
+  return sizeof(float) * (static_cast<size_t>(N) * kTile1 + 3 * c * (N + 1) +
+                          c * kTile1 + c * (c + 1) + kWarps * c + c + 2 * N);
+}
+
 template <typename T>
 int launch(const void* r, const void* k, const void* v, const void* w,
            const float* u, const float* state0, void* out, float* state_out,
            int B, int T_len, int H, int N, int c, cudaStream_t stream) {
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(N) * kTile1 + 3 * c * (N + 1) +
-                       c * kTile1 + c * (c + 1) + kWarps * c + c + 2 * N);
+  const size_t smem = f32_smem_bytes(N, c);
   cudaError_t err = cudaFuncSetAttribute(
       wkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -307,12 +361,478 @@ int launch(const void* r, const void* k, const void* v, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// --------------------------------------------------------------------------
+// bf16 route: tensor cores (mma.sync), operands split into bf16 hi and lo
+// --------------------------------------------------------------------------
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTcRows = 64;              // chunk rows in shared memory
+constexpr int kTcWarps = 4;              // 16 chunk rows a warp
+constexpr int kTcThreads = 32 * kTcWarps;
+static_assert(kTcWarps == 4, "the column totals are read as one float4");
+
+template <int kD>
+__host__ __device__ constexpr int tc_pitch() { return kD + 8; }
+
+template <int kD>
+constexpr size_t tc_smem_bytes() {
+  // r, k, w of one chunk, v of two, k_over's hi and lo: seven 64-row
+  // tiles; the state's hi and lo; the warps' column totals of log2 w; u
+  return sizeof(bf16) * (7 * kTcRows + 2 * kD) * tc_pitch<kD>() +
+         sizeof(float) * (kTcWarps + 1) * kD;
+}
+
+// log2(e), and the -30 clamp of cum in log2 units: the elementwise pass
+// works in base 2, so that lg2 and ex2 need no scaling
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kClamp2 = -30.0f * kLog2e;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float lg2(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// x0, x1 as bf16 pairs hi and lo with x = hi + lo to about 16 bits.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tc::pack_bf16(x0, x1);
+  const float2 h = tc::unpack_bf16(hi);
+  lo = tc::pack_bf16(x0 - h.x, x1 - h.y);
+}
+
+__device__ __forceinline__ float2 ld_bf16x2(const bf16* p) {
+  return tc::unpack_bf16(*reinterpret_cast<const uint32_t*>(p));
+}
+
+__device__ __forceinline__ void st_bf16x2(bf16* p, uint32_t v) {
+  *reinterpret_cast<uint32_t*>(p) = v;
+}
+
+// acc[2 i], acc[2 i + 1] += a . (B fragment pair i) for i < n: one mma on
+// each of 2 n accumulators in turn.
+template <int kN>
+__device__ __forceinline__ void mma_tiles(float (*acc)[4],
+                                          const uint32_t (&a)[4],
+                                          const uint32_t (&b)[kN][4],
+                                          int n = kN) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    if (i >= n) continue;
+    tc::mma_bf16(acc[2 * i], a, b[i][0], b[i][1]);
+    tc::mma_bf16(acc[2 * i + 1], a, b[i][2], b[i][3]);
+  }
+}
+
+// kD: N padded to 16, 32 or 64.
+template <int kD>
+__global__ void __launch_bounds__(kTcThreads, 2)
+wkv_tc_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
+              const bf16* __restrict__ v, const bf16* __restrict__ w,
+              const float* __restrict__ u, const float* __restrict__ state0,
+              bf16* __restrict__ out, float* __restrict__ state_out,
+              int T_len, int H, int N, int c, bool vec) {
+  constexpr int kPitch = tc_pitch<kD>();
+  constexpr int kTile = kTcRows * kPitch;
+  constexpr int kSteps = kD / 16;        // 16-column steps over N
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* rs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ks = rs + kTile;
+  bf16* ws = ks + kTile;
+  bf16* vs = ws + kTile;                 // two stages
+  bf16* ko_hi = vs + 2 * kTile;          // k_over
+  bf16* ko_lo = ko_hi + kTile;
+  bf16* s_hi = ko_lo + kTile;            // kD x kPitch: the state's parts
+  bf16* s_lo = s_hi + kD * kPitch;
+  // kD x warps: each warp's column total of log2 w, one 16-byte load a
+  // column
+  float* tot = reinterpret_cast<float*>(s_lo + kD * kPitch);
+  float* us = tot + kTcWarps * kD;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const size_t stride = static_cast<size_t>(H) * N;   // between steps
+  const size_t base = (static_cast<size_t>(b) * T_len * H + h) * N;
+  const size_t state_base = (static_cast<size_t>(b) * H + h) * N * N;
+  const int r0 = warp * 16;              // this warp's chunk rows
+
+  for (int n = threadIdx.x; n < kD; n += kTcThreads) {
+    us[n] = n < N ? u[h * N + n] : 0.0f;
+  }
+
+  // rows past the chunk and columns past N load as zeros
+  auto load_rkw = [&](int t0) {
+    tc::load_rows<kTcRows, kD, kPitch, kTcThreads>(rs, r + base, stride, t0,
+                                                   t0 + c, N, vec);
+    tc::load_rows<kTcRows, kD, kPitch, kTcThreads>(ks, k + base, stride, t0,
+                                                   t0 + c, N, vec);
+    tc::load_rows<kTcRows, kD, kPitch, kTcThreads>(ws, w + base, stride, t0,
+                                                   t0 + c, N, vec);
+  };
+  auto load_v = [&](int t0, int st) {
+    tc::load_rows<kTcRows, kD, kPitch, kTcThreads>(vs + st * kTile, v + base,
+                                                   stride, t0, t0 + c, N, vec);
+  };
+
+  // the state: warp w < kD / 16 holds rows 16 w..16 w + 15 (all kD
+  // columns) in f32 registers as C tiles, for the whole scan
+  const bool has_state = warp < kD / 16;
+  float sacc[kD / 8][4];
+#pragma unroll
+  for (int nd = 0; nd < kD / 8; ++nd) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = r0 + g + (e >> 1) * 8;
+      const int m = nd * 8 + 2 * t + (e & 1);
+      sacc[nd][e] = has_state && n < N && m < N
+                        ? state0[state_base + static_cast<size_t>(n) * N + m]
+                        : 0.0f;
+    }
+  }
+  auto store_state = [&]() {
+#pragma unroll
+    for (int nd = 0; nd < kD / 8; ++nd) {
+      const int off = (r0 + g) * kPitch + nd * 8 + 2 * t;
+      uint32_t hi, lo;
+      split_bf16(sacc[nd][0], sacc[nd][1], hi, lo);
+      st_bf16x2(s_hi + off, hi);
+      st_bf16x2(s_lo + off, lo);
+      split_bf16(sacc[nd][2], sacc[nd][3], hi, lo);
+      st_bf16x2(s_hi + off + 8 * kPitch, hi);
+      st_bf16x2(s_lo + off + 8 * kPitch, lo);
+    }
+  };
+  if (has_state) store_state();
+
+  load_rkw(0);
+  load_v(0, 0);
+  tc::cp_async_commit();
+
+  // ldmatrix row addresses (see tensor_core.cuh): B from a row-major
+  // (n, k) tile; B from a (k, n) tile through .trans; A^T from a (k, m)
+  // tile through .trans, for this warp's 16 columns m
+  const int b_off = ((lane >> 4) * 8 + (lane & 7)) * kPitch +
+                    ((lane >> 3) & 1) * 8;
+  const int bt_off = (((lane >> 3) & 1) * 8 + (lane & 7)) * kPitch +
+                     (lane >> 4) * 8;
+  const int at_off = ((lane >> 4) * 8 + (lane & 7)) * kPitch + r0 +
+                     ((lane >> 3) & 1) * 8;
+
+  const int n_chunks = T_len / c;
+  const int s_blocks = (c + 15) / 16;    // 16-row blocks of the chunk
+  const bool has_rows = r0 < c;
+  for (int ci = 0; ci < n_chunks; ++ci) {
+    const int st = ci & 1;
+    const int t0 = ci * c;
+    const bf16* vt = vs + st * kTile;
+    tc::cp_async_wait<0>();
+    __syncthreads();   // (1) the chunk has landed; the state's copy is in
+
+    // The elementwise pass, in the lane order of an A fragment: element
+    // [kk][q][j] is row r0 + g + 8 (q & 1), column 16 kk + 8 (q >> 1) +
+    // 2 t + j. First log2 w (0 past the chunk and past N) and its
+    // inclusive sum down the warp's 16 rows: a shuffle scan over g for
+    // rows g and g + 8, then the upper half's total onto the lower.
+    float lw[kSteps][4][2], inc[kSteps][4][2];
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int row = r0 + g + 8 * (q & 1);
+        const int col = 16 * kk + 8 * (q >> 1) + 2 * t;
+        const float2 wv = ld_bf16x2(ws + row * kPitch + col);
+        const bool ok = row < c;
+        lw[kk][q][0] = ok && col < N ? lg2(fmaxf(wv.x, 1e-8f)) : 0.0f;
+        lw[kk][q][1] = ok && col + 1 < N ? lg2(fmaxf(wv.y, 1e-8f)) : 0.0f;
+      }
+#pragma unroll
+      for (int ch = 0; ch < 2; ++ch) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          float up = lw[kk][2 * ch][j];
+          float dn = lw[kk][2 * ch + 1][j];
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1) {
+            const float yu = __shfl_up_sync(0xffffffffu, up, off);
+            const float yd = __shfl_up_sync(0xffffffffu, dn, off);
+            if (lane >= off) {
+              up += yu;
+              dn += yd;
+            }
+          }
+          dn += __shfl_sync(0xffffffffu, up, 28 + t);
+          inc[kk][2 * ch][j] = up;
+          inc[kk][2 * ch + 1][j] = dn;
+          if (g == 7) tot[(16 * kk + 8 * ch + 2 * t + j) * 4 + warp] = dn;
+        }
+      }
+    }
+    __syncthreads();   // (2) every warp's column totals
+
+    // cum = max(sum of the earlier warps' totals + inc, -30) (in base 2);
+    // r_dec as A fragments (hi, lo), k_over to shared memory (hi, lo), the
+    // diagonal bonus of rows g and g + 8
+    uint32_t rh[kSteps][4], rl[kSteps][4];
+    float d0 = 0.0f, d1 = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+#pragma unroll
+      for (int ch = 0; ch < 2; ++ch) {
+        float pre[2], un[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int n = 16 * kk + 8 * ch + 2 * t + j;
+          const float4 tv = *reinterpret_cast<const float4*>(tot + n * 4);
+          pre[j] = warp > 0 ? (warp > 1 ? (warp > 2 ? tv.x + tv.y + tv.z
+                                                    : tv.x + tv.y)
+                                        : tv.x)
+                            : 0.0f;
+          un[j] = us[n];
+        }
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int q = 2 * ch + half;
+          const int off = (r0 + g + 8 * half) * kPitch + 16 * kk + 8 * ch +
+                          2 * t;
+          const float2 rv = ld_bf16x2(rs + off);
+          const float2 kv = ld_bf16x2(ks + off);
+          const float rr[2] = {rv.x, rv.y};
+          const float kq[2] = {kv.x, kv.y};
+          float rd[2], ko[2], dg = 0.0f;
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const float cum = fmaxf(pre[j] + inc[kk][q][j], kClamp2);
+            rd[j] = rr[j] * ex2(cum - lw[kk][q][j]);
+            ko[j] = kq[j] * ex2(-cum);
+            dg = fmaf(rr[j] * un[j], kq[j], dg);
+          }
+          if (half == 0) d0 += dg; else d1 += dg;
+          split_bf16(rd[0], rd[1], rh[kk][q], rl[kk][q]);
+          uint32_t hi, lo;
+          split_bf16(ko[0], ko[1], hi, lo);
+          st_bf16x2(ko_hi + off, hi);
+          st_bf16x2(ko_lo + off, lo);
+        }
+      }
+    }
+    d0 = tc::quad_sum(d0);
+    d1 = tc::quad_sum(d1);
+    __syncthreads();   // (3) k_over is in; r, k, w are read
+
+    if (ci + 1 < n_chunks) {
+      load_rkw(t0 + c);
+      load_v(t0 + c, st ^ 1);
+    }
+    tc::cp_async_commit();
+
+    float yacc[kD / 8][4];
+    float sc[8][4];
+#pragma unroll
+    for (int nd = 0; nd < kD / 8; ++nd)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) yacc[nd][e] = 0.0f;
+#pragma unroll
+    for (int nb = 0; nb < 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[nb][e] = 0.0f;
+    if (has_rows) {
+      // out = r_dec . S, with S = s_hi + s_lo; the three part products
+      // go round all the accumulators, so that no mma waits on the one
+      // before it
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        uint32_t bh[kD / 16][4], bl[kD / 16][4];
+#pragma unroll
+        for (int nd2 = 0; nd2 < kD / 16; ++nd2) {
+          const int off = bt_off + kk * 16 * kPitch + nd2 * 16;
+          tc::ldsm_x4_trans(bh[nd2], s_hi + off);
+          tc::ldsm_x4_trans(bl[nd2], s_lo + off);
+        }
+        mma_tiles<kD / 16>(yacc, rh[kk], bh);
+        mma_tiles<kD / 16>(yacc, rh[kk], bl);
+        mma_tiles<kD / 16>(yacc, rl[kk], bh);
+      }
+      // scores = r_dec . k_over^T on the column tiles s <= 16 w + 15 that
+      // hold chunk rows
+      const int n_tiles = min(warp + 1, s_blocks);
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        uint32_t bh[4][4], bl[4][4];
+#pragma unroll
+        for (int nb2 = 0; nb2 < 4; ++nb2) {
+          if (nb2 >= n_tiles) continue;
+          const int off = b_off + nb2 * 16 * kPitch + kk * 16;
+          tc::ldsm_x4(bh[nb2], ko_hi + off);
+          tc::ldsm_x4(bl[nb2], ko_lo + off);
+        }
+        mma_tiles<4>(sc, rh[kk], bh, n_tiles);
+        mma_tiles<4>(sc, rh[kk], bl, n_tiles);
+        mma_tiles<4>(sc, rl[kk], bh, n_tiles);
+      }
+      // strictly lower, in f32: the diagonal is exactly 0 (u replaces it)
+#pragma unroll
+      for (int nb = 0; nb < 8; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int tt = r0 + g + (e >> 1) * 8;
+          const int ss = nb * 8 + 2 * t + (e & 1);
+          if (ss >= tt) sc[nb][e] = 0.0f;
+        }
+      }
+    }
+
+    // per 16-row block s of the chunk, with v's B fragments loaded once:
+    // out += scores . v (the scores split as A fragments), and
+    // S += k_over^T . v, then S = exp(cum[c-1]) S row by row: the same as
+    // exp(cum[c-1]) S + k_scaled^T . v with k_scaled = exp(cum[c-1]) k_over
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const bool pv = has_rows && kk <= warp;
+      if (kk >= s_blocks || !(pv || has_state)) continue;
+      uint32_t ph[4], pl[4], ah[4], al[4];
+      split_bf16(sc[2 * kk][0], sc[2 * kk][1], ph[0], pl[0]);
+      split_bf16(sc[2 * kk][2], sc[2 * kk][3], ph[1], pl[1]);
+      split_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1], ph[2], pl[2]);
+      split_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3], ph[3], pl[3]);
+      if (has_state) {
+        tc::ldsm_x4_trans(ah, ko_hi + at_off + kk * 16 * kPitch);
+        tc::ldsm_x4_trans(al, ko_lo + at_off + kk * 16 * kPitch);
+      }
+      uint32_t bv[kD / 16][4];
+#pragma unroll
+      for (int nd2 = 0; nd2 < kD / 16; ++nd2) {
+        tc::ldsm_x4_trans(bv[nd2], vt + bt_off + kk * 16 * kPitch + nd2 * 16);
+      }
+      if (pv) {
+        mma_tiles<kD / 16>(yacc, ph, bv);
+        mma_tiles<kD / 16>(yacc, pl, bv);
+      }
+      if (has_state) {
+        mma_tiles<kD / 16>(sacc, ah, bv);
+        mma_tiles<kD / 16>(sacc, al, bv);
+      }
+    }
+    if (has_state) {
+      const float4 t0v =
+          *reinterpret_cast<const float4*>(tot + (r0 + g) * 4);
+      const float4 t1v =
+          *reinterpret_cast<const float4*>(tot + (r0 + g + 8) * 4);
+      const float e0 = ex2(fmaxf(t0v.x + t0v.y + t0v.z + t0v.w, kClamp2));
+      const float e1 = ex2(fmaxf(t1v.x + t1v.y + t1v.z + t1v.w, kClamp2));
+#pragma unroll
+      for (int nd = 0; nd < kD / 8; ++nd) {
+        sacc[nd][0] *= e0;
+        sacc[nd][1] *= e0;
+        sacc[nd][2] *= e1;
+        sacc[nd][3] *= e1;
+      }
+    }
+
+    // out += (sum_n r u k) v on the diagonal; rows past the chunk and
+    // columns past N are never stored
+    if (has_rows) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int tt = r0 + g + 8 * half;
+        if (tt >= c) continue;
+        const float dg = half ? d1 : d0;
+        bf16* dst = out + base + static_cast<size_t>(t0 + tt) * stride;
+#pragma unroll
+        for (int nd = 0; nd < kD / 8; ++nd) {
+          const int m = nd * 8 + 2 * t;
+          if (m >= N) continue;
+          const float2 vv = ld_bf16x2(vt + tt * kPitch + m);
+          const float y0 = fmaf(dg, vv.x, yacc[nd][2 * half]);
+          const float y1 = fmaf(dg, vv.y, yacc[nd][2 * half + 1]);
+          if ((N & 1) == 0) {
+            st_bf16x2(dst + m, tc::pack_bf16(y0, y1));
+          } else {
+            dst[m] = __float2bfloat16_rn(y0);
+            if (m + 1 < N) dst[m + 1] = __float2bfloat16_rn(y1);
+          }
+        }
+      }
+    }
+    __syncthreads();   // (4) every read of the state's old copy is done
+    if (has_state) store_state();
+  }
+
+  if (has_state) {
+#pragma unroll
+    for (int nd = 0; nd < kD / 8; ++nd) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int n = r0 + g + (e >> 1) * 8;
+        const int m = nd * 8 + 2 * t + (e & 1);
+        if (n < N && m < N) {
+          state_out[state_base + static_cast<size_t>(n) * N + m] =
+              sacc[nd][e];
+        }
+      }
+    }
+  }
+}
+
+template <int kD>
+int set_smem_tc() {
+  return static_cast<int>(cudaFuncSetAttribute(
+      wkv_tc_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(tc_smem_bytes<kD>())));
+}
+
+template <int kD>
+int launch_tc(const void* r, const void* k, const void* v, const void* w,
+              const float* u, const float* state0, void* out,
+              float* state_out, int B, int T_len, int H, int N, int c,
+              cudaStream_t stream) {
+  const int err = set_smem_tc<kD>();
+  if (err != 0) return err;
+  const bool vec = N % 8 == 0 && tc::aligned16(r) && tc::aligned16(k) &&
+                   tc::aligned16(v) && tc::aligned16(w);
+  const dim3 grid(H, B);
+  wkv_tc_kernel<kD><<<grid, kTcThreads, tc_smem_bytes<kD>(), stream>>>(
+      static_cast<const bf16*>(r), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(w), u, state0,
+      static_cast<bf16*>(out), state_out, T_len, H, N, c, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kD>
+int info_tc(int* info) {
+  const int err = set_smem_tc<kD>();
+  if (err != 0) return err;
+  return tc::kernel_info(wkv_tc_kernel<kD>, kTcThreads, tc_smem_bytes<kD>(),
+                         info);
+}
+
+// Dispatch on N padded to 16, 32 or 64.
+template <typename Fn>
+int with_dim(int N, Fn&& fn) {
+  if (N <= 16) return fn(std::integral_constant<int, 16>{});
+  if (N <= 32) return fn(std::integral_constant<int, 32>{});
+  if (N <= 64) return fn(std::integral_constant<int, 64>{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 // r, k, v, w, out: (B, T, H, N), f32 (dtype 0) or bf16 (dtype 1); u: (H, N)
 // f32; state0, state_out: (B, H, N, N) f32; all contiguous. `chunk`
-// divides T. Launches on `stream` and returns cudaGetLastError() (0 on
-// success). The caller checks shapes, types and contiguity.
+// divides T. f32 launches the CUDA-core kernel, bf16 the tensor-core one.
+// Launches on `stream` and returns cudaGetLastError() (0 on success). The
+// caller checks shapes, types and contiguity.
 extern "C" int rwkv6_wkv_launch(const void* r, const void* k, const void* v,
                                 const void* w, const float* u,
                                 const float* state0, void* out,
@@ -329,8 +849,35 @@ extern "C" int rwkv6_wkv_launch(const void* r, const void* k, const void* v,
                          N, chunk, st);
   }
   if (dtype == 1) {
-    return launch<__nv_bfloat16>(r, k, v, w, u, state0, out, state_out, B,
-                                 T_len, H, N, chunk, st);
+    return with_dim(N, [&](auto d) {
+      return launch_tc<decltype(d)::value>(r, k, v, w, u, state0, out,
+                                           state_out, B, T_len, H, N, chunk,
+                                           st);
+    });
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The compiled kernel of the route that `dtype` takes at head size N and
+// `chunk`: info[0..5] as tc::kernel_info gives them (registers, static and
+// dynamic shared memory, spill bytes, blocks an SM, threads a block).
+// Returns a CUDA error code (0 on success).
+extern "C" int rwkv6_wkv_info(int N, int chunk, int dtype, int* info) {
+  if (N < 1 || N > kMaxN || chunk < 1 || chunk > kMaxChunk) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (dtype == 0) {
+    const size_t smem = f32_smem_bytes(N, chunk);
+    cudaError_t err = cudaFuncSetAttribute(
+        wkv_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    return tc::kernel_info(wkv_kernel<float>, kThreads, smem, info);
+  }
+  if (dtype == 1) {
+    return with_dim(N, [&](auto d) {
+      return info_tc<decltype(d)::value>(info);
+    });
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

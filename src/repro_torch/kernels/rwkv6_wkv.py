@@ -9,9 +9,14 @@ with log-space decays clamped at −30. Replaces the Pallas kernel
 ``kernels/rwkv6_wkv.py::wkv`` of the JAX package (body ``_wkv_kernel``);
 the CUDA source, with its bound and design, is ``csrc/rwkv6_wkv.cu``.
 
-:func:`rwkv6_wkv` launches the kernel for CUDA tensors and takes
-:func:`rwkv6_wkv_plain` only for CPU tensors. The plain version is the JAX
-package's chunked reference ``models/rwkv6.py::wkv_chunked`` in PyTorch.
+:func:`rwkv6_wkv` launches a kernel for CUDA tensors and takes
+:func:`rwkv6_wkv_plain` only for CPU tensors. The input dtype picks the
+kernel, and nothing else does: bfloat16 (the serve path) runs on the
+tensor cores, one block per (batch, head) with the state in registers and
+every f32 operand split into two bf16 parts; float32 runs the CUDA-core
+kernel, which meets the f32 tolerance. Neither falls back to the other.
+The plain version is the JAX package's chunked reference
+``models/rwkv6.py::wkv_chunked`` in PyTorch.
 """
 
 from __future__ import annotations
@@ -117,6 +122,14 @@ def build() -> None:
     _load()
 
 
+def kernel_info(N: int, chunk: int, dtype: torch.dtype) -> dict:
+    """Registers, shared memory and blocks an SM of the compiled kernel
+    that ``dtype`` takes at head size N and ``chunk`` (``_build.kernel_info``;
+    needs the card)."""
+    from ._build import kernel_info as info
+    return info("rwkv6_wkv", N, chunk, _DTYPES[dtype])
+
+
 def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               w: torch.Tensor, u: torch.Tensor, state0: torch.Tensor,
               chunk: int = MAX_CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -124,7 +137,8 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B,H,N,N) float32 → (out (B,T,H,N) in r's dtype, state_T (B,H,N,N)
     float32), with the chunk the JAX wrapper picks.
 
-    CUDA tensors launch the kernel on the current stream (one launch,
+    CUDA tensors launch the kernel of their dtype on the current stream
+    (bfloat16: tensor cores; float32: CUDA cores; one launch,
     counted in ``rwkv6_wkv.launches``, its (B, T, H, N) counted in
     ``rwkv6_wkv.shapes``); CPU tensors take the plain version. Anything
     else raises."""

@@ -12,8 +12,11 @@ import torch
 
 pytestmark = pytest.mark.gpu
 
+# the main path's shapes, N % 4 != 0 (scalar loads, ragged quad) and
+# fewer than 4 columns
 SHAPES = [(60, 3, 37), (9, 2, 130), (64, 3, 256), (365, 3, 512),
-          (365, 3, 1024)]
+          (365, 3, 1024), (365, 3, 4096), (365, 3, 510), (7, 3, 3),
+          (5, 1, 1), (3, 16, 2)]
 
 
 @pytest.fixture
@@ -36,6 +39,24 @@ def test_cuda_kernel_bit_equal_to_plain(cuda, shape):
     got = anen_distance(fh, fn)
     torch.cuda.synchronize()
     assert anen_distance.launches == before + 1
+    assert torch.equal(got, anen_distance_plain(fh, fn))
+
+
+def test_cuda_kernel_bit_equal_to_plain_unaligned(cuda):
+    """Inputs 4 bytes past a 16-byte boundary take the scalar loads even
+    where N % 4 == 0."""
+    from repro_torch.kernels.anen_distance import (anen_distance,
+                                                   anen_distance_plain)
+    h, v, n = 33, 3, 64
+    rng = np.random.default_rng(8)
+    flat = torch.from_numpy(rng.standard_normal(h * v * n + 1)
+                            .astype(np.float32)).to(cuda)
+    fh = flat[1:].view(h, v, n)
+    fn = torch.from_numpy(rng.standard_normal((v, n)).astype(np.float32)
+                          ).to(cuda)
+    assert fh.data_ptr() % 16 != 0
+    got = anen_distance(fh, fn)
+    torch.cuda.synchronize()
     assert torch.equal(got, anen_distance_plain(fh, fn))
 
 
@@ -138,9 +159,18 @@ def _wkv_inputs(shape, dtype, cuda, seed=0):
 WKV_TOLERANCES = {torch.float32: 1e-4, torch.bfloat16: 5e-2}
 
 
+# the serve shape (H = 40 at N = 64), chunk 50 (T = 100) and chunk 1
+# (T = 97), then the tensor-core route's padding: N = 16, 24 (not a
+# multiple of 8: element-wise tile fills), 32 and 5, each with a ragged
+# chunk
+WKV_SHAPES = [(4, 512, 40, 64), (4, 100, 40, 64), (1, 97, 2, 64),
+              (2, 96, 3, 16), (2, 100, 3, 16), (1, 97, 2, 16),
+              (2, 100, 3, 24), (1, 97, 2, 24), (2, 128, 4, 24),
+              (2, 100, 4, 32), (1, 100, 2, 5)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(4, 512, 40, 64), (4, 100, 40, 64),
-                                   (1, 97, 2, 64), (2, 96, 3, 16)])
+@pytest.mark.parametrize("shape", WKV_SHAPES)
 def test_rwkv6_wkv_kernel_matches_plain(cuda, shape, dtype):
     from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv, rwkv6_wkv_plain
     args = _wkv_inputs(shape, dtype, cuda)
@@ -154,6 +184,25 @@ def test_rwkv6_wkv_kernel_matches_plain(cuda, shape, dtype):
                                rtol=tol)
     torch.testing.assert_close(state, ref_state, atol=tol * 10,
                                rtol=tol * 10)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rwkv6_wkv_route_follows_dtype(cuda, dtype):
+    """bf16 inputs launch the tensor-core kernel and f32 inputs the
+    CUDA-core one, one launch a call, and nothing else on the device."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv
+    args = _wkv_inputs((1, 64, 2, 64), dtype, cuda)
+    rwkv6_wkv(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rwkv6_wkv(*args)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "wkv" in e.key]
+    assert len(names) == 1, names
+    assert ("wkv_tc_kernel" in names[0]) == (dtype == torch.bfloat16), names
 
 
 def test_zamba2_smoke_serve_on_card_matches_cpu(cuda):

@@ -1,8 +1,9 @@
 """The rounding budget of the port's bf16 tensor-core kernels, on the CPU.
 
-The bf16 routes of ``csrc/flash_attention.cu`` and ``csrc/mamba2_ssd.cu``
-run their products on the tensor cores with bf16 operands and f32 sums.
-Where an operand is f32 inside the kernel, it is rounded to bf16 first:
+The bf16 routes of ``csrc/flash_attention.cu``, ``csrc/mamba2_ssd.cu``
+and ``csrc/rwkv6_wkv.cu`` run their products on the tensor cores with
+bf16 operands and f32 sums. Where an operand is f32 inside the kernel,
+flash and SSD round it to bf16 first:
 
 - flash: the probabilities P, as the A operand of P·V (the row sum l and
   the lse come from the unrounded f32 P);
@@ -10,12 +11,23 @@ Where an operand is f32 inside the kernel, it is rounded to bf16 first:
   carried state S before C·S (S itself stays f32; exp(cum) scales the f32
   product's rows), and B ∘ w before Bᵀ·X.
 
+WKV splits each such operand into two bf16 parts instead, x = hi + lo with
+lo = bf16(x − hi), and multiplies hi·hi + hi·lo + lo·hi (hi·v + lo·v where
+the other operand is the exact bf16 v): r_dec, k_over, the strictly lower
+scores (masked in f32) and the carried state S (its copy as the B operand
+of r_dec·S; S stays f32). Its state update is exp(cum[c-1]) ∘ (S +
+k_overᵀ·v), the same as exp(cum[c-1]) ∘ S + k_scaledᵀ·v. One rounding of
+each operand, as flash and SSD do, misses the JAX bf16 tolerance where w
+is near 1 and where cum reaches the −30 clamp; a test below shows it.
+
 This file copies the port's plain versions with exactly those roundings
 added (the emulation lives here, not in the port) and holds them against
 the JAX package's oracles and its Pallas kernels in interpret mode, within
-the JAX kernel tests' bf16 tolerances (2e-2 flash, 6e-2 SSD), at zamba2's
-widths (hd 112; P = N = 64, chunk 64, T = 512) and a small B·H. Inputs
-come from numpy with a seed, drawn as the JAX kernel tests draw them.
+the JAX kernel tests' bf16 tolerances (2e-2 flash, 6e-2 SSD, WKV out 5e-2
+and state 5e-1), at zamba2's widths (hd 112; P = N = 64, chunk 64,
+T = 512) and rwkv6-3b's (N = 64, chunk 64, T = 512), at a small B·H.
+Inputs come from numpy with a seed, drawn as the JAX kernel tests draw
+them.
 """
 
 import math
@@ -29,8 +41,10 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels.flash_attention import flash_attention_plain
 from repro_torch.kernels.mamba2_ssd import pick_chunk
+from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv_plain
 
 FLASH_TOL, SSD_TOL, LSE_TOL = 2e-2, 6e-2, 2e-5
+WKV_TOL, WKV_STATE_TOL = 5e-2, 5e-1
 NEG_INF = -1e30
 
 
@@ -183,3 +197,136 @@ def test_ssd_bf16_operands_match_pallas_interpret():
     np.testing.assert_allclose(_f32(y), _f32(jy), atol=SSD_TOL, rtol=SSD_TOL)
     np.testing.assert_allclose(state.numpy(), _f32(jstate), atol=SSD_TOL,
                                rtol=SSD_TOL)
+
+
+def _parts(x, split):
+    """x as the kernel feeds it to the tensor cores: [bf16(x)], or with
+    ``split`` [hi, lo] with lo = bf16(x - hi)."""
+    hi = _bf16(x)
+    return [hi, _bf16(x - hi)] if split else [hi]
+
+
+def _product(eq, a, b):
+    """Σ of the part products the kernel takes: all but lo·lo."""
+    return sum(torch.einsum(eq, x, y) for i, x in enumerate(a)
+               for j, y in enumerate(b) if i + j < 2)
+
+
+def wkv_rounded(r, k, v, w, u, state0, chunk=64, split=True):
+    """``rwkv6_wkv_plain`` with the tensor-core route's operands: r_dec,
+    k_over, the masked scores and the carried state, each split into bf16
+    hi and lo (``split``) or rounded once to bf16; the state update as the
+    kernel orders it, exp(cum[c-1]) ∘ (S + k_overᵀ·v)."""
+    T = r.shape[1]
+    c = pick_chunk(T, chunk)
+    rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
+    uf = u.float()
+    strict = torch.ones(c, c, dtype=torch.bool).tril(-1)
+    state = state0.float()
+    outs = []
+    for t0 in range(0, T, c):
+        rt, kt, vt, wt = (a[:, t0:t0 + c] for a in (rf, kf, vf, wf))
+        logw = torch.log(torch.clamp(wt, min=1e-8))
+        cum = torch.clamp(torch.cumsum(logw, dim=1), min=-30.0)
+        r_dec = _parts(rt * torch.exp(cum - logw), split)
+        out = _product("bthn,bhnm->bthm", r_dec, _parts(state, split))
+        k_over = _parts(kt * torch.exp(-cum), split)
+        scores = _product("bthn,bshn->bhts", r_dec, k_over)
+        scores = torch.where(strict, scores, torch.zeros_like(scores))
+        diag = torch.einsum("bthn,bthn->bth", rt * uf[None, None], kt)
+        out = out + _product("bhts,bshm->bthm", _parts(scores, split), [vt])
+        outs.append(out + diag[..., None] * vt)
+        p_last = torch.exp(cum[:, -1])
+        state = (state + _product("bshn,bshm->bhnm", k_over, [vt])) \
+            * p_last[..., None]
+    return torch.cat(outs, dim=1).to(r.dtype), state
+
+
+def _wkv_inputs(B, T, H, N, draw, seed):
+    """r, k, v ~ N/2, u ~ 0.3 N, state0 ~ N/10, and w drawn three ways:
+    as the JAX kernel test draws it (exp(-exp(N/2 - 2)), about 0.87);
+    near 1 (0.99 to 0.999), as the served model's decays are; and small
+    (exp(-exp(N/2)), about 0.37), so that cum reaches the -30 clamp inside
+    a chunk of 64."""
+    rng = np.random.default_rng(seed)
+
+    def f(*shape):
+        return rng.standard_normal(shape).astype(np.float32)
+
+    r, k, v = f(B, T, H, N) * 0.5, f(B, T, H, N) * 0.5, f(B, T, H, N) * 0.5
+    if draw == "jax":
+        w = np.exp(-np.exp(f(B, T, H, N) * 0.5 - 2.0))
+    elif draw == "near_one":
+        w = rng.uniform(0.99, 0.999, (B, T, H, N))
+    else:
+        w = np.exp(-np.exp(f(B, T, H, N) * 0.5))
+    u, s0 = f(H, N) * 0.3, f(B, H, N, N) * 0.1
+    arrays = [a.astype(np.float32) for a in (r, k, v, w, u, s0)]
+    j = [jnp.asarray(a, jnp.bfloat16 if i < 4 else jnp.float32)
+         for i, a in enumerate(arrays)]
+    t = [torch.from_numpy(a).to(torch.bfloat16 if i < 4 else torch.float32)
+         for i, a in enumerate(arrays)]
+    return j, t
+
+
+def _wkv_oracle(j, draw):
+    """JAX's step-by-step oracle; where cum reaches the clamp, the Pallas
+    kernel in interpret mode, since the clamped chunked form (which the
+    Pallas kernel, the plain version and the CUDA kernels compute) then
+    departs from the unclamped recurrence by design."""
+    if draw == "clamp":
+        return jops.rwkv6_wkv(*j, chunk=64, interpret=True)
+    return jref.wkv_ref(*j)
+
+
+WKV_DRAWS = ["jax", "near_one", "clamp"]
+
+
+@pytest.mark.parametrize("draw", WKV_DRAWS)
+def test_wkv_split_operands_within_jax_bf16_tolerance(draw):
+    """The split operands against JAX's oracle at rwkv6-3b's widths: out
+    within 5e-2 and the final state within 5e-1, for all three draws."""
+    j, t = _wkv_inputs(1, 512, 2, 64, draw, seed=25)
+    out, state = wkv_rounded(*t)
+    jout, jstate = _wkv_oracle(j, draw)
+    np.testing.assert_allclose(_f32(out), _f32(jout), atol=WKV_TOL,
+                               rtol=WKV_TOL)
+    np.testing.assert_allclose(state.numpy(), _f32(jstate),
+                               atol=WKV_STATE_TOL, rtol=WKV_STATE_TOL)
+
+
+@pytest.mark.parametrize("draw", WKV_DRAWS)
+def test_wkv_split_operands_match_pallas_interpret(draw):
+    j, t = _wkv_inputs(1, 512, 2, 64, draw, seed=26)
+    out, state = wkv_rounded(*t)
+    jout, jstate = jops.rwkv6_wkv(*j, chunk=64, interpret=True)
+    np.testing.assert_allclose(_f32(out), _f32(jout), atol=WKV_TOL,
+                               rtol=WKV_TOL)
+    np.testing.assert_allclose(state.numpy(), _f32(jstate),
+                               atol=WKV_STATE_TOL, rtol=WKV_STATE_TOL)
+
+
+@pytest.mark.parametrize("draw", WKV_DRAWS)
+def test_wkv_split_operands_close_to_plain(draw):
+    """The split keeps about 16 bits of each operand: the emulation stays
+    within one bf16 step of the output of the plain version, far inside
+    the tolerance, and its state within 1e-3."""
+    _, t = _wkv_inputs(1, 512, 2, 64, draw, seed=27)
+    out, state = wkv_rounded(*t)
+    pout, pstate = rwkv6_wkv_plain(*t)
+    step = 2.0 ** -7 * np.maximum(np.abs(_f32(pout)), 1.0)
+    assert (np.abs(_f32(out) - _f32(pout)) <= step).all()
+    np.testing.assert_allclose(state.numpy(), pstate.numpy(), atol=1e-3,
+                               rtol=1e-3)
+
+
+@pytest.mark.parametrize("draw", ["near_one", "clamp"])
+def test_wkv_single_bf16_rounding_misses_jax_tolerance(draw):
+    """Why the route splits its operands: one bf16 rounding of each, as
+    the flash and SSD kernels do, takes the output past 5e-2 + 5e-2·|ref|
+    where w is near 1 and where cum reaches the clamp."""
+    j, t = _wkv_inputs(1, 512, 2, 64, draw, seed=25)
+    out, _ = wkv_rounded(*t, split=False)
+    jout, _ = _wkv_oracle(j, draw)
+    excess = np.abs(_f32(out) - _f32(jout)) - WKV_TOL * np.abs(_f32(jout))
+    assert excess.max() > WKV_TOL

@@ -1,0 +1,63 @@
+"""Time the port's CUDA kernels of one source tree on the card.
+
+    python3 tools/time_kernels.py --src PATH/src
+
+Builds the kernels of the tree under ``PATH`` (its own ``build/``), then
+times each at its main path's shape with ``chip_smoke.py``'s methods
+(median device time behind a spin kernel, and CUPTI busy time): an empty
+kernel (the floor), ``anen_distance`` at (365, 3, 512) and (365, 3, 4096),
+``rwkv6_wkv`` at (4, 512, 40, 64) in bf16 and f32, ``flash_attention`` and
+``mamba2_ssd`` at theirs in bf16. The inputs are ``chip_smoke.py``'s. It
+prints the card and one JSON line. Two trees compare on one card when
+they run in turns in one session: parent, change, change, parent.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--src", required=True,
+                        help="the tree's src directory (holds repro_torch)")
+    args = parser.parse_args()
+    sys.path.insert(0, os.path.abspath(args.src))
+    sys.path.insert(1, HERE)
+    import torch
+    import chip_smoke as cs
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    from repro_torch.kernels import (anen_distance, flash_attention,
+                                     mamba2_ssd, rwkv6_wkv)
+    for kmod in (anen_distance, flash_attention, mamba2_ssd, rwkv6_wkv):
+        kmod.build()
+
+    rows = {"src": os.path.abspath(args.src), "card": cs.card_line(),
+            "empty_kernel_ms": cs.empty_ms()}
+    for shape in ((365, 3, 512), (365, 3, 4096)):
+        fh, fn = cs.distance_inputs(shape)
+        rows[f"anen_distance {shape}"] = cs.device_ms(
+            lambda: anen_distance.anen_distance(fh, fn))
+    for dtype in ("bfloat16", "float32"):
+        a = cs.wkv_inputs(cs.WKV_MAIN, dtype)
+        fn = lambda: rwkv6_wkv.rwkv6_wkv(*a)             # noqa: E731
+        rows[f"rwkv6_wkv {dtype}"] = cs.device_ms(fn)
+        rows[f"rwkv6_wkv {dtype} busy"] = cs.busy_ms(fn)
+    q, k, v = cs.attention_inputs(cs.FLASH_MAIN, "bfloat16")
+    rows["flash_attention bfloat16"] = cs.device_ms(
+        lambda: flash_attention.flash_attention(q, k, v))
+    s = cs.ssd_inputs(cs.SSD_MAIN, "bfloat16")
+    rows["mamba2_ssd bfloat16"] = cs.device_ms(
+        lambda: mamba2_ssd.mamba2_ssd(*s))
+    print(rows["card"])
+    print(json.dumps(rows))
+
+
+if __name__ == "__main__":
+    main()
