@@ -8,19 +8,27 @@ plain PyTorch version on the card, and drives the port's three paths:
 
 1. the adaptive AnEn ensemble (``repro_torch.apps.anen.workflow``) at the
    NCEP NAM 12 km CONUS grid, 428 x 614 points (AWIPS grid 218), with 365
-   daily historical runs, through ``anen_distance``; then the same run on
-   the CPU at a small size;
-2. serving zamba2-7b at its published widths with random weights drawn on
+   daily historical runs, on the DAG tier: each round is one DAG carrier
+   that launches ``anen_distance`` once, at (365, 3, 1024); then the same
+   run on the CPU at a small size;
+2. the seismic misfit sweep (``repro_torch.apps.seismic.workflow``), 64
+   sources at the solver's own 128 x 128 grid and 400 steps: the
+   forward->misfit chain alone on the chain tier, then with its sum gather
+   as one DAG carrier; then a small sweep on the card against the CPU.
+   This path runs no kernel of the repository;
+3. serving zamba2-7b at its published widths with random weights drawn on
    the card (``repro_torch.launch.serve.run_managed``): 2 EnTK request
    batches of 4 prompts x 512 tokens, 16 greedy new tokens each, whose
    prefill goes through ``flash_attention`` (13 launches a batch) and
    ``mamba2_ssd`` (81 launches a batch); then the smoke configuration on
    the card against the CPU with the same weights;
-3. serving rwkv6-3b at its published widths the same way, with the same
+4. serving rwkv6-3b at its published widths the same way, with the same
    traffic, whose prefill goes through ``rwkv6_wkv`` (32 launches a
    batch); then its smoke configuration on the card against the CPU.
 
-Before the serve paths it prints every compiled kernel's registers,
+Before the serve paths it checks that the CUDA routes of the three model
+kernels refuse an input that requires grad (they have no backward yet),
+and prints every compiled kernel's registers,
 shared memory and blocks an SM (for flash, SSD and WKV each route: f32 on
 the CUDA cores, bf16 on the tensor cores), and the device time of an
 empty kernel, the floor under every kernel time it prints.
@@ -58,6 +66,14 @@ BF16_FLOPS_PER_S = 989e12      # dense, tensor cores
 
 MAIN = dict(seed=0, ny=428, nx=614, n_hist=365, per_iter=1024, max_iters=4,
             n_tasks=8, slots=4, timeout=900.0)
+# one DAG carrier a round: the 8 members' 128 locations each in one launch
+ANEN_MAIN_SHAPE = (MAIN["n_hist"], 3, MAIN["per_iter"])
+# the seismic sweep: 64 sources at SeismicConfig's own grid and length
+SEISMIC = dict(n_events=64, nx=128, nt=400, seed=0, dv=25.0, slots=4)
+SEISMIC_SMALL = dict(n_events=8, nx=32, nt=60, seed=0, dv=25.0, slots=4)
+# dispatches of the forward->misfit->sum DAG: one composed segment, as
+# tests/test_torch_seismic.py pins against the JAX package's RTS
+SEISMIC_DAG_DISPATCHES = 1
 SMALL = dict(seed=3, ny=20, nx=20, n_hist=30, per_iter=16, max_iters=2,
              n_tasks=4, slots=4, timeout=120.0)
 # N % 4 != 0 (scalar loads), fewer than 4 columns, and the timed shapes
@@ -289,20 +305,26 @@ def run_main_path() -> dict:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         stats = res["fusion_stats"]
-        print(f"{method}: all_done={res['all_done']} rounds={res['rounds']} "
+        launched = anen_distance.launches - before
+        rounds = res["rounds"]
+        print(f"{method}: all_done={res['all_done']} rounds={rounds} "
               f"locations={res['n_locations']} wall_s={wall}")
         print(f"  errors per round: {res['errors']}")
         print(f"  round wall seconds: {res['round_seconds']}")
         print(f"  fusion_stats: {stats}")
-        print(f"  anen_distance launches: {anen_distance.launches - before}")
+        print(f"  dispatches a round: {stats['dispatches'] / max(1, rounds)}")
+        print(f"  anen_distance launches: {launched}")
         check(res["all_done"], f"{method} all_done")
-        check(res["rounds"] == MAIN["max_iters"], f"{method} rounds")
+        check(rounds == MAIN["max_iters"], f"{method} rounds")
         check(all(math.isfinite(e) for e in res["errors"]),
               f"{method} finite errors")
+        check(stats["dag_carriers"] == rounds,
+              f"{method}: one DAG carrier a round ({stats['dag_carriers']})")
         check(stats["fused"] > 0, f"{method} fused > 0")
         check(stats["scalar_fallback"] == 0, f"{method} scalar_fallback == 0")
         check(stats["degraded"] == 0, f"{method} degraded == 0")
-        check(anen_distance.launches > before, f"{method} launched the kernel")
+        check(launched == rounds,
+              f"{method}: one anen_distance launch a round (got {launched})")
         runs[method] = {"wall_s": wall, "errors": res["errors"],
                         "round_seconds": res["round_seconds"],
                         "fusion_stats": stats}
@@ -313,6 +335,8 @@ def run_main_path() -> dict:
     print(f"max_memory_allocated bytes: {torch.cuda.max_memory_allocated()}")
     print(f"main path anen_distance launches: {launches}, shapes: "
           f"{ {str(k): v for k, v in shapes.items()} }")
+    check(set(shapes) == {ANEN_MAIN_SHAPE},
+          f"anen_distance ran at {ANEN_MAIN_SHAPE} only")
     return {"launches": launches, "shapes": shapes, "runs": runs}
 
 
@@ -368,6 +392,159 @@ def cross_check() -> None:
           "cross-check rounds")
     # the tolerance of the JAX package's fused-vs-scalar AnEn check
     check(diff <= 1e-5, f"cuda vs cpu errors within 1e-5 (got {diff})")
+
+
+# --------------------------------------------------------------------------- #
+# The seismic sweep: chain tier, then DAG tier
+# --------------------------------------------------------------------------- #
+
+def kernel_counts() -> dict:
+    from repro_torch.kernels.anen_distance import anen_distance
+    from repro_torch.launch.serve import KERNELS
+    return {"anen_distance": anen_distance.launches,
+            **{k: fn.launches for k, fn in KERNELS.items()}}
+
+
+def run_seismic_chain(sweep: dict) -> dict:
+    """``api.run`` of the forward->misfit chain alone: chain carriers of
+    two composed links each, every member DONE with a finite misfit."""
+    import torch
+    from repro_torch import api
+    from repro_torch.apps.seismic.workflow import build_misfit_chain
+    from repro_torch.rts.base import ResourceDescription
+    from repro_torch.rts.torch_rts import TorchRTS
+    box = []
+
+    def factory():
+        box.append(TorchRTS(device="cuda", slot_oversubscribe=sweep["slots"]))
+        return box[-1]
+
+    reset_counts()
+    ens = build_misfit_chain(sweep["n_events"], nx=sweep["nx"],
+                             nz=sweep["nx"], nt=sweep["nt"],
+                             seed=sweep["seed"], dv=sweep["dv"],
+                             device="cuda")
+    t0 = time.perf_counter()
+    res = api.run(ens, resources=ResourceDescription(slots=sweep["slots"]),
+                  rts_factory=factory, timeout=600.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = box[0].fusion_stats
+    misfits = [float(s.out.result()) for s in ens.specs]
+    states = set(res.task_states.values())
+    res.close()
+    print(f"seismic chain {sweep}: all_done={res.all_done} wall_s={wall} "
+          f"fusion_stats={stats} kernel launches={kernel_counts()}")
+    print(f"  misfits (first 4): {misfits[:4]}")
+    check(res.all_done and states == {"DONE"}, "seismic chain: all DONE")
+    check(stats["chain_carriers"] >= 1, "seismic chain: chain_carriers >= 1")
+    check(stats["chain_links"] == 2 * stats["chain_carriers"],
+          "seismic chain: chain_links == 2 x chain_carriers")
+    check(stats["scalar_fallback"] == 0 and stats["degraded"] == 0,
+          "seismic chain: scalar_fallback == degraded == 0")
+    check(len(misfits) == sweep["n_events"]
+          and all(math.isfinite(m) for m in misfits),
+          "seismic chain: misfits finite")
+    return {"wall_s": wall, "fusion_stats": stats}
+
+
+def run_seismic_dag(sweep: dict) -> dict:
+    """``run_misfit_chain``: forward -> misfit -> sum as one DAG carrier."""
+    import torch
+    from repro_torch.apps.seismic.workflow import run_misfit_chain
+    kw = {k: v for k, v in sweep.items() if k not in ("n_events", "slots")}
+    reset_counts()
+    t0 = time.perf_counter()
+    res = run_misfit_chain(sweep["n_events"], sweep["slots"], device="cuda",
+                           **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    stats = res["fusion_stats"]
+    total, parts = res["total_misfit"], sum(res["misfits"])
+    print(f"seismic DAG {sweep}: all_done={res['all_done']} wall_s={wall} "
+          f"total_misfit={total} sum of misfits={parts} "
+          f"fusion_stats={stats} kernel launches={kernel_counts()}")
+    check(res["all_done"], "seismic DAG: all DONE")
+    check(stats["dag_carriers"] == 1, "seismic DAG: dag_carriers == 1")
+    check(stats["dispatches"] == SEISMIC_DAG_DISPATCHES,
+          f"seismic DAG: {SEISMIC_DAG_DISPATCHES} dispatch(es)")
+    check(stats["scalar_fallback"] == 0 and stats["degraded"] == 0,
+          "seismic DAG: scalar_fallback == degraded == 0")
+    check(math.isfinite(total) and abs(total - parts) <= 1e-4 * abs(parts),
+          "seismic DAG: total_misfit == sum of misfits within 1e-4 relative")
+    return {"wall_s": wall, "fusion_stats": stats, "total": total}
+
+
+def profile_seismic_dag(sweep: dict) -> None:
+    """The DAG run once more under ``torch.profiler``: wall seconds,
+    device busy ms and the device's busy share (profiler overhead
+    included), and the device time by kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.apps.seismic.workflow import run_misfit_chain
+    kw = {k: v for k, v in sweep.items() if k not in ("n_events", "slots")}
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = run_misfit_chain(sweep["n_events"], sweep["slots"],
+                               device="cuda", **kw)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(res["all_done"], "profiled seismic DAG all_done")
+    rows = device_rows(prof)
+    busy = sum(r[2] for r in rows)
+    print(f"profiled seismic DAG: wall_s={wall} device_busy_ms={busy} "
+          f"busy_share={busy / 1e3 / wall} device ops="
+          f"{sum(r[1] for r in rows)}")
+    for key, count, ms in rows[:8]:
+        print(f"  device {ms:.3f} ms  x{count}  {key[:90]}")
+
+
+def cross_check_seismic() -> None:
+    """The small sweep on the card against the CPU: misfits and their sum
+    within 1e-4 relative (the seismic tolerance of the CPU tests)."""
+    from repro_torch.apps.seismic.workflow import run_misfit_chain
+    kw = {k: v for k, v in SEISMIC_SMALL.items()
+          if k not in ("n_events", "slots")}
+    n, slots = SEISMIC_SMALL["n_events"], SEISMIC_SMALL["slots"]
+    on_gpu = run_misfit_chain(n, slots, device="cuda", **kw)
+    on_cpu = run_misfit_chain(n, slots, device="cpu", **kw)
+    rel = max(abs(a - b) / abs(b)
+              for a, b in zip(on_gpu["misfits"], on_cpu["misfits"]))
+    print(f"seismic cross-check (cuda vs cpu, {SEISMIC_SMALL}): max relative "
+          f"misfit diff {rel}; totals {on_gpu['total_misfit']} vs "
+          f"{on_cpu['total_misfit']}")
+    check(on_gpu["all_done"] and on_cpu["all_done"],
+          "seismic cross-check all_done")
+    check(rel <= 1e-4, f"seismic cuda vs cpu misfits within 1e-4 ({rel})")
+    check(abs(on_gpu["total_misfit"] - on_cpu["total_misfit"])
+          <= 1e-4 * abs(on_cpu["total_misfit"]),
+          "seismic cuda vs cpu total within 1e-4")
+
+
+def check_grad_refusal() -> None:
+    """Each model kernel's CUDA route raises on an input that requires
+    grad while grad mode is on (no backward yet), and launches nothing."""
+    import torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.mamba2_ssd import mamba2_ssd
+    from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv
+    cases = ((flash_attention, attention_inputs((1, 64, 2, 32), "float32")),
+             (mamba2_ssd, ssd_inputs((1, 64, 2, 16, 1, 8), "float32")),
+             (rwkv6_wkv, wkv_inputs((1, 64, 2, 16), "float32")))
+    for fn, args in cases:
+        args[0].requires_grad_(True)
+        before = fn.launches
+        try:
+            fn(*args)
+        except RuntimeError as exc:
+            check(fn.__name__ in str(exc), f"{fn.__name__} names itself")
+            print(f"{fn.__name__} CUDA route under grad raises: {exc}")
+        else:
+            raise RuntimeError(f"check failed: {fn.__name__} ran under "
+                               f"grad on CUDA")
+        torch.cuda.synchronize()
+        check(fn.launches == before, f"{fn.__name__}: no launch under grad")
 
 
 # --------------------------------------------------------------------------- #
@@ -837,6 +1014,12 @@ def main() -> None:
 
     cross_check()
     profile_main_path()
+
+    run_seismic_chain(SEISMIC)
+    run_seismic_dag(SEISMIC)
+    profile_seismic_dag(SEISMIC)
+    cross_check_seismic()
+    check_grad_refusal()
 
     # the model kernels against their plain versions, main-path and ragged
     # shapes, f32 and bf16

@@ -27,15 +27,24 @@ Ported (the modules that touch arrays or devices):
   distance as a hand-written CUDA kernel (``kernels/csrc/``) with its
   plain PyTorch version, built by :mod:`repro_torch.kernels._build`;
 * :mod:`repro_torch.fusion.handles` — tensor-backed result handles;
-* :mod:`repro_torch.fusion.engine` — scalar and per-stage fused tiers;
-* :mod:`repro_torch.rts.torch_rts` — :class:`TorchRTS`, the device RTS;
-* :mod:`repro_torch.apps.anen` — the AnEn numerics and adaptive workflow;
+* :mod:`repro_torch.fusion.engine` — the scalar, per-stage fused, chain
+  (composed ``vmap`` links) and DAG (masked device reductions in the
+  composed segment) tiers; the sharded tier is not ported;
+* :mod:`repro_torch.rts.torch_rts` — :class:`TorchRTS`, the device RTS,
+  with the chain and DAG carriers' assembly;
+* :mod:`repro_torch.apps.anen` — the AnEn numerics and adaptive workflow,
+  each round one DAG carrier;
+* :mod:`repro_torch.apps.seismic` — the seismic solver (forward, misfit,
+  adjoint gradient by autograd) and its forward, misfit-ensemble and
+  misfit-chain workflows;
 * :mod:`repro_torch.models` and :mod:`repro_torch.configs` — the model
-  registry (all ten configurations) and the hybrid (zamba2) family end to
-  end, in the JAX package's parameter layout;
+  registry (all ten configurations) and the hybrid (zamba2) and ``ssm``
+  (rwkv6) families end to end, in the JAX package's parameter layout;
 * :mod:`repro_torch.kernels.flash_attention`,
-  :mod:`repro_torch.kernels.mamba2_ssd` — the model kernels as
-  hand-written CUDA with their plain PyTorch versions; oracles in
+  :mod:`repro_torch.kernels.mamba2_ssd`,
+  :mod:`repro_torch.kernels.rwkv6_wkv` — the model kernels as
+  hand-written CUDA with their plain PyTorch versions (forward only: the
+  CUDA routes refuse inputs that require grad); oracles in
   :mod:`repro_torch.kernels.ref`;
 * :mod:`repro_torch.launch.serve` — batched prefill + greedy decode as
   EnTK tasks over :class:`TorchRTS`.

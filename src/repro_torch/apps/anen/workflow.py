@@ -18,12 +18,12 @@ Two implementations are compared, as in Fig. 11:
   changes fastest (fronts), steering the computation.
 
 Runs go through :class:`~repro_torch.rts.torch_rts.TorchRTS` on ``device``
-(CUDA unless the caller passes ``"cpu"``). Every fused ``analog_values``
-dispatch launches the CUDA ``anen_distance`` kernel. The workflow compiles
-with ``chain=False``: the chain and DAG tiers are not ported, so each
-round's stages fuse per stage. ``analog_refine`` is the identity on
-well-formed inputs and ``round_spread`` a plain max, so the results are
-those of the JAX package's composed DAG rounds.
+(CUDA unless the caller passes ``"cpu"``). Each round compiles, as in the
+JAX package, to a fusable DAG (``analog_values → analog_refine → max``)
+that runs as ONE carrier on the DAG tier: ``analog_values``' hand-batched
+implementation is the entry node and launches the CUDA ``anen_distance``
+kernel once, at the whole round's width; ``analog_refine`` and the masked
+``max`` then run as one composed segment on the device.
 """
 
 from __future__ import annotations
@@ -120,14 +120,15 @@ register_executable("analog_values", analog_values)
 
 @fusable(static_argnames=("lo", "hi"), pad_argnames=("values",))
 def analog_refine(values, lo: float = 0.0, hi: float = 1.0):
-    """Second stage of each round: bound the analog estimates to the
+    """Second node of each round's DAG: bound the analog estimates to the
     historical observation range.
 
     Analog means are averages of observed values, so the clip is exactly
     the identity on well-formed inputs — it is a guard against corrupted
-    history windows. Fused, it runs under ``torch.func.vmap``; ``values``
-    is then a tensor and the body does no host round-trip and no
-    data-dependent branch.
+    history windows. On the DAG tier it runs under ``torch.func.vmap`` in
+    the round's composed segment, its input the entry node's output carried
+    on the device; ``values`` is then a tensor and the body does no host
+    round-trip and no data-dependent branch.
     """
     if isinstance(values, ArrayResult):
         values = values.value
@@ -143,7 +144,12 @@ register_executable("analog_refine", analog_refine)
 def round_spread(values) -> float:
     """Round fan-in: the largest analog estimate of the round — a cheap
     convergence statistic (the adaptive criterion watches the estimate's
-    dynamic range tighten as fronts get resolved)."""
+    dynamic range tighten as fronts get resolved).
+
+    ``kind="max"`` makes the whole round a fusable DAG: on the DAG tier the
+    reduction runs masked on the device over the refined member values, in
+    the same segment as ``analog_refine`` (max is also safe over the
+    engine's edge-replicated pad rows). Scalar execution runs this body."""
     return float(np.max([np.max(to_host(v)) for v in values]))
 
 
@@ -361,10 +367,7 @@ def _run(method: str, seed: int, *, ny: int, nx: int, n_hist: int,
 
     amgr = AppManager(resources=ResourceDescription(slots=slots),
                       rts_factory=make_rts, heartbeat_interval=1.0)
-    # chain=False: the chain and DAG tiers are not ported; stages fuse
-    # per stage
-    compiled = api.compile(search.as_loop(), name=f"anen-{method}-{seed}",
-                           chain=False)
+    compiled = api.compile(search.as_loop(), name=f"anen-{method}-{seed}")
     amgr.workflow = compiled
     amgr.run(timeout=timeout)
     if compiled.hook_errors:

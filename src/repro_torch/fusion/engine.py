@@ -1,4 +1,4 @@
-"""Fused execution engine: N congruent tasks → one batched PyTorch dispatch.
+"""Fused execution engine: N congruent tasks → batched PyTorch dispatches.
 
 Given a micro-batch of member tasks (same kernel, congruent kwargs — see
 :mod:`repro_torch.fusion.groups`), the engine
@@ -11,25 +11,44 @@ Given a micro-batch of member tasks (same kernel, congruent kwargs — see
    padding declared variable-length arguments to the group maximum by edge
    replication, which is safe for per-row kernels because padded rows are
    trimmed from the outputs before delivery,
-3. dispatches **once**: the kernel's hand-written batched implementation
-   when it has one, else ``torch.func.vmap`` of the scalar kernel, cached
-   on (kernel, static arguments),
+3. dispatches **once per link**: the kernel's hand-written batched
+   implementation when it has one, else ``torch.func.vmap`` of the scalar
+   kernel,
 4. waits on a CUDA event recorded after the dispatch (never a device-wide
    synchronize) and fans the stacked output back out as one completion per
    member — every member gets its own DONE/FAILED event, so journal
    records, retry budgets and resume semantics are per-task, exactly as if
    the members had run scalar.
 
-This covers the scalar and per-stage fused tiers. :class:`ChainExecution`
-runs one fused micro-batch asynchronously: the carrier's worker thread
-resolves, stacks and enqueues the dispatch; a completion drainer waits on
-the event and fans out. Composed chains, DAG carriers and sharded carriers
-are not ported yet.
+Chain tier: :class:`ChainExecution` takes a *list* of links (one
+micro-batch of members through L elementwise stages) and composes
+consecutive vmap-able links into one segment — ``vmap`` of each link in
+turn with the stacked intermediate carried on the device, never re-stacked
+on the host. A hand-batched link runs eagerly between segments, and its
+output stays on the device too. Execution is asynchronous: the carrier's
+worker thread resolves, stacks and enqueues the dispatches, recording one
+CUDA event after each dispatch (a composed segment is one dispatch), and a
+completion drainer waits on each event in link order and fans out the
+per-stage, per-member completions.
 
-Failure isolation: a member whose outputs contain non-finite values FAILS
-while every other member completes; an exception raised by the batched
-dispatch degrades the micro-batch to per-member scalar execution so only
-the actually-culpable members fail.
+DAG tier: :class:`DagExecution` runs a whole fan-in/fan-out round —
+``ensemble → then → gather → broadcast → ensemble`` — through one carrier:
+reductions run masked on the device (:func:`_apply_reduction`) inside the
+composed segment, and their value is broadcast into the next ensemble node
+as a device tensor.
+
+The sharded tier of the JAX package (a member axis split over a device
+mesh) is not ported.
+
+Failure isolation: a member whose outputs contain non-finite values at
+link *k* FAILS at *k* and its downstream links fail with an upstream
+marker, while every other member completes; an exception raised by a
+composed or batched dispatch degrades the remaining links to per-stage
+fused execution (consuming the carrier's own upstream values), and a
+failing per-stage dispatch degrades further to per-member scalar execution
+so only the actually-culpable members fail. Resume of a partially-failed
+batch therefore re-runs exactly the failed members, re-entering mid-chain
+from the last journaled link.
 """
 
 from __future__ import annotations
@@ -47,8 +66,8 @@ from torch.utils import _pytree as pytree
 from .. import telemetry as tel
 from ..core.pst import Task, resolve_executable
 from ..rts.base import TaskCompletion
-from .groups import FusionSpec, fusion_spec
-from .handles import ArrayResult, LazySlice
+from .groups import FusionSpec, fusion_spec, parse_dag_tag, reduction_spec
+from .handles import ArrayResult, LazySlice, to_host
 
 Deliver = Callable[[TaskCompletion], None]
 
@@ -115,20 +134,45 @@ def _unwrap(value: Any) -> Any:
     return value
 
 
-def _resolve_call(task: Task) -> Tuple[Callable[..., Any], list, dict]:
+def _resolve_call(task: Task, overrides: Optional[Dict[str, Any]]
+                  ) -> Tuple[Callable[..., Any], list, dict]:
     if task.executable == TRAMPOLINE:
         from ..api.runtime import resolve as resolve_placeholders
         ns = task.kwargs["__ns__"]
         fn = resolve_executable(task.kwargs["__fn__"])
-        args = resolve_placeholders(task.kwargs["__args__"], ns)
-        kwargs = resolve_placeholders(task.kwargs["__kwargs__"], ns)
+        if overrides:
+            args = _resolve_over(task.kwargs["__args__"], ns, overrides)
+            kwargs = _resolve_over(task.kwargs["__kwargs__"], ns, overrides)
+        else:
+            args = resolve_placeholders(task.kwargs["__args__"], ns)
+            kwargs = resolve_placeholders(task.kwargs["__kwargs__"], ns)
         return fn, [_unwrap(a) for a in args], \
             {k: _unwrap(v) for k, v in kwargs.items()}
     return task.resolve(), [_unwrap(a) for a in task.args], \
         {k: _unwrap(v) for k, v in task.kwargs.items()}
 
 
-def member_call(task: Task) -> Tuple[Callable[..., Any], list, dict]:
+def _resolve_over(value: Any, ns: str, overrides: Dict[str, Any]) -> Any:
+    """Placeholder resolution that prefers chain-carried values over the
+    store (mid-chain degrades must never race the Dequeue's store routing;
+    the carrier already holds the upstream member values)."""
+    from ..api.runtime import FUTURE_KEY
+    from ..core.results import STORE
+
+    if isinstance(value, dict):
+        if set(value) == {FUTURE_KEY}:
+            name = value[FUTURE_KEY]
+            if name in overrides:
+                return overrides[name]
+            return STORE.get(ns, name)
+        return {k: _resolve_over(v, ns, overrides) for k, v in value.items()}
+    if isinstance(value, list):
+        return [_resolve_over(v, ns, overrides) for v in value]
+    return value
+
+
+def member_call(task: Task, overrides: Optional[Dict[str, Any]] = None
+                ) -> Tuple[Callable[..., Any], list, dict]:
     """Resolve one member task to (fn, args, kwargs), placeholders resolved
     and ArrayResult handles unwrapped.
 
@@ -136,14 +180,17 @@ def member_call(task: Task) -> Tuple[Callable[..., Any], list, dict]:
     trampoline; fusing must look *through* it to the user kernel, resolving
     the same future placeholders the trampoline would. The resolution is
     cached per task; callers must treat the returned structures as
-    read-only.
+    read-only. ``overrides`` (chain degrade) resolves future placeholders
+    from the carrier's already-computed upstream values first, uncached.
     """
+    if overrides:
+        return _resolve_call(task, overrides)
     with _call_lock:
         hit = _call_cache.get(task.uid)
         if hit is not None:
             _call_cache.move_to_end(task.uid)
             return hit
-    call = _resolve_call(task)
+    call = _resolve_call(task, None)
     with _call_lock:
         _call_cache[task.uid] = call
         while len(_call_cache) > _CALL_CACHE_MAX:
@@ -208,12 +255,13 @@ def _to_device(arr: Any, device: torch.device) -> torch.Tensor:
 
 
 def _prepare(calls: Sequence[Tuple[Callable, list, dict]],
-             device: torch.device):
+             device: torch.device, pad_to: Optional[int] = None):
     """Validate congruence and stack the batch kwargs on ``device``.
 
     Returns ``(fn, spec, static_kw, shared_kw, stacked, valid_lens,
     padded_b)`` where ``stacked`` maps batch kwarg → tensor with leading
-    axis ``padded_b`` (the batch axis bucketed to a power of two) and
+    axis ``padded_b`` (the batch axis bucketed to a power of two, or to
+    ``pad_to`` when a chain entry already fixed the bucket) and
     ``valid_lens`` is the per-member unpadded length (None when no padding
     was needed).
     """
@@ -292,12 +340,53 @@ def _prepare(calls: Sequence[Tuple[Callable, list, dict]],
     # Bucket the batch axis to the next power of two by duplicating the
     # last member, as the JAX package does (there it bounds recompiles;
     # here it keeps batch shapes, and so kernel launch shapes, few). The
-    # duplicate rows compute and are discarded at fan-out.
+    # duplicate rows compute and are discarded at fan-out. A chain entry
+    # fixes the bucket for every downstream link (``pad_to``): the carried
+    # axis must stay congruent through the whole composed segment.
     b = len(calls)
-    target_b = 1 << max(0, b - 1).bit_length()
+    target_b = pad_to if pad_to is not None \
+        else 1 << max(0, b - 1).bit_length()
+    if target_b < b:
+        raise Incongruent("chain links disagree on member count")
     for k, arr in stacked.items():
         stacked[k] = _to_device(_pad_rows(arr, target_b), device)
     return fn0, spec, static_kw, shared_kw, stacked, valid_lens, target_b
+
+
+def _continuation_calls(tasks: Sequence[Task], prev_tasks: Sequence[Task]
+                        ) -> Tuple[List[Tuple[Callable, list, dict]], str]:
+    """Resolve a continuation link's members WITHOUT touching their carried
+    input: the carry arrives device-resident from the previous link, so its
+    placeholder must not hit the result store (mid-chain it has no value
+    there yet). Returns the carry kwarg name."""
+    from ..api.runtime import FUTURE_KEY
+    from ..api.runtime import resolve as resolve_placeholders
+
+    calls: List[Tuple[Callable, list, dict]] = []
+    names: set = set()
+    for t, prev in zip(tasks, prev_tasks):
+        if t.executable != TRAMPOLINE:
+            raise Incongruent("chain link is not a data-flow task")
+        if t.kwargs.get("__args__"):
+            raise Incongruent("chain link has positional args")
+        ns = t.kwargs["__ns__"]
+        fn = resolve_executable(t.kwargs["__fn__"])
+        carry_k = None
+        other: Dict[str, Any] = {}
+        for k, v in (t.kwargs.get("__kwargs__") or {}).items():
+            if isinstance(v, dict) and set(v) == {FUTURE_KEY}:
+                if v[FUTURE_KEY] == prev.name and carry_k is None:
+                    carry_k = k
+                    continue
+                raise Incongruent("chain link consumes a non-chain future")
+            other[k] = _unwrap(resolve_placeholders(v, ns))
+        if carry_k is None:
+            raise Incongruent("chain link does not consume its predecessor")
+        calls.append((fn, [], other))
+        names.add(carry_k)
+    if len(names) != 1:
+        raise Incongruent("chain links disagree on the carry kwarg")
+    return calls, names.pop()
 
 
 # --------------------------------------------------------------------------- #
@@ -348,6 +437,48 @@ def _dispatch(fn, spec: FusionSpec, static_kw: dict, shared_kw: dict,
         return torch.func.vmap(call, in_dims=(0, None))
 
     return _jit_cached(cache_key, build)(stacked, shared_kw)
+
+
+class _LinkPlan:
+    """One prepared chain link: resolved kernel + stacked batch kwargs."""
+
+    __slots__ = ("tasks", "fn", "spec", "static_kw", "shared_kw", "stacked",
+                 "valid_lens", "carry_name", "t_dispatch")
+
+    def __init__(self, tasks, fn, spec, static_kw, shared_kw, stacked,
+                 valid_lens, carry_name) -> None:
+        self.tasks = tasks
+        self.fn = fn
+        self.spec = spec
+        self.static_kw = static_kw
+        self.shared_kw = shared_kw
+        self.stacked = stacked
+        self.valid_lens = valid_lens
+        self.carry_name = carry_name
+        self.t_dispatch: Optional[float] = None
+
+
+def _vmap_link(fn: Callable, static_kw: dict, kw: dict, shared: dict) -> Any:
+    """``vmap`` of one link over its stacked kwargs (the carry included);
+    shared kwargs (and a DAG broadcast) ride unbatched."""
+    def call(kw_: dict, sh_: dict):
+        return fn(**kw_, **sh_, **static_kw)
+    return torch.func.vmap(call, in_dims=(0, None))(kw, shared)
+
+
+def _composed_segment(plans: Sequence[_LinkPlan], carry: Any) -> List[Any]:
+    """Consecutive vmap-able links back to back, ``vmap(g)∘vmap(f)``: the
+    carried intermediate is a device tensor between the links, never
+    re-stacked or copied to the host. Every link's output is returned (the
+    fan-out owes each stage its per-member completions)."""
+    outs = []
+    for p in plans:
+        kw = dict(p.stacked)
+        if p.carry_name is not None:
+            kw[p.carry_name] = carry
+        carry = _vmap_link(p.fn, p.static_kw, kw, p.shared_kw)
+        outs.append(carry)
+    return outs
 
 
 def _lease_device(devices: Sequence[Any]) -> torch.device:
@@ -423,7 +554,7 @@ class _FanOut:
 
 
 # --------------------------------------------------------------------------- #
-# Single-link entry point (also the carrier's degrade unit)
+# Single-link entry point (also the chain's per-stage degrade unit)
 # --------------------------------------------------------------------------- #
 
 def execute_fused(
@@ -434,6 +565,7 @@ def execute_fused(
     *,
     canceled: Optional[set] = None,
     fault_injector: Optional[Callable[[Task], bool]] = None,
+    overrides: Optional[Dict[str, Any]] = None,
 ) -> Dict[str, int]:
     """Run ``members`` as one fused dispatch; deliver one completion each.
 
@@ -441,7 +573,9 @@ def execute_fused(
     ``failed`` member counts). ``canceled`` uids are skipped without a
     completion (the same semantics as dropping a queued task on cancel);
     ``fault_injector`` is honoured per member so the failure experiments
-    behave identically on the fused path.
+    behave identically on the fused path. ``overrides`` (chain degrade)
+    resolves future placeholders from the carrier's already-computed
+    upstream values instead of the store.
     """
     canceled = canceled or set()
     # "dispatches" counts BATCHED dispatches only: a micro-batch that
@@ -481,7 +615,7 @@ def execute_fused(
         return stats
 
     try:
-        calls = [member_call(t) for t in live]
+        calls = [member_call(t, overrides) for t in live]
         fn, spec, static_kw, shared_kw, stacked, valid_lens, _ = \
             _prepare(calls, _lease_device(devices))
         t0 = time.perf_counter()
@@ -493,7 +627,8 @@ def execute_fused(
                       valid_lens if spec.trim_outputs else None)
         stats["dispatches"] = 1
     except Exception:  # noqa: BLE001 - degrade to per-member execution
-        return _scalar_fallback(live, cancel_event, finish, stats)
+        return _scalar_fallback(live, cancel_event, finish, stats,
+                                overrides=overrides)
 
     for i, task in enumerate(live):
         if cancel_event.is_set():
@@ -522,7 +657,9 @@ def _non_finite(result: Any) -> bool:
 
 
 def _scalar_fallback(live: Sequence[Task], cancel_event: threading.Event,
-                     finish, stats: Dict[str, int]) -> Dict[str, int]:
+                     finish, stats: Dict[str, int],
+                     overrides: Optional[Dict[str, Any]] = None
+                     ) -> Dict[str, int]:
     """The batched dispatch raised (or could not be built): run each member
     on its own so only the actually-failing members fail."""
     for task in live:
@@ -530,7 +667,7 @@ def _scalar_fallback(live: Sequence[Task], cancel_event: threading.Event,
             finish(task, -2)
             continue
         try:
-            fn, args, kwargs = member_call(task)
+            fn, args, kwargs = member_call(task, overrides)
             t0 = time.perf_counter()
             result = fn(*args, **kwargs)
             tel.observe_dispatch(_kernel_label(fn), "scalar",
@@ -549,22 +686,26 @@ def _scalar_fallback(live: Sequence[Task], cancel_event: threading.Event,
 
 
 # --------------------------------------------------------------------------- #
-# Carrier execution (async: dispatch on the carrier worker, drain elsewhere)
+# Chain execution (async: dispatch on the carrier worker, drain elsewhere)
 # --------------------------------------------------------------------------- #
 
 class ChainExecution:
-    """One fused micro-batch through one carrier, asynchronously.
+    """One micro-batch of members through L chain links, asynchronously.
 
     The carrier worker calls :meth:`dispatch` — resolve, stack, enqueue the
-    batched dispatch, record a CUDA event after it — and returns. The RTS's
-    completion drainer calls :meth:`drain`, which waits on that event and
-    fans out the per-member completions. Only one-link carriers exist in
-    this package: composed multi-link chains are not ported, so ``links``
-    must hold exactly one member list.
+    composed device dispatches, recording one CUDA event after each and
+    streaming one record per link — and returns. The RTS's completion
+    drainer calls :meth:`drain`, which waits on each link's event in order
+    and fans out the per-stage, per-member completions (the journal sees
+    exactly the records a per-stage run would have produced, in the same
+    order). A single-link "chain" is the plain fused micro-batch, just
+    asynchronous.
 
-    Degrade ladder: a dispatch that raises (or whose failure surfaces at the
-    wait) re-runs the members through :func:`execute_fused`, which falls
-    back to per-member scalar execution if the fused dispatch fails again.
+    Degrade ladder: a failed composed dispatch at link *k* falls back to
+    per-stage fused execution of links *k..L-1* (consuming the carrier's
+    own upstream values — never the store, which mid-chain may not have
+    been routed yet), and a failed per-stage dispatch falls back to
+    per-member scalar execution (inside :func:`execute_fused`).
     """
 
     def __init__(self, links: Sequence[Sequence[Task]],
@@ -573,27 +714,27 @@ class ChainExecution:
                  deliver: Deliver,
                  *,
                  canceled: Optional[set] = None,
-                 fault_injector: Optional[Callable[[Task], bool]] = None
-                 ) -> None:
-        if len(links) != 1:
-            raise ValueError(f"ChainExecution takes one link, got "
-                             f"{len(links)}: the chain tier is not ported")
-        self.tasks: List[Task] = list(links[0])
+                 fault_injector: Optional[Callable[[Task], bool]] = None,
+                 compose: bool = True) -> None:
+        self.links: List[List[Task]] = [list(link) for link in links]
+        self.compose = compose
         self.devices = devices
         self.cancel_event = cancel_event
         self.deliver = deliver
         self.canceled = canceled if canceled is not None else set()
         self.fault_injector = fault_injector
         self.started = time.time()
-        self.tier = "fused"
+        self.tier = "chain" if len(self.links) > 1 else "fused"
         self.stats = {"fused": 0, "scalar_fallback": 0, "failed": 0,
                       "dispatches": 0, "chain_links": 0,
                       "sharded_dispatches": 0, "degraded": 0}
-        self._injected: set = set()      # member index -> injected fault
-        self._plan: Optional[Tuple[Callable, FusionSpec, Any]] = None
+        self._plans: List[Optional[_LinkPlan]] = [None] * len(self.links)
+        self._injected: Dict[int, int] = {}   # member col -> first bad link
+        self._fail_retryable: Dict[int, bool] = {}
         self._records: deque = deque()
         self._cv = threading.Condition()
         self._delivered: set = set()
+        self._fail_link = 0
 
     # -- record stream ---------------------------------------------------- #
 
@@ -610,128 +751,828 @@ class ChainExecution:
                 self._cv.wait(timeout=0.5)
             return self._records.popleft()
 
+    def _emit(self, outs: Sequence[Tuple[int, Any]]) -> None:
+        """Stream one dispatch's link outputs to the drainer, each with the
+        CUDA event recorded right after that dispatch's last enqueue."""
+        event = _completion_event([out for _, out in outs])
+        t_dispatch = time.perf_counter()
+        self.stats["dispatches"] += 1
+        for k, out in outs:
+            plan = self._plans[k]
+            if plan is not None:          # a reduce node has no plan
+                plan.t_dispatch = t_dispatch
+            self._push(("link", k, out, event))
+
     # -- delivery --------------------------------------------------------- #
 
     def _finish(self, task: Task, exit_code: int, result: Any = None,
-                exception: Optional[str] = None, n_live: int = 1) -> None:
+                exception: Optional[str] = None, n_live: int = 1,
+                pilot_lost: bool = False) -> None:
         drop_member_call(task.uid)   # before the cancel skip: see finish()
         if task.uid in self.canceled or task.uid in self._delivered:
             return
         self._delivered.add(task.uid)
         now = time.time()
-        if exit_code == 1:
+        if exit_code == 1 and not pilot_lost:
             self.stats["failed"] += 1
         self.deliver(TaskCompletion(
             uid=task.uid, exit_code=exit_code, result=result,
             exception=exception, started_at=self.started, completed_at=now,
-            execution_seconds=(now - self.started) / max(1, n_live)))
+            execution_seconds=(now - self.started) / max(1, n_live),
+            pilot_lost=pilot_lost))
+
+    def _deliver_once(self, outcomes: Dict[str, TaskCompletion]
+                      ) -> Deliver:
+        """A deliver for the degrade path's sub-executions: records every
+        outcome, delivers each member at most once."""
+        def dl(c: TaskCompletion) -> None:
+            outcomes[c.uid] = c
+            if c.uid in self.canceled or c.uid in self._delivered:
+                return
+            self._delivered.add(c.uid)
+            self.deliver(c)
+        return dl
 
     # -- worker side ------------------------------------------------------ #
 
     def dispatch(self) -> None:
-        """Resolve inputs, stack, and enqueue the batched dispatch.
+        """Resolve inputs, stack, and enqueue every link's device dispatch.
 
-        Never raises: a preparation/dispatch failure streams a ``degrade``
-        record and the drainer runs the fallback.
+        Never raises: a preparation/dispatch failure at link *k* streams a
+        ``degrade`` record so the drainer falls back for links *k..L-1*
+        after fanning out the links that did dispatch.
         """
         try:
             if CARRIER_FAULT is not None and CARRIER_FAULT(self):
                 raise RuntimeError("injected carrier fault (chaos plane)")
-            self._dispatch_link()
+            self._dispatch_links()
         except Exception:  # noqa: BLE001 - drainer owns the fallback
-            self._push(("degrade", traceback.format_exc(limit=10)))
+            self._push(("degrade", self._fail_link,
+                        traceback.format_exc(limit=10)))
         self._push(("end",))
 
-    def _dispatch_link(self) -> None:
-        if not self.tasks:
+    def _dispatch_links(self) -> None:
+        if not self.links or not self.links[0]:
             return
         if self.cancel_event.is_set():
             self._push(("canceled",))
             return
-        if self.fault_injector is not None:
-            self._injected = {i for i, t in enumerate(self.tasks)
-                              if self.fault_injector(t)}
-        calls = [member_call(t) for t in self.tasks]
-        fn, spec, static_kw, shared_kw, stacked, valid_lens, _ = \
-            _prepare(calls, _lease_device(self.devices))
-        self._plan = (fn, spec, valid_lens)
-        out = _dispatch(fn, spec, static_kw, shared_kw, stacked)
-        event = _completion_event(out)
-        self.stats["dispatches"] += 1
-        self._push(("link", out, event, time.perf_counter()))
+        # fault injection is a per-member, per-link contract: the first
+        # injected link fails the member there and poisons its downstream
+        for k, tasks in enumerate(self.links):
+            for m, t in enumerate(tasks):
+                if (self.fault_injector is not None and m not in self._injected
+                        and self.fault_injector(t)):
+                    self._injected[m] = k
+        if not self.compose and len(self.links) > 1:
+            # composition declined (fusion_min_chain at the RTS): run the
+            # links per-stage fused INSIDE the carrier — the carrier still
+            # owns the ordering, so link k+1 never races link k's routing
+            self._push(("degrade", 0, None))
+            return
+        self._fail_link = 0
+        device = _lease_device(self.devices)
+        entry_calls = [member_call(t) for t in self.links[0]]
+        fn, spec, static_kw, shared_kw, stacked, valid_lens, padded_b = \
+            _prepare(entry_calls, device)
+        self._plans[0] = _LinkPlan(self.links[0], fn, spec, static_kw,
+                                   shared_kw, stacked, valid_lens, None)
+        prev = self.links[0]
+        inherited = valid_lens
+        for j, tasks in enumerate(self.links[1:], start=1):
+            self._fail_link = j
+            calls, carry_name = _continuation_calls(tasks, prev)
+            fnj, specj, st_kw, sh_kw, stk, vl, _ = _prepare(
+                calls, device, pad_to=padded_b)
+            if vl is None:
+                # a padded axis rides the carry through the whole chain:
+                # downstream links inherit the entry's per-member lengths so
+                # their delivered values trim exactly like the scalar path's
+                vl = inherited
+            else:
+                inherited = vl
+            self._plans[j] = _LinkPlan(tasks, fnj, specj, st_kw, sh_kw, stk,
+                                       vl, carry_name)
+            prev = tasks
+        # dispatch: maximal runs of vmap-able links compose into ONE
+        # segment; a hand-written batched impl executes eagerly between
+        # segments (its ops still enqueue asynchronously on the device)
+        idx = 0
+        carry = None
+        while idx < len(self._plans):
+            self._fail_link = idx
+            plan = self._plans[idx]
+            if plan.spec.batched is not None:
+                kw = dict(plan.stacked)
+                if plan.carry_name is not None:
+                    kw[plan.carry_name] = carry
+                carry = plan.spec.batched(**kw, **plan.static_kw,
+                                          **plan.shared_kw)
+                self._emit([(idx, carry)])
+                idx += 1
+                continue
+            j = idx
+            while (j < len(self._plans)
+                   and self._plans[j].spec.batched is None):
+                j += 1
+            outs = _composed_segment(self._plans[idx:j], carry)
+            self._emit(list(enumerate(outs, start=idx)))
+            carry = outs[-1]
+            idx = j
 
     # -- drainer side ----------------------------------------------------- #
 
     def drain(self, stop_event: Optional[threading.Event] = None
               ) -> Dict[str, int]:
-        """Wait for the dispatch and fan out per-member completions;
-        returns the accumulated statistics."""
+        """Wait through the link records in order, fanning out per-stage,
+        per-member completions; returns the accumulated statistics.
+
+        Member state is sized to the highest member column (widths change
+        across a DAG's fan-in, and resumed DAG fragments can hold sparse
+        columns); ``_fail_retryable`` maps a member column to True when its
+        failing link still had retry budget. Its downstream links then
+        requeue through the pilot_lost channel (FAILED without a budget
+        charge) instead of failing permanently, so the upstream retry
+        re-runs the member's whole chain suffix — the outcome the per-stage
+        gated path would have produced."""
+        ok = np.ones(self._width(), bool)
+        fail_reason: Dict[int, str] = {}
+        overrides: Dict[str, Any] = {}
+        fanned = 0
+        degraded = False
         while True:
             rec = self._pop(stop_event)
             if rec is None:        # RTS stopping: abandon without fabricating
                 return self.stats
             kind = rec[0]
             if kind == "link":
-                self._fan_link(*rec[1:])
+                _, k, out, event = rec
+                if degraded:
+                    continue       # already handled by the fallback
+                if not self._fan_link(k, out, event, ok, fail_reason,
+                                      overrides):
+                    degraded = True
+                    fanned = len(self.links)
+                else:
+                    fanned = k + 1
             elif kind == "degrade":
-                self.stats["degraded"] += 1
-                self._degrade()
+                _, start, exc = rec
+                if not degraded:
+                    if exc is not None:
+                        # a real dispatch failure (not a declined
+                        # composition): the breaker board keys on this
+                        self.stats["degraded"] += 1
+                    self._degrade(max(start, fanned), ok, fail_reason,
+                                  overrides)
+                    degraded = True
+                    fanned = len(self.links)
             elif kind == "canceled":
-                for t in self.tasks:
-                    self._finish(t, -2)
+                for tasks in self.links:
+                    for t in tasks:
+                        self._finish(t, -2)
+                fanned = len(self.links)
             elif kind == "end":
-                return self.stats
+                break
+        if fanned < len(self.links):
+            # the worker ended early without a degrade record (engine bug
+            # guard): fall back for whatever never dispatched
+            self._degrade(fanned, ok, fail_reason, overrides)
+        return self.stats
 
-    def _fan_link(self, out: Any, event: Optional["torch.cuda.Event"],
-                  t_dispatch: float) -> None:
-        fn, spec, valid_lens = self._plan
-        n = len(self.tasks)
+    def _width(self) -> int:
+        return len(self.links[0]) if self.links and self.links[0] else 0
+
+    def _resolve(self, k: int, out: Any,
+                 event: Optional["torch.cuda.Event"]) -> Optional["_FanOut"]:
+        """Wait for link ``k``'s dispatch and build its fan-out; None ⇒ an
+        asynchronous device error surfaced, the caller degrades."""
+        plan = self._plans[k]
         try:
             _wait(event)
-            tel.observe_dispatch(_kernel_label(fn), self.tier,
-                                 time.perf_counter() - t_dispatch)
-            fan = _FanOut(out, n, spec.check_finite,
-                          valid_lens if spec.trim_outputs else None)
-        except Exception:  # noqa: BLE001 - an async device error surfaced
-            self.stats["degraded"] += 1
-            self._degrade()
-            return
-        for i, task in enumerate(self.tasks):
-            if self.cancel_event.is_set():
-                self._finish(task, -2)
-            elif i in self._injected:
-                self._finish(task, 1, exception="injected fault", n_live=n)
-            elif not fan.ok[i]:
-                self._finish(task, 1, exception=(
-                    "non-finite values in fused dispatch output "
-                    f"(member {task.name})"), n_live=n)
-            else:
-                self._finish(task, 0, result=fan.member(i), n_live=n)
-                self.stats["fused"] += 1
+            if plan.t_dispatch is not None:
+                tel.observe_dispatch(_kernel_label(plan.fn), self.tier,
+                                     time.perf_counter() - plan.t_dispatch)
+            return _FanOut(out, len(self.links[k]), plan.spec.check_finite,
+                           plan.valid_lens if plan.spec.trim_outputs
+                           else None)
+        except Exception:  # noqa: BLE001 - degrade this link and the rest
+            return None
 
-    def _degrade(self) -> None:
-        """Fallback: the members (less injected faults) through
-        :func:`execute_fused`, i.e. a fresh fused dispatch and, if that
-        fails too, per-member scalar execution."""
-        todo: List[Task] = []
-        for i, task in enumerate(self.tasks):
+    def _fan_link(self, k: int, out: Any,
+                  event: Optional["torch.cuda.Event"], ok: np.ndarray,
+                  fail_reason: Dict[int, str],
+                  overrides: Dict[str, Any]) -> bool:
+        """Wait for link ``k``'s output and fan it out; False ⇒ resolving
+        failed and the remaining links were degraded."""
+        tasks = self.links[k]
+        n = len(tasks)
+        fan = self._resolve(k, out, event)
+        if fan is None:
+            self.stats["degraded"] += 1
+            self._degrade(k, ok, fail_reason, overrides)
+            return False
+        if len(self.links) > 1:
+            self.stats["chain_links"] += 1
+        for i, task in enumerate(tasks):
             if self.cancel_event.is_set():
                 self._finish(task, -2)
-            elif i in self._injected:
-                self._finish(task, 1, exception="injected fault",
-                             n_live=len(self.tasks))
-            else:
-                todo.append(task)
+                continue
+            if not ok[i]:
+                self._finish(task, 1, exception=fail_reason.get(
+                    i, "upstream chain member failed"), n_live=n,
+                    pilot_lost=self._fail_retryable.get(i, False))
+                continue
+            if self._injected.get(i) == k:
+                self._fail(ok, fail_reason, i, task, k, "injected fault", n)
+                continue
+            if not fan.ok[i]:
+                self._fail(ok, fail_reason, i, task, k, "non-finite output",
+                           n)
+                continue
+            value = fan.member(i)
+            overrides[task.name] = value
+            self._finish(task, 0, result=value, n_live=n)
+            self.stats["fused"] += 1
+        return True
+
+    def _fail(self, ok: np.ndarray, fail_reason: Dict[int, str], col: int,
+              task: Task, k: int, why: str, n: int,
+              where: str = "chain member failed at link") -> None:
+        """Fail member ``col`` at link ``k`` (an injected fault or a
+        non-finite output) and mark its downstream links to fail with it."""
+        ok[col] = False
+        fail_reason[col] = f"upstream {where} {k} ({why})"
+        self._fail_retryable[col] = task.retries < task.max_retries
+        self._finish(task, 1, n_live=n, exception=(
+            "injected fault" if why == "injected fault" else
+            f"non-finite values in fused dispatch output (member {task.name})"))
+
+    def _degrade(self, start: int, ok: np.ndarray,
+                 fail_reason: Dict[int, str],
+                 overrides: Dict[str, Any]) -> None:
+        """Per-stage fused fallback for links ``start..L-1``, in link order,
+        resolving carried inputs from ``overrides`` (this carrier's own
+        fanned-out values) so the fallback can never race the store."""
+        for k in range(start, len(self.links)):
+            tasks = self.links[k]
+            n = len(tasks)
+            todo: List[Tuple[int, Task]] = []
+            for i, task in enumerate(tasks):
+                if self.cancel_event.is_set():
+                    self._finish(task, -2)
+                    continue
+                if not ok[i]:
+                    self._finish(task, 1, exception=fail_reason.get(
+                        i, "upstream chain member failed"), n_live=n,
+                        pilot_lost=self._fail_retryable.get(i, False))
+                    continue
+                if self._injected.get(i) == k:
+                    self._fail(ok, fail_reason, i, task, k, "injected fault",
+                               n)
+                    continue
+                todo.append((i, task))
+            self._run_stage(k, todo, ok, fail_reason, overrides,
+                            f"upstream chain member failed at link {k}")
+
+    def _run_stage(self, k: int, todo: List[Tuple[int, Task]],
+                   ok: np.ndarray, fail_reason: Dict[int, str],
+                   overrides: Dict[str, Any], reason: str) -> None:
+        """One link's remaining members through :func:`execute_fused`
+        (then per-member scalar); successes feed ``overrides``, failures
+        poison the member's downstream links."""
         if not todo:
             return
-
-        def dl(c: TaskCompletion) -> None:
-            if c.uid in self.canceled or c.uid in self._delivered:
-                return
-            self._delivered.add(c.uid)
-            self.deliver(c)
-
-        sub = execute_fused(todo, self.devices, self.cancel_event, dl,
-                            canceled=self.canceled)
+        outcomes: Dict[str, TaskCompletion] = {}
+        sub = execute_fused(
+            [t for _, t in todo], self.devices, self.cancel_event,
+            self._deliver_once(outcomes), canceled=self.canceled,
+            fault_injector=None, overrides=overrides)
         for key in ("fused", "scalar_fallback", "failed", "dispatches"):
             self.stats[key] += sub.get(key, 0)
+        for col, task in todo:
+            c = outcomes.get(task.uid)
+            if c is not None and c.exit_code == 0:
+                ok[col] = True
+                overrides[task.name] = c.result
+            elif c is None or c.exit_code != -2:
+                ok[col] = False
+                fail_reason[col] = reason
+                self._fail_retryable[col] = task.retries < task.max_retries
+
+
+# --------------------------------------------------------------------------- #
+# DAG execution (fan-in reductions + fan-out broadcasts, one carrier)
+# --------------------------------------------------------------------------- #
+
+def _apply_reduction(stacked: Any, mask: np.ndarray, kind: Optional[str],
+                     combine: Optional[Callable[..., Any]]) -> Any:
+    """Masked device-side reduction of one ensemble node's stacked output.
+
+    ``mask`` is the ``(B,)`` bool vector of live members known host-side
+    (bucket padding rows and injected faults); per-member finiteness is
+    folded in HERE, on the device, so a poisoned member drops out of the
+    reduction without a host sync — the survivors' reduction succeeds
+    while the poisoned member fails alone at its own node's fan-out.
+
+    Kinds reduce over EVERY axis of the valid members' values — the
+    list-of-values semantics of ``np.sum([...])`` / ``np.max([...])`` —
+    and an empty valid set yields NaN so the reduce task fails rather
+    than fabricating an identity element.
+    """
+    leaves = pytree.tree_leaves(stacked)
+    device = leaves[0].device if leaves else torch.device("cpu")
+    valid = torch.as_tensor(mask, dtype=torch.bool, device=device)
+    for leaf in leaves:
+        if leaf.is_floating_point():
+            valid = valid & torch.isfinite(
+                leaf.reshape(leaf.shape[0], -1)).all(dim=1)
+    if combine is not None:
+        return combine(stacked, valid)
+    nvalid = valid.sum()
+
+    def red(leaf: torch.Tensor) -> torch.Tensor:
+        m = valid.reshape((-1,) + (1,) * (leaf.ndim - 1))
+        per_member = int(np.prod(leaf.shape[1:])) if leaf.ndim > 1 else 1
+        if kind in ("sum", "mean"):
+            val = torch.where(m, leaf, 0).sum()
+            if kind == "mean":
+                val = val / (nvalid * per_member)
+        else:
+            if leaf.is_floating_point():
+                neutral = float("inf") if kind == "min" else float("-inf")
+            else:
+                info = torch.iinfo(leaf.dtype)
+                neutral = info.max if kind == "min" else info.min
+            masked = torch.where(m, leaf, neutral)
+            val = masked.min() if kind == "min" else masked.max()
+        if val.is_floating_point():
+            val = torch.where(nvalid > 0, val, float("nan"))
+        return val
+
+    return pytree.tree_map(red, stacked)
+
+
+def _reduce_host(leaf: Any) -> Any:
+    """Host-side form of one reduced leaf: Python scalar for 0-d values
+    (what a ``float(np.sum([...]))`` scalar reducer returns), ndarray
+    otherwise."""
+    arr = to_host(leaf)
+    return arr.item() if arr.ndim == 0 else arr
+
+
+def _dag_continuation_calls(tasks: Sequence[Task],
+                            prev_tasks: Optional[Sequence[Task]],
+                            carry_name: Optional[str],
+                            bcast_name: Optional[str],
+                            bcast_source: Optional[str]
+                            ) -> List[Tuple[Callable, list, dict]]:
+    """Resolve a DAG ensemble node's members WITHOUT touching the carried
+    or broadcast inputs — both arrive device-resident inside the composed
+    segment. Unlike the chain's :func:`_continuation_calls` there is no
+    inference: the compiler's tags name the edge kwargs, so the
+    ``carry_name`` kwarg must hold the aligned previous member's future and
+    the ``bcast_name`` kwarg the source reduction's future; any other
+    future is foreign to the DAG and refuses composition."""
+    from ..api.runtime import FUTURE_KEY
+    from ..api.runtime import resolve as resolve_placeholders
+
+    calls: List[Tuple[Callable, list, dict]] = []
+    for i, t in enumerate(tasks):
+        if t.executable != TRAMPOLINE:
+            raise Incongruent("DAG node is not a data-flow task")
+        if t.kwargs.get("__args__"):
+            raise Incongruent("DAG node has positional args")
+        ns = t.kwargs["__ns__"]
+        fn = resolve_executable(t.kwargs["__fn__"])
+        other: Dict[str, Any] = {}
+        for k, v in (t.kwargs.get("__kwargs__") or {}).items():
+            if isinstance(v, dict) and set(v) == {FUTURE_KEY}:
+                name = v[FUTURE_KEY]
+                if (carry_name is not None and k == carry_name
+                        and prev_tasks is not None
+                        and name == prev_tasks[i].name):
+                    continue
+                if (bcast_name is not None and k == bcast_name
+                        and name == bcast_source):
+                    continue
+                raise Incongruent("DAG node consumes a foreign future")
+            other[k] = _unwrap(resolve_placeholders(v, ns))
+        calls.append((fn, [], other))
+    return calls
+
+
+class _DagNodeMeta:
+    """Per-node routing parsed from the ``_fusion_dag`` tags: role, edge
+    kwarg names, and the reduction semantics of ``"r"`` nodes (``combine``
+    is resolved lazily at dispatch time from the reduce task's kernel)."""
+
+    __slots__ = ("role", "carry_name", "bcast_name", "kind", "combine")
+
+    def __init__(self, role: str, carry_name: Optional[str],
+                 bcast_name: Optional[str], kind: Optional[str]) -> None:
+        self.role = role
+        self.carry_name = carry_name
+        self.bcast_name = bcast_name
+        self.kind = kind
+        self.combine: Optional[Callable[..., Any]] = None
+
+
+class DagExecution(ChainExecution):
+    """One whole fused DAG — ``ensemble → then → gather → broadcast →
+    ensemble`` — through one carrier, asynchronously.
+
+    ``links`` holds one aligned task list per DAG *node* in node order:
+    ensemble nodes their member tasks (width w), reduction nodes exactly
+    one reduce task. Roles and edge kwargs come from the ``_fusion_dag``
+    tags the compiler stamped. The dispatcher composes maximal runs of
+    traceable nodes — ensemble nodes without a hand-batched impl, plus
+    every reduction node — into single segments threading the
+    member-stacked ``carry`` and the unbatched ``bcast`` (the last
+    reduction's output) between nodes as device tensors; a hand-batched
+    ensemble node executes eagerly between segments with both values
+    staying on the device. A diamond (``A → reduce → B`` with an
+    elementwise ``A → B`` carry) therefore runs as ONE dispatch.
+
+    Reductions execute masked (:func:`_apply_reduction`): padding and
+    injected faults are excluded host-side, non-finite members on the
+    device, so a poisoned member fails alone at its node while the
+    reduction succeeds over the survivors; a reduction with NO live
+    members (or a genuinely non-finite result) FAILS, and every downstream
+    broadcast consumer fails with an upstream marker.
+
+    Degrade ladder: any preparation or dispatch failure falls back to
+    sequential per-node execution INSIDE the carrier — per-stage fused
+    ensembles (then per-member scalar, inside :func:`execute_fused`) and
+    *scalar* reductions resolving member values from the carrier's own
+    overrides, with store-parity semantics: a scalar reduce over a failed
+    member is a failed reduce, exactly like the un-fused gather path.
+    """
+
+    def __init__(self, links: Sequence[Sequence[Task]],
+                 devices: Sequence[Any],
+                 cancel_event: threading.Event,
+                 deliver: Deliver,
+                 *,
+                 canceled: Optional[set] = None,
+                 fault_injector: Optional[Callable[[Task], bool]] = None,
+                 compose: bool = True) -> None:
+        super().__init__(links, devices, cancel_event, deliver,
+                         canceled=canceled, fault_injector=fault_injector,
+                         compose=compose)
+        self.tier = "dag"
+        self.stats["dag_links"] = 0
+        self._meta: List[_DagNodeMeta] = []
+        self._cols: List[List[int]] = []
+        for tasks in self.links:
+            tag = (parse_dag_tag(tasks[0].tags) if tasks else None) or {}
+            self._meta.append(_DagNodeMeta(
+                tag.get("r", "e"), tag.get("a"), tag.get("b"),
+                tag.get("rk")))
+            # member COLUMN of each task: a resumed fragment's node list
+            # can be partial, so list position and member index diverge —
+            # per-member state (ok / injected / retryable) keys on the
+            # tag's member index, which aligns columns across nodes
+            cols = []
+            for i, t in enumerate(tasks):
+                tg = parse_dag_tag(t.tags)
+                cols.append(tg["m"] if tg else i)
+            self._cols.append(cols)
+        self._masks: List[Optional[np.ndarray]] = [None] * len(self.links)
+        self._injected_reduce: set = set()   # node index of injected "r"
+        self._bcast_ok = True
+        self._bcast_reason: Optional[str] = None
+        self._bcast_retryable = False
+
+    def _width(self) -> int:
+        return max((max(c) + 1 for c in self._cols if c), default=1)
+
+    # -- worker side ------------------------------------------------------ #
+
+    def _dispatch_links(self) -> None:
+        if not self.links or not self.links[0]:
+            return
+        if self.cancel_event.is_set():
+            self._push(("canceled",))
+            return
+        # injection: ensemble members key by member COLUMN (first injected
+        # node wins, downstream poisons); a reduce node keys by NODE index
+        # so its single task cannot collide with member 0's column
+        for k, tasks in enumerate(self.links):
+            if self._meta[k].role == "r":
+                if (self.fault_injector is not None and tasks
+                        and self.fault_injector(tasks[0])):
+                    self._injected_reduce.add(k)
+                continue
+            for i, t in enumerate(tasks):
+                col = self._cols[k][i]
+                if (self.fault_injector is not None
+                        and col not in self._injected
+                        and self.fault_injector(t)):
+                    self._injected[col] = k
+        self._fail_link = 0
+        if not self.compose:
+            # composition declined (dag knob off at the RTS): sequential
+            # per-node INSIDE the carrier — the carrier still owns the
+            # ordering, so the reduce never races its members' routing
+            self._push(("degrade", 0, None))
+            return
+        self._prepare_nodes()
+        idx = 0
+        carry = None
+        bcast = None
+        n = len(self.links)
+        while idx < n:
+            self._fail_link = idx
+            meta = self._meta[idx]
+            plan = self._plans[idx]
+            if meta.role == "e" and plan.spec.batched is not None:
+                kw = dict(plan.stacked)
+                if meta.carry_name is not None:
+                    kw[meta.carry_name] = carry
+                shared = dict(plan.shared_kw)
+                if meta.bcast_name is not None:
+                    shared[meta.bcast_name] = bcast
+                carry = plan.spec.batched(**kw, **plan.static_kw, **shared)
+                self._emit([(idx, carry)])
+                idx += 1
+                continue
+            j = idx
+            while j < n and not (self._meta[j].role == "e"
+                                 and self._plans[j].spec.batched
+                                 is not None):
+                j += 1
+            outs = self._dag_segment(idx, j, carry, bcast)
+            self._emit(list(enumerate(outs, start=idx)))
+            for k, out in enumerate(outs, start=idx):
+                if self._meta[k].role == "e":
+                    carry = out
+                else:
+                    bcast = out
+            idx = j
+
+    def _prepare_nodes(self) -> None:
+        """Build every node's plan, reduction mask and combine; raises
+        :class:`Incongruent` on any unsupported shape — caught by
+        :meth:`dispatch`, which degrades the WHOLE DAG to sequential
+        per-node execution (prep happens before any dispatch)."""
+        if self._meta[0].role != "e":
+            raise Incongruent("DAG does not start at an ensemble node")
+        device = _lease_device(self.devices)
+        entry_calls = [member_call(t) for t in self.links[0]]
+        fn, spec, static_kw, shared_kw, stacked, valid_lens, padded_b = \
+            _prepare(entry_calls, device)
+        self._plans[0] = _LinkPlan(self.links[0], fn, spec, static_kw,
+                                   shared_kw, stacked, valid_lens, None)
+        pad_of = {0: padded_b}       # e-node index -> padded batch axis
+        lens_of = {0: valid_lens}    # e-node index -> row-pad lengths
+        last_e = 0
+        last_r_name: Optional[str] = None
+        for k in range(1, len(self.links)):
+            meta = self._meta[k]
+            tasks = self.links[k]
+            if meta.role == "r":
+                if len(tasks) != 1:
+                    raise Incongruent("reduction node must have one task")
+                meta.combine = self._reduce_combine(k)
+                if meta.combine is None and meta.kind is None:
+                    raise Incongruent("reduction node lost its kind")
+                if lens_of.get(last_e) is not None and (
+                        meta.combine is not None
+                        or meta.kind not in ("max", "min")):
+                    # edge-replicated pad ROWS inside a member duplicate
+                    # real values: harmless under max/min, wrong in a sum
+                    raise Incongruent(
+                        "row-padded member values only reduce safely "
+                        "under max/min")
+                self._masks[k] = self._node_mask(last_e, pad_of[last_e])
+                last_r_name = tasks[0].name
+                continue
+            if meta.bcast_name is not None and last_r_name is None:
+                raise Incongruent("broadcast precedes any reduction")
+            calls = _dag_continuation_calls(
+                tasks,
+                self.links[last_e] if meta.carry_name is not None else None,
+                meta.carry_name, meta.bcast_name, last_r_name)
+            if (meta.carry_name is not None
+                    and len(tasks) != len(self.links[last_e])):
+                raise Incongruent("carry nodes disagree on member count")
+            pad_to = pad_of[last_e] if meta.carry_name is not None else None
+            fnk, speck, st_kw, sh_kw, stk, vl, pb = _prepare(
+                calls, device, pad_to=pad_to)
+            if vl is None and meta.carry_name is not None:
+                vl = lens_of[last_e]   # padded rows ride the carry through
+            self._plans[k] = _LinkPlan(tasks, fnk, speck, st_kw, sh_kw,
+                                       stk, vl, meta.carry_name)
+            last_e = k
+            pad_of[k] = pb
+            lens_of[k] = vl
+
+    def _reduce_combine(self, k: int) -> Optional[Callable[..., Any]]:
+        task = self.links[k][0]
+        if task.executable == TRAMPOLINE:
+            fn = resolve_executable(task.kwargs["__fn__"])
+        else:
+            fn = task.resolve()
+        spec = reduction_spec(fn)
+        if spec is None:
+            raise Incongruent("reduction node lost its fusable marker")
+        return spec.combine
+
+    def _node_mask(self, src: int, padded_b: int) -> np.ndarray:
+        """Host-known live mask over the source node's padded member axis:
+        bucket pad rows off, injected members at or before the source node
+        off (their poison reaches the reduced values)."""
+        mask = np.zeros(padded_b, bool)
+        for i, col in enumerate(self._cols[src]):
+            k_inj = self._injected.get(col)
+            mask[i] = k_inj is None or k_inj > src
+        return mask
+
+    def _dag_segment(self, start: int, stop: int, carry: Any,
+                     bcast: Any) -> List[Any]:
+        """Nodes ``[start, stop)`` back to back — ensemble nodes under
+        ``vmap``, reduction nodes reduced — with carry and bcast threaded
+        between them as device tensors (one dispatch for the run)."""
+        outs = []
+        for k in range(start, stop):
+            meta = self._meta[k]
+            if meta.role == "r":
+                bcast = _apply_reduction(carry, self._masks[k], meta.kind,
+                                         meta.combine)
+                outs.append(bcast)
+                continue
+            plan = self._plans[k]
+            kw = dict(plan.stacked)
+            if meta.carry_name is not None:
+                kw[meta.carry_name] = carry
+            shared = dict(plan.shared_kw)
+            if meta.bcast_name is not None:
+                shared[meta.bcast_name] = bcast
+            carry = _vmap_link(plan.fn, plan.static_kw, kw, shared)
+            outs.append(carry)
+        return outs
+
+    # -- drainer side ----------------------------------------------------- #
+
+    def _fan_link(self, k: int, out: Any,
+                  event: Optional["torch.cuda.Event"], ok: np.ndarray,
+                  fail_reason: Dict[int, str],
+                  overrides: Dict[str, Any]) -> bool:
+        if self._meta[k].role == "r":
+            return self._fan_reduce(k, out, event, ok, fail_reason,
+                                    overrides)
+        meta = self._meta[k]
+        tasks = self.links[k]
+        n = len(tasks)
+        fan = self._resolve(k, out, event)
+        if fan is None:
+            self.stats["degraded"] += 1
+            self._degrade(k, ok, fail_reason, overrides)
+            return False
+        self.stats["dag_links"] += 1
+        bcast_bad = meta.bcast_name is not None and not self._bcast_ok
+        has_carry = meta.carry_name is not None
+        for i, task in enumerate(tasks):
+            col = self._cols[k][i]
+            if self._skip_member(task, col, n, bcast_bad, has_carry, ok,
+                                 fail_reason):
+                continue
+            if self._injected.get(col) == k:
+                self._fail(ok, fail_reason, col, task, k, "injected fault",
+                           n, where="DAG member failed at node")
+                continue
+            if not fan.ok[i]:
+                self._fail(ok, fail_reason, col, task, k, "non-finite output",
+                           n, where="DAG member failed at node")
+                continue
+            # explicit True: a node WITHOUT a carry starts a fresh member
+            # lineage — an earlier failure in a dead lineage must not leak
+            ok[col] = True
+            value = fan.member(i)
+            overrides[task.name] = value
+            self._finish(task, 0, result=value, n_live=n)
+            self.stats["fused"] += 1
+        return True
+
+    def _skip_member(self, task: Task, col: int, n: int, bcast_bad: bool,
+                     has_carry: bool, ok: np.ndarray,
+                     fail_reason: Dict[int, str]) -> bool:
+        """Finish a member that cannot run at its node — canceled, fed a
+        failed broadcast, or downstream of its own failed carry; True when
+        it was finished here."""
+        if self.cancel_event.is_set():
+            self._finish(task, -2)
+            return True
+        if bcast_bad:
+            ok[col] = False
+            fail_reason[col] = (self._bcast_reason
+                                or "upstream DAG reduction failed")
+            self._finish(task, 1, exception=fail_reason[col], n_live=n,
+                         pilot_lost=self._bcast_retryable)
+            return True
+        if has_carry and not ok[col]:
+            self._finish(task, 1, exception=fail_reason.get(
+                col, "upstream DAG member failed"), n_live=n,
+                pilot_lost=self._fail_retryable.get(col, False))
+            return True
+        return False
+
+    def _fan_reduce(self, k: int, out: Any,
+                    event: Optional["torch.cuda.Event"], ok: np.ndarray,
+                    fail_reason: Dict[int, str],
+                    overrides: Dict[str, Any]) -> bool:
+        task = self.links[k][0]
+        try:
+            _wait(event)
+            value = pytree.tree_map(_reduce_host, out)
+        except Exception:  # noqa: BLE001 - degrade this node and the rest
+            self.stats["degraded"] += 1
+            self._degrade(k, ok, fail_reason, overrides)
+            return False
+        self.stats["dag_links"] += 1
+        if self.cancel_event.is_set():
+            self._finish(task, -2)
+            return True
+        if k in self._injected_reduce:
+            self._set_bcast_bad(k, task, "injected fault")
+            self._finish(task, 1, exception="injected fault")
+            return True
+        finite = all(
+            np.isfinite(np.asarray(leaf)).all()
+            for leaf in pytree.tree_leaves(value)
+            if np.issubdtype(np.asarray(leaf).dtype, np.floating))
+        if not finite:
+            msg = (f"fused reduction produced non-finite values at node "
+                   f"{k} (poisoned inputs or no live members)")
+            self._set_bcast_bad(k, task, msg)
+            self._finish(task, 1, exception=msg)
+            return True
+        self._bcast_ok = True      # a later reduction refreshes the bcast
+        self._bcast_retryable = False
+        overrides[task.name] = value
+        self._finish(task, 0, result=value)
+        self.stats["fused"] += 1
+        return True
+
+    def _set_bcast_bad(self, k: int, task: Task, msg: str) -> None:
+        self._bcast_ok = False
+        self._bcast_reason = (f"upstream DAG reduction failed at node {k}: "
+                              f"{msg}")
+        self._bcast_retryable = task.retries < task.max_retries
+
+    def _degrade(self, start: int, ok: np.ndarray,
+                 fail_reason: Dict[int, str],
+                 overrides: Dict[str, Any]) -> None:
+        """Sequential per-node fallback for nodes ``start..N-1``, in node
+        order inside the carrier: ensemble nodes per-stage fused (then
+        per-member scalar inside :func:`execute_fused`), reduction nodes
+        SCALAR — resolving member values from the carrier's own overrides
+        first, then the store, so a failed member makes the reduce fail
+        exactly like the un-fused gather path."""
+        for k in range(start, len(self.links)):
+            meta = self._meta[k]
+            if meta.role == "r":
+                self._degrade_reduce(k, overrides)
+                continue
+            tasks = self.links[k]
+            n = len(tasks)
+            bcast_bad = meta.bcast_name is not None and not self._bcast_ok
+            has_carry = meta.carry_name is not None
+            todo: List[Tuple[int, Task]] = []
+            for i, task in enumerate(tasks):
+                col = self._cols[k][i]
+                if self._skip_member(task, col, n, bcast_bad, has_carry, ok,
+                                     fail_reason):
+                    continue
+                if self._injected.get(col) == k:
+                    self._fail(ok, fail_reason, col, task, k,
+                               "injected fault", n,
+                               where="DAG member failed at node")
+                    continue
+                todo.append((col, task))
+            self._run_stage(k, todo, ok, fail_reason, overrides,
+                            f"upstream DAG member failed at node {k}")
+
+    def _degrade_reduce(self, k: int, overrides: Dict[str, Any]) -> None:
+        task = self.links[k][0]
+        if self.cancel_event.is_set():
+            self._finish(task, -2)
+            return
+        if k in self._injected_reduce:
+            self._set_bcast_bad(k, task, "injected fault")
+            self._finish(task, 1, exception="injected fault")
+            return
+        try:
+            fn, args, kwargs = member_call(task, overrides)
+            value = fn(*args, **kwargs)
+        except Exception:  # noqa: BLE001 - store-parity: missing member
+            self._set_bcast_bad(k, task,
+                                f"scalar reduction failed at node {k}")
+            self._finish(task, 1,
+                         exception=traceback.format_exc(limit=10))
+            return
+        self._bcast_ok = True
+        self._bcast_retryable = False
+        overrides[task.name] = value
+        self._finish(task, 0, result=value)
+        self.stats["scalar_fallback"] += 1

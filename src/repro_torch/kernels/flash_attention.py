@@ -29,6 +29,8 @@ from typing import Tuple
 
 import torch
 
+from . import refuse_grad
+
 BLOCK = 64             # the plain version's q and kv tile (rows)
 MAX_HEAD_DIM = 128     # the kernels' largest head dim
 NEG_INF = -1e30
@@ -133,10 +135,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     CUDA tensors launch the kernel on the current stream (one launch,
     counted in ``flash_attention.launches``, its (B, S, H, hd) counted in
     ``flash_attention.shapes``); CPU tensors take the plain version.
-    Anything else raises."""
+    Anything else raises, and so does the CUDA route when grad mode is on
+    and an input requires grad (it has no backward yet)."""
     _check(q, k, v)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v)
+    refuse_grad("flash_attention", q, k, v)
     B, S, H, hd = q.shape
     launch = _load()
     out = torch.empty_like(q)

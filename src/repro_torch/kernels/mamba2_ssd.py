@@ -25,6 +25,8 @@ from typing import Tuple
 
 import torch
 
+from . import refuse_grad
+
 MAX_CHUNK = 64          # the kernel's largest chunk
 MAX_DIM = 128           # the kernel's largest state N and head dim P
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -152,13 +154,15 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     CUDA tensors launch the kernel on the current stream (one launch,
     counted in ``mamba2_ssd.launches``, its (B, T, H, P, G, N) counted in
     ``mamba2_ssd.shapes``); CPU tensors take the plain version. Anything
-    else raises."""
+    else raises, and so does the CUDA route when grad mode is on and an
+    input requires grad (it has no backward yet)."""
     _check(x, dt, A, Bm, Cm, state0)
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"mamba2_ssd takes chunks 1..{MAX_CHUNK}, got "
                          f"{chunk}")
     if x.device.type == "cpu":
         return mamba2_ssd_plain(x, dt, A, Bm, Cm, state0, chunk)
+    refuse_grad("mamba2_ssd", x, dt, A, Bm, Cm, state0)
     B, T, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     launch = _load()

@@ -28,6 +28,7 @@ from typing import Tuple
 
 import torch
 
+from . import refuse_grad
 from .mamba2_ssd import pick_chunk
 
 MAX_CHUNK = 64          # the kernel's largest chunk
@@ -141,13 +142,15 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (bfloat16: tensor cores; float32: CUDA cores; one launch,
     counted in ``rwkv6_wkv.launches``, its (B, T, H, N) counted in
     ``rwkv6_wkv.shapes``); CPU tensors take the plain version. Anything
-    else raises."""
+    else raises, and so does the CUDA route when grad mode is on and an
+    input requires grad (it has no backward yet)."""
     _check(r, k, v, w, u, state0)
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"rwkv6_wkv takes chunks 1..{MAX_CHUNK}, got "
                          f"{chunk}")
     if r.device.type == "cpu":
         return rwkv6_wkv_plain(r, k, v, w, u, state0, chunk)
+    refuse_grad("rwkv6_wkv", r, k, v, w, u, state0)
     B, T, H, N = r.shape
     launch = _load()
     out = torch.empty_like(r)

@@ -29,11 +29,24 @@ thread stacks and enqueues the dispatch, then hands the carrier to a small
 pool of completion *drainer* threads, which wait on the dispatch's CUDA
 event, fan out, and only then release the device lease.
 
-The chain, DAG and sharded tiers of the JAX package are not ported yet:
-:meth:`supports_chain_fusion` and :meth:`supports_dag_fusion` answer False,
-and a task tagged ``_fusion_chain`` or ``_fusion_dag`` that reaches
-:meth:`submit` anyway fails at once with exit code 2 naming the missing
-tier — it is never run some other way.
+Chain fusion: tasks additionally tagged ``_fusion_chain`` are links of a
+cross-stage elementwise chain. The packer re-assembles the links from the
+tags (:meth:`supports_chain_fusion`) and builds carriers spanning ALL of a
+member cohort's links, so one member-width lease runs the whole chain as
+composed dispatches with the intermediates never touching the host. The
+drainer fans out the per-stage, per-member completions in link order.
+
+DAG fusion: tasks tagged ``_fusion_dag`` are nodes of a fusable
+fan-in/fan-out DAG — ensembles feeding a ``@fusable_reduction`` gather
+whose output broadcasts into the next ensemble. The packer re-assembles the
+nodes (:meth:`supports_dag_fusion`) and builds exactly ONE carrier per DAG
+arrival. A complete round composes into one device segment (``ensemble →
+masked reduce → broadcast → ensemble``); resume fragments and ``dag=False``
+run the nodes sequentially inside the same carrier (DAG → in-carrier
+sequential → per-stage fused → scalar).
+
+The sharded tier of the JAX package (one carrier across a device mesh) is
+not ported: a carrier runs on one device.
 """
 
 from __future__ import annotations
@@ -53,9 +66,10 @@ from ..core.policies import BreakerBoard
 from ..core.pst import Task, resolve_executable
 from ..device import DeviceLike, resolve_device
 from ..fusion import engine as fusion_engine
-from ..fusion.groups import (CHAIN_TAG, DAG_TAG, GROUP_TAG, FusionSpec,
-                             fusion_spec)
-from ..fusion.plans import DEFAULT_MAX_BATCH, plan_group
+from ..fusion.groups import (GROUP_TAG, FusionSpec, fusion_spec,
+                             parse_chain_tag, parse_dag_tag)
+from ..fusion.plans import (DEFAULT_MAX_BATCH, DEFAULT_MIN_CHAIN, plan_chain,
+                            plan_dag, plan_group)
 from ..telemetry import MetricsRegistry
 from .base import Pilot, RequeueTask, ResourceDescription, TaskCompletion
 from .local import LocalRTS
@@ -69,25 +83,30 @@ _FUSION_STAT_KEYS = ("fused", "scalar_fallback", "failed", "dispatches",
                      "shard_carriers", "dag_carriers", "dag_links",
                      "cross_tenant_carriers", "degraded")
 
-#: tags of the tiers this RTS does not run, with the tier's name
-_UNPORTED_TIERS = ((CHAIN_TAG, "chain"), (DAG_TAG, "DAG"))
-
 
 class _FusedBatch:
     """Carrier-side bookkeeping for one fused micro-batch.
 
-    ``members`` — its tasks; ``pending`` — member uids still owing a
-    completion; ``plan`` — the JSON-able plan record stamped onto member
-    completions.
+    ``links`` — one aligned task list per chain link (a plain fused group
+    is a 1-link chain); for a DAG carrier (``dag=True``) one task list per
+    DAG *node* instead, with reduction nodes holding a single reduce task;
+    ``members`` — every member task across links; ``pending`` — member
+    uids still owing a completion; ``compose`` — whether the links run as
+    composed segments; ``plan`` — the JSON-able plan record stamped onto
+    member completions.
     """
 
-    __slots__ = ("members", "pending", "plan")
+    __slots__ = ("links", "members", "pending", "compose", "plan", "dag")
 
-    def __init__(self, members: List[Task],
-                 plan: Optional[Dict[str, Any]] = None) -> None:
-        self.members = members
-        self.pending: Set[str] = {m.uid for m in members}
+    def __init__(self, links: List[List[Task]], compose: bool = True,
+                 plan: Optional[Dict[str, Any]] = None,
+                 dag: bool = False) -> None:
+        self.links = links
+        self.members = [t for link in links for t in link]
+        self.pending: Set[str] = {m.uid for m in self.members}
+        self.compose = compose
         self.plan = plan
+        self.dag = dag
 
 
 def _inventory(device: DeviceLike) -> List[torch.device]:
@@ -106,6 +125,8 @@ class TorchRTS(LocalRTS):
                  slot_oversubscribe: int = 1, fusion: bool = True,
                  fusion_min_batch: Optional[int] = None,
                  fusion_max_batch: int = DEFAULT_MAX_BATCH,
+                 fusion_min_chain: int = DEFAULT_MIN_CHAIN,
+                 dag: bool = True,
                  breakers: Optional[BreakerBoard] = None,
                  **kwargs: Any) -> None:
         super().__init__(**kwargs)
@@ -120,6 +141,12 @@ class TorchRTS(LocalRTS):
         self.fusion = fusion
         self.fusion_min_batch = fusion_min_batch
         self.fusion_max_batch = fusion_max_batch
+        self.fusion_min_chain = max(2, fusion_min_chain)
+        # dag=False declines DAG *composition* only: DAG-tagged tasks still
+        # execute inside one carrier (sequential per-node — the carrier is
+        # what orders the reduce after its members), just never as one
+        # composed segment
+        self.dag = dag
         self._fusion_lock = threading.Lock()
         self._fused: Dict[str, _FusedBatch] = {}      # carrier uid -> batch
         self._member_carrier: Dict[str, str] = {}     # member uid -> carrier
@@ -149,7 +176,7 @@ class TorchRTS(LocalRTS):
     @property
     def fusion_stats(self) -> Dict[str, int]:
         """Point-in-time snapshot of the fusion counters (plain dict, the
-        JAX package's keys; tiers not ported here stay 0)."""
+        JAX package's keys; the sharded tier's stay 0)."""
         out = {k: 0 for k in _FUSION_STAT_KEYS}
         for labels, c in self.metrics.collect("counter", FUSION_EVENTS):
             out[labels["kind"]] = c.value
@@ -210,39 +237,40 @@ class TorchRTS(LocalRTS):
         return self.fusion
 
     def supports_chain_fusion(self) -> bool:
-        """False: composed chains are not ported. The WFProcessor then
-        gates chain stages per stage, and they fuse per stage."""
-        return False
+        """True when this RTS composes ``_fusion_chain``-tagged stages into
+        multi-link carriers (fusion on). The WFProcessor only *superstages*
+        (hands a chain's downstream stages off together with the entry
+        stage) against an RTS that answers True — everywhere else, stage
+        ordering keeps gating submissions."""
+        return self.fusion
 
     def supports_dag_fusion(self) -> bool:
-        """False: DAG carriers are not ported."""
-        return False
+        """True when this RTS assembles ``_fusion_dag``-tagged nodes into
+        whole-round carriers (fusion on). This gates *routing*, not
+        composition: ``dag=False`` still routes DAG tasks through a
+        carrier (sequential per-node) because the reduce must be ordered
+        after its member inputs."""
+        return self.fusion
 
     # -- submission -----------------------------------------------------------#
 
     def submit(self, tasks: List[Task]) -> None:
-        """Fail tasks wider than the whole device inventory, or tagged for
-        a tier this RTS does not run, immediately with exit code 2; pack
-        fusible groups into carriers, and queue the rest as ordinary scalar
-        tasks."""
+        """Reject tasks wider than the whole device inventory immediately
+        with exit code 2 (they could never start), pack fusible groups,
+        chains and DAGs into carriers, and queue the rest as ordinary
+        scalar tasks."""
         inventory = len(self._devices) * self._oversubscribe
         runnable: List[Task] = []
         for task in tasks:
-            reason = None
             if task.slots > inventory:
-                reason = (f"task requires {task.slots} device slots, "
-                          f"inventory is {inventory}")
-            for tag, tier in _UNPORTED_TIERS:
-                if task.tags.get(tag) is not None:
-                    reason = (f"task is tagged {tag} but TorchRTS has no "
-                              f"{tier} fusion tier; compile with chain=False")
-            if reason is None:
+                now = time.time()
+                self._deliver(TaskCompletion(
+                    uid=task.uid, exit_code=2,
+                    exception=(f"task requires {task.slots} device slots, "
+                               f"inventory is {inventory}"),
+                    started_at=now, completed_at=now))
+            else:
                 runnable.append(task)
-                continue
-            now = time.time()
-            self._deliver(TaskCompletion(
-                uid=task.uid, exit_code=2, exception=reason,
-                started_at=now, completed_at=now))
         if not runnable:
             return
         super().submit(self._pack_fusible(runnable) if self.fusion
@@ -252,11 +280,38 @@ class TorchRTS(LocalRTS):
         """Group tagged tasks by fusion key; each group becomes carriers
         (micro-batched from the free-device count) plus a scalar remainder
         when the cost model says a batch would be too small to pay off.
-        ``free_slots()`` is read ONCE: the plan reflects one consistent
-        snapshot of the inventory."""
+        ``_fusion_chain``- and ``_fusion_dag``-tagged tasks are first
+        re-assembled into chain and DAG carriers spanning every link or
+        node present in this submission. ``free_slots()`` is read ONCE: the
+        plan reflects one consistent snapshot of the inventory."""
         groups: Dict[str, List[Task]] = {}
-        order: List[Any] = []   # tasks / group keys, in order
+        chains: Dict[str, Dict[int, Dict[int, Task]]] = {}  # c->member->link
+        dags: Dict[str, Dict[int, Dict[int, Task]]] = {}    # c->node->member
+        order: List[Any] = []   # tasks / group keys / chain ids, in order
         for task in tasks:
+            dtag = parse_dag_tag(task.tags)
+            if dtag is not None:
+                # like chains, ALWAYS routed through the assembler — even
+                # with the dag knob off, a reduce task must execute inside
+                # a carrier that orders it after its members
+                per_node = dags.get(dtag["c"])
+                if per_node is None:
+                    dags[dtag["c"]] = per_node = {}
+                    order.append(("dag", dtag["c"]))
+                per_node.setdefault(dtag["k"], {})[dtag["m"]] = task
+                continue
+            chain = parse_chain_tag(task.tags)
+            if chain is not None:
+                # ALWAYS routed through the assembler — even chains the
+                # min_chain policy declines to compose execute inside a
+                # carrier (per-stage, link-ordered): superstaged downstream
+                # links must never run as free-floating concurrent tasks
+                per_member = chains.get(chain["c"])
+                if per_member is None:
+                    chains[chain["c"]] = per_member = {}
+                    order.append(("chain", chain["c"]))
+                per_member.setdefault(chain["m"], {})[chain["k"]] = task
+                continue
             key = task.tags.get(GROUP_TAG)
             if key is None:
                 order.append(task)
@@ -266,13 +321,17 @@ class TorchRTS(LocalRTS):
                 groups[key] = bucket = []
                 order.append((GROUP_TAG, key))
             bucket.append(task)
-        if not groups:
+        if not groups and not chains and not dags:
             return tasks
         free = self.free_slots()
         out: List[Task] = []
         for entry in order:
             if isinstance(entry, Task):
                 out.append(entry)
+            elif entry[0] == "dag":
+                self._assemble_dag(dags[entry[1]], out)
+            elif entry[0] == "chain":
+                self._assemble_chain(chains[entry[1]], out, free)
             else:
                 self._pack_group(groups[entry[1]], out, free)
         return out
@@ -294,10 +353,94 @@ class TorchRTS(LocalRTS):
                           max_batch=self.fusion_max_batch)
         idx = 0
         for size in plan.batches:
-            out.append(self._make_carrier(members[idx:idx + size],
+            out.append(self._make_carrier([members[idx:idx + size]],
                                           plan=plan.record()))
             idx += size
         out.extend(members[idx:])  # below-threshold remainder: scalar
+
+    def _assemble_chain(self, per_member: Dict[int, Dict[int, Task]],
+                        out: List[Task], free: Optional[int]) -> None:
+        """Build chain carriers from the links present in this submission.
+
+        Members are grouped into *cohorts* by the link range they submit
+        (a fresh run submits every member at link 0; a resumed run submits
+        survivors at the first un-journaled link and failed members at
+        their failure link — different cohorts, each re-entering the chain
+        mid-way). A cohort's links must be a contiguous range — the
+        superstage hand-off and the Emgr's whole-chain drain guarantee it —
+        and each cohort is micro-batched like a fused group, except that
+        there is never a scalar remainder (the carrier is what orders link
+        k before link k+1; see :func:`repro_torch.fusion.plans.plan_chain`).
+        Single-link cohorts fall back to plain per-stage fused groups.
+        """
+        cohorts: Dict[Optional[tuple], List[int]] = {}
+        for m in sorted(per_member):
+            links = tuple(sorted(per_member[m]))
+            contiguous = links == tuple(range(links[0], links[0] + len(links)))
+            cohorts.setdefault(links if contiguous else None, []).append(m)
+        for links, member_idxs in cohorts.items():
+            if links is None or len(links) < 2:
+                # single link (or a defensive non-contiguous surprise):
+                # per-stage fused groups, keyed by each task's own group tag
+                regroup: Dict[str, List[Task]] = {}
+                for m in member_idxs:
+                    for task in per_member[m].values():
+                        key = task.tags.get(GROUP_TAG) or "?"
+                        regroup.setdefault(key, []).append(task)
+                for members in regroup.values():
+                    self._pack_group(members, out, free)
+                continue
+            entry = per_member[member_idxs[0]][links[0]]
+            compose = (len(links) >= self.fusion_min_chain
+                       and self.breakers.allow(self._kernel_label_of(entry),
+                                               "chain"))
+            sizes = plan_chain(len(member_idxs), free, entry.slots,
+                               max_batch=self.fusion_max_batch)
+            record = {"kind": "fused", "lanes": len(sizes), "scalar": 0}
+            idx = 0
+            for size in sizes:
+                cohort = member_idxs[idx:idx + size]
+                link_lists = [[per_member[m][k] for m in cohort]
+                              for k in links]
+                out.append(self._make_carrier(link_lists, compose=compose,
+                                              plan=record))
+                idx += size
+
+    def _assemble_dag(self, per_node: Dict[int, Dict[int, Task]],
+                      out: List[Task]) -> None:
+        """Build ONE carrier from whatever nodes of a DAG round arrived.
+
+        Unlike chains, a DAG is never split into lanes or scattered into
+        per-stage groups: its reduction node consumes every member future,
+        so any concurrent split would race the reduce against its own
+        inputs. Every arrival — complete round or resume fragment — becomes
+        a single carrier. The carrier *composes* (one device segment over
+        ``ensemble → reduce → broadcast → ensemble``) only when the round
+        is complete (all ``n`` nodes present at their tagged width) and
+        within the batch bound; otherwise it runs its nodes sequentially
+        in-carrier, which preserves ordering and per-member semantics for
+        fragments re-entering mid-round.
+        """
+        node_ids = sorted(per_node)
+        links = [[per_node[k][m] for m in sorted(per_node[k])]
+                 for k in node_ids]
+        first = links[0][0]
+        n_total = int((parse_dag_tag(first.tags) or {}).get("n")
+                      or len(node_ids))
+        complete = node_ids == list(range(n_total))
+        if complete:
+            complete = all(
+                len(node) == int((parse_dag_tag(node[0].tags) or {})
+                                 .get("w") or 1)
+                for node in links)
+        width = max(len(node) for node in links)
+        plan = plan_dag(n_total, width, dag=self.dag,
+                        max_batch=self.fusion_max_batch)
+        composed = (plan.composed and complete
+                    and self.breakers.allow(self._kernel_label_of(first),
+                                            "dag"))
+        out.append(self._make_carrier(links, compose=composed,
+                                      plan=plan.record(), dag=True))
 
     @staticmethod
     def _kernel_spec(task: Task) -> Optional[FusionSpec]:
@@ -336,20 +479,32 @@ class TorchRTS(LocalRTS):
             pass
         return label
 
-    def _make_carrier(self, members: List[Task],
-                      plan: Optional[Dict[str, Any]] = None) -> Task:
-        batch = _FusedBatch(members, plan=plan)
-        hints = [m.duration_hint for m in members
+    def _make_carrier(self, links: List[List[Task]], compose: bool = True,
+                      plan: Optional[Dict[str, Any]] = None,
+                      dag: bool = False) -> Task:
+        batch = _FusedBatch(links, compose=compose, plan=plan, dag=dag)
+        hints = [m.duration_hint for m in batch.members
                  if m.duration_hint is not None]
+        n = len(links)
+        width = max(len(node) for node in links) if dag else len(links[0])
+        if dag:
+            name = f"dag[{n}x{width}]:{links[0][0].name}"
+        elif n == 1:
+            name = f"fused[{width}]:{links[0][0].name}"
+        else:
+            name = f"chain[{n}x{width}]:{links[0][0].name}"
         carrier = Task(
-            name=f"fused[{len(members)}]:{members[0].name}",
-            executable=f"fused://1x{len(members)}",
-            slots=members[0].slots,
+            name=name, executable=f"fused://{n}x{width}",
+            slots=links[0][0].slots,
             duration_hint=max(hints) if hints else None)
         with self._fusion_lock:
             self._fused[carrier.uid] = batch
             for m in batch.members:
                 self._member_carrier[m.uid] = carrier.uid
+        if dag:
+            self._fusion_count("dag_carriers")
+        elif n > 1:
+            self._fusion_count("chain_carriers")
         return carrier
 
     # -- cancellation / introspection over carriers ---------------------------#
@@ -458,10 +613,12 @@ class TorchRTS(LocalRTS):
     def _run_fused(self, carrier: Task, batch: _FusedBatch,
                    cancel_event: threading.Event) -> None:
         """Carrier worker: lease devices all-or-nothing, resolve + stack +
-        enqueue the batched dispatch, then hand the carrier to the
+        enqueue the batched dispatches, then hand the carrier to the
         completion drainer and RETURN. The drainer owns fan-out, unlease
-        and release. No carrier-level fault injection — that is member
-        semantics, and the engine applies the injector per member."""
+        and release, so the lease's lifetime spans the whole chain while
+        the scheduler is already stacking the next carrier. No
+        carrier-level fault injection — that is member semantics, and the
+        engine applies the injector per member."""
         try:
             devices = self._lease(carrier)
         except RequeueTask:
@@ -479,17 +636,21 @@ class TorchRTS(LocalRTS):
                 batch.pending.discard(c.uid)
             self._deliver(c)
 
-        exe = fusion_engine.ChainExecution(
-            [batch.members], devices, cancel_event, deliver,
-            canceled=self._fused_canceled,
-            fault_injector=self.fault_injector)
+        cls = (fusion_engine.DagExecution if batch.dag
+               else fusion_engine.ChainExecution)
+        exe = cls(batch.links, devices, cancel_event, deliver,
+                  canceled=self._fused_canceled,
+                  fault_injector=self.fault_injector, compose=batch.compose)
         self.metrics.counter(CARRIERS_TOTAL, tier=exe.tier).inc()
-        # registered BEFORE the dispatch runs: the drainer waits on the
-        # carrier's record stream
+        # registered BEFORE the dispatches run so the drainer can fan out
+        # early links of a chain while a later link is still dispatching
+        # (mid-chain journal records exist the moment a link resolves)
         self._drain_q.put((carrier, batch, exe))
         with tel.span("carrier.dispatch", "rts",
-                      carrier=carrier.name, tier=exe.tier, links=1,
-                      width=len(batch.members), members=len(batch.members)):
+                      carrier=carrier.name, tier=exe.tier,
+                      links=len(batch.links),
+                      width=max(len(link) for link in batch.links),
+                      members=len(batch.members)):
             exe.dispatch()
 
     def _record_breaker(self, batch: _FusedBatch, exe: Any, ok: bool) -> None:

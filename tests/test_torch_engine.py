@@ -134,10 +134,29 @@ def test_carrier_fault_degrades_without_losing_members(monkeypatch):
     assert sorted(c.result for c in done) == [0.0, 1.0, 4.0, 9.0]
 
 
-def test_chain_execution_takes_one_link_only():
-    with pytest.raises(ValueError, match="chain tier"):
-        fengine.ChainExecution([[], []], CPU, threading.Event(),
-                               lambda c: None)
+def test_chain_execution_runs_every_link():
+    """A 2-link chain through one carrier: one composed dispatch, every
+    member of both links delivered, the second link fed the first's
+    device-resident output."""
+    from repro_torch import api
+    e0 = api.ensemble(k_square, over=[{"x": float(i), "scale": 2.0}
+                                      for i in range(4)], name="ce0")
+    compiled = api.compile(e0.then(k_square, name="ce1"), name="wf-ce")
+    from repro_torch.fusion.groups import parse_chain_tag
+    links = [[None] * 4 for _ in range(2)]
+    for t in (t for p in compiled for s in p.stages for t in s.tasks):
+        tag = parse_chain_tag(t.tags)
+        links[tag["k"]][tag["m"]] = t
+    done, deliver = _collect()
+    exe = fengine.ChainExecution(links, CPU, threading.Event(), deliver)
+    exe.dispatch()
+    stats = exe.drain()
+    compiled.close()
+    assert stats["dispatches"] == 1 and stats["chain_links"] == 2
+    assert stats["fused"] == 8 and stats["degraded"] == 0
+    by_uid = {c.uid: c for c in done}
+    assert [by_uid[t.uid].result for t in links[1]] == \
+        [(2.0 * i * i) ** 2 for i in range(4)]
 
 
 def test_group_lease_all_or_nothing():

@@ -1,6 +1,8 @@
 """Tests of the port that need an NVIDIA GPU: each CUDA kernel against its
-plain version, and the AnEn workflow and the zamba2 and rwkv6 serving paths
-on the card against the same runs on the CPU. They skip where ``torch.cuda.is_available()`` is False. This file
+plain version, the model kernels' refusal of autograd on their CUDA routes,
+and the AnEn workflow (on the DAG tier), the seismic misfit sweeps (chain
+and DAG tiers) and the zamba2 and rwkv6 serving paths on the card against
+the same runs on the CPU. They skip where ``torch.cuda.is_available()`` is False. This file
 imports nothing of JAX, so it also runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -61,16 +63,100 @@ def test_cuda_kernel_bit_equal_to_plain_unaligned(cuda):
 
 
 def test_workflow_on_card_matches_cpu(cuda):
+    """An AnEn round on the card is one DAG carrier that launches the
+    distance kernel once, and its errors equal the CPU run's."""
     from repro_torch.apps.anen.workflow import run_adaptive
+    from repro_torch.kernels.anen_distance import anen_distance
     kw = dict(seed=3, ny=20, nx=20, n_hist=30, per_iter=16, max_iters=2,
               n_tasks=4, slots=4, timeout=120)
+    before = anen_distance.launches
     on_gpu = run_adaptive(device="cuda", **kw)
+    launches = anen_distance.launches - before
     on_cpu = run_adaptive(device="cpu", **kw)
     assert on_gpu["all_done"] and on_cpu["all_done"]
     stats = on_gpu["fusion_stats"]
-    assert stats["fused"] > 0
+    assert stats["dag_carriers"] == kw["max_iters"]
+    assert launches == kw["max_iters"]
     assert stats["scalar_fallback"] == 0 and stats["degraded"] == 0
+    assert {k: v for k, v in stats.items() if k.startswith("dag")} == \
+        {k: v for k, v in on_cpu["fusion_stats"].items()
+         if k.startswith("dag")}
     assert np.allclose(on_gpu["errors"], on_cpu["errors"], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("run", ["run_misfit_chain", "run_misfit_ensemble"])
+def test_seismic_sweep_on_card_matches_cpu(cuda, run):
+    from repro_torch.apps.seismic import workflow as wf
+    kw = dict(nx=32, nt=60, seed=0, dv=25.0)
+    on_gpu = getattr(wf, run)(8, device="cuda", **kw)
+    on_cpu = getattr(wf, run)(8, device="cpu", **kw)
+    assert on_gpu["all_done"] and on_cpu["all_done"]
+    assert on_gpu["fusion_stats"]["dag_carriers"] == 1
+    assert on_gpu["fusion_stats"]["degraded"] == 0
+    assert np.allclose(on_gpu["misfits"], on_cpu["misfits"], rtol=1e-4,
+                       atol=0)
+    assert np.isclose(on_gpu["total_misfit"], on_cpu["total_misfit"],
+                      rtol=1e-4, atol=0)
+
+
+def test_seismic_chain_alone_on_card_matches_cpu(cuda):
+    from repro_torch import api
+    from repro_torch.apps.seismic.workflow import build_misfit_chain
+    from repro_torch.rts.base import ResourceDescription
+    from repro_torch.rts.torch_rts import TorchRTS
+    out = {}
+    for dev in ("cuda", "cpu"):
+        box = []
+
+        def factory(dev=dev):
+            box.append(TorchRTS(device=dev, slot_oversubscribe=4))
+            return box[-1]
+
+        ens = build_misfit_chain(8, nx=32, nz=32, nt=60, dv=25.0, device=dev)
+        res = api.run(ens, resources=ResourceDescription(slots=4),
+                      rts_factory=factory, timeout=120)
+        assert res.all_done
+        out[dev] = ([float(np.asarray(s.out.result())) for s in ens.specs],
+                    box[0].fusion_stats)
+        res.close()
+    stats = out["cuda"][1]
+    assert stats["chain_carriers"] >= 1
+    assert stats["chain_links"] == 2 * stats["chain_carriers"]
+    assert stats["degraded"] == 0 and stats["scalar_fallback"] == 0
+    assert np.allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=0)
+
+
+def _c2_inputs(name, cuda):
+    if name == "flash_attention":
+        return _attention_inputs((1, 64, 2, 32), torch.float32, cuda)
+    if name == "mamba2_ssd":
+        return _ssd_inputs((1, 64, 2, 16, 1, 8), torch.float32, cuda)
+    return _wkv_inputs((1, 64, 2, 16), torch.float32, cuda)
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "mamba2_ssd",
+                                  "rwkv6_wkv"])
+def test_cuda_route_refuses_an_input_that_requires_grad(cuda, name):
+    """The CUDA routes fill their outputs through ctypes and have no
+    backward yet: an input that requires grad raises, naming the kernel,
+    instead of returning outputs that silently carry no gradient."""
+    import importlib
+    fn = getattr(importlib.import_module(f"repro_torch.kernels.{name}"),
+                 name)
+    args = _c2_inputs(name, cuda)
+    args[0].requires_grad_(True)
+    before = fn.launches
+    with pytest.raises(RuntimeError, match=name):
+        fn(*args)
+    assert fn.launches == before
+    with torch.no_grad():                  # grad mode off: the kernel runs
+        fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    # the CPU route keeps autograd
+    cpu_args = [a.detach().cpu().requires_grad_(a.requires_grad)
+                for a in args]
+    assert fn(*cpu_args)[0].grad_fn is not None
 
 
 def _attention_inputs(shape, dtype, cuda, seed=0):

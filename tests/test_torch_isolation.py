@@ -55,7 +55,8 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
                  "configs.zamba2_7b", "configs.rwkv6_3b",
                  "models.rwkv6", "kernels.flash_attention",
                  "kernels.mamba2_ssd", "kernels.rwkv6_wkv", "kernels.ref",
-                 "launch.serve"):
+                 "launch.serve", "apps.seismic", "apps.seismic.solver",
+                 "apps.seismic.workflow"):
         assert "repro_torch." + name in names, name
 
 
@@ -87,6 +88,12 @@ def test_registries_are_separate_per_package():
     for name in ("analog_values", "analog_refine", "round_spread"):
         assert jpst.resolve_executable(f"reg://{name}") is getattr(jwf, name)
         assert tpst.resolve_executable(f"reg://{name}") is getattr(twf, name)
+    import repro.apps.seismic.workflow as jsw
+    import repro_torch.apps.seismic.workflow as tsw
+    for name in ("simulate_earthquake", "eval_misfit", "forward_trial",
+                 "trial_misfit"):
+        assert jpst.resolve_executable(f"reg://{name}") is getattr(jsw, name)
+        assert tpst.resolve_executable(f"reg://{name}") is getattr(tsw, name)
     import repro.core.results as jres
     import repro_torch.core.results as tres
     assert jres._CODECS["fused_array"].__module__ == "repro.fusion.handles"
@@ -98,13 +105,21 @@ def test_default_device_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("this host has CUDA: the default device resolves")
     from repro_torch.apps.anen.workflow import run_adaptive
+    from repro_torch.apps.seismic.solver import (SeismicConfig,
+                                                 make_velocity_model)
+    from repro_torch.apps.seismic.workflow import (run_forward_ensemble,
+                                                   run_misfit_chain,
+                                                   run_misfit_ensemble)
     from repro_torch.device import resolve_device
     from repro_torch.launch.serve import ServeSession, run_managed
     from repro_torch.rts.torch_rts import TorchRTS
     for call in (TorchRTS, run_adaptive, resolve_device,
                  lambda: TorchRTS(device="cuda:0"),
                  lambda: ServeSession("zamba2-7b"),
-                 lambda: run_managed("zamba2-7b")):
+                 lambda: run_managed("zamba2-7b"),
+                 lambda: make_velocity_model(SeismicConfig()),
+                 lambda: run_misfit_chain(2), lambda: run_misfit_ensemble(2),
+                 lambda: run_forward_ensemble(2, 1)):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
