@@ -10,7 +10,13 @@ plain PyTorch version on the card, and drives the port's three paths:
    NCEP NAM 12 km CONUS grid, 428 x 614 points (AWIPS grid 218), with 365
    daily historical runs, on the DAG tier: each round is one DAG carrier
    that launches ``anen_distance`` once, at (365, 3, 1024); then the same
-   run on the CPU at a small size;
+   run on the CPU at a small size; then the multi-tenant service
+   (``repro_torch.serve``) on the same dataset: 4 socket tenants, each two
+   waves of 8 members x 128 locations of ``reg://analog_values``, share
+   carriers that each launch ``anen_distance`` once at (365, 3, 128 x
+   members); every value is held to ``compute_analogs``; then the chaos
+   plane (``repro_torch.chaos``) on the same service: kernel faults with
+   retries, carrier faults and a socket dropped mid-submit;
 2. the seismic misfit sweep (``repro_torch.apps.seismic.workflow``), 64
    sources at the solver's own 128 x 128 grid and 400 steps: the
    forward->misfit chain alone on the chain tier, then with its sum gather
@@ -80,6 +86,14 @@ SMALL = dict(seed=3, ny=20, nx=20, n_hist=30, per_iter=16, max_iters=2,
 EQUAL_SHAPES = ((60, 3, 37), (9, 2, 130), (365, 3, 510), (7, 3, 3),
                 (5, 1, 1), (365, 3, 1024), (365, 3, 4096))
 TIMED_SHAPES = ((365, 3, 1024), (365, 3, 4096))
+# the multi-tenant service: socket tenants, each two waves of 8 members x
+# 128 locations of reg://analog_values, drawn from the tenant's own quadrant
+# of the main path's dataset, on 4 slots behind the JAX package's default
+# 0.25 s batching window
+SERVICE = dict(tenants=4, waves=2, members=8, locs=128, slots=4,
+               hold_s=0.25, k=12)
+# the chaos sub-phase's kernel faults (rate 0.1)
+CHAOS_KERNEL_SEED = 23
 TIMED_REPS = 60
 
 # the serve paths: zamba2-7b and rwkv6-3b at full width with the same
@@ -392,6 +406,368 @@ def cross_check() -> None:
           "cross-check rounds")
     # the tolerance of the JAX package's fused-vs-scalar AnEn check
     check(diff <= 1e-5, f"cuda vs cpu errors within 1e-5 (got {diff})")
+
+
+# --------------------------------------------------------------------------- #
+# The multi-tenant service: socket tenants share carriers, then chaos
+# --------------------------------------------------------------------------- #
+
+def service_statics(device=None) -> dict:
+    """The static arguments every tenant sends: the main path's dataset.
+    They are part of the fusion key, so every tenant sends the same device
+    name (``"cuda"`` and ``"cuda:0"`` would never share a carrier)."""
+    from repro_torch.device import device_name
+    return dict(seed=MAIN["seed"], ny=MAIN["ny"], nx=MAIN["nx"],
+                n_hist=MAIN["n_hist"], k=SERVICE["k"],
+                device=device_name(device))
+
+
+def tenant_waves(tenant: int, statics: dict) -> list:
+    """The tenant's waves, each ``members`` slices of ``locs`` distinct grid
+    points of the tenant's own region (one quadrant of the grid), drawn
+    from the tenant's own seed."""
+    import numpy as np
+    rng = np.random.default_rng(1000 + tenant)
+    ny, nx = statics["ny"] // 2, statics["nx"] // 2
+    r0, c0 = (tenant // 2 % 2) * ny, (tenant % 2) * nx
+    return [[(np.stack(np.divmod(rng.choice(ny * nx, SERVICE["locs"],
+                                            replace=False), nx), axis=1)
+              + (r0, c0)).tolist()
+             for _ in range(SERVICE["members"])]
+            for _ in range(SERVICE["waves"])]
+
+
+def socket_wave(port: int, name: str, sweeps: dict, statics: dict) -> dict:
+    """One wave: each tenant's thread submits its sweep over its own socket,
+    waits for it and reads its results back. Returns per-tenant results,
+    task states, namespace and result-fetch seconds, and the wave's wall
+    from the first submit to the last tenant seeing its sweep done."""
+    import threading
+    from repro_torch.serve import SocketClient
+    out, errors, done_at = {}, [], {}
+
+    def tenant(t: str) -> None:
+        try:
+            with SocketClient("127.0.0.1", port) as client:
+                resp = client._call(
+                    "submit", kind="ensemble_sweep",
+                    kernel="reg://analog_values",
+                    sweep=[dict(statics, locations=locs)
+                           for locs in sweeps[t]], tenant=t, name=name)
+                check(client.wait(resp["handle"], timeout=600),
+                      f"{t} {name} done")
+                done_at[t] = time.perf_counter()
+                t1 = time.perf_counter()
+                results = client.result(resp["handle"])
+                out[t] = {"results": results, "ns": resp["ns"],
+                          "fetch_s": time.perf_counter() - t1,
+                          "states": client.states(resp["handle"])}
+        except Exception as exc:  # noqa: BLE001 - re-raised on the caller
+            errors.append(f"tenant {t}: {exc!r}")
+
+    threads = [threading.Thread(target=tenant, args=(t,)) for t in sweeps]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    check(not errors, f"{name}: {errors}")
+    return {"tenants": out, "wall_s": max(done_at.values()) - t0}
+
+
+def served_values(wave: dict, t: str, name: str, n: int) -> list:
+    import numpy as np
+    res = wave["tenants"][t]["results"]
+    check(sorted(res) == sorted(f"{name}-{i}" for i in range(n)),
+          f"{t} got exactly its own {n} results of {name}: {sorted(res)}")
+    return [np.asarray(res[f"{name}-{i}"], np.float32) for i in range(n)]
+
+
+def held_to_reference(values: list, sweep: list, statics: dict) -> float:
+    """Max |served - compute_analogs| over a sweep, on the sweep's device
+    (the plain distance: no kernel launch)."""
+    import numpy as np
+    import torch
+    from repro_torch.apps.anen import workflow as wf
+    from repro_torch.apps.anen.anen import compute_analogs
+    data = wf._dataset(statics["seed"], statics["ny"], statics["nx"],
+                       statics["n_hist"], statics["device"])
+    worst = 0.0
+    for got, locs in zip(values, sweep):
+        ref = compute_analogs(data, torch.as_tensor(
+            locs, device=data.hist_obs.device), statics["k"]).cpu().numpy()
+        check(got.shape == ref.shape and bool(np.isfinite(got).all()),
+              f"finite values of shape {ref.shape}")
+        worst = max(worst, float(np.abs(got - ref).max()))
+    return worst
+
+
+def carrier_spans() -> list:
+    """The traced carriers: (name, members, tenants, dispatch+drain ms)."""
+    from repro_torch import telemetry as tel
+    recs = tel.TRACER.snapshot()
+    drains = {r["attrs"].get("carrier"): r["dur"] / 1e6 for r in recs
+              if r["name"] == "carrier.drain"}
+    return [(r["attrs"]["carrier"], r["attrs"]["members"],
+             r["attrs"]["tenants"], r["dur"] / 1e6,
+             drains.get(r["attrs"]["carrier"]))
+            for r in recs if r["name"] == "carrier.dispatch"]
+
+
+def run_service_phase(device=None) -> dict:
+    """Four socket tenants, two waves each, through ``EnsembleService`` and
+    ``ServiceDaemon`` on the card, then the chaos sub-phase on the same
+    service. Raises on any gate; returns the phase's kernel launches."""
+    import json as _json
+    import socket
+    import struct
+    import threading
+    import numpy as np
+    import torch
+    from repro_torch import api
+    from repro_torch import telemetry as tel
+    from repro_torch.apps.anen import workflow as wf
+    from repro_torch.chaos import FaultSchedule
+    from repro_torch.core.policies import INFRA, RETRY_TOTAL, TASK
+    from repro_torch.fusion import engine
+    from repro_torch.fusion.handles import to_host
+    from repro_torch.kernels import anen_distance as kmod
+    from repro_torch.rts.base import ResourceDescription
+    from repro_torch.rts.torch_rts import CARRIERS_TOTAL
+    from repro_torch.serve import EnsembleService, ServiceDaemon, SocketClient
+
+    t_phase = time.perf_counter()
+    statics = service_statics(device)
+    tenants = [f"t{i}" for i in range(SERVICE["tenants"])]
+    waves = {t: tenant_waves(i, statics) for i, t in enumerate(tenants)}
+    n_mem, n_hist = SERVICE["members"], statics["n_hist"]
+    cuda = torch.device(statics["device"]).type == "cuda"
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    service = EnsembleService(resources=ResourceDescription(
+        slots=SERVICE["slots"]), serve_hold_s=SERVICE["hold_s"],
+        device=device).start()
+    daemon = ServiceDaemon(service, port=0).start()
+    rts = service.amgr.emgr.rts
+    check(all(d == torch.device(statics["device"]) for d in rts._devices),
+          f"the service's TorchRTS is on {statics['device']}")
+    retries0 = {c: tel.counter(RETRY_TOTAL, fault_class=c).value
+                for c in (TASK, INFRA)}
+    tel.enable()
+    tel.TRACER.clear()
+    try:
+        # -- the traffic: the counts at 0 just before, read just after ---- #
+        reset_counts()
+        walls, served = [], {}
+        for w in range(SERVICE["waves"]):
+            wave = socket_wave(daemon.port, f"w{w}",
+                               {t: waves[t][w] for t in tenants}, statics)
+            walls.append(wave["wall_s"])
+            served[w] = wave
+        launches = kmod.anen_distance.launches
+        shapes = dict(kmod.anen_distance.shapes)
+        stats = rts.fusion_stats
+        tstats = rts.tenant_stats
+        carriers = rts.metrics.counter(CARRIERS_TOTAL, tier="fused").value
+        spans = carrier_spans()
+        metrics = service.metrics()["tenants"]
+        retried = {c: tel.counter(RETRY_TOTAL, fault_class=c).value
+                   - retries0[c] for c in (TASK, INFRA)}
+
+        print(f"service: {len(tenants)} socket tenants x "
+              f"{SERVICE['waves']} waves of {n_mem} members x "
+              f"{SERVICE['locs']} locations, hold {SERVICE['hold_s']} s, "
+              f"{SERVICE['slots']} slots on {statics['device']}")
+        print(f"  wave wall seconds: {walls}")
+        print(f"  anen_distance launches: {launches} "
+              f"({launches / SERVICE['waves']} a wave), shapes: "
+              f"{ {str(k): v for k, v in shapes.items()} }")
+        print(f"  fused carriers: {carriers}; fusion_stats: {stats}")
+        for name, members, mix, dispatch_ms, drain_ms in spans:
+            print(f"  carrier {name}: members={members} tenants={mix} "
+                  f"dispatch_ms={dispatch_ms} drain_ms={drain_ms}")
+        worst = 0.0
+        for t in tenants:
+            ns = {served[w]["tenants"][t]["ns"] for w in served}
+            fetch = [served[w]["tenants"][t]["fetch_s"] for w in served]
+            print(f"  {t}: {tstats.get(t)} queue_wait="
+                  f"{metrics[t]['queue_wait']} namespaces={sorted(ns)} "
+                  f"result fetch seconds (host, JSON)={fetch}")
+            check(len(ns) == SERVICE["waves"], f"{t}: one namespace a wave")
+            for w in served:
+                states = served[w]["tenants"][t]["states"]
+                check(set(states.values()) == {"DONE"},
+                      f"{t} w{w} all DONE: {states}")
+                vals = served_values(served[w], t, f"w{w}", n_mem)
+                worst = max(worst, held_to_reference(vals, waves[t][w],
+                                                     statics))
+        print(f"  max |served - compute_analogs|: {worst}")
+        if cuda:
+            print(f"  max_memory_allocated bytes: "
+                  f"{torch.cuda.max_memory_allocated()}")
+        check(worst <= 1e-6, f"served values within 1e-6 of compute_analogs "
+                             f"(got {worst})")
+        check(retried == {TASK: 0, INFRA: 0}, f"no retries ({retried})")
+        check(stats["cross_tenant_carriers"] >= 1, "cross_tenant_carriers >= 1")
+        for t in tenants:
+            check(tstats[t]["shared_dispatches"] >= 1,
+                  f"{t} shared_dispatches >= 1")
+            check(tstats[t]["completions"] == SERVICE["waves"] * n_mem,
+                  f"{t} completions == {SERVICE['waves'] * n_mem}")
+        check(stats["scalar_fallback"] == 0 and stats["degraded"] == 0,
+              "scalar_fallback == degraded == 0")
+        check(stats["dispatches"] == carriers == len(spans),
+              f"every carrier dispatched once ({stats['dispatches']}, "
+              f"{carriers}, {len(spans)} traced)")
+        check(launches == carriers,
+              f"one anen_distance launch a carrier ({launches} vs {carriers})")
+        check(all(s[0] == n_hist and s[1] == 3
+                  and s[2] % SERVICE["locs"] == 0 for s in shapes),
+              f"launch shapes (n_hist, 3, locs x B): {list(shapes)}")
+        check(sorted(s[2] for s, c in shapes.items() for _ in range(c))
+              == sorted(SERVICE["locs"] * m for _, m, _, _, _ in spans),
+              "each launch is its carrier's width")
+        check(sum(s[2] * c for s, c in shapes.items())
+              == len(tenants) * SERVICE["waves"] * n_mem * SERVICE["locs"],
+              "the launches cover every location once")
+
+        # -- one more wave under the profiler: device busy share ---------- #
+        if cuda:
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                wave = socket_wave(daemon.port, "prof",
+                                   {t: waves[t][0] for t in tenants},
+                                   statics)
+                torch.cuda.synchronize()
+            rows = device_rows(prof)
+            busy = sum(r[2] for r in rows)
+            print(f"profiled wave: wall_s={wave['wall_s']} device_busy_ms="
+                  f"{busy} busy_share={busy / 1e3 / wave['wall_s']}")
+            for key, count, ms in rows[:8]:
+                print(f"  device {ms:.3f} ms  x{count}  {key[:90]}")
+
+        # -- chaos (a): kernel faults charged to the members' budgets ----- #
+        sched = FaultSchedule(CHAOS_KERNEL_SEED, {"kernel": 0.1})
+        launched0 = kmod.anen_distance.launches
+        rts.fault_injector = sched.kernel_fault_injector()
+        try:
+            handles = [service.submit(api.ensemble(
+                wf.analog_values, over=[dict(statics, locations=locs)
+                                        for locs in waves[t][0]],
+                name=f"kb{t}", max_retries=3), tenant=t) for t in tenants]
+            for h in handles:
+                check(h.wait(600), f"kernel faults: {h.tenant} done")
+        finally:
+            rts.fault_injector = None
+        tasks = [task for h in handles for p in h.compiled.pipelines
+                 for s in p.stages for task in s.tasks]
+        charged = sum(task.retries for task in tasks)
+        faults = sum(1 for site, _ in sched.story() if site == "kernel")
+        worst = max(held_to_reference(
+            [to_host(h.result(f"kb{h.tenant}-{i}")).astype(np.float32)
+             for i in range(n_mem)], waves[h.tenant][0], statics)
+            for h in handles)
+        print(f"chaos kernel faults: {faults} fired, retries charged "
+              f"{charged}, anen_distance launches "
+              f"{kmod.anen_distance.launches - launched0}, "
+              f"max |served - compute_analogs| {worst}")
+        check(all(h.succeeded() for h in handles), "kernel faults: all DONE")
+        check(faults >= 1 and charged == faults,
+              f"kernel faults: retries charged == faults ({charged}, "
+              f"{faults})")
+        check(worst <= 1e-6, f"kernel faults: values within 1e-6 ({worst})")
+
+        # -- chaos (b): every carrier's dispatch dies; after it the fused --- #
+        # tier's breaker is open, so (c) runs on the ladder's floor
+        base = {t: served_values(served[0], t, "w0", n_mem)
+                for t in tenants[:2]}
+        degraded0 = rts.fusion_stats["degraded"]
+        launched0 = kmod.anen_distance.launches
+        prev = engine.CARRIER_FAULT
+        sched = FaultSchedule(17, {"carrier": 1.0})
+        engine.CARRIER_FAULT = sched.carrier_fault_injector()
+        try:
+            wave = socket_wave(daemon.port, "ca",
+                               {t: waves[t][0] for t in tenants[:2]},
+                               statics)
+        finally:
+            engine.CARRIER_FAULT = prev
+        diff = max(float(np.abs(a - b).max()) for t in tenants[:2]
+                   for a, b in zip(served_values(wave, t, "ca", n_mem),
+                                   base[t]))
+        degraded = rts.fusion_stats["degraded"] - degraded0
+        # the ladder's first rung re-runs each carrier's members as one
+        # per-stage fused dispatch inside the carrier: the kernel again
+        print(f"chaos carrier faults: {sum(1 for e in sched.story())} fired, "
+              f"degraded={degraded}, anen_distance launches "
+              f"{kmod.anen_distance.launches - launched0}, wall_s="
+              f"{wave['wall_s']}, max diff to the fault-free wave {diff}, "
+              f"breakers {rts.breakers.states()}")
+        for t in tenants[:2]:
+            check(set(wave["tenants"][t]["states"].values()) == {"DONE"},
+                  f"carrier faults: {t} all DONE")
+        check(degraded >= 1, "carrier faults: degraded >= 1")
+        check(diff <= 1e-6, f"carrier faults: values within 1e-6 ({diff})")
+
+        # -- chaos (c): a connection dropped mid-submit ------------------- #
+        sched = FaultSchedule(29, {"socket": 1.0})
+        dropped = threading.Event()
+        admit = service.submit
+
+        def submit_then_await_drop(*args, **kwargs):
+            # the drop must land between admission and the accept response:
+            # a warm daemon could answer before the client's close arrives
+            handle = admit(*args, **kwargs)
+            dropped.wait(10)
+            return handle
+
+        service.submit = submit_then_await_drop
+        try:
+            conn = socket.create_connection(("127.0.0.1", daemon.port),
+                                            timeout=10)
+            req = {"id": 1, "op": "submit", "tenant": "dropper",
+                   "kernel": "reg://analog_values", "name": "drop",
+                   "sweep": [dict(statics, locations=locs)
+                             for locs in waves["t0"][1][:4]]}
+            conn.sendall((_json.dumps(req) + "\n").encode("utf-8"))
+            check(sched.drops_socket("dropper:1"), "socket drop scheduled")
+            conn.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER,
+                            struct.pack("ii", 1, 0))
+            conn.close()
+            dropped.set()
+            deadline = time.monotonic() + 60
+            while time.monotonic() < deadline:
+                snap = service.admission.snapshot().get("dropper", {})
+                if (daemon.abandoned_submits == 1
+                        and snap.get("in_flight_members", 0) == 0):
+                    break
+                time.sleep(0.02)
+        finally:
+            service.submit = admit
+        snap = service.admission.snapshot().get("dropper", {})
+        check(daemon.abandoned_submits == 1, "socket drop: abandoned")
+        check(snap.get("in_flight_members", 0) == 0
+              and snap.get("active_workflows", 0) == 0,
+              f"socket drop: admission refunded ({snap})")
+        with SocketClient("127.0.0.1", daemon.port) as client:
+            h = client.submit("reg://analog_values",
+                              [dict(statics, locations=locs)
+                               for locs in waves["t1"][1][:4]],
+                              tenant="t1", name="after-drop")
+            check(client.wait(h, timeout=600), "after the drop: served")
+            check(set(client.states(h).values()) == {"DONE"},
+                  "after the drop: all DONE")
+        print(f"chaos socket drop: abandoned={daemon.abandoned_submits}, "
+              f"dropper admission {snap}, the next tenant served")
+    finally:
+        tel.disable()
+        daemon.stop()
+        service.stop()
+    check(engine.CARRIER_FAULT is None, "the carrier fault hook restored")
+    print(f"service phase seconds (traffic, profiled wave, chaos): "
+          f"{time.perf_counter() - t_phase}")
+    return {"launches": launches, "shapes": shapes, "walls": walls}
 
 
 # --------------------------------------------------------------------------- #
@@ -1014,6 +1390,7 @@ def main() -> None:
 
     cross_check()
     profile_main_path()
+    service = run_service_phase()
 
     run_seismic_chain(SEISMIC)
     run_seismic_dag(SEISMIC)
@@ -1048,6 +1425,8 @@ def main() -> None:
         "source": "src/repro_torch/kernels/csrc/anen_distance.cu",
         "replaces": "src/repro/kernels/anen_distance.py:81",
         "launches": main_path["launches"],
+        "service_launches": service["launches"],
+        "service_shapes": {str(k): v for k, v in service["shapes"].items()},
         "max_abs_err": max(r["max_abs_err"] for r in equal),
         "ms": at_main["ms"],
         "plain_ms": at_main["plain_ms"],

@@ -15,7 +15,11 @@ device; every import inside them is package-relative):
 * ``telemetry/`` — all 4 modules (``src/repro/telemetry/*.py``);
 * ``rts/{__init__,base,local,federation,platforms,simulated}.py``
   (``src/repro/rts/``);
-* ``fusion/{__init__,groups,plans}.py`` (``src/repro/fusion/``).
+* ``fusion/{__init__,groups,plans}.py`` (``src/repro/fusion/``);
+* ``chaos/__init__.py`` — the seeded chaos plane
+  (``src/repro/chaos/__init__.py``);
+* ``serve/{admission,fair_share,journal,protocol,client,daemon}.py``
+  (``src/repro/serve/``).
 
 Process-global registries (executables, result codecs, telemetry kernel
 labels) are therefore separate objects in the two packages.
@@ -31,7 +35,12 @@ Ported (the modules that touch arrays or devices):
   (composed ``vmap`` links) and DAG (masked device reductions in the
   composed segment) tiers; the sharded tier is not ported;
 * :mod:`repro_torch.rts.torch_rts` — :class:`TorchRTS`, the device RTS,
-  with the chain and DAG carriers' assembly;
+  with the chain and DAG carriers' assembly and the serving mode's
+  continuous-batching window, tenant interleaving and per-tenant
+  accounting;
+* :mod:`repro_torch.serve.service` — :class:`EnsembleService` over
+  :class:`TorchRTS` on ``device`` (``serve/__init__.py`` exports what the
+  JAX package's does);
 * :mod:`repro_torch.apps.anen` — the AnEn numerics and adaptive workflow,
   each round one DAG carrier;
 * :mod:`repro_torch.apps.seismic` — the seismic solver (forward, misfit,

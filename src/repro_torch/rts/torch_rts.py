@@ -45,6 +45,17 @@ masked reduce → broadcast → ensemble``); resume fragments and ``dag=False``
 run the nodes sequentially inside the same carrier (DAG → in-carrier
 sequential → per-stage fused → scalar).
 
+Serving mode (:mod:`repro_torch.serve`): ``serve_hold_s > 0`` opens a
+continuous-batching window. Fused groups are parked for at most
+``serve_hold_s`` seconds from the first hold, so key-compatible members of
+OTHER workflows (the fusion key excludes the namespace) land in the same
+carriers; the held members are round-robined across tenants before the
+planner slices them into lanes, and a full batch (devices x
+``fusion_max_batch``) goes out at once. Every carrier is stamped with its
+tenant mix, and the per-tenant ``members``, ``shared_dispatches`` and
+``completions`` are counted (:attr:`TorchRTS.tenant_stats`). Chain and DAG
+tasks are never held: they go to their assemblers as before.
+
 The sharded tier of the JAX package (one carrier across a device mesh) is
 not ported: a carrier runs on one device.
 """
@@ -74,14 +85,19 @@ from ..telemetry import MetricsRegistry
 from .base import Pilot, RequeueTask, ResourceDescription, TaskCompletion
 from .local import LocalRTS
 
-#: counter families behind the ``fusion_stats`` snapshot property
+#: counter families behind the ``fusion_stats`` / ``tenant_stats`` snapshot
+#: properties, the serve hold's events and its per-tenant queue wait
 FUSION_EVENTS = "rts_fusion_events_total"
+TENANT_EVENTS = "rts_tenant_events_total"
+SERVE_HOLD_EVENTS = "rts_serve_hold_events_total"
+SERVE_QUEUE_WAIT = "serve_queue_wait_seconds"
 CARRIERS_TOTAL = "rts_carriers_total"
 
 _FUSION_STAT_KEYS = ("fused", "scalar_fallback", "failed", "dispatches",
                      "chain_links", "chain_carriers", "sharded_dispatches",
                      "shard_carriers", "dag_carriers", "dag_links",
                      "cross_tenant_carriers", "degraded")
+_TENANT_FIELDS = ("members", "shared_dispatches", "completions")
 
 
 class _FusedBatch:
@@ -109,7 +125,7 @@ class _FusedBatch:
         self.dag = dag
 
 
-def _inventory(device: DeviceLike) -> List[torch.device]:
+def inventory(device: DeviceLike) -> List[torch.device]:
     """Every visible CUDA device for ``None``/``"cuda"``; else the one
     named device. Raises when CUDA is asked for and absent."""
     if device is None or str(device) == "cuda":
@@ -117,6 +133,12 @@ def _inventory(device: DeviceLike) -> List[torch.device]:
         return [torch.device("cuda", i)
                 for i in range(torch.cuda.device_count())]
     return [resolve_device(device)]
+
+
+def _tenant_of(task: Task) -> Optional[str]:
+    """The tenant a member bills to: its service tenant, else its workflow
+    namespace, else ``None``."""
+    return task.tags.get("_tenant") or task.tags.get("_wf_ns")
 
 
 class TorchRTS(LocalRTS):
@@ -127,11 +149,12 @@ class TorchRTS(LocalRTS):
                  fusion_max_batch: int = DEFAULT_MAX_BATCH,
                  fusion_min_chain: int = DEFAULT_MIN_CHAIN,
                  dag: bool = True,
+                 serve_hold_s: float = 0.0,
                  breakers: Optional[BreakerBoard] = None,
                  **kwargs: Any) -> None:
         super().__init__(**kwargs)
         self._devices = (list(devices) if devices is not None
-                         else _inventory(device))
+                         else inventory(device))
         self._oversubscribe = max(1, slot_oversubscribe)
         self._pool: List[int] = []
         self._leases: Dict[str, List[int]] = {}
@@ -147,6 +170,18 @@ class TorchRTS(LocalRTS):
         # what orders the reduce after its members), just never as one
         # composed segment
         self.dag = dag
+        # serving mode: >0 opens a continuous-batching window — fusible
+        # groups are parked briefly so same-kernel members from OTHER
+        # workflows (the fusion key excludes the namespace) can land in the
+        # same carriers. The window is a hard deadline, not an idle
+        # timeout: under a steady multi-tenant stream an idle re-arm would
+        # never fire and small tenants would starve behind it.
+        self.serve_hold_s = serve_hold_s
+        # -- serve hold buffer ----------------------------------------------#
+        self._held: Dict[str, List[Task]] = {}
+        self._hold_timers: Dict[str, threading.Timer] = {}
+        self._hold_arrived: Dict[str, float] = {}   # member uid -> hold t0
+        self._hold_lock = threading.Lock()
         self._fusion_lock = threading.Lock()
         self._fused: Dict[str, _FusedBatch] = {}      # carrier uid -> batch
         self._member_carrier: Dict[str, str] = {}     # member uid -> carrier
@@ -182,8 +217,24 @@ class TorchRTS(LocalRTS):
             out[labels["kind"]] = c.value
         return out
 
+    @property
+    def tenant_stats(self) -> Dict[str, Dict[str, int]]:
+        """Per-tenant fan-out accounting snapshot: tenant label ->
+        ``{"members", "shared_dispatches", "completions"}``. A member's
+        tenant label is its ``_tenant`` tag (stamped by the serving layer)
+        or, absent that, its workflow namespace."""
+        out: Dict[str, Dict[str, int]] = {}
+        for labels, c in self.metrics.collect("counter", TENANT_EVENTS):
+            ts = out.setdefault(labels["tenant"],
+                                {f: 0 for f in _TENANT_FIELDS})
+            ts[labels["field"]] = c.value
+        return out
+
     def _fusion_count(self, kind: str, n: int = 1) -> None:
         self.metrics.counter(FUSION_EVENTS, kind=kind).inc(n)
+
+    def _tenant_count(self, tenant: str, field: str, n: int = 1) -> None:
+        self.metrics.counter(TENANT_EVENTS, tenant=tenant, field=field).inc(n)
 
     def start(self, resources: ResourceDescription) -> Pilot:
         n_logical = len(self._devices) * self._oversubscribe
@@ -212,6 +263,11 @@ class TorchRTS(LocalRTS):
 
     def stop(self) -> None:
         super().stop()
+        with self._hold_lock:
+            for timer in self._hold_timers.values():
+                timer.cancel()
+            self._hold_timers.clear()
+            self._held.clear()
         for _ in self._drainers:
             self._drain_q.put(None)
         for t in self._drainers:
@@ -332,9 +388,120 @@ class TorchRTS(LocalRTS):
                 self._assemble_dag(dags[entry[1]], out)
             elif entry[0] == "chain":
                 self._assemble_chain(chains[entry[1]], out, free)
+            elif (self.serve_hold_s > 0
+                  and self._kernel_spec(groups[entry[1]][0]) is not None):
+                self._serve_hold(entry[1], groups[entry[1]], out, free)
             else:
                 self._pack_group(groups[entry[1]], out, free)
         return out
+
+    def _serve_hold(self, key: str, members: List[Task], out: List[Task],
+                    free: Optional[int]) -> None:
+        """Continuous batching (serving mode): park a fused group so
+        key-compatible members from other tenants can join its carriers.
+
+        Capacity-sized batches go out immediately (a full batch gains
+        nothing by waiting) and the remainder waits for a HARD
+        ``serve_hold_s`` deadline rather than an idle re-arm, so a lone
+        tenant's tail is never starved by a busy neighbour keeping the
+        stream "active". Cancellation, ``in_flight`` and ``stop`` see the
+        held members."""
+        capacity = max(1, len(self._devices) * self.fusion_max_batch)
+        arm_key = None
+        now = time.perf_counter()
+        with self._hold_lock:
+            opened = key not in self._held
+            held = self._held.setdefault(key, [])
+            held.extend(members)
+            for m in members:
+                self._hold_arrived[m.uid] = now
+            batches: List[List[Task]] = []
+            while len(held) >= capacity:
+                batches.append(held[:capacity])
+                del held[:capacity]
+            if not held:
+                self._held.pop(key, None)
+                timer = self._hold_timers.pop(key, None)
+                if timer is not None:
+                    timer.cancel()
+            elif key not in self._hold_timers:
+                arm_key = key   # deadline runs from the FIRST hold
+        self.metrics.counter(
+            SERVE_HOLD_EVENTS, event="open" if opened else "extend").inc()
+        tel.event("serve.hold", "serve", key=key,
+                  event="open" if opened else "extend", n=len(members))
+        for batch in batches:
+            self.metrics.counter(SERVE_HOLD_EVENTS,
+                                 event="capacity_flush").inc()
+            self._observe_hold_wait(batch)
+            self._pack_group(self._interleave_tenants(batch), out, free)
+        if arm_key is not None:
+            timer = threading.Timer(self.serve_hold_s, self._flush_serve,
+                                    args=(arm_key,))
+            timer.daemon = True
+            with self._hold_lock:
+                if arm_key in self._held and arm_key not in self._hold_timers:
+                    self._hold_timers[arm_key] = timer
+                    timer.start()
+
+    def _flush_serve(self, key: str) -> None:
+        """Deadline flush for a serve-held group, on the timer's thread:
+        pack whatever accumulated, unconditionally — no busy/progress
+        re-arm. Nothing is submitted once the RTS is stopping."""
+        if self._stop.is_set():
+            return
+        with self._hold_lock:
+            members = self._held.pop(key, None)
+            self._hold_timers.pop(key, None)
+        if not members:
+            return
+        self.metrics.counter(SERVE_HOLD_EVENTS, event="deadline_flush").inc()
+        tel.event("serve.hold", "serve", key=key, event="deadline_flush",
+                  n=len(members))
+        self._observe_hold_wait(members)
+        out: List[Task] = []
+        self._pack_group(self._interleave_tenants(members), out,
+                         self.free_slots())
+        if out:
+            super().submit(out)
+
+    def _observe_hold_wait(self, members: List[Task]) -> None:
+        """Serve-hold queue wait, per tenant: time from landing in the hold
+        buffer to being packed into a carrier."""
+        now = time.perf_counter()
+        with self._hold_lock:
+            waits = [(m, self._hold_arrived.pop(m.uid, None))
+                     for m in members]
+        for m, t0 in waits:
+            if t0 is None:
+                continue
+            label = _tenant_of(m) or "-"
+            self.metrics.histogram(SERVE_QUEUE_WAIT, tenant=label) \
+                .observe(now - t0)
+
+    @staticmethod
+    def _interleave_tenants(members: List[Task]) -> List[Task]:
+        """Round-robin members across tenants before packing.
+
+        A hold accumulates members in arrival order — one tenant's whole
+        sweep, then the next — and the planner slices carriers off that
+        sequence, which would hand each carrier back to a single tenant.
+        Interleaving makes every carrier a cross-tenant mix AND every
+        dispatch deliver progress to every waiting tenant (per-member
+        order within a tenant is preserved)."""
+        by_tenant: Dict[Any, List[Task]] = {}
+        for m in members:
+            label = _tenant_of(m)
+            by_tenant.setdefault(label, []).append(m)
+        if len(by_tenant) <= 1:
+            return members
+        queues = [list(reversed(q)) for q in by_tenant.values()]
+        mixed: List[Task] = []
+        while queues:
+            queues = [q for q in queues if q]
+            for q in queues:
+                mixed.append(q.pop())
+        return mixed
 
     def _pack_group(self, members: List[Task], out: List[Task],
                     free: Optional[int]) -> None:
@@ -482,6 +649,14 @@ class TorchRTS(LocalRTS):
     def _make_carrier(self, links: List[List[Task]], compose: bool = True,
                       plan: Optional[Dict[str, Any]] = None,
                       dag: bool = False) -> Task:
+        # tenant accounting: the planners REUSE one plan record dict across
+        # a group's carriers, so copy before stamping this carrier's tenant
+        # mix onto it (the stamp differs per carrier)
+        tenants = {_tenant_of(m) for link in links for m in link}
+        tenants.discard(None)
+        if plan is not None:
+            plan = dict(plan)
+            plan["tenants"] = max(1, len(tenants))
         batch = _FusedBatch(links, compose=compose, plan=plan, dag=dag)
         hints = [m.duration_hint for m in batch.members
                  if m.duration_hint is not None]
@@ -501,6 +676,15 @@ class TorchRTS(LocalRTS):
             self._fused[carrier.uid] = batch
             for m in batch.members:
                 self._member_carrier[m.uid] = carrier.uid
+        # counters are individually locked: no need to hold _fusion_lock
+        if len(tenants) > 1:
+            self._fusion_count("cross_tenant_carriers")
+        for label in tenants:
+            self._tenant_count(label, "members", sum(
+                1 for m in batch.members
+                if _tenant_of(m) == label))
+            if len(tenants) > 1:
+                self._tenant_count(label, "shared_dispatches")
         if dag:
             self._fusion_count("dag_carriers")
         elif n > 1:
@@ -512,7 +696,22 @@ class TorchRTS(LocalRTS):
     def cancel(self, uids: List[str]) -> None:
         """Translate member uids to their carriers: a canceled member is
         skipped at fan-out time; a carrier whose every member is canceled
-        is canceled itself (dequeued, or its dispatch interrupted)."""
+        is canceled itself (dequeued, or its dispatch interrupted). Members
+        still parked in the serve hold are simply dropped, and a hold they
+        empty stops its timer."""
+        wanted = set(uids)
+        with self._hold_lock:
+            for k in list(self._held):
+                kept = [t for t in self._held[k] if t.uid not in wanted]
+                if not kept:
+                    self._held.pop(k)
+                    timer = self._hold_timers.pop(k, None)
+                    if timer is not None:
+                        timer.cancel()
+                elif len(kept) != len(self._held[k]):
+                    self._held[k] = kept
+            for u in wanted:
+                self._hold_arrived.pop(u, None)
         translated: List[str] = []
         emptied: List[str] = []
         with self._fusion_lock:
@@ -546,7 +745,9 @@ class TorchRTS(LocalRTS):
 
     def in_flight(self) -> List[str]:
         """Member uids, never carrier uids: EnTK's custody, failover and
-        resubmission logic reasons about the tasks it submitted."""
+        resubmission logic reasons about the tasks it submitted. Members
+        parked in the serve hold are in flight too — they have been
+        accepted and will run at the latest when the hold deadline fires."""
         base = super().in_flight()
         with self._fusion_lock:
             out: List[str] = []
@@ -556,6 +757,9 @@ class TorchRTS(LocalRTS):
                     out.append(uid)
                 else:
                     out.extend(batch.pending)
+        with self._hold_lock:
+            for ms in self._held.values():
+                out.extend(t.uid for t in ms)
         return out
 
     def running_since(self) -> Dict[str, float]:
@@ -627,13 +831,24 @@ class TorchRTS(LocalRTS):
                 self._requeue(carrier)   # whole group, once, at the front
             return
 
+        tenant_of = {m.uid: _tenant_of(m) for m in batch.members}
+        # one shared counter handle per distinct tenant: deliver() runs per
+        # member completion, so resolve the registry lookup once up front
+        completions_of = {
+            label: self.metrics.counter(TENANT_EVENTS, tenant=label,
+                                        field="completions")
+            for label in set(tenant_of.values()) if label is not None}
+
         def deliver(c: TaskCompletion) -> None:
             if batch.plan is not None:
                 # postmortem perf debugging: every member's journal record
-                # carries the carrier's chosen plan
+                # carries the carrier's chosen plan and tenant mix
                 c.plan = batch.plan
             with self._fusion_lock:
                 batch.pending.discard(c.uid)
+            counter = completions_of.get(tenant_of.get(c.uid))
+            if counter is not None:
+                counter.inc()
             self._deliver(c)
 
         cls = (fusion_engine.DagExecution if batch.dag
@@ -650,7 +865,10 @@ class TorchRTS(LocalRTS):
                       carrier=carrier.name, tier=exe.tier,
                       links=len(batch.links),
                       width=max(len(link) for link in batch.links),
-                      members=len(batch.members)):
+                      members=len(batch.members),
+                      tenants=",".join(sorted(
+                          str(t) for t in set(tenant_of.values())
+                          if t is not None))):
             exe.dispatch()
 
     def _record_breaker(self, batch: _FusedBatch, exe: Any, ok: bool) -> None:

@@ -1,8 +1,8 @@
 """Tests of the port that need an NVIDIA GPU: each CUDA kernel against its
 plain version, the model kernels' refusal of autograd on their CUDA routes,
-and the AnEn workflow (on the DAG tier), the seismic misfit sweeps (chain
-and DAG tiers) and the zamba2 and rwkv6 serving paths on the card against
-the same runs on the CPU. They skip where ``torch.cuda.is_available()`` is False. This file
+and the AnEn workflow (on the DAG tier), the multi-tenant service's AnEn
+sweeps, the seismic misfit sweeps (chain and DAG tiers) and the zamba2 and
+rwkv6 serving paths on the card against the same runs on the CPU. They skip where ``torch.cuda.is_available()`` is False. This file
 imports nothing of JAX, so it also runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -342,3 +342,66 @@ def test_rwkv6_smoke_serve_on_card_matches_cpu(cuda):
     assert rwkv6_wkv.launches - before == gpu.cfg.n_layers
     lc, _ = cpu.prefill(cpu.params, {"inputs": torch.from_numpy(tokens)})
     torch.testing.assert_close(lg.cpu(), lc, atol=0.08, rtol=0.05)
+
+
+def test_default_service_resolves_to_cuda(cuda):
+    from repro_torch.serve import EnsembleService
+    svc = EnsembleService().start()
+    try:
+        rts = svc.amgr.emgr.rts
+        assert rts._devices and all(d.type == "cuda" for d in rts._devices)
+    finally:
+        svc.stop()
+
+
+def test_two_tenant_service_sweep_launches_once_a_carrier(cuda):
+    """Two tenants' ``analog_values`` sweeps through the service on the
+    card share carriers, each of which launches the distance kernel once
+    at its whole width; the values equal the CPU service's."""
+    from repro_torch import api
+    from repro_torch.apps.anen import workflow as wf
+    from repro_torch.device import device_name
+    from repro_torch.fusion.handles import to_host
+    from repro_torch.kernels.anen_distance import anen_distance
+    from repro_torch.rts.base import ResourceDescription
+    from repro_torch.rts.torch_rts import CARRIERS_TOTAL
+    from repro_torch.serve import EnsembleService
+
+    def sweep(tenant, device):
+        rng = np.random.default_rng(1000 + tenant)
+        return [dict(seed=0, ny=20, nx=20, n_hist=30, k=12, device=device,
+                     locations=np.stack(np.divmod(rng.choice(400, 16,
+                                                             replace=False),
+                                                  20), axis=1).tolist())
+                for _ in range(4)]
+
+    def serve(device):
+        svc = EnsembleService(resources=ResourceDescription(slots=4),
+                              serve_hold_s=0.25, device=device).start()
+        try:
+            before = anen_distance.launches
+            hs = [svc.submit(api.ensemble(wf.analog_values,
+                                          over=sweep(t, device_name(device)),
+                                          name="av"), tenant=f"t{t}")
+                  for t in range(2)]
+            assert all(h.wait(120) and h.succeeded() for h in hs)
+            torch.cuda.synchronize()
+            rts = svc.amgr.emgr.rts
+            out = {"launches": anen_distance.launches - before,
+                   "carriers": rts.metrics.counter(CARRIERS_TOTAL,
+                                                   tier="fused").value,
+                   "stats": rts.fusion_stats,
+                   "values": [to_host(h.result(f"av-{i}"))
+                              for h in hs for i in range(4)]}
+        finally:
+            svc.stop()
+        return out
+
+    on_gpu, on_cpu = serve(cuda), serve("cpu")
+    assert on_gpu["carriers"] >= 1
+    assert on_gpu["launches"] == on_gpu["carriers"]
+    assert on_gpu["stats"]["cross_tenant_carriers"] >= 1
+    assert on_gpu["stats"]["scalar_fallback"] == 0
+    assert on_gpu["stats"]["degraded"] == 0
+    for g, c in zip(on_gpu["values"], on_cpu["values"]):
+        np.testing.assert_allclose(g, c, rtol=0, atol=1e-6)
