@@ -4,7 +4,7 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` (one
 ``nvcc`` per source, all started together), holds each kernel against its
-plain PyTorch version on the card, and drives the port's three paths:
+plain PyTorch version on the card, and drives the port's paths:
 
 1. the adaptive AnEn ensemble (``repro_torch.apps.anen.workflow``) at the
    NCEP NAM 12 km CONUS grid, 428 x 614 points (AWIPS grid 218), with 365
@@ -30,7 +30,17 @@ plain PyTorch version on the card, and drives the port's three paths:
    the card against the CPU with the same weights;
 4. serving rwkv6-3b at its published widths the same way, with the same
    traffic, whose prefill goes through ``rwkv6_wkv`` (32 launches a
-   batch); then its smoke configuration on the card against the CPU.
+   batch); then its smoke configuration on the card against the CPU;
+5. serving the attention stack's dense family the same way, with the same
+   traffic: stablelm-12b (``flash_attention`` 40 launches a batch at head
+   dim 160) and minitron-4b (32 at head dim 128), each with its smoke
+   configuration on the card against the CPU;
+6. the vlm and audio families at their published widths through the step
+   functions on precomputed bf16 embeddings, as the JAX package runs them
+   (its serve driver takes token ids only): qwen2-vl-2b with (B, 3, S)
+   M-RoPE positions (28 flash launches) and musicgen-medium (48), each one
+   prefill of 4 x 512 embeddings and 15 decode steps; then its smoke
+   configuration's prefill on the card against the CPU.
 
 Before the serve paths it checks that the CUDA routes of the three model
 kernels refuse an input that requires grad (they have no backward yet),
@@ -96,20 +106,43 @@ SERVICE = dict(tenants=4, waves=2, members=8, locs=128, slots=4,
 CHAOS_KERNEL_SEED = 23
 TIMED_REPS = 60
 
-# the serve paths: zamba2-7b and rwkv6-3b at full width with the same
-# traffic, and the kernels' shapes on them
+# the serve paths: zamba2-7b, rwkv6-3b, stablelm-12b and minitron-4b at
+# full width with the same traffic, and the kernels' shapes on them
 SERVE = dict(arch="zamba2-7b", n_batches=2, batch_size=4, prompt_len=512,
              max_new_tokens=16)
 RWKV_SERVE = dict(SERVE, arch="rwkv6-3b")
+# the attention stack: two dense configurations served with the same
+# traffic, then the vlm and audio ones on embeddings through the steps
+DENSE_SERVES = (dict(SERVE, arch="stablelm-12b"),
+                dict(SERVE, arch="minitron-4b"))
+EMBED_RUNS = (dict(arch="qwen2-vl-2b", batch_size=4, prompt_len=512,
+                   decode_steps=15),
+              dict(arch="musicgen-medium", batch_size=4, prompt_len=512,
+                   decode_steps=15))
 FLASH_MAIN = (4, 512, 32, 112)            # (B, S, H, hd)
 SSD_MAIN = (4, 512, 112, 64, 1, 64)       # (B, T, H, P, G, N)
 WKV_MAIN = (4, 512, 40, 64)               # (B, T, H, N)
+FLASH_STABLELM = (4, 512, 32, 160)
+FLASH_MINITRON = (4, 512, 24, 128)
+FLASH_QWEN2_VL = (4, 512, 12, 128)
+FLASH_MUSICGEN = (4, 512, 24, 64)
 MAIN_SHAPES = {"zamba2-7b": {"flash_attention": FLASH_MAIN,
                              "mamba2_ssd": SSD_MAIN},
-               "rwkv6-3b": {"rwkv6_wkv": WKV_MAIN}}
+               "rwkv6-3b": {"rwkv6_wkv": WKV_MAIN},
+               "stablelm-12b": {"flash_attention": FLASH_STABLELM},
+               "minitron-4b": {"flash_attention": FLASH_MINITRON},
+               "qwen2-vl-2b": {"flash_attention": FLASH_QWEN2_VL},
+               "musicgen-medium": {"flash_attention": FLASH_MUSICGEN}}
 FLASH_SHAPES = (FLASH_MAIN, (4, 100, 32, 112), (4, 300, 32, 112),
                 # hd 32 and the tile edges S = 1, 63, 65
-                (1, 1, 2, 32), (2, 63, 3, 32), (2, 65, 3, 32))
+                (1, 1, 2, 32), (2, 63, 3, 32), (2, 65, 3, 32),
+                # the attention stack's shapes, then ragged S at hd 160 and
+                # at 150 (not a multiple of 8: element-wise tile fills)
+                FLASH_STABLELM, FLASH_MINITRON, FLASH_QWEN2_VL,
+                FLASH_MUSICGEN, (4, 100, 32, 160), (2, 65, 3, 160),
+                (4, 100, 32, 150), (2, 65, 3, 150))
+# timed beside FLASH_MAIN: the widest head dim and minitron's
+FLASH_TIMED = (FLASH_STABLELM, FLASH_MINITRON)
 SSD_SHAPES = (SSD_MAIN, (4, 100, 112, 64, 1, 64), (2, 128, 8, 64, 2, 64),
               # chunk 50 at N = 8, P = 16; G = 2 at N = 16, P = 32
               (1, 100, 3, 16, 1, 8), (2, 128, 4, 32, 2, 16))
@@ -1089,6 +1122,7 @@ def wkv_bound(shape, elem: int, rate: float = BF16_FLOPS_PER_S) -> dict:
 def compiled_kernels(anen_n: int) -> dict:
     """Registers, shared memory and blocks an SM of every compiled kernel
     at its main path's shape: flash, SSD and WKV for each route (dtype),
+    flash also at head dim 160 (keys ``("flash_attention", dtype, 160)``),
     and ``anen_distance`` at ``anen_n`` columns."""
     import torch
     from repro_torch.kernels import (anen_distance, flash_attention,
@@ -1100,12 +1134,15 @@ def compiled_kernels(anen_n: int) -> dict:
         name = str(dtype).split(".")[-1]
         info[("flash_attention", name)] = flash_attention.kernel_info(
             FLASH_MAIN[3], dtype)
+        info[("flash_attention", name, 160)] = flash_attention.kernel_info(
+            160, dtype)
         info[("mamba2_ssd", name)] = mamba2_ssd.kernel_info(
             N, P, pick_chunk(T), dtype)
         info[("rwkv6_wkv", name)] = rwkv6_wkv.kernel_info(
             WKV_MAIN[3], pick_chunk(WKV_MAIN[1]), dtype)
-    for (kernel, name), row in info.items():
-        print(f"compiled {kernel} {name} route: {row}")
+    for (kernel, name, *hd), row in info.items():
+        at = f" at head dim {hd[0]}" if hd else ""
+        print(f"compiled {kernel} {name} route{at}: {row}")
     return info
 
 
@@ -1161,7 +1198,7 @@ def time_wkv(shape, dtype: str = "bfloat16") -> dict:
 
 
 # --------------------------------------------------------------------------- #
-# The serve paths: zamba2-7b and rwkv6-3b at full width
+# The serve paths: zamba2-7b, rwkv6-3b and the dense models at full width
 # --------------------------------------------------------------------------- #
 
 def per_batch_launches(cfg) -> dict:
@@ -1169,8 +1206,11 @@ def per_batch_launches(cfg) -> dict:
     if cfg.family == "ssm":
         return {"flash_attention": 0, "mamba2_ssd": 0,
                 "rwkv6_wkv": cfg.n_layers}
-    return {"flash_attention": cfg.n_layers // cfg.attn_every,
-            "mamba2_ssd": cfg.n_layers, "rwkv6_wkv": 0}
+    if cfg.family == "hybrid":
+        return {"flash_attention": cfg.n_layers // cfg.attn_every,
+                "mamba2_ssd": cfg.n_layers, "rwkv6_wkv": 0}
+    return {"flash_attention": cfg.n_layers, "mamba2_ssd": 0,
+            "rwkv6_wkv": 0}
 
 
 def release_sessions() -> None:
@@ -1244,35 +1284,49 @@ def run_serve_path(traffic: dict) -> dict:
             "stats": stats}
 
 
+def greedy(logits):
+    import torch
+    return torch.argmax(logits, -1)[:, None].to(torch.int32)
+
+
 def profile_serve(sess, traffic: dict) -> None:
-    """One more full-width prefill, then 4 decode steps, each under
-    ``torch.profiler``: device time by kernel and by kind, the device's
-    busy share of the wall time (profiler overhead included) and device
-    ops per decoded token. Their launches are not counted: the serve
-    path's counts were read before."""
+    """:func:`profile_steps` of a served session on fresh random prompts of
+    the traffic's shape."""
     import numpy as np
+    import torch
+    rng = np.random.default_rng(5)
+    inputs = torch.from_numpy(rng.integers(
+        0, sess.cfg.vocab_size,
+        (traffic["batch_size"], traffic["prompt_len"]))).cuda()
+    profile_steps(traffic["arch"], sess.cfg, sess.params, sess.prefill,
+                  sess.decode, {"inputs": inputs}, greedy)
+
+
+def profile_steps(label: str, cfg, params, prefill_step, decode_step,
+                  batch: dict, next_input, steps: int = 4) -> None:
+    """One more full-width prefill, then ``steps`` decode steps (each fed
+    ``next_input(logits)``), each under ``torch.profiler``: device time by
+    kernel and by kind, the device's busy share of the wall time (profiler
+    overhead included) and device ops per decoded token. Their launches
+    are not counted: the path's counts were read before."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.serve import _merge_cache
     from repro_torch.models import transformer
-    rng = np.random.default_rng(5)
-    B, S, steps = traffic["batch_size"], traffic["prompt_len"], 4
-    inputs = torch.from_numpy(rng.integers(0, sess.cfg.vocab_size, (B, S))
-                              ).cuda()
+    B, S = batch["inputs"].shape[:2]
 
     def prefill():
-        return sess.prefill(sess.params, {"inputs": inputs})
+        return prefill_step(params, batch)
 
     logits, cache = prefill()                                 # warm
     state = {"full": _merge_cache(transformer.init_cache(
-        sess.cfg, B, S + steps, sess.device), cache),
-        "tok": torch.argmax(logits, -1)[:, None].to(torch.int32)}
+        cfg, B, S + steps, "cuda"), cache), "tok": next_input(logits)}
 
     def decode():
         for _ in range(steps):
-            logits, state["full"] = sess.decode(sess.params, state["tok"],
+            logits, state["full"] = decode_step(params, state["tok"],
                                                 state["full"])
-            state["tok"] = torch.argmax(logits, -1)[:, None].to(torch.int32)
+            state["tok"] = next_input(logits)
 
     torch.cuda.synchronize()
     for phase, fn, n in (("prefill", prefill, 1), ("decode", decode, steps)):
@@ -1295,13 +1349,18 @@ def profile_serve(sess, traffic: dict) -> None:
                         "nvjet", "gemm", "gemv", "cutlass", "xmma", "sm90_"))
                     else "other")
             kinds[kind] = kinds.get(kind, 0.0) + ms
-        print(f"profiled {traffic['arch']} {phase}: wall_ms={wall * 1e3 / n} "
+        print(f"profiled {label} {phase}: wall_ms={wall * 1e3 / n} "
               f"per call, device_busy_ms={busy / n} per call, busy_share="
               f"{busy / 1e3 / wall}, device ops per call "
               f"{sum(r[1] for r in rows) / n}, device ms by kind per call: "
               f"{ {k: v / n for k, v in kinds.items()} }")
         for key, count, ms in rows[:12]:
             print(f"  device {ms:.3f} ms  x{count}  {key[:90]}")
+
+
+def to_cuda(tree):
+    return {k: to_cuda(v) if isinstance(v, dict) else v.cuda()
+            for k, v in tree.items()}
 
 
 def cross_check_serve(arch: str) -> None:
@@ -1316,11 +1375,6 @@ def cross_check_serve(arch: str) -> None:
     from repro_torch.models.transformer import init_params
     cfg = get_config(arch, smoke=True)
     params = init_params(cfg, 0, torch.bfloat16, "cpu")
-
-    def to_cuda(tree):
-        return {k: to_cuda(v) if isinstance(v, dict) else v.cuda()
-                for k, v in tree.items()}
-
     cpu = ServeSession(arch, smoke=True, device="cpu", params=params)
     gpu = ServeSession(arch, smoke=True, device="cuda",
                        params=to_cuda(params))
@@ -1352,6 +1406,122 @@ def serve_phase(traffic: dict) -> dict:
     cross_check_serve(traffic["arch"])
     return {name: serve_path["launches"][name]
             for name, want in per_batch_launches(sess.cfg).items() if want}
+
+
+# --------------------------------------------------------------------------- #
+# The vlm and audio families at full width, on embeddings
+# --------------------------------------------------------------------------- #
+
+def embedding_batch(cfg, batch: int, seq: int, steps: int, seed: int,
+                    device: str = "cuda"):
+    """Seeded bf16 frame or patch embeddings (B, S, d_model) drawn on
+    ``device``, with (B, 3, S) M-RoPE position streams (random, distinct)
+    for qwen2-vl; and ``steps`` (B, 1, d_model) decode inputs."""
+    import torch
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def draw(*shape):
+        return torch.randn(shape, generator=gen, device=device).to(
+            torch.bfloat16)
+
+    out = {"inputs": draw(batch, seq, cfg.d_model)}
+    if cfg.rope_variant == "mrope":
+        out["positions"] = torch.randint(0, 4 * seq, (batch, 3, seq),
+                                         generator=gen, device=device,
+                                         dtype=torch.int32)
+    return out, [draw(batch, 1, cfg.d_model) for _ in range(steps)]
+
+
+def run_embed_path(run: dict) -> dict:
+    """One prefill of ``batch_size`` x ``prompt_len`` embeddings and
+    ``decode_steps`` decode steps through the step functions, with random
+    weights drawn on the card at the published widths; then its profile.
+    Gates: finite logits of the right shape, and exactly one
+    ``flash_attention`` launch a layer at the path's shape and no other
+    kernel."""
+    import torch
+    from repro_torch.launch import serve
+    from repro_torch.launch.serve import _merge_cache
+    from repro_torch.models import steps, transformer
+    from repro_torch.models.config import get_config
+    arch = run["arch"]
+    cfg = get_config(arch)
+    B, S, n = run["batch_size"], run["prompt_len"], run["decode_steps"]
+    release_sessions()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, 0, torch.bfloat16, "cuda")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    prefill = steps.make_prefill_step(cfg)
+    decode = steps.make_decode_step(cfg)
+    batch, tokens = embedding_batch(cfg, B, S, n, seed=0)
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, batch)
+    prefill_finite = bool(torch.isfinite(logits).all())
+    t1 = time.perf_counter()
+    full = _merge_cache(transformer.init_cache(cfg, B, S + n, "cuda"), cache)
+    decode_finite = torch.ones((), dtype=torch.bool, device="cuda")
+    for tok in tokens:
+        logits, full = decode(params, tok, full)
+        decode_finite &= torch.isfinite(logits).all()
+    decode_finite = bool(decode_finite)
+    t2 = time.perf_counter()
+    launches = {k: fn.launches for k, fn in serve.KERNELS.items()}
+    shapes = {k: dict(fn.shapes) for k, fn in serve.KERNELS.items()}
+    print(f"{arch} on embeddings {run}: prefill_s={t1 - t0} "
+          f"decode_s_per_token={(t2 - t1) / n} weights build seconds="
+          f"{build_s}")
+    print(f"max_memory_allocated bytes: {torch.cuda.max_memory_allocated()} "
+          f"(held before the phase: {held})")
+    print(f"{arch} path launches: {launches}, shapes: "
+          f"{ {k: {str(s): c for s, c in v.items()} for k, v in shapes.items()} }")
+    check(prefill_finite and decode_finite, f"{arch} logits finite")
+    check(tuple(logits.shape) == (B, cfg.vocab_size),
+          f"{arch} logits shape {tuple(logits.shape)}")
+    check(full["length"] == S + n, f"{arch} cache length")
+    for name, want in per_batch_launches(cfg).items():
+        check(launches[name] == want, f"{name}: {want} launches on the "
+                                      f"{arch} path (got {launches[name]})")
+    for name, shape in MAIN_SHAPES[arch].items():
+        check(set(shapes[name]) == {shape}, f"{name} ran at {shape}")
+    profile_steps(arch, cfg, params, prefill, decode, batch,
+                  lambda logits: tokens[0])
+    return {name: launches[name]
+            for name, want in per_batch_launches(cfg).items() if want}
+
+
+def cross_check_embed(arch: str) -> None:
+    """The smoke configuration's prefill on 4 x 100 embeddings (M-RoPE
+    streams for qwen2-vl) on the card against the CPU, with the same
+    weights and inputs, drawn once on the CPU."""
+    import torch
+    from repro_torch.models import steps
+    from repro_torch.models.config import get_config
+    from repro_torch.models.transformer import init_params
+    cfg = get_config(arch, smoke=True)
+    params = init_params(cfg, 0, torch.bfloat16, "cpu")
+    batch, _ = embedding_batch(cfg, 4, 100, 0, seed=7, device="cpu")
+    prefill = steps.make_prefill_step(cfg)
+    lc, _ = prefill(params, batch)
+    lg, _ = prefill(to_cuda(params), to_cuda(batch))
+    lg = lg.cpu()
+    excess = float(((lg - lc).abs() - MODEL_RTOL * lc.abs()).max())
+    print(f"{arch} cross-check (smoke, cuda vs cpu, embeddings): prefill "
+          f"logits max abs diff {float((lg - lc).abs().max())}")
+    check(bool(torch.isfinite(lg).all()), f"{arch} smoke cuda logits finite")
+    check(excess <= MODEL_ATOL, f"{arch} smoke prefill logits cuda vs cpu "
+                                f"within atol {MODEL_ATOL} / rtol "
+                                f"{MODEL_RTOL} (worst excess {excess})")
+
+
+def embed_phase(run: dict) -> dict:
+    launches = run_embed_path(run)
+    cross_check_embed(run["arch"])
+    return launches
 
 
 def main() -> None:
@@ -1413,11 +1583,23 @@ def main() -> None:
              "mamba2_ssd": time_ssd(SSD_MAIN),
              "rwkv6_wkv": time_wkv(WKV_MAIN)}
     wkv_f32 = time_wkv(WKV_MAIN, "float32")
+    flash_more = [time_flash(shape) for shape in FLASH_TIMED]
     for name, row in timed.items():
         print(f"{name} at main-path shape {row}")
     print(f"rwkv6_wkv f32 route at main-path shape {wkv_f32}")
+    for row in flash_more:
+        print(f"flash_attention at {tuple(row['shape'])} {row}")
 
-    launches = {**serve_phase(SERVE), **serve_phase(RWKV_SERVE)}
+    # every serve path with its counts at 0 just before it and read after
+    by_path = {}
+    for traffic in (SERVE, RWKV_SERVE, *DENSE_SERVES):
+        by_path[traffic["arch"]] = serve_phase(traffic)
+    for run in EMBED_RUNS:
+        by_path[run["arch"]] = embed_phase(run)
+    release_sessions()
+    launches = {name: sum(path.get(name, 0) for path in by_path.values())
+                for name in timed}
+    print(f"model kernel launches by path: {by_path}")
 
     record = {"kernels": [{
         "name": "anen_distance",
@@ -1446,11 +1628,27 @@ def main() -> None:
             "source": f"src/repro_torch/kernels/csrc/{name}.cu",
             "replaces": replaces[name],
             "launches": launches[name],
+            "launches_by_path": {arch: path[name]
+                                 for arch, path in by_path.items()
+                                 if name in path},
             "max_abs_err": max(errors[name]),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "call_ms": row["call_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"], "dtype": row["dtype"]})
+    flash_entry = next(e for e in record["kernels"]
+                       if e["name"] == "flash_attention")
+    hd160 = compiled[("flash_attention", "bfloat16", 160)]
+    flash_entry["other_shapes"] = [
+        {k: row[k] for k in ("shape", "ms", "busy_ms", "plain_ms",
+                             "library_ms", "call_ms", "bound_ms",
+                             "bound_by")} for row in flash_more]
+    flash_entry["hd160_compiled"] = {
+        "registers": hd160["registers"], "spill_bytes": hd160["spill_bytes"],
+        "smem_bytes": hd160["static_smem_bytes"]
+        + hd160["dynamic_smem_bytes"],
+        "blocks_per_sm": hd160["blocks_per_sm"],
+        "threads": hd160["threads"]}
     wkv_entry = next(e for e in record["kernels"]
                      if e["name"] == "rwkv6_wkv")
     wkv_entry.update(

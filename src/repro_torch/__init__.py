@@ -47,8 +47,10 @@ Ported (the modules that touch arrays or devices):
   adjoint gradient by autograd) and its forward, misfit-ensemble and
   misfit-chain workflows;
 * :mod:`repro_torch.models` and :mod:`repro_torch.configs` — the model
-  registry (all ten configurations) and the hybrid (zamba2) and ``ssm``
-  (rwkv6) families end to end, in the JAX package's parameter layout;
+  registry (all ten configurations) and, end to end in the JAX package's
+  parameter layout, the hybrid (zamba2), ``ssm`` (rwkv6) and
+  attention-stack (dense, vlm, audio) families; the ``moe`` family is not
+  ported;
 * :mod:`repro_torch.kernels.flash_attention`,
   :mod:`repro_torch.kernels.mamba2_ssd`,
   :mod:`repro_torch.kernels.rwkv6_wkv` — the model kernels as

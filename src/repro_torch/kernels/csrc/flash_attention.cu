@@ -18,7 +18,15 @@
 // the tensor cores can get near it.
 //
 // bf16 route (flash_fwd_tc_kernel, the serve path): one block of 4 warps
-// per (b, h, 128-row q tile), each warp owning 2 row blocks of 16 q rows.
+// per (b, h, 128-row q tile), each warp owning 2 row blocks of 16 q rows,
+// up to a padded head dim (hdp) of 128. Above it (hdp 144 and 160:
+// stablelm-12b's head dim is 160) two row blocks' O accumulators alone
+// would take 2 * hdp / 2 = 160 f32 registers a thread, past the 255 cap
+// with the scores beside them; so the same 128-row q tile goes to 8 warps
+// of 1 row block each (80 accumulator registers). ptxas gives 170
+// registers and no spill at hdp 160; its 129,024 bytes of shared memory
+// (Q, then two stages of K and V, at a pitch of 168) allow 1 block, 8
+// warps, an SM, as many warps as 2 blocks of 4 below it.
 // S = Q K^T and O += P V run on the tensor cores as mma.sync.m16n8k16
 // (bf16 operands, f32 sums); Q, K and V fragments come from shared memory
 // through ldmatrix (V with .trans), and each K or V fragment serves both
@@ -85,8 +93,7 @@ namespace {
 constexpr int kBlockQ = 64;
 constexpr int kBlockK = 64;
 constexpr int kThreads = 256;          // 16 x 16
-constexpr int kMaxHeadDim = 128;
-constexpr int kCols = kMaxHeadDim / 16;  // output columns a thread
+constexpr int kMaxHeadDim = 160;
 constexpr int kPPitch = kBlockK + 1;
 constexpr float kNegInf = -1e30f;
 
@@ -125,7 +132,9 @@ __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
   }
 }
 
-template <typename T>
+// kCols: output columns a thread, kMaxHeadDim / 16 at most (8 up to hd
+// 128, 10 above)
+template <typename T, int kCols>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
@@ -243,19 +252,29 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
+size_t f32_smem_bytes(int pitch) {
+  return sizeof(float) * (static_cast<size_t>(kBlockQ + kBlockK) * pitch +
+                          kBlockQ * kPPitch);
+}
+
+// Dispatch on the f32 route's columns a thread: 8 up to hd 128, 10 above.
+template <typename Fn>
+int with_cols(int hd, Fn&& fn) {
+  if (hd <= 128) return fn(std::integral_constant<int, 8>{});
+  return fn(std::integral_constant<int, 10>{});
+}
+
+template <typename T, int kCols>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, int B, int S, int H, int hd, cudaStream_t stream) {
   const int pitch = hd | 1;  // odd: conflict-free strided K reads
-  const size_t smem =
-      sizeof(float) * (static_cast<size_t>(kBlockQ + kBlockK) * pitch +
-                       kBlockQ * kPPitch);
+  const size_t smem = f32_smem_bytes(pitch);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_fwd_kernel<T, kCols>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, B * H);
-  flash_fwd_kernel<T><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, kCols><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), lse, S, H, hd, pitch,
       1.0f / sqrtf(static_cast<float>(hd)));
@@ -267,12 +286,19 @@ int launch(const void* q, const void* k, const void* v, void* out,
 // bf16 route: tensor cores (mma.sync), cp.async ring
 // --------------------------------------------------------------------------
 
-constexpr int kTcWarps = 4;
-constexpr int kTcMt = 2;                           // 16-row q tiles a warp
-constexpr int kTcBlockQ = 16 * kTcMt * kTcWarps;   // q rows a block
+constexpr int kTcBlockQ = 128;                     // q rows a block
 constexpr int kTcBlockK = 64;                      // kv rows a tile
-constexpr int kTcThreads = 32 * kTcWarps;
 constexpr float kLn2 = 0.6931471805599453f;
+
+// 16-row q tiles a warp, and warps a block: 2 x 4 up to hdp 128; above
+// it, where 2 tiles' O accumulators alone would take 2 * kHdp / 2 = 160
+// registers a thread at hdp 160, 1 x 8 (the same 128-row q tile)
+template <int kHdp>
+__host__ __device__ constexpr int tc_mt() { return kHdp > 128 ? 1 : 2; }
+template <int kHdp>
+__host__ __device__ constexpr int tc_threads() {
+  return 32 * kTcBlockQ / (16 * tc_mt<kHdp>());
+}
 
 using bf16 = __nv_bfloat16;
 
@@ -288,11 +314,13 @@ constexpr size_t tc_smem_bytes() {
 
 // kHdp: the head dim padded to a multiple of 16.
 template <int kHdp>
-__global__ void __launch_bounds__(kTcThreads)
+__global__ void __launch_bounds__(tc_threads<kHdp>())
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ out,
                     float* __restrict__ lse, int S, int H, int hd,
                     float scale_log2, bool vec) {
+  constexpr int kTcMt = tc_mt<kHdp>();
+  constexpr int kTcThreads = tc_threads<kHdp>();
   constexpr int kPitch = tc_pitch<kHdp>();
   constexpr int kTile = kTcBlockK * kPitch;
   constexpr int kSteps = kHdp / 16;      // k steps of Q K^T
@@ -513,7 +541,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* out,
   const bool vec = hd % 8 == 0 && tc::aligned16(q) && tc::aligned16(k) &&
                    tc::aligned16(v);
   const dim3 grid(B * H, (S + kTcBlockQ - 1) / kTcBlockQ);
-  flash_fwd_tc_kernel<kHdp><<<grid, kTcThreads, smem, stream>>>(
+  flash_fwd_tc_kernel<kHdp><<<grid, tc_threads<kHdp>(), smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, S, H, hd,
       1.4426950408889634f / sqrtf(static_cast<float>(hd)), vec);
@@ -527,10 +555,11 @@ int info_tc(int* info) {
       flash_fwd_tc_kernel<kHdp>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  return tc::kernel_info(flash_fwd_tc_kernel<kHdp>, kTcThreads, smem, info);
+  return tc::kernel_info(flash_fwd_tc_kernel<kHdp>, tc_threads<kHdp>(), smem,
+                         info);
 }
 
-// Dispatch on the head dim padded to a multiple of 16 (1..128 -> 16..128).
+// Dispatch on the head dim padded to a multiple of 16 (1..160 -> 16..160).
 template <typename Fn>
 int with_hdp(int hd, Fn&& fn) {
   switch ((hd + 15) / 16) {
@@ -542,6 +571,8 @@ int with_hdp(int hd, Fn&& fn) {
     case 6: return fn(std::integral_constant<int, 96>{});
     case 7: return fn(std::integral_constant<int, 112>{});
     case 8: return fn(std::integral_constant<int, 128>{});
+    case 9: return fn(std::integral_constant<int, 144>{});
+    case 10: return fn(std::integral_constant<int, 160>{});
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -562,7 +593,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     if (B * H > 65535) return static_cast<int>(cudaErrorInvalidValue);
-    return launch<float>(q, k, v, out, lse, B, S, H, hd, st);
+    return with_cols(hd, [&](auto cols) {
+      return launch<float, decltype(cols)::value>(q, k, v, out, lse, B, S, H,
+                                                  hd, st);
+    });
   }
   if (dtype == 1) {
     if ((S + kTcBlockQ - 1) / kTcBlockQ > 65535) {
@@ -585,15 +619,15 @@ extern "C" int flash_attention_info(int hd, int dtype, int* info) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == 0) {
-    const int pitch = hd | 1;
-    const size_t smem =
-        sizeof(float) * (static_cast<size_t>(kBlockQ + kBlockK) * pitch +
-                         kBlockQ * kPPitch);
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    return tc::kernel_info(flash_fwd_kernel<float>, kThreads, smem, info);
+    const size_t smem = f32_smem_bytes(hd | 1);
+    return with_cols(hd, [&](auto cols) {
+      auto* kernel = flash_fwd_kernel<float, decltype(cols)::value>;
+      cudaError_t err = cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return static_cast<int>(err);
+      return tc::kernel_info(kernel, kThreads, smem, info);
+    });
   }
   if (dtype == 1) {
     return with_hdp(hd, [&](auto hdp) {

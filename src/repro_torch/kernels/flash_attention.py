@@ -32,7 +32,7 @@ import torch
 from . import refuse_grad
 
 BLOCK = 64             # the plain version's q and kv tile (rows)
-MAX_HEAD_DIM = 128     # the kernels' largest head dim
+MAX_HEAD_DIM = 160     # the kernels' largest head dim (stablelm-12b's)
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -7,12 +7,17 @@ resubmitted by the toolkit, as in the JAX package.
 
 Prefill on the card goes through the CUDA kernels of the model's family
 (their plain versions on the CPU): flash attention and the Mamba-2 SSD scan
-for zamba2, the RWKV-6 WKV for rwkv6. Weights are random, drawn on the
-device at the configuration's widths from a seed: no published checkpoint
-is in the repository.
+for zamba2, the RWKV-6 WKV for rwkv6, flash attention once a layer for the
+attention stack (dense). Weights are random, drawn on the device at the
+configuration's widths from a seed: no published checkpoint is in the
+repository. Prompts are token ids, as in the JAX package: a configuration
+that takes embeddings (vlm, audio) runs through
+:mod:`repro_torch.models.steps` instead, and the command line serves
+stablelm-12b in its place.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-3b --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-12b --device cpu
 """
 
 from __future__ import annotations
@@ -79,9 +84,13 @@ class ServeSession:
         cfg, dev = self.cfg, self.device
         B, S = prompts.shape
         inputs = torch.as_tensor(np.asarray(prompts), dtype=torch.int32)
+        batch = {"inputs": inputs.to(dev)}
+        if cfg.rope_variant == "mrope":
+            pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+            batch["positions"] = pos[:, None].expand(B, 3, S)
         launches = {name: fn.launches for name, fn in KERNELS.items()}
         t0 = time.perf_counter()
-        logits, cache = self.prefill(self.params, {"inputs": inputs.to(dev)})
+        logits, cache = self.prefill(self.params, batch)
         # move the prefill cache into a cache with room for the new tokens
         full = _merge_cache(
             transformer.init_cache(cfg, B, S + max_new_tokens, dev), cache)
@@ -185,8 +194,13 @@ def main() -> None:
     ap.add_argument("--batch-size", type=int, default=2)
     ap.add_argument("--new-tokens", type=int, default=8)
     args = ap.parse_args()
+    arch = args.arch
+    if get_config(arch, smoke=True).embedding_inputs:
+        print(f"{arch} takes embedding inputs; using token-input arch "
+              "stablelm-12b for the CLI demo")
+        arch = "stablelm-12b"
     t0 = time.time()
-    amgr = run_managed(args.arch, n_batches=args.batches,
+    amgr = run_managed(arch, n_batches=args.batches,
                        batch_size=args.batch_size,
                        max_new_tokens=args.new_tokens, smoke=not args.full,
                        device=args.device)

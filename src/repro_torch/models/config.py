@@ -4,8 +4,11 @@ Every assigned architecture lives in ``repro_torch/configs/<id>.py`` and
 registers itself here via :func:`register_arch`. Each registration provides
 the exact published configuration plus a reduced ``smoke`` variant of the
 same family (small widths/layers/experts) for CPU tests. The port's model
-runs the ``hybrid`` family (zamba2-7b) at full width on the card; the other
-families are registered but not yet ported (``ROADMAP.md``).
+runs every family without experts: ``hybrid`` (zamba2-7b), ``ssm``
+(rwkv6-3b), ``dense`` (chatglm3-6b, minitron-4b, stablelm-12b,
+starcoder2-7b), ``vlm`` (qwen2-vl-2b) and ``audio`` (musicgen-medium).
+The ``moe`` configurations are registered but not yet ported
+(``ROADMAP.md``).
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Model assembly: init / prefill / decode of the hybrid (zamba2) and SSM
-(rwkv6) families.
+"""Model assembly: init / prefill / decode of the hybrid (zamba2), SSM
+(rwkv6) and attention-stack (dense, vlm, audio) families.
 
 The JAX package's parameter layout is kept at every public function:
 per-layer parameters stacked on a leading axis, ``x @ W`` with ``W`` shaped
@@ -10,9 +10,12 @@ Hybrid (zamba2): groups of ``attn_every`` Mamba2 layers, each followed by
 one application of a single *shared* attention+MLP block (parameters
 reused across all applications — the Zamba trick); trailing Mamba layers
 after the last group. SSM (rwkv6): a uniform stack of RWKV-6 layers, each
-carrying its token shifts and (H, N, N) WKV state. The other families
-(dense, MoE, audio, VLM) are not ported yet and raise
-``NotImplementedError`` (``ROADMAP.md``).
+carrying its token shifts and (H, N, N) WKV state. Attention stack (dense,
+vlm, audio without experts): a uniform stack of pre-norm attention + MLP
+layers; vlm and audio take precomputed (B, S, d_model) embeddings, and
+qwen2-vl's M-RoPE takes (B, 3, S) positions. Configurations with experts
+(the ``moe`` family) are not ported yet and raise ``NotImplementedError``
+(``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -32,33 +35,40 @@ from .rope import apply_rope, default_positions
 COMPUTE_DTYPE = torch.bfloat16
 
 
-PORTED_FAMILIES = ("hybrid", "ssm")
-
-
 def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
+    if cfg.n_experts:
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported to "
-            f"repro_torch yet (ROADMAP.md A12 lists the order); only "
-            f"'hybrid' (zamba2) and 'ssm' (rwkv6) run")
+            f"{cfg.name}: mixture-of-experts layers are not ported to "
+            f"repro_torch yet (ROADMAP.md A12c); the families without "
+            f"experts run")
 
 
 # --------------------------------------------------------------------------- #
 # Init
 # --------------------------------------------------------------------------- #
 
-def _init_attn(gen, cfg: ModelConfig, dtype, device) -> Dict:
+def _init_attn(gen, cfg: ModelConfig, dtype, device,
+               n_layers: int = 0) -> Dict:
     D = cfg.d_model
     hd = cfg.resolved_head_dim
     Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+    lead = (n_layers,) if n_layers else ()
     s = math.sqrt(1.0 / D)
     return {
-        "wq": normal((D, Hq * hd), s, gen, device, dtype),
-        "wk": normal((D, Hkv * hd), s, gen, device, dtype),
-        "wv": normal((D, Hkv * hd), s, gen, device, dtype),
-        "wo": normal((Hq * hd, D), math.sqrt(1.0 / (Hq * hd)), gen, device,
-                     dtype),
+        "wq": normal(lead + (D, Hq * hd), s, gen, device, dtype),
+        "wk": normal(lead + (D, Hkv * hd), s, gen, device, dtype),
+        "wv": normal(lead + (D, Hkv * hd), s, gen, device, dtype),
+        "wo": normal(lead + (Hq * hd, D), math.sqrt(1.0 / (Hq * hd)), gen,
+                     device, dtype),
     }
+
+
+def _init_norms(cfg: ModelConfig, device, n_layers: int = 0) -> Dict:
+    lead = (n_layers,) if n_layers else ()
+    return {"ln1": torch.ones(lead + (cfg.d_model,), dtype=torch.float32,
+                              device=device),
+            "ln2": torch.ones(lead + (cfg.d_model,), dtype=torch.float32,
+                              device=device)}
 
 
 def init_params(cfg: ModelConfig, seed: int = 0,
@@ -89,13 +99,22 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         params["blocks"] = rwkv6.init_rwkv_layer(gen, cfg, cfg.n_layers,
                                                  param_dtype, dev)
         return params
-    params["mamba"] = mamba2.init_mamba_layer(gen, cfg, cfg.n_layers,
-                                              param_dtype, dev)
-    params["shared_attn"] = {
-        "ln1": torch.ones(D, dtype=torch.float32, device=dev),
-        "ln2": torch.ones(D, dtype=torch.float32, device=dev),
-        "attn": _init_attn(gen, cfg, param_dtype, dev),
-        "mlp": init_gated_mlp(gen, D, cfg.d_ff, param_dtype, dev,
+    if cfg.family == "hybrid":
+        params["mamba"] = mamba2.init_mamba_layer(gen, cfg, cfg.n_layers,
+                                                  param_dtype, dev)
+        params["shared_attn"] = {
+            **_init_norms(cfg, dev),
+            "attn": _init_attn(gen, cfg, param_dtype, dev),
+            "mlp": init_gated_mlp(gen, D, cfg.d_ff, param_dtype, dev,
+                                  gated=cfg.mlp_gated),
+        }
+        return params
+    # dense / audio / vlm: the uniform attention stack
+    L = cfg.n_layers
+    params["blocks"] = {
+        "norms": _init_norms(cfg, dev, L),
+        "attn": _init_attn(gen, cfg, param_dtype, dev, L),
+        "mlp": init_gated_mlp(gen, D, cfg.d_ff, param_dtype, dev, L,
                               gated=cfg.mlp_gated),
     }
     return params
@@ -139,7 +158,8 @@ def count_params(cfg: ModelConfig) -> int:
 
 
 # --------------------------------------------------------------------------- #
-# Attention sub-block (the hybrid family's shared block)
+# Attention sub-block (the attention stack's layers, the hybrid's shared
+# block)
 # --------------------------------------------------------------------------- #
 
 def _project_qkv(p: Dict, x: torch.Tensor, cfg: ModelConfig,
@@ -194,15 +214,17 @@ def attn_decode_block(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     return out, k_cache, v_cache
 
 
-def _shared_block(shared: Dict, x: torch.Tensor, cfg: ModelConfig,
-                  attn_out: torch.Tensor) -> torch.Tensor:
+def _mlp_residual(mlp: Dict, ln2: torch.Tensor, x: torch.Tensor,
+                  cfg: ModelConfig, attn_out: torch.Tensor) -> torch.Tensor:
+    """The second half of a pre-norm layer: x + a, then + MLP(norm)."""
     x = x + attn_out
-    return x + gated_mlp(shared["mlp"],
-                         rms_norm(x, shared["ln2"], cfg.norm_eps), cfg)
+    return x + gated_mlp(mlp, rms_norm(x, ln2, cfg.norm_eps), cfg)
 
 
 def _layer(tree: Dict, i: int) -> Dict:
-    return {k: v[i] for k, v in tree.items()}
+    """Layer ``i``'s slice of a (nested) dict of stacked tensors."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
 
 
 # --------------------------------------------------------------------------- #
@@ -244,12 +266,28 @@ def _apply_zamba(params: Dict, cfg: ModelConfig, h: torch.Tensor,
             a, (k, v) = attn_block(shared["attn"],
                                    rms_norm(h, shared["ln1"], cfg.norm_eps),
                                    cfg, positions, want_cache=True)
-            h = _shared_block(shared, h, cfg, a)
+            h = _mlp_residual(shared["mlp"], shared["ln2"], h, cfg, a)
             ks.append(k)
             vs.append(v)
     cache = {"mamba": _stack(states), "k": torch.stack(ks),
              "v": torch.stack(vs)}
     return h, cache
+
+
+def _apply_attn_stack(params: Dict, cfg: ModelConfig, h: torch.Tensor,
+                      positions: torch.Tensor):
+    """The attention stack for prefill: (hidden, {"k", "v"} of shape (L,
+    B, S, Hkv * kv_repeat, hd) in the compute dtype)."""
+    ks, vs = [], []
+    for li in range(cfg.n_layers):
+        p = _layer(params["blocks"], li)
+        a, (k, v) = attn_block(p["attn"], rms_norm(h, p["norms"]["ln1"],
+                                                   cfg.norm_eps),
+                               cfg, positions, want_cache=True)
+        h = _mlp_residual(p["mlp"], p["norms"]["ln2"], h, cfg, a)
+        ks.append(k)
+        vs.append(v)
+    return h, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
 # --------------------------------------------------------------------------- #
@@ -285,7 +323,8 @@ def prefill(params: Dict, cfg: ModelConfig, inputs: torch.Tensor,
     else:
         if positions is None:
             positions = default_positions(B, S, cfg, device=inputs.device)
-        h, cache = _apply_zamba(params, cfg, h, positions)
+        apply = _apply_zamba if cfg.family == "hybrid" else _apply_attn_stack
+        h, cache = apply(params, cfg, h, positions)
     logits = logits_head(params, cfg, h[:, -1:])[:, 0]
     cache["length"] = S
     return logits, cache
@@ -294,8 +333,9 @@ def prefill(params: Dict, cfg: ModelConfig, inputs: torch.Tensor,
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: DeviceLike = None) -> Dict:
     """Decode cache of zeros and ``length`` (a Python int): the stacked
-    RWKV states (ssm), or the stacked Mamba states and the shared block's
-    (G, B, max_len, Hkv, hd) k/v (hybrid)."""
+    RWKV states (ssm); the stacked Mamba states and the shared block's
+    (G, B, max_len, Hkv * kv_repeat, hd) k/v (hybrid); or every layer's
+    (L, B, max_len, Hkv * kv_repeat, hd) k/v (attention stack)."""
     _require_ported(cfg)
     dev = resolve_device(device)
     if cfg.family == "ssm":
@@ -303,19 +343,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         return {"length": 0,
                 "rwkv": {k: v.new_zeros((cfg.n_layers, *v.shape))
                          for k, v in state.items()}}
-    hd = cfg.resolved_head_dim
-    Hkv_eff = cfg.n_kv_heads * cfg.kv_repeat
-    G = cfg.n_layers // cfg.attn_every
-    state = mamba2.init_state(cfg, batch, dev)
-    return {
-        "length": 0,
-        "mamba": {k: v.new_zeros((cfg.n_layers, *v.shape))
-                  for k, v in state.items()},
-        "k": torch.zeros(G, batch, max_len, Hkv_eff, hd, dtype=COMPUTE_DTYPE,
-                         device=dev),
-        "v": torch.zeros(G, batch, max_len, Hkv_eff, hd, dtype=COMPUTE_DTYPE,
-                         device=dev),
-    }
+    kv_shape = (cfg.n_layers, batch, max_len,
+                cfg.n_kv_heads * cfg.kv_repeat, cfg.resolved_head_dim)
+    cache: Dict[str, Any] = {"length": 0}
+    if cfg.family == "hybrid":
+        kv_shape = (cfg.n_layers // cfg.attn_every, *kv_shape[1:])
+        state = mamba2.init_state(cfg, batch, dev)
+        cache["mamba"] = {k: v.new_zeros((cfg.n_layers, *v.shape))
+                          for k, v in state.items()}
+    cache["k"] = torch.zeros(kv_shape, dtype=COMPUTE_DTYPE, device=dev)
+    cache["v"] = torch.zeros(kv_shape, dtype=COMPUTE_DTYPE, device=dev)
+    return cache
 
 
 def decode(params: Dict, cfg: ModelConfig, token: torch.Tensor,
@@ -324,7 +362,8 @@ def decode(params: Dict, cfg: ModelConfig, token: torch.Tensor,
 
     Returns (logits (B, V) f32, cache). The cache's tensors are updated in
     place (new k/v slot, new Mamba or RWKV states) and returned in a new
-    dict with ``length + 1``."""
+    dict with ``length + 1``. Default positions are ``length``, as (B, 3,
+    1) for M-RoPE."""
     _require_ported(cfg)
     B = token.shape[0]
     length = cache["length"]
@@ -335,7 +374,12 @@ def decode(params: Dict, cfg: ModelConfig, token: torch.Tensor,
         if positions is None:
             positions = torch.full((B, 1), length, dtype=torch.int32,
                                    device=token.device)
-        h = _decode_zamba(params, cfg, h, positions, cache)
+            if cfg.rope_variant == "mrope":
+                positions = positions[:, None].expand(B, 3, 1)
+        if cfg.family == "hybrid":
+            h = _decode_zamba(params, cfg, h, positions, cache)
+        else:
+            h = _decode_attn_stack(params, cfg, h, positions, cache)
     logits = logits_head(params, cfg, h)[:, 0]
     return logits, {**cache, "length": length + 1}
 
@@ -369,5 +413,18 @@ def _decode_zamba(params, cfg, h, positions, cache):
             a, _, _ = attn_decode_block(
                 shared["attn"], rms_norm(h, shared["ln1"], cfg.norm_eps),
                 cfg, positions, cache["k"][gi], cache["v"][gi], length)
-            h = _shared_block(shared, h, cfg, a)
+            h = _mlp_residual(shared["mlp"], shared["ln2"], h, cfg, a)
+    return h
+
+
+def _decode_attn_stack(params, cfg, h, positions, cache):
+    """One token through the attention stack, layer by layer, each writing
+    its new k/v slot into its slice of the stacked cache in place."""
+    length = cache["length"]
+    for li in range(cfg.n_layers):
+        p = _layer(params["blocks"], li)
+        a, _, _ = attn_decode_block(
+            p["attn"], rms_norm(h, p["norms"]["ln1"], cfg.norm_eps), cfg,
+            positions, cache["k"][li], cache["v"][li], length)
+        h = _mlp_residual(p["mlp"], p["norms"]["ln2"], h, cfg, a)
     return h

@@ -59,6 +59,32 @@ def test_port_matches_jax_pallas_interpret(shape, dtype):
     np.testing.assert_allclose(_f32(got), _f32(expect), atol=tol, rtol=tol)
 
 
+# head dims above 128: stablelm-12b's 160, 144, and 150 (not a multiple of
+# 8); the JAX kernel takes the whole head dim in one block
+WIDE_SHAPES = [(1, 128, 2, 144), (2, 128, 2, 150), (1, 256, 2, 160)]
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("shape", WIDE_SHAPES)
+def test_wide_head_dims_match_jax(shape, dtype):
+    """hd 144..160 against the JAX Pallas kernel (interpret mode, equal
+    blocks) and the naive ``attention_ref``, out and lse."""
+    (jq, jk, jv), (tq, tk, tv) = _both(_qkv(shape, seed=8), dtype)
+    tol = DTYPES[dtype][2]
+    got, lse = flash_attention(tq, tk, tv)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    expect = jops.flash_attention(jq, jk, jv, causal=True, interpret=True,
+                                  block_q=128, block_k=128)
+    np.testing.assert_allclose(_f32(got), _f32(expect), atol=tol, rtol=tol)
+    np.testing.assert_allclose(_f32(got), _f32(jref.attention_ref(jq, jk, jv)),
+                               atol=tol, rtol=tol)
+    if dtype == "float32":
+        _, (_, _, _, _, jlse) = jfa._fwd_rule(jq, jk, jv, True, True, 128,
+                                              128)
+        np.testing.assert_allclose(lse.numpy(), _f32(jlse), atol=2e-5,
+                                   rtol=2e-5)
+
+
 @pytest.mark.parametrize("shape", [(2, 256, 4, 64), (1, 128, 2, 112)])
 def test_lse_matches_jax_kernel(shape):
     (jq, jk, jv), (tq, tk, tv) = _both(_qkv(shape, seed=1), "float32")
@@ -161,7 +187,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     elif bad == "shape":
         k = k[:, :8].contiguous()
     elif bad == "head_dim":
-        q, k, v = (torch.zeros(1, 16, 1, 136) for _ in range(3))
+        q, k, v = (torch.zeros(1, 16, 1, 168) for _ in range(3))
     elif bad == "strided":
         q = q.transpose(1, 2).contiguous().transpose(1, 2)
     else:

@@ -1,8 +1,9 @@
 """Tests of the port that need an NVIDIA GPU: each CUDA kernel against its
 plain version, the model kernels' refusal of autograd on their CUDA routes,
 and the AnEn workflow (on the DAG tier), the multi-tenant service's AnEn
-sweeps, the seismic misfit sweeps (chain and DAG tiers) and the zamba2 and
-rwkv6 serving paths on the card against the same runs on the CPU. They skip where ``torch.cuda.is_available()`` is False. This file
+sweeps, the seismic misfit sweeps (chain and DAG tiers), the zamba2, rwkv6
+and dense serving paths and the qwen2-vl prefill on embeddings on the card
+against the same runs on the CPU. They skip where ``torch.cuda.is_available()`` is False. This file
 imports nothing of JAX, so it also runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -189,6 +190,10 @@ FLASH_SHAPES = [(4, 512, 32, 112), (1, 100, 2, 112), (2, 300, 3, 64),
 FLASH_SHAPES += [(B, S, H, hd) for hd in (32, 64, 112, 128)
                  for S in (1, 63, 65, 100, 512) for B, H in ((1, 1), (4, 32))
                  if (B, S, H, hd) not in FLASH_SHAPES]
+# head dims above 128 (1 x 8 warps a block on the tensor cores): 144, 150
+# (not a multiple of 8: element-wise tile fills) and stablelm-12b's 160
+FLASH_SHAPES += [(B, S, H, hd) for hd in (144, 150, 160)
+                 for S in (1, 63, 65, 100, 512) for B, H in ((1, 1), (4, 32))]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -342,6 +347,75 @@ def test_rwkv6_smoke_serve_on_card_matches_cpu(cuda):
     assert rwkv6_wkv.launches - before == gpu.cfg.n_layers
     lc, _ = cpu.prefill(cpu.params, {"inputs": torch.from_numpy(tokens)})
     torch.testing.assert_close(lg.cpu(), lc, atol=0.08, rtol=0.05)
+
+
+def test_dense_smoke_serve_on_card_matches_cpu(cuda):
+    """minitron-4b's smoke configuration, the same weights on both
+    devices: prefill launches flash once a layer; logits and greedy tokens
+    of a short generation agree with the CPU's."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import ServeSession
+    from repro_torch.models.config import get_config
+    from repro_torch.models.transformer import init_params
+    params = init_params(get_config("minitron-4b", smoke=True), 0,
+                         torch.bfloat16, "cpu")
+    cpu = ServeSession("minitron-4b", smoke=True, device="cpu",
+                       params=params)
+    gpu = ServeSession("minitron-4b", smoke=True, device=cuda,
+                       params=_to(params, cuda))
+    tokens = np.random.default_rng(0).integers(0, cpu.cfg.vocab_size,
+                                                (2, 100))
+    before = flash_attention.launches
+    lg, cg = gpu.prefill(gpu.params, {"inputs": torch.from_numpy(tokens)
+                                      .to(cuda)})
+    torch.cuda.synchronize()
+    assert flash_attention.launches - before == gpu.cfg.n_layers
+    lc, cc = cpu.prefill(cpu.params, {"inputs": torch.from_numpy(tokens)})
+    torch.testing.assert_close(lg.cpu(), lc, atol=0.08, rtol=0.05)
+    torch.testing.assert_close(cg["k"].cpu().float(), cc["k"].float(),
+                               atol=0.08, rtol=0.05)
+    out = gpu.generate(tokens, 4)
+    assert out.shape == (2, 4)
+    assert ((out >= 0) & (out < gpu.cfg.vocab_size)).all()
+    assert gpu.stats[-1]["flash_attention_launches"] == gpu.cfg.n_layers
+
+
+def test_qwen2_vl_smoke_prefill_on_embeddings_matches_cpu(cuda):
+    """qwen2-vl's smoke configuration on bf16 embeddings with distinct
+    (B, 3, S) M-RoPE position streams, on the card against the CPU, then
+    one decode step on an embedding."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import _merge_cache
+    from repro_torch.models import steps, transformer
+    from repro_torch.models.config import get_config
+    cfg = get_config("qwen2-vl-2b", smoke=True)
+    params = transformer.init_params(cfg, 0, torch.bfloat16, "cpu")
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((2, 100, cfg.d_model))
+                         .astype(np.float32)).bfloat16()
+    pos = torch.from_numpy(rng.integers(0, 400, (2, 3, 100))
+                           .astype(np.int32))
+    tok = torch.from_numpy(rng.standard_normal((2, 1, cfg.d_model))
+                           .astype(np.float32)).bfloat16()
+    prefill, decode = steps.make_prefill_step(cfg), steps.make_decode_step(cfg)
+
+    def run(device, tree):
+        before = flash_attention.launches
+        logits, cache = prefill(tree, {"inputs": x.to(device),
+                                       "positions": pos.to(device)})
+        launched = flash_attention.launches - before
+        full = _merge_cache(transformer.init_cache(cfg, 2, 101, device),
+                            cache)
+        step, _ = decode(tree, tok.to(device), full)
+        return logits.cpu(), step.cpu(), launched
+
+    lg, sg, launched = run(cuda, _to(params, cuda))
+    torch.cuda.synchronize()
+    assert launched == cfg.n_layers
+    lc, sc, _ = run("cpu", params)
+    assert bool(torch.isfinite(lg).all()) and bool(torch.isfinite(sg).all())
+    torch.testing.assert_close(lg, lc, atol=0.08, rtol=0.05)
+    torch.testing.assert_close(sg, sc, atol=0.08, rtol=0.05)
 
 
 def test_default_service_resolves_to_cuda(cuda):

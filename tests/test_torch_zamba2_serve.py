@@ -246,6 +246,12 @@ def test_bf16_round_trip_is_bit_exact():
     np.testing.assert_array_equal(back, np.asarray(x))
 
 
-def test_other_families_raise_naming_the_roadmap():
+@pytest.mark.parametrize("arch", ["dbrx-132b", "llama4-maverick-400b-a17b"])
+def test_other_families_raise_naming_the_roadmap(arch):
+    """The configurations with experts (the ``moe`` family) are not ported
+    yet; every family without them is."""
+    cfg = tconfig(arch, smoke=True)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttf.init_params(tconfig("stablelm-12b", smoke=True), device="cpu")
+        ttf.init_params(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ttf.init_cache(cfg, 1, 8, "cpu")
