@@ -40,11 +40,24 @@ plain PyTorch version on the card, and drives the port's paths:
    (its serve driver takes token ids only): qwen2-vl-2b with (B, 3, S)
    M-RoPE positions (28 flash launches) and musicgen-medium (48), each one
    prefill of 4 x 512 embeddings and 15 decode steps; then its smoke
-   configuration's prefill on the card against the CPU.
+   configuration's prefill on the card against the CPU;
+7. training (``repro_torch.launch.train``): qwen2-vl-2b at its published
+   width and depth, f32 masters and AdamW state, 3 steps of 4 x 512 on the
+   synthetic stream, each step launching the flash forward 56 times (28
+   layers, each recomputed once under remat) and its backward kernel
+   (``flash_attention_bwd``) 28 times at (4, 512, 12, 128), with a
+   profile of one more step; then one train step of the stablelm-12b and
+   qwen2-vl-2b smoke configurations on the card against the CPU; then
+   minitron-4b's smoke configuration through ``run_managed`` on
+   ``TorchRTS``, 20 steps in chunks of 5 with one injected fault (one
+   retry, no step trained twice).
 
-Before the serve paths it checks that the CUDA routes of the three model
-kernels refuse an input that requires grad (they have no backward yet),
-and prints every compiled kernel's registers,
+Before the serve paths it checks that the CUDA routes of the SSD and WKV
+kernels refuse an input that requires grad (no backward kernel yet), that
+flash's takes grads (``autograd.grad`` through its forward and backward
+kernels against autograd through its plain forward), holds the backward
+kernel against its plain version, and prints every compiled kernel's
+registers,
 shared memory and blocks an SM (for flash, SSD and WKV each route: f32 on
 the CUDA cores, bf16 on the tensor cores), and the device time of an
 empty kernel, the floor under every kernel time it prints.
@@ -72,8 +85,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 SRC = os.path.join(HERE, "src")
 
 # every CUDA source of the port (src/repro_torch/kernels/csrc/<name>.cu)
-KERNEL_SOURCES = ("anen_distance", "flash_attention", "mamba2_ssd",
-                  "rwkv6_wkv")
+KERNEL_SOURCES = ("anen_distance", "flash_attention", "flash_attention_bwd",
+                  "mamba2_ssd", "rwkv6_wkv")
 
 # published peaks of one H100 SXM (NVIDIA data sheet) at a 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -126,6 +139,7 @@ FLASH_STABLELM = (4, 512, 32, 160)
 FLASH_MINITRON = (4, 512, 24, 128)
 FLASH_QWEN2_VL = (4, 512, 12, 128)
 FLASH_MUSICGEN = (4, 512, 24, 64)
+FLASH_MANAGED_TRAIN = (8, 128, 4, 32)     # minitron-4b smoke, run_managed
 MAIN_SHAPES = {"zamba2-7b": {"flash_attention": FLASH_MAIN,
                              "mamba2_ssd": SSD_MAIN},
                "rwkv6-3b": {"rwkv6_wkv": WKV_MAIN},
@@ -140,7 +154,9 @@ FLASH_SHAPES = (FLASH_MAIN, (4, 100, 32, 112), (4, 300, 32, 112),
                 # at 150 (not a multiple of 8: element-wise tile fills)
                 FLASH_STABLELM, FLASH_MINITRON, FLASH_QWEN2_VL,
                 FLASH_MUSICGEN, (4, 100, 32, 160), (2, 65, 3, 160),
-                (4, 100, 32, 150), (2, 65, 3, 150))
+                (4, 100, 32, 150), (2, 65, 3, 150),
+                # the managed train run's shape (phase 7)
+                FLASH_MANAGED_TRAIN)
 # timed beside FLASH_MAIN: the widest head dim and minitron's
 FLASH_TIMED = (FLASH_STABLELM, FLASH_MINITRON)
 SSD_SHAPES = (SSD_MAIN, (4, 100, 112, 64, 1, 64), (2, 128, 8, 64, 2, 64),
@@ -159,6 +175,26 @@ TOLERANCE = {"flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
              "rwkv6_wkv": {"float32": 1e-4, "bfloat16": 5e-2}}
 # the JAX package's kernel-vs-reference model tolerance
 MODEL_ATOL, MODEL_RTOL = 0.08, 0.05
+
+# phase 7, training: the flash backward's shapes (the zamba2 shape, the
+# qwen2-vl training shape, the managed run's, hd 160 and 150, and GQA-free
+# ragged S at the 64-row tiles' edges), its tolerances, the full-width
+# train run, the smoke configurations held card against CPU, and the
+# managed run
+FLASH_BWD_SHAPES = (FLASH_MAIN, FLASH_QWEN2_VL, FLASH_MANAGED_TRAIN,
+                    (4, 100, 32, 160), (2, 65, 3, 160), (4, 100, 32, 150),
+                    (2, 65, 3, 150), (1, 1, 2, 32), (2, 63, 3, 32),
+                    (2, 65, 3, 32), (2, 100, 3, 64))
+FLASH_BWD_TIMED = (FLASH_QWEN2_VL, FLASH_MAIN)
+# f32: the JAX gradient tolerance (tests/test_kernels.py:56). bf16: both
+# sides sum in f32 and round dq, dk, dv once to bf16; sums in another
+# order can round to neighbouring bf16 values, 2^-8 of |ref| apart, so
+# 1e-2 (atol = rtol) covers one such step with room
+BWD_TOLERANCE = {"float32": 5e-4, "bfloat16": 1e-2}
+TRAIN = dict(arch="qwen2-vl-2b", seq_len=512, global_batch=4, steps=3)
+TRAIN_SMOKE = ("stablelm-12b", "qwen2-vl-2b")
+TRAIN_MANAGED = dict(arch="minitron-4b", total_steps=20, steps_per_chunk=5,
+                     fail_once_at=5)
 
 
 def check(cond: bool, what: str) -> None:
@@ -331,8 +367,8 @@ def time_distance(shape) -> dict:
 
 def reset_counts() -> None:
     """Every kernel wrapper's launch count (and shape count) to 0."""
+    from repro_torch.kernels import KERNELS
     from repro_torch.kernels.anen_distance import anen_distance
-    from repro_torch.launch.serve import KERNELS
     for fn in (anen_distance, *KERNELS.values()):
         fn.launches = 0
         fn.shapes.clear()
@@ -808,8 +844,8 @@ def run_service_phase(device=None) -> dict:
 # --------------------------------------------------------------------------- #
 
 def kernel_counts() -> dict:
+    from repro_torch.kernels import KERNELS
     from repro_torch.kernels.anen_distance import anen_distance
-    from repro_torch.launch.serve import KERNELS
     return {"anen_distance": anen_distance.launches,
             **{k: fn.launches for k, fn in KERNELS.items()}}
 
@@ -931,15 +967,19 @@ def cross_check_seismic() -> None:
           "seismic cuda vs cpu total within 1e-4")
 
 
-def check_grad_refusal() -> None:
-    """Each model kernel's CUDA route raises on an input that requires
-    grad while grad mode is on (no backward yet), and launches nothing."""
+def check_grad_routes() -> None:
+    """The SSD and WKV CUDA routes raise on an input that requires grad
+    while grad mode is on (no backward kernel yet) and launch nothing;
+    flash's CUDA route takes grads: ``torch.autograd.grad`` through its
+    ``autograd.Function`` (forward and backward kernels) against autograd
+    through the plain forward, in f32 at the JAX gradient tolerance."""
     import torch
-    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd,
+                                                     flash_attention_plain)
     from repro_torch.kernels.mamba2_ssd import mamba2_ssd
     from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv
-    cases = ((flash_attention, attention_inputs((1, 64, 2, 32), "float32")),
-             (mamba2_ssd, ssd_inputs((1, 64, 2, 16, 1, 8), "float32")),
+    cases = ((mamba2_ssd, ssd_inputs((1, 64, 2, 16, 1, 8), "float32")),
              (rwkv6_wkv, wkv_inputs((1, 64, 2, 16), "float32")))
     for fn, args in cases:
         args[0].requires_grad_(True)
@@ -954,6 +994,25 @@ def check_grad_refusal() -> None:
                                f"grad on CUDA")
         torch.cuda.synchronize()
         check(fn.launches == before, f"{fn.__name__}: no launch under grad")
+    for shape in ((2, 100, 3, 64), (1, 65, 2, 160)):
+        q, k, v = (a.requires_grad_(True)
+                   for a in attention_inputs(shape, "float32"))
+        dout = attention_inputs(shape, "float32", seed=12)[0]
+        before = (flash_attention.launches, flash_attention_bwd.launches)
+        out, lse = flash_attention(q, k, v)
+        got = torch.autograd.grad(out, (q, k, v), dout)
+        torch.cuda.synchronize()
+        check((flash_attention.launches, flash_attention_bwd.launches)
+              == (before[0] + 1, before[1] + 1),
+              "flash under grad: one forward and one backward launch")
+        check(not lse.requires_grad, "flash lse carries no gradient")
+        ref_out, _ = flash_attention_plain(q, k, v)
+        want = torch.autograd.grad(ref_out, (q, k, v), dout)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            err = held_close(a, b, BWD_TOLERANCE["float32"],
+                             f"flash autograd {name} {shape}")
+            print(f"flash autograd.grad {shape} {name}: max abs err {err} "
+                  f"against autograd through the plain forward")
 
 
 # --------------------------------------------------------------------------- #
@@ -1038,6 +1097,67 @@ def compare_flash(shape, dtype: str) -> float:
     print(f"flash_attention {shape} {dtype}: max abs err out {err} "
           f"lse {lse_err} (tolerance {tol})")
     return err
+
+
+def compare_flash_bwd(shape, dtype: str) -> float:
+    """The backward kernel against its plain version on the same q, k, v,
+    out, lse (from the forward kernel) and dout: dq, dk, dv."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
+    q, k, v = attention_inputs(shape, dtype)
+    dout = attention_inputs(shape, dtype, seed=12)[0]
+    out, lse = flash_attention(q, k, v)
+    got = flash_attention_bwd(q, k, v, out, lse, dout)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    tol = BWD_TOLERANCE[dtype]
+    errs = [held_close(a, b, tol, f"flash_attention_bwd {name} {shape} "
+                                  f"{dtype}")
+            for name, a, b in zip(("dq", "dk", "dv"), got, want)]
+    print(f"flash_attention_bwd {shape} {dtype}: max abs err dq, dk, dv "
+          f"{errs} (tolerance {tol})")
+    return max(errs)
+
+
+def flash_bwd_bound(shape, elem: int) -> dict:
+    """q, k, v, out, dout read and dq, dk, dv written once in the input
+    type, lse read in f32; five products (S, dP, dq, dk, dv) of 2 hd flops
+    for each of the S(S+1)/2 causal (q, k) pairs of each (b, h), at the
+    tensor-core rate of bf16 inputs."""
+    B, S, H, hd = shape
+    bytes_ = 8 * B * S * H * hd * elem + 4 * B * S * H
+    flops = 10.0 * B * H * hd * S * (S + 1) / 2
+    return _bound(bytes_, flops, BF16_FLOPS_PER_S)
+
+
+def time_flash_bwd(shape) -> dict:
+    """The backward kernel (device time, busy time), its plain version
+    (busy time) and, as the library yardstick, the backward of
+    ``scaled_dot_product_attention`` on the same inputs (busy time of
+    ``autograd.grad`` through a retained SDPA graph), in bf16."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
+    q, k, v = attention_inputs(shape, "bfloat16")
+    dout = attention_inputs(shape, "bfloat16", seed=12)[0]
+    out, lse = flash_attention(q, k, v)
+    qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_(True)
+                  for a in (q, k, v))
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dout_t = dout.transpose(1, 2).contiguous()
+    kernel = lambda: flash_attention_bwd(q, k, v, out, lse, dout)  # noqa
+    plain = lambda: flash_attention_bwd_plain(                     # noqa
+        q, k, v, out, lse, dout)
+    library = lambda: torch.autograd.grad(                         # noqa
+        sdpa, (qt, kt, vt), dout_t, retain_graph=True)
+    row = {"shape": list(shape), "dtype": "bfloat16",
+           "ms": device_ms(kernel), "busy_ms": busy_ms(kernel),
+           "plain_ms": busy_ms(plain), "library_ms": busy_ms(library),
+           "call_ms": call_ms(kernel)}
+    row.update(flash_bwd_bound(shape, 2))
+    return row
 
 
 def compare_ssd(shape, dtype: str) -> float:
@@ -1136,12 +1256,16 @@ def compiled_kernels(anen_n: int) -> dict:
             FLASH_MAIN[3], dtype)
         info[("flash_attention", name, 160)] = flash_attention.kernel_info(
             160, dtype)
+        info[("flash_attention_bwd", name)] = flash_attention.bwd_kernel_info(
+            FLASH_QWEN2_VL[3], dtype, "dkdv")
+        info[("flash_attention_bwd", name, "dq")] = \
+            flash_attention.bwd_kernel_info(FLASH_QWEN2_VL[3], dtype, "dq")
         info[("mamba2_ssd", name)] = mamba2_ssd.kernel_info(
             N, P, pick_chunk(T), dtype)
         info[("rwkv6_wkv", name)] = rwkv6_wkv.kernel_info(
             WKV_MAIN[3], pick_chunk(WKV_MAIN[1]), dtype)
     for (kernel, name, *hd), row in info.items():
-        at = f" at head dim {hd[0]}" if hd else ""
+        at = f" ({hd[0]})" if hd else ""
         print(f"compiled {kernel} {name} route{at}: {row}")
     return info
 
@@ -1227,6 +1351,7 @@ def release_sessions() -> None:
 def run_serve_path(traffic: dict) -> dict:
     import numpy as np
     import torch
+    from repro_torch.kernels import KERNELS
     from repro_torch.launch import serve
     from repro_torch.models.config import get_config
     arch = traffic["arch"]
@@ -1245,8 +1370,8 @@ def run_serve_path(traffic: dict) -> dict:
                              device="cuda", timeout=600.0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in serve.KERNELS.items()}
-    shapes = {k: dict(fn.shapes) for k, fn in serve.KERNELS.items()}
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    shapes = {k: dict(fn.shapes) for k, fn in KERNELS.items()}
     sess = serve.get_session(arch, False, "cuda")
     tasks = [t for p in amgr.workflow for s in p.stages for t in s.tasks]
     print(f"serve {traffic}: all_done={amgr.all_done} wall_s={wall} "
@@ -1441,6 +1566,7 @@ def run_embed_path(run: dict) -> dict:
     ``flash_attention`` launch a layer at the path's shape and no other
     kernel."""
     import torch
+    from repro_torch.kernels import KERNELS
     from repro_torch.launch import serve
     from repro_torch.launch.serve import _merge_cache
     from repro_torch.models import steps, transformer
@@ -1470,8 +1596,8 @@ def run_embed_path(run: dict) -> dict:
         decode_finite &= torch.isfinite(logits).all()
     decode_finite = bool(decode_finite)
     t2 = time.perf_counter()
-    launches = {k: fn.launches for k, fn in serve.KERNELS.items()}
-    shapes = {k: dict(fn.shapes) for k, fn in serve.KERNELS.items()}
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    shapes = {k: dict(fn.shapes) for k, fn in KERNELS.items()}
     print(f"{arch} on embeddings {run}: prefill_s={t1 - t0} "
           f"decode_s_per_token={(t2 - t1) / n} weights build seconds="
           f"{build_s}")
@@ -1524,6 +1650,257 @@ def embed_phase(run: dict) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# Phase 7: training
+# --------------------------------------------------------------------------- #
+
+def release_all() -> None:
+    """Drop the served models and the AnEn datasets, so that the training
+    phase's peak memory is its own."""
+    import gc
+    import torch
+    from repro_torch.apps.anen import workflow as wf
+    release_sessions()
+    wf._DATASETS.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_launches_per_step(cfg) -> dict:
+    """Kernel launches of one train step with one checkpoint a layer: each
+    attention application's flash forward twice (the pass and its
+    recomputation) and its backward once."""
+    attn = cfg.n_layers if cfg.family not in ("ssm", "hybrid") else None
+    check(attn is not None, f"{cfg.name}: only the attention stack trains "
+                            f"on the card")
+    return {"flash_attention": 2 * attn, "flash_attention_bwd": attn,
+            "mamba2_ssd": 0, "rwkv6_wkv": 0}
+
+
+def profile_train_step(sess) -> None:
+    """One more step under ``torch.profiler``: device busy share of the
+    step's wall time (profiler overhead included), device ms by kind and
+    the leading device ops. Its launches are not counted: the path's
+    counts were read before."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sess.run_steps(1, save=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = device_rows(prof)
+    busy = sum(r[2] for r in rows)
+    kinds = {}
+    for key, count, ms in rows:
+        kind = ("flash_attention_bwd" if any(w in key for w in (
+                    "dkdv_kernel", "dq_kernel", "delta_kernel")) else
+                "flash_attention" if "flash_fwd" in key else
+                "matmul" if any(w in key.lower() for w in (
+                    "nvjet", "gemm", "gemv", "cutlass", "xmma", "sm90_"))
+                else "other")
+        kinds[kind] = kinds.get(kind, 0.0) + ms
+    print(f"profiled train step {sess.cfg.name}: wall_ms={wall * 1e3} "
+          f"device_busy_ms={busy} busy_share={busy / 1e3 / wall} device "
+          f"ops {sum(r[1] for r in rows)}, device ms by kind: {kinds}")
+    for key, count, ms in rows[:12]:
+        print(f"  device {ms:.3f} ms  x{count}  {key[:90]}")
+
+
+def run_train_path() -> dict:
+    """qwen2-vl-2b at full width and depth through ``TrainSession``: f32
+    masters, AdamW moments, 3 steps of 4 x 512 on the synthetic stream's
+    embeddings and M-RoPE positions. Gates: finite losses and grad norms,
+    exactly 56 flash forward and 28 backward launches a step, all at (4,
+    512, 12, 128), and no SSD or WKV launch."""
+    import torch
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.train import TrainSession
+    release_all()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sess = TrainSession(arch=TRAIN["arch"], smoke=False,
+                        seq_len=TRAIN["seq_len"],
+                        global_batch=TRAIN["global_batch"], device="cuda")
+    sess.restore_or_init()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n = TRAIN["steps"]
+    reset_counts()
+    out = sess.run_steps(n, save=False)
+    launches = {k: fn.launches for k, fn in KERNELS.items()}
+    shapes = {k: dict(fn.shapes) for k, fn in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    per_step = train_launches_per_step(sess.cfg)
+    tokens = TRAIN["seq_len"] * TRAIN["global_batch"]
+    print(f"train {TRAIN}: init seconds {init_s}, result {out}")
+    print(f"max_memory_allocated bytes: {peak} (held before the phase: "
+          f"{held})")
+    print(f"train path launches: {launches}, shapes: "
+          f"{ {k: {str(s): c for s, c in v.items()} for k, v in shapes.items()} }")
+    for rec in sess.stats:
+        print(f"  step {rec['step']}: loss={rec['loss']} grad_norm="
+              f"{rec['grad_norm']} seconds={rec['seconds']} tokens_per_s="
+              f"{tokens / rec['seconds']} launches="
+              f"{ {k: rec[k + '_launches'] for k in per_step} }")
+        check(math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"]),
+              f"train step {rec['step']}: finite loss and grad norm")
+        for name, want in per_step.items():
+            check(rec[f"{name}_launches"] == want,
+                  f"{name}: {want} launches a train step (got "
+                  f"{rec[name + '_launches']})")
+    for name, want in per_step.items():
+        check(launches[name] == want * n,
+              f"{name}: {want * n} launches on the train path")
+    for name in ("flash_attention", "flash_attention_bwd"):
+        check(set(shapes[name]) == {FLASH_QWEN2_VL},
+              f"{name} ran at {FLASH_QWEN2_VL}")
+    warm = [rec["seconds"] for rec in sess.stats[1:]]
+    print(f"train warm step seconds {warm}, tokens a second "
+          f"{[tokens / w for w in warm]}, peak bytes {peak}")
+    profile_train_step(sess)
+    sess.state = None
+    release_all()
+    return ({k: launches[k] for k, want in per_step.items() if want},
+            shapes["flash_attention_bwd"])
+
+
+def cross_check_train(arch: str) -> None:
+    """One train step of the smoke configuration on the card and on the
+    CPU from the same f32 train state (drawn once on the CPU) and batch (4
+    x 100 from the data stream: a ragged last flash tile). bf16 compute
+    differs between the two in summation order: the loss is held at the
+    model tolerance, the grad norm at rtol 0.05, and the moments m̂ and √v̂
+    (the clipped gradient and its magnitude at step 1) leaf by leaf at a
+    normwise rtol 0.05 (bf16 against f32 compute on the CPU differs by at
+    most 0.02 a leaf in these configurations). Step 1 moves each
+    parameter by about ±lr = 3e-6, below any tolerance on the parameters
+    themselves, so on each side every parameter is held to the update
+    its own moments give, within two f32 spacings
+    (``tests/_torch_update.py``)."""
+    import torch
+    from repro_torch.data import make_stream
+    from repro_torch.models import steps
+    from repro_torch.models.config import get_config
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    # the card test's checks of one AdamW step
+    from _torch_update import clone_tree, moments_rel_err, update_err
+    cfg = get_config(arch, smoke=True)
+    batch = {k: torch.from_numpy(v)
+             for k, v in make_stream(cfg, 100, 4).batch(0).items()}
+    cpu = steps.init_train_state(cfg, 0, "cpu")
+    gpu = to_cuda(cpu)
+    before = clone_tree(cpu["params"])
+    step = steps.make_train_step(cfg)
+    gpu, mg = step(gpu, to_cuda(batch))
+    cpu, mc = step(cpu, batch)
+    lg, lc = float(mg["loss"]), float(mc["loss"])
+    ng, nc = float(mg["grad_norm"]), float(mc["grad_norm"])
+    m_err = moments_rel_err(gpu["opt"], cpu["opt"])
+    u_gpu = update_err(before, gpu["params"], gpu["opt"], float(mg["lr"]))
+    u_cpu = update_err(before, cpu["params"], cpu["opt"], float(mc["lr"]))
+    moved = max(float((a.cpu() - b).abs().max())
+                for a, b in zip(steps.leaves(gpu["params"]),
+                                steps.leaves(before)))
+    print(f"train cross-check {arch} (smoke, cuda vs cpu): loss {lg} vs "
+          f"{lc}, grad norm {ng} vs {nc}, moments leaf-wise rel err "
+          f"{m_err}, update err (tolerances) cuda {u_gpu} cpu {u_cpu}, "
+          f"largest move {moved} (lr {float(mg['lr'])})")
+    check(math.isfinite(lg) and math.isfinite(ng), f"{arch} finite")
+    check(abs(lg - lc) <= MODEL_ATOL + MODEL_RTOL * abs(lc),
+          f"{arch} train loss cuda vs cpu within the model tolerance")
+    check(abs(ng - nc) <= MODEL_RTOL * abs(nc),
+          f"{arch} grad norm cuda vs cpu within rtol {MODEL_RTOL}")
+    check(int(gpu["opt"]["step"]) == int(cpu["opt"]["step"]) == 1,
+          f"{arch} one step on each side")
+    check(m_err <= MODEL_RTOL,
+          f"{arch} moments cuda vs cpu leaf by leaf within rtol "
+          f"{MODEL_RTOL}")
+    check(u_gpu <= 1.0 and u_cpu <= 1.0,
+          f"{arch} every parameter written from its own moments")
+
+
+def run_managed_train() -> dict:
+    """minitron-4b's smoke configuration (the CLI's default architecture)
+    through ``run_managed`` on ``TorchRTS``: 20 steps in chunks of 5 with
+    ``fail_once_at=5``. Gates: all tasks DONE, exactly one retry, the final
+    step 20, no step trained twice, and flash launches 2 x layers x steps
+    forward and layers x steps backward."""
+    import shutil
+    import tempfile
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch import train
+    from repro_torch.models.config import get_config
+    arch = TRAIN_MANAGED["arch"]
+    cfg = get_config(arch, smoke=True)
+    per_step = train_launches_per_step(cfg)
+    n = TRAIN_MANAGED["total_steps"]
+    ckpt = tempfile.mkdtemp(prefix="train-managed-", dir=os.path.join(
+        HERE, "build"))
+    try:
+        train._SESSIONS.clear()
+        reset_counts()
+        t0 = time.perf_counter()
+        amgr = train.run_managed(
+            arch, smoke=True, total_steps=n,
+            steps_per_chunk=TRAIN_MANAGED["steps_per_chunk"], ckpt_dir=ckpt,
+            fail_once_at=TRAIN_MANAGED["fail_once_at"], timeout=600.0,
+            device="cuda")
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in KERNELS.items()}
+        shapes = {k: dict(fn.shapes) for k, fn in KERNELS.items()}
+        tasks = [t for p in amgr.workflow for s in p.stages for t in s.tasks]
+        results = [t.result for t in tasks]
+        sess = train.get_session(ckpt)
+        trained = [rec["step"] for rec in sess.stats]
+        print(f"managed train {TRAIN_MANAGED}: all_done={amgr.all_done} "
+              f"wall_s={wall} retries={[t.retries for t in tasks]} "
+              f"results={results} launches={launches}")
+        check(amgr.all_done, "managed train: all tasks DONE")
+        check(sum(t.retries for t in tasks) == 1,
+              "managed train: exactly one retry")
+        check(results[-1]["step"] == n and sess.ckpt.latest() == n,
+              f"managed train: final step {n}")
+        check(trained == list(range(n)), "managed train: no step trained "
+                                         "twice")
+        check([r["first_step"] for r in results[1:]]
+              == [r["step"] for r in results[:-1]],
+              "managed train: each chunk resumes where the last ended")
+        for name, want in per_step.items():
+            check(launches[name] == want * n,
+                  f"managed train: {name} {want * n} launches (got "
+                  f"{launches[name]})")
+        # the shape both flash kernels were held at before the paths ran
+        for name in ("flash_attention", "flash_attention_bwd"):
+            check(set(shapes[name]) == {FLASH_MANAGED_TRAIN},
+                  f"managed train: {name} ran at {FLASH_MANAGED_TRAIN} "
+                  f"(got {sorted(shapes[name])})")
+        return ({k: launches[k] for k, want in per_step.items() if want},
+                shapes["flash_attention_bwd"])
+    finally:
+        train._SESSIONS.clear()
+        shutil.rmtree(ckpt, ignore_errors=True)
+
+
+def train_phase():
+    """Phase 7: the full-width train run, its profile, the smoke
+    configurations card against CPU, and the managed run; returns the
+    launches of each path and the backward's shapes on each."""
+    t0 = time.perf_counter()
+    full = f"train {TRAIN['arch']}"
+    managed = f"train {TRAIN_MANAGED['arch']} managed"
+    paths, shapes = {}, {}
+    paths[full], shapes[full] = run_train_path()
+    for arch in TRAIN_SMOKE:
+        cross_check_train(arch)
+    paths[managed], shapes[managed] = run_managed_train()
+    print(f"train phase seconds: {time.perf_counter() - t0}")
+    return paths, shapes
+
+
 def main() -> None:
     sys.stdout.reconfigure(line_buffering=True)   # a cut run keeps its log
     sys.path.insert(0, SRC)
@@ -1566,22 +1943,28 @@ def main() -> None:
     run_seismic_dag(SEISMIC)
     profile_seismic_dag(SEISMIC)
     cross_check_seismic()
-    check_grad_refusal()
+    check_grad_routes()
 
     # the model kernels against their plain versions, main-path and ragged
     # shapes, f32 and bf16
-    errors = {"flash_attention": [], "mamba2_ssd": [], "rwkv6_wkv": []}
+    errors = {"flash_attention": [], "flash_attention_bwd": [],
+              "mamba2_ssd": [], "rwkv6_wkv": []}
     for dtype in ("float32", "bfloat16"):
         for shape in FLASH_SHAPES:
             errors["flash_attention"].append(compare_flash(shape, dtype))
+        for shape in FLASH_BWD_SHAPES:
+            errors["flash_attention_bwd"].append(
+                compare_flash_bwd(shape, dtype))
         for shape in SSD_SHAPES:
             errors["mamba2_ssd"].append(compare_ssd(shape, dtype))
         for shape in WKV_SHAPES:
             errors["rwkv6_wkv"].append(compare_wkv(shape, dtype))
     compiled = compiled_kernels(main_shape[2])
     timed = {"flash_attention": time_flash(FLASH_MAIN),
+             "flash_attention_bwd": time_flash_bwd(FLASH_BWD_TIMED[0]),
              "mamba2_ssd": time_ssd(SSD_MAIN),
              "rwkv6_wkv": time_wkv(WKV_MAIN)}
+    bwd_more = [time_flash_bwd(shape) for shape in FLASH_BWD_TIMED[1:]]
     wkv_f32 = time_wkv(WKV_MAIN, "float32")
     flash_more = [time_flash(shape) for shape in FLASH_TIMED]
     for name, row in timed.items():
@@ -1589,6 +1972,8 @@ def main() -> None:
     print(f"rwkv6_wkv f32 route at main-path shape {wkv_f32}")
     for row in flash_more:
         print(f"flash_attention at {tuple(row['shape'])} {row}")
+    for row in bwd_more:
+        print(f"flash_attention_bwd at {tuple(row['shape'])} {row}")
 
     # every serve path with its counts at 0 just before it and read after
     by_path = {}
@@ -1597,6 +1982,8 @@ def main() -> None:
     for run in EMBED_RUNS:
         by_path[run["arch"]] = embed_phase(run)
     release_sessions()
+    train_paths, bwd_shapes = train_phase()
+    by_path.update(train_paths)
     launches = {name: sum(path.get(name, 0) for path in by_path.values())
                 for name in timed}
     print(f"model kernel launches by path: {by_path}")
@@ -1620,6 +2007,8 @@ def main() -> None:
         "empty_kernel_ms": floor_ms,
     }]}
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:103",
+                "flash_attention_bwd":
+                    "src/repro/kernels/flash_attention.py:153",
                 "mamba2_ssd": "src/repro/kernels/mamba2_ssd.py:106",
                 "rwkv6_wkv": "src/repro/kernels/rwkv6_wkv.py:109"}
     for name, row in timed.items():
@@ -1649,6 +2038,14 @@ def main() -> None:
         + hd160["dynamic_smem_bytes"],
         "blocks_per_sm": hd160["blocks_per_sm"],
         "threads": hd160["threads"]}
+    bwd_entry = next(e for e in record["kernels"]
+                     if e["name"] == "flash_attention_bwd")
+    bwd_entry["shapes"] = {path: {str(k): v for k, v in shapes.items()}
+                           for path, shapes in bwd_shapes.items()}
+    bwd_entry["other_shapes"] = [
+        {k: row[k] for k in ("shape", "ms", "busy_ms", "plain_ms",
+                             "library_ms", "call_ms", "bound_ms",
+                             "bound_by")} for row in bwd_more]
     wkv_entry = next(e for e in record["kernels"]
                      if e["name"] == "rwkv6_wkv")
     wkv_entry.update(

@@ -19,7 +19,9 @@ device; every import inside them is package-relative):
 * ``chaos/__init__.py`` — the seeded chaos plane
   (``src/repro/chaos/__init__.py``);
 * ``serve/{admission,fair_share,journal,protocol,client,daemon}.py``
-  (``src/repro/serve/``).
+  (``src/repro/serve/``);
+* ``data/{__init__,pipeline}.py`` — the deterministic synthetic LM stream
+  and its prefetcher (numpy only; ``src/repro/data/``).
 
 Process-global registries (executables, result codecs, telemetry kernel
 labels) are therefore separate objects in the two packages.
@@ -54,9 +56,15 @@ Ported (the modules that touch arrays or devices):
 * :mod:`repro_torch.kernels.flash_attention`,
   :mod:`repro_torch.kernels.mamba2_ssd`,
   :mod:`repro_torch.kernels.rwkv6_wkv` — the model kernels as
-  hand-written CUDA with their plain PyTorch versions (forward only: the
-  CUDA routes refuse inputs that require grad); oracles in
+  hand-written CUDA with their plain PyTorch versions; flash attention
+  also has its backward as a CUDA kernel behind an ``autograd.Function``,
+  while the SSD and WKV CUDA routes refuse inputs that require grad (their
+  backward kernels are the next slice); oracles in
   :mod:`repro_torch.kernels.ref`;
 * :mod:`repro_torch.launch.serve` — batched prefill + greedy decode as
-  EnTK tasks over :class:`TorchRTS`.
+  EnTK tasks over :class:`TorchRTS`;
+* :mod:`repro_torch.optim`, :mod:`repro_torch.checkpoint` and
+  :mod:`repro_torch.launch.train` — AdamW (in place), the checkpoint
+  store in the JAX package's layout, and the EnTK-managed, checkpointed
+  trainer over :class:`TorchRTS` (gradient compression is not ported).
 """

@@ -1,4 +1,5 @@
-"""Causal flash attention forward: CUDA kernel wrapper and plain version.
+"""Causal flash attention: CUDA kernel wrappers (forward and backward)
+and their plain versions.
 
     out[b, s, h] = softmax_t(q[b, s, h] · k[b, t, h] / √hd, t ≤ s) @ v[b, t, h]
     lse[b, s, h] = log Σ_{t ≤ s} exp(q · k / √hd)
@@ -10,6 +11,14 @@ JAX package (forward ``_flash_fwd_kernel``); the CUDA source, with its
 bound and design, is ``csrc/flash_attention.cu``. bf16 inputs (the serve
 path) run on the tensor cores, with P rounded to bf16 as the operand of
 P·V; f32 inputs keep an f32 CUDA-core kernel.
+
+The backward replaces that kernel's ``custom_vjp`` backward, which runs
+``models/attention.py::_flash_bwd_impl`` (FlashAttention-2: P recomputed
+from the saved lse): :func:`flash_attention_bwd` launches
+``csrc/flash_attention_bwd.cu`` for CUDA tensors and takes
+:func:`flash_attention_bwd_plain` for CPU tensors. :func:`flash_attention`
+goes through an ``autograd.Function`` when grad mode is on and an input
+requires grad, so a train step's gradients flow through both kernels.
 
 :func:`flash_attention` launches the kernel for CUDA tensors and takes
 :func:`flash_attention_plain` only for CPU tensors. The plain version is
@@ -29,8 +38,6 @@ from typing import Tuple
 
 import torch
 
-from . import refuse_grad
-
 BLOCK = 64             # the plain version's q and kv tile (rows)
 MAX_HEAD_DIM = 160     # the kernels' largest head dim (stablelm-12b's)
 NEG_INF = -1e30
@@ -38,6 +45,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _count_lock = threading.Lock()
 _launcher = None
+_bwd_launcher = None
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -115,8 +123,10 @@ def _load():
 
 
 def build() -> None:
-    """Build (or load) the CUDA library now rather than at first launch."""
+    """Build (or load) the CUDA libraries of the forward and the backward
+    now rather than at first launch."""
     _load()
+    _load_bwd()
 
 
 def kernel_info(hd: int, dtype: torch.dtype) -> dict:
@@ -127,20 +137,12 @@ def kernel_info(hd: int, dtype: torch.dtype) -> dict:
     return info("flash_attention", hd, _DTYPES[dtype])
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """q, k, v (B, S, H, hd), float32 or bfloat16 → (out (B,S,H,hd) in
-    q's dtype, lse (B,S,H) float32).
-
-    CUDA tensors launch the kernel on the current stream (one launch,
-    counted in ``flash_attention.launches``, its (B, S, H, hd) counted in
-    ``flash_attention.shapes``); CPU tensors take the plain version.
-    Anything else raises, and so does the CUDA route when grad mode is on
-    and an input requires grad (it has no backward yet)."""
-    _check(q, k, v)
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward on q's device: the plain version on the CPU, one
+    counted kernel launch on CUDA."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v)
-    refuse_grad("flash_attention", q, k, v)
     B, S, H, hd = q.shape
     launch = _load()
     out = torch.empty_like(q)
@@ -161,5 +163,155 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return out, lse
 
 
+class _FlashAttention(torch.autograd.Function):
+    """Forward kernel, backward kernel: saves (q, k, v, out, lse), as the
+    JAX ``custom_vjp`` does; lse is an output without a gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        out, lse = _forward(q, k, v)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        return flash_attention_bwd(q, k, v, out, lse, dout.contiguous())
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """q, k, v (B, S, H, hd), float32 or bfloat16 → (out (B,S,H,hd) in
+    q's dtype, lse (B,S,H) float32).
+
+    CUDA tensors launch the kernel on the current stream (one launch,
+    counted in ``flash_attention.launches``, its (B, S, H, hd) counted in
+    ``flash_attention.shapes``); CPU tensors take the plain version.
+    Anything else raises. When grad mode is on and an input requires grad,
+    the call records an ``autograd.Function`` whose backward is
+    :func:`flash_attention_bwd` (lse gets no gradient)."""
+    _check(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v)
+    return _forward(q, k, v)
+
+
 flash_attention.launches = 0
 flash_attention.shapes = collections.Counter()
+
+
+# --------------------------------------------------------------------------- #
+# Backward
+# --------------------------------------------------------------------------- #
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              lse: torch.Tensor, dout: torch.Tensor,
+                              block_q: int = BLOCK, block_k: int = BLOCK
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Plain PyTorch version of the backward: ``_flash_bwd_impl`` of the
+    JAX package over (q tile, kv tile) pairs at or below the diagonal,
+    with P recomputed from lse, masks from token positions and a short
+    last tile. Sums in f32; (dq, dk, dv) in q's dtype."""
+    B, S, H, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
+    qf, kf, vf = q.float(), k.float(), v.float()
+    dof = dout.float()
+    delta = (dof * out.float()).sum(-1)                      # (B,S,H)
+    dq = torch.zeros(B, S, H, hd, dtype=torch.float32, device=q.device)
+    dk = torch.zeros_like(dq)
+    dv = torch.zeros_like(dq)
+    for q0 in range(0, S, block_q):
+        q1 = min(q0 + block_q, S)
+        qi, doi = qf[:, q0:q1], dof[:, q0:q1]
+        lsei = lse[:, q0:q1].permute(0, 2, 1)[..., None]     # (B,H,c,1)
+        di = delta[:, q0:q1].permute(0, 2, 1)[..., None]
+        qpos = torch.arange(q0, q1, device=q.device)
+        for k0 in range(0, q1, block_k):
+            k1 = min(k0 + block_k, S)
+            kj, vj = kf[:, k0:k1], vf[:, k0:k1]
+            kpos = torch.arange(k0, k1, device=q.device)
+            mask = qpos[:, None] >= kpos[None, :]
+            s = torch.einsum("bqhd,bkhd->bhqk", qi, kj) * scale
+            p = torch.where(mask, torch.exp(s - lsei), torch.zeros_like(s))
+            dp = torch.einsum("bqhd,bkhd->bhqk", doi, vj)
+            ds = p * (dp - di) * scale
+            dq[:, q0:q1] += torch.einsum("bhqk,bkhd->bqhd", ds, kj)
+            dk[:, k0:k1] += torch.einsum("bhqk,bqhd->bkhd", ds, qi)
+            dv[:, k0:k1] += torch.einsum("bhqk,bqhd->bkhd", p, doi)
+    dt = q.dtype
+    return dq.to(dt), dk.to(dt), dv.to(dt)
+
+
+def _load_bwd():
+    global _bwd_launcher
+    if _bwd_launcher is None:
+        from ._build import load
+        fn = load("flash_attention_bwd").flash_attention_bwd_launch
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _bwd_launcher = fn
+    return _bwd_launcher
+
+
+def bwd_kernel_info(hd: int, dtype: torch.dtype, which: str) -> dict:
+    """Registers, shared memory and blocks an SM of the backward's
+    ``which`` kernel (``"dkdv"`` or ``"dq"``) for ``dtype`` at head dim
+    ``hd`` (``_build.kernel_info``; needs the card)."""
+    from ._build import kernel_info as info
+    return info("flash_attention_bwd", hd, _DTYPES[dtype],
+                {"dkdv": 0, "dq": 1}[which])
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, lse: torch.Tensor,
+                        dout: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The gradients (dq, dk, dv) of causal flash attention, in q's dtype,
+    from the forward's q, k, v, out (B, S, H, hd), lse (B, S, H) float32
+    and the output's gradient dout (B, S, H, hd).
+
+    CUDA tensors launch the backward kernel on the current stream (one
+    call, counted in ``flash_attention_bwd.launches`` and its (B, S, H,
+    hd) in ``.shapes``; it runs three CUDA kernels: delta, dk/dv, dq); CPU
+    tensors take :func:`flash_attention_bwd_plain`. Anything else
+    raises."""
+    _check(q, k, v)
+    for name, t in (("out", out), ("dout", dout)):
+        if (t.shape != q.shape or t.dtype != q.dtype
+                or t.device != q.device or not t.is_contiguous()):
+            raise ValueError(f"flash_attention_bwd takes {name} of q's "
+                             f"shape, dtype and device, contiguous")
+    B, S, H, hd = q.shape
+    if (lse.shape != (B, S, H) or lse.dtype != torch.float32
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"flash_attention_bwd takes lse (B, S, H) = "
+                         f"{(B, S, H)} float32 on q's device, contiguous")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, dout)
+    launch = _load_bwd()
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    if q.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty(B, S, H, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     out.data_ptr(), lse.data_ptr(), dout.data_ptr(),
+                     dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                     delta.data_ptr(), B, S, H, hd, _DTYPES[q.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+    with _count_lock:
+        flash_attention_bwd.launches += 1
+        flash_attention_bwd.shapes[(B, S, H, hd)] += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+flash_attention_bwd.shapes = collections.Counter()

@@ -155,7 +155,8 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     counted in ``mamba2_ssd.launches``, its (B, T, H, P, G, N) counted in
     ``mamba2_ssd.shapes``); CPU tensors take the plain version. Anything
     else raises, and so does the CUDA route when grad mode is on and an
-    input requires grad (it has no backward yet)."""
+    input requires grad (its backward kernel is the next slice,
+    ROADMAP.md A12b-2)."""
     _check(x, dt, A, Bm, Cm, state0)
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"mamba2_ssd takes chunks 1..{MAX_CHUNK}, got "

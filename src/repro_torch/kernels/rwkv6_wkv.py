@@ -143,7 +143,8 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     counted in ``rwkv6_wkv.launches``, its (B, T, H, N) counted in
     ``rwkv6_wkv.shapes``); CPU tensors take the plain version. Anything
     else raises, and so does the CUDA route when grad mode is on and an
-    input requires grad (it has no backward yet)."""
+    input requires grad (its backward kernel is the next slice,
+    ROADMAP.md A12b-2)."""
     _check(r, k, v, w, u, state0)
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"rwkv6_wkv takes chunks 1..{MAX_CHUNK}, got "

@@ -32,17 +32,12 @@ import torch
 
 from ..core import AppManager, Pipeline, Stage, Task, register_executable
 from ..device import DeviceLike, device_name, resolve_device
-from ..kernels.flash_attention import flash_attention
-from ..kernels.mamba2_ssd import mamba2_ssd
-from ..kernels.rwkv6_wkv import rwkv6_wkv
+from ..kernels import KERNELS
 from ..models import steps as steps_mod, transformer
 from ..models.config import get_config
 from ..rts.base import ResourceDescription
 from ..rts.torch_rts import TorchRTS
 
-# the kernels a prefill may launch, by the name its stats record uses
-KERNELS = {"flash_attention": flash_attention, "mamba2_ssd": mamba2_ssd,
-           "rwkv6_wkv": rwkv6_wkv}
 
 _SESSIONS: Dict[str, "ServeSession"] = {}
 _SESSIONS_LOCK = threading.Lock()

@@ -1,11 +1,13 @@
-"""Attention: causal flash forward for prefill + the decode path.
+"""Attention: causal flash attention for training and prefill + the
+decode path.
 
-Prefill calls :func:`repro_torch.kernels.flash_attention.flash_attention`:
-the CUDA kernel for CUDA tensors, its plain version (the JAX package's
-chunked online softmax, ``models/attention.py::_flash_fwd_impl``) for CPU
-tensors. The backward (FlashAttention-2 recompute from the saved lse)
-waits for the training slice. Callers pass kv already repeated to the
-query head count. Decode attends one query against a (B, S, Hkv, hd)
+Training and prefill call
+:func:`repro_torch.kernels.flash_attention.flash_attention`: the CUDA
+kernel for CUDA tensors, its plain version (the JAX package's chunked
+online softmax, ``models/attention.py::_flash_fwd_impl``) for CPU
+tensors; under grad its backward (FlashAttention-2, recomputed from the
+saved lse) is the backward kernel or its plain version the same way.
+Callers pass kv already repeated to the query head count. Decode attends one query against a (B, S, Hkv, hd)
 cache with a length mask.
 """
 

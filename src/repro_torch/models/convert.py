@@ -1,5 +1,6 @@
-"""The JAX package's parameters, turned into numpy by the caller, as the
-port's dict of tensors with the same keys, shapes and dtypes.
+"""The JAX package's parameters and train state, turned into numpy by the
+caller, as the port's dicts of tensors with the same keys, shapes and
+dtypes.
 
 numpy has no bfloat16 of its own: JAX's bf16 arrays come out as
 ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses. Their bits are
@@ -34,3 +35,15 @@ def params_from_numpy(tree: Dict[str, Any], device: DeviceLike = None
     dev = resolve_device(device)
     return {k: params_from_numpy(v, dev) if isinstance(v, dict)
             else tensor_from_numpy(v, dev) for k, v in tree.items()}
+
+
+def train_state_from_numpy(state: Dict[str, Any], device: DeviceLike = None
+                           ) -> Dict[str, Any]:
+    """The JAX train state ``{"params", "opt": {"m", "v", "step"}}`` as
+    numpy → the port's (f32 masters and moments, the step a 0-d int32
+    tensor), on ``device``."""
+    if set(state) != {"params", "opt"} or set(state["opt"]) != {
+            "m", "v", "step"}:
+        raise ValueError("a train state is {'params', 'opt': {'m', 'v', "
+                         "'step'}}")
+    return params_from_numpy(state, device)

@@ -16,6 +16,12 @@ layers; vlm and audio take precomputed (B, S, d_model) embeddings, and
 qwen2-vl's M-RoPE takes (B, 3, S) positions. Configurations with experts
 (the ``moe`` family) are not ported yet and raise ``NotImplementedError``
 (``ROADMAP.md``).
+
+:func:`apply_backbone` runs the stack for training and for prefill. With
+``cfg.remat == "full"`` and grad mode on, each layer (each attention-stack,
+RWKV or Mamba-2 layer, and each application of zamba2's shared block) is
+one ``torch.utils.checkpoint`` region, as JAX's ``jax.checkpoint`` of the
+scanned layer.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
 from . import mamba2, rwkv6
@@ -227,8 +234,29 @@ def _layer(tree: Dict, i: int) -> Dict:
             for k, v in tree.items()}
 
 
+def _layers(tree: Dict, n: int) -> list:
+    """The ``n`` per-layer slices of a (nested) dict of stacked tensors,
+    through one ``unbind`` a leaf: its backward stacks the layers'
+    gradients once, where ``n`` index ops would each write a full-size
+    gradient."""
+    parts = {k: _layers(v, n) if isinstance(v, dict) else v.unbind(0)
+             for k, v in tree.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def _run_layer(cfg: ModelConfig, fn, *args):
+    """``fn(*args)``; under ``cfg.remat == "full"`` with grad mode on,
+    checkpointed (its activations recomputed in the backward), so training
+    keeps one layer's activations at a time. One layer a checkpoint, not
+    JAX's nested group + layer layout: a step then launches each kernel of
+    a layer exactly twice forward (the pass and its recomputation)."""
+    if cfg.remat == "full" and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 # --------------------------------------------------------------------------- #
-# Backbone forward (prefill)
+# Backbone forward (training / prefill)
 # --------------------------------------------------------------------------- #
 
 def _stack(states) -> Dict:
@@ -237,56 +265,92 @@ def _stack(states) -> Dict:
     return {k: torch.stack([s[k] for s in states]) for k in states[0]}
 
 
-def _apply_rwkv(params: Dict, cfg: ModelConfig, h: torch.Tensor):
-    """The RWKV layer stack for prefill: (hidden, cache in
-    :func:`init_cache`'s layout without ``length``)."""
+def apply_backbone(params: Dict, cfg: ModelConfig, h: torch.Tensor,
+                   positions: Optional[torch.Tensor],
+                   want_cache: bool = False
+                   ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
+    """Run the layer stack. h: (B,S,D) embeddings (compute dtype).
+
+    Returns (hidden, aux loss (0: no family here has experts), cache or
+    None). The cache layout matches :func:`init_cache` without
+    ``length``."""
+    _require_ported(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.family == "ssm":
+        h, cache = _apply_rwkv(params, cfg, h, want_cache)
+    elif cfg.family == "hybrid":
+        h, cache = _apply_zamba(params, cfg, h, positions, want_cache)
+    else:
+        h, cache = _apply_attn_stack(params, cfg, h, positions, want_cache)
+    return h, aux, cache
+
+
+def _apply_rwkv(params: Dict, cfg: ModelConfig, h: torch.Tensor,
+                want_cache: bool):
+    """The RWKV layer stack: (hidden, {"rwkv": stacked states} or None)."""
     state0 = rwkv6.init_state(cfg, h.shape[0], h.device)
     states = []
-    for li in range(cfg.n_layers):
-        h, s_new = rwkv6.rwkv_block(_layer(params["blocks"], li), h, cfg,
-                                    state0)
+    for p in _layers(params["blocks"], cfg.n_layers):
+        h, s_new = _run_layer(cfg, rwkv6.rwkv_block, p, h, cfg, state0)
         states.append(s_new)
-    return h, {"rwkv": _stack(states)}
+    return h, ({"rwkv": _stack(states)} if want_cache else None)
+
+
+def _shared_block(shared: Dict, h: torch.Tensor, cfg: ModelConfig,
+                  positions: torch.Tensor, want_cache: bool):
+    """One application of zamba2's shared attention + MLP block."""
+    a, kv = attn_block(shared["attn"],
+                       rms_norm(h, shared["ln1"], cfg.norm_eps), cfg,
+                       positions, want_cache)
+    return _mlp_residual(shared["mlp"], shared["ln2"], h, cfg, a), kv
 
 
 def _apply_zamba(params: Dict, cfg: ModelConfig, h: torch.Tensor,
-                 positions: torch.Tensor):
-    """The layer stack for prefill: (hidden, cache in :func:`init_cache`'s
-    layout without ``length``)."""
+                 positions: torch.Tensor, want_cache: bool):
+    """The hybrid stack: (hidden, {"mamba", "k", "v"} or None). Each Mamba
+    layer and each application of the shared block is one checkpoint."""
     B = h.shape[0]
     E = cfg.attn_every
     shared = params["shared_attn"]
     state0 = mamba2.init_state(cfg, B, h.device)
     states, ks, vs = [], [], []
-    for li in range(cfg.n_layers):
-        h, s_new = mamba2.mamba_block(_layer(params["mamba"], li), h, cfg,
-                                      state0)
+    for li, p in enumerate(_layers(params["mamba"], cfg.n_layers)):
+        h, s_new = _run_layer(cfg, mamba2.mamba_block, p, h, cfg, state0)
         states.append(s_new)
         if (li + 1) % E == 0:      # end of a group; trailing layers pass
-            a, (k, v) = attn_block(shared["attn"],
-                                   rms_norm(h, shared["ln1"], cfg.norm_eps),
-                                   cfg, positions, want_cache=True)
-            h = _mlp_residual(shared["mlp"], shared["ln2"], h, cfg, a)
-            ks.append(k)
-            vs.append(v)
-    cache = {"mamba": _stack(states), "k": torch.stack(ks),
-             "v": torch.stack(vs)}
-    return h, cache
+            h, kv = _run_layer(cfg, _shared_block, shared, h, cfg,
+                               positions, want_cache)
+            if want_cache:
+                ks.append(kv[0])
+                vs.append(kv[1])
+    if not want_cache:
+        return h, None
+    return h, {"mamba": _stack(states), "k": torch.stack(ks),
+               "v": torch.stack(vs)}
+
+
+def _attn_layer(p: Dict, h: torch.Tensor, cfg: ModelConfig,
+                positions: torch.Tensor, want_cache: bool):
+    """One pre-norm attention + MLP layer of the attention stack."""
+    a, kv = attn_block(p["attn"], rms_norm(h, p["norms"]["ln1"],
+                                           cfg.norm_eps),
+                       cfg, positions, want_cache)
+    return _mlp_residual(p["mlp"], p["norms"]["ln2"], h, cfg, a), kv
 
 
 def _apply_attn_stack(params: Dict, cfg: ModelConfig, h: torch.Tensor,
-                      positions: torch.Tensor):
-    """The attention stack for prefill: (hidden, {"k", "v"} of shape (L,
-    B, S, Hkv * kv_repeat, hd) in the compute dtype)."""
+                      positions: torch.Tensor, want_cache: bool):
+    """The attention stack: (hidden, {"k", "v"} of shape (L, B, S, Hkv *
+    kv_repeat, hd) in the compute dtype, or None)."""
     ks, vs = [], []
-    for li in range(cfg.n_layers):
-        p = _layer(params["blocks"], li)
-        a, (k, v) = attn_block(p["attn"], rms_norm(h, p["norms"]["ln1"],
-                                                   cfg.norm_eps),
-                               cfg, positions, want_cache=True)
-        h = _mlp_residual(p["mlp"], p["norms"]["ln2"], h, cfg, a)
-        ks.append(k)
-        vs.append(v)
+    for p in _layers(params["blocks"], cfg.n_layers):
+        h, kv = _run_layer(cfg, _attn_layer, p, h, cfg, positions,
+                           want_cache)
+        if want_cache:
+            ks.append(kv[0])
+            vs.append(kv[1])
+    if not want_cache:
+        return h, None
     return h, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
@@ -318,13 +382,10 @@ def prefill(params: Dict, cfg: ModelConfig, inputs: torch.Tensor,
     _require_ported(cfg)
     B, S = inputs.shape[:2]
     h = embed_inputs(params, cfg, inputs)
-    if cfg.family == "ssm":
-        h, cache = _apply_rwkv(params, cfg, h)
-    else:
-        if positions is None:
-            positions = default_positions(B, S, cfg, device=inputs.device)
-        apply = _apply_zamba if cfg.family == "hybrid" else _apply_attn_stack
-        h, cache = apply(params, cfg, h, positions)
+    if positions is None and cfg.family != "ssm":
+        positions = default_positions(B, S, cfg, device=inputs.device)
+    h, _aux, cache = apply_backbone(params, cfg, h, positions,
+                                    want_cache=True)
     logits = logits_head(params, cfg, h[:, -1:])[:, 0]
     cache["length"] = S
     return logits, cache

@@ -1,5 +1,7 @@
 """Tests of the port that need an NVIDIA GPU: each CUDA kernel against its
-plain version, the model kernels' refusal of autograd on their CUDA routes,
+plain version (flash attention's backward too), the SSD and WKV kernels'
+refusal of autograd on their CUDA routes, flash's gradients through its
+two kernels, a qwen2-vl smoke train step on the card against the CPU,
 and the AnEn workflow (on the DAG tier), the multi-tenant service's AnEn
 sweeps, the seismic misfit sweeps (chain and DAG tiers), the zamba2, rwkv6
 and dense serving paths and the qwen2-vl prefill on embeddings on the card
@@ -128,19 +130,18 @@ def test_seismic_chain_alone_on_card_matches_cpu(cuda):
 
 
 def _c2_inputs(name, cuda):
-    if name == "flash_attention":
-        return _attention_inputs((1, 64, 2, 32), torch.float32, cuda)
     if name == "mamba2_ssd":
         return _ssd_inputs((1, 64, 2, 16, 1, 8), torch.float32, cuda)
     return _wkv_inputs((1, 64, 2, 16), torch.float32, cuda)
 
 
-@pytest.mark.parametrize("name", ["flash_attention", "mamba2_ssd",
-                                  "rwkv6_wkv"])
+@pytest.mark.parametrize("name", ["mamba2_ssd", "rwkv6_wkv"])
 def test_cuda_route_refuses_an_input_that_requires_grad(cuda, name):
-    """The CUDA routes fill their outputs through ctypes and have no
-    backward yet: an input that requires grad raises, naming the kernel,
-    instead of returning outputs that silently carry no gradient."""
+    """The SSD and WKV CUDA routes fill their outputs through ctypes and
+    have no backward kernel yet (the next slice): an input that requires
+    grad raises, naming the kernel, instead of returning outputs that
+    silently carry no gradient. Flash attention's route takes grads (its
+    backward kernel: the tests below)."""
     import importlib
     fn = getattr(importlib.import_module(f"repro_torch.kernels.{name}"),
                  name)
@@ -158,6 +159,57 @@ def test_cuda_route_refuses_an_input_that_requires_grad(cuda, name):
     cpu_args = [a.detach().cpu().requires_grad_(a.requires_grad)
                 for a in args]
     assert fn(*cpu_args)[0].grad_fn is not None
+
+
+# the backward's tolerances: f32 the JAX gradient tolerance
+# (tests/test_kernels.py); bf16 one rounding of each f32 sum to bf16
+# (2^-8 of |ref|) with room
+BWD_TOLERANCES = {torch.float32: 5e-4, torch.bfloat16: 1e-2}
+FLASH_BWD_SHAPES = [(4, 512, 32, 112), (4, 512, 12, 128), (4, 100, 32, 160),
+                    (2, 65, 3, 160), (4, 100, 32, 150), (2, 65, 3, 150)]
+FLASH_BWD_SHAPES += [(2, S, 3, 32) for S in (1, 63, 64, 65, 100, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FLASH_BWD_SHAPES)
+def test_flash_attention_backward_kernel_matches_plain(cuda, shape, dtype):
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
+    q, k, v = _attention_inputs(shape, dtype, cuda)
+    dout = _attention_inputs(shape, dtype, cuda, seed=1)[0]
+    out, lse = flash_attention(q, k, v)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_plain(q, k, v, out, lse, dout)
+    tol = BWD_TOLERANCES[dtype]
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == q.shape
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("shape", [(2, 100, 3, 64), (1, 65, 2, 160)])
+def test_flash_attention_cuda_route_takes_grads(cuda, shape):
+    """``autograd.grad`` through the forward and backward kernels (one
+    launch each) against autograd through the plain forward."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd,
+                                                     flash_attention_plain)
+    q, k, v = (a.requires_grad_(True)
+               for a in _attention_inputs(shape, torch.float32, cuda))
+    dout = _attention_inputs(shape, torch.float32, cuda, seed=1)[0]
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    out, lse = flash_attention(q, k, v)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert not lse.requires_grad
+    ref, _ = flash_attention_plain(q, k, v)
+    want = torch.autograd.grad(ref, (q, k, v), dout)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=5e-4, rtol=5e-4)
 
 
 def _attention_inputs(shape, dtype, cuda, seed=0):
@@ -479,3 +531,46 @@ def test_two_tenant_service_sweep_launches_once_a_carrier(cuda):
     assert on_gpu["stats"]["degraded"] == 0
     for g, c in zip(on_gpu["values"], on_cpu["values"]):
         np.testing.assert_allclose(g, c, rtol=0, atol=1e-6)
+
+
+def test_qwen2_vl_smoke_train_step_on_card_matches_cpu(cuda):
+    """One train step of qwen2-vl's smoke configuration (M-RoPE positions,
+    embeddings from the data stream, S = 100: a ragged last flash tile)
+    from the same f32 state on the card and on the CPU: the flash forward
+    twice and its backward once a layer on the card; loss at the model
+    tolerance, grad norm at rtol 0.05 (bf16 sums in another order); the
+    moments m̂ and √v̂ (the clipped gradient and its magnitude) leaf by leaf
+    at a normwise rtol 0.05 (bf16 against f32 compute on the CPU differs
+    by at most 0.02 a leaf here); and on each side every parameter written
+    from its own moments (``tests/_torch_update.py``: step 1 moves each by
+    about ±lr = 3e-6, below any tolerance on the parameters)."""
+    from _torch_update import (assert_update_written, clone_tree,
+                               moments_rel_err)
+    from repro_torch.data import make_stream
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    from repro_torch.models import steps
+    from repro_torch.models.config import get_config
+    cfg = get_config("qwen2-vl-2b", smoke=True)
+    batch = {k: torch.from_numpy(v)
+             for k, v in make_stream(cfg, 100, 4).batch(0).items()}
+    cpu = steps.init_train_state(cfg, 0, "cpu")
+    gpu = _to(cpu, cuda)
+    params0 = clone_tree(cpu["params"])
+    step = steps.make_train_step(cfg)
+    before = (flash_attention.launches, flash_attention_bwd.launches)
+    gpu, mg = step(gpu, {k: v.to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    assert (flash_attention.launches - before[0],
+            flash_attention_bwd.launches - before[1]) == (
+        2 * cfg.n_layers, cfg.n_layers)
+    cpu, mc = step(cpu, batch)
+    np.testing.assert_allclose(float(mg["loss"]), float(mc["loss"]),
+                               atol=0.08, rtol=0.05)
+    np.testing.assert_allclose(float(mg["grad_norm"]),
+                               float(mc["grad_norm"]), rtol=0.05)
+    assert moments_rel_err(gpu["opt"], cpu["opt"]) <= 0.05
+    assert_update_written(params0, gpu["params"], gpu["opt"],
+                          float(mg["lr"]))
+    assert_update_written(params0, cpu["params"], cpu["opt"],
+                          float(mc["lr"]))

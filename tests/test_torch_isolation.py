@@ -56,7 +56,9 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
                  "models.rwkv6", "kernels.flash_attention",
                  "kernels.mamba2_ssd", "kernels.rwkv6_wkv", "kernels.ref",
                  "launch.serve", "apps.seismic", "apps.seismic.solver",
-                 "apps.seismic.workflow"):
+                 "apps.seismic.workflow", "optim", "optim.adamw", "data",
+                 "data.pipeline", "checkpoint", "checkpoint.store",
+                 "launch.train"):
         assert "repro_torch." + name in names, name
 
 
@@ -111,7 +113,11 @@ def test_default_device_raises_without_cuda():
                                                    run_misfit_chain,
                                                    run_misfit_ensemble)
     from repro_torch.device import resolve_device
+    from repro_torch.checkpoint import load_checkpoint
+    from repro_torch.launch import train
     from repro_torch.launch.serve import ServeSession, run_managed
+    from repro_torch.models.steps import init_train_state
+    from repro_torch.models.config import get_config
     from repro_torch.rts.torch_rts import TorchRTS
     for call in (TorchRTS, run_adaptive, resolve_device,
                  lambda: TorchRTS(device="cuda:0"),
@@ -119,7 +125,12 @@ def test_default_device_raises_without_cuda():
                  lambda: run_managed("zamba2-7b"),
                  lambda: make_velocity_model(SeismicConfig()),
                  lambda: run_misfit_chain(2), lambda: run_misfit_ensemble(2),
-                 lambda: run_forward_ensemble(2, 1)):
+                 lambda: run_forward_ensemble(2, 1),
+                 lambda: train.TrainSession("minitron-4b", True, 16, 2),
+                 lambda: train.run_managed("minitron-4b"),
+                 lambda: init_train_state(get_config("minitron-4b",
+                                                     smoke=True)),
+                 lambda: load_checkpoint("unused", {})):
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")

@@ -1,0 +1,40 @@
+"""The port's train step against the JAX package's for the ssm family (rwkv6-3b) at smoke size on the CPU.
+
+This family trains on the CPU only: the SSD and WKV CUDA routes
+have no backward kernel yet and refuse inputs that require grad (their
+backward kernels are the next slice), while their plain versions are
+torch ops that autograd differentiates, as the JAX package trains through
+its differentiable reference scans. Per configuration: ``loss_fn`` and
+every gradient leaf in f32 within 1e-4 of JAX's; ``adamw_update`` fed
+JAX's gradients within 1e-6 of JAX's update; one ``make_train_step``
+step; remat on against off. Shared cases and tolerances:
+``tests/_torch_train.py``.
+"""
+
+import pytest
+
+from _torch_train import (check_adamw_on_the_same_grads,
+                          check_loss_and_grads, check_remat_on_and_off,
+                          check_train_step)
+
+ARCHS = ["rwkv6-3b"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_loss_and_grads_match_jax(arch, monkeypatch):
+    check_loss_and_grads(arch, monkeypatch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_adamw_update_on_the_same_grads_matches_jax(arch, monkeypatch):
+    check_adamw_on_the_same_grads(arch, monkeypatch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_train_step_matches_jax(arch, monkeypatch):
+    check_train_step(arch, monkeypatch)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_remat_on_and_off_agree(arch, monkeypatch):
+    check_remat_on_and_off(arch, monkeypatch)

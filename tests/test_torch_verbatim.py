@@ -23,7 +23,8 @@ VERBATIM = sorted(
     + [f"fusion/{m}.py" for m in ("__init__", "groups", "plans")]
     + ["chaos/__init__.py"]
     + [f"serve/{m}.py" for m in ("admission", "fair_share", "journal",
-                                 "protocol", "client", "daemon")])
+                                 "protocol", "client", "daemon")]
+    + [f"data/{p.name}" for p in (SRC / "repro" / "data").glob("*.py")])
 
 
 def _without_imports(path: Path) -> list:
@@ -32,10 +33,11 @@ def _without_imports(path: Path) -> list:
 
 
 def test_every_listed_family_is_present():
-    # core/ has 15 modules, api/ 6 and telemetry/ 4 (the docstring's counts)
+    # core/ has 15 modules, api/ 6, telemetry/ 4 and data/ 2 (the
+    # docstring's counts)
     fams = [p.split("/")[0] for p in VERBATIM]
-    assert (fams.count("core"), fams.count("api"),
-            fams.count("telemetry")) == (15, 6, 4)
+    assert (fams.count("core"), fams.count("api"), fams.count("telemetry"),
+            fams.count("data")) == (15, 6, 4, 2)
 
 
 @pytest.mark.parametrize("rel", VERBATIM)
