@@ -56,11 +56,14 @@ Before the serve paths it checks that the CUDA routes of the SSD and WKV
 kernels refuse an input that requires grad (no backward kernel yet), that
 flash's takes grads (``autograd.grad`` through its forward and backward
 kernels against autograd through its plain forward), holds the backward
-kernel against its plain version, and prints every compiled kernel's
-registers,
-shared memory and blocks an SM (for flash, SSD and WKV each route: f32 on
-the CUDA cores, bf16 on the tensor cores), and the device time of an
-empty kernel, the floor under every kernel time it prints.
+kernel against its plain version (bf16 on the tensor cores, with equal
+bits on a second call; f32 on the CUDA cores, within the first port's
+1e-5), times its three kernels apart, and prints every compiled kernel's
+registers, shared memory and blocks an SM (for flash, SSD and WKV each
+route: f32 on the CUDA cores, bf16 on the tensor cores; the bf16
+backward's two kernels at head dims 112, 128 and 160, failing on a spill
+at 128), and the device time of an empty kernel, the floor under every
+kernel time it prints.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after, and fails unless every kernel of the path launched. Every
@@ -77,6 +80,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -189,8 +193,17 @@ FLASH_BWD_TIMED = (FLASH_QWEN2_VL, FLASH_MAIN)
 # f32: the JAX gradient tolerance (tests/test_kernels.py:56). bf16: both
 # sides sum in f32 and round dq, dk, dv once to bf16; sums in another
 # order can round to neighbouring bf16 values, 2^-8 of |ref| apart, so
-# 1e-2 (atol = rtol) covers one such step with room
+# 1e-2 (atol = rtol) covers one such step with room. The bf16 kernels
+# also round P and dS to bf16 as tensor-core operands; on the CPU
+# (tests/test_torch_tensor_core_rounding.py) that rounding stays within
+# the same 1e-2 of the plain version
 BWD_TOLERANCE = {"float32": 5e-4, "bfloat16": 1e-2}
+# the f32 route's (CUDA cores) largest error against the plain version
+# in the first port (1.0e-5 at (4, 512, 32, 112)): it stays that route
+BWD_F32_UNCHANGED = 1e-5
+# head dims of the bf16 backward kernels whose registers are printed; a
+# spill at the train shape's (128) fails the run
+BWD_INFO_HDS = (112, 128, 160)
 TRAIN = dict(arch="qwen2-vl-2b", seq_len=512, global_batch=4, steps=3)
 TRAIN_SMOKE = ("stablelm-12b", "qwen2-vl-2b")
 TRAIN_MANAGED = dict(arch="minitron-4b", total_steps=20, steps_per_chunk=5,
@@ -270,8 +283,14 @@ def busy_ms(fn, reps: int = 10) -> float:
     kernels (a plain version, a library call): the CUPTI device time of
     every kernel and copy of ``reps`` calls under ``torch.profiler``,
     over ``reps``. Gaps while the device waits for the host do not
-    count. A trace with no device time at all is taken again, up to three
-    times: the profiler now and then hands one back empty."""
+    count."""
+    return sum(r[2] for r in traced_rows(fn, reps)) / reps
+
+
+def traced_rows(fn, reps: int = 10) -> list:
+    """``device_rows`` of one trace of ``reps`` calls of ``fn``. A trace
+    with no device time at all is taken again, up to three times: the
+    profiler now and then hands one back empty."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -282,11 +301,11 @@ def busy_ms(fn, reps: int = 10) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        total_ms = sum(r[2] for r in device_rows(prof))
-        if total_ms > 0:
-            return total_ms / reps
-    raise RuntimeError("check failed: busy_ms: the profiler saw no device "
-                       "time in three traces")
+        rows = device_rows(prof)
+        if sum(r[2] for r in rows) > 0:
+            return rows
+    raise RuntimeError("check failed: the profiler saw no device time in "
+                       "three traces")
 
 
 def call_ms(fn, reps: int = TIMED_REPS) -> float:
@@ -1101,7 +1120,10 @@ def compare_flash(shape, dtype: str) -> float:
 
 def compare_flash_bwd(shape, dtype: str) -> float:
     """The backward kernel against its plain version on the same q, k, v,
-    out, lse (from the forward kernel) and dout: dq, dk, dv."""
+    out, lse (from the forward kernel) and dout: dq, dk, dv. The bf16
+    route (tensor cores, no atomics) must give equal bits on a second
+    call; the f32 route (CUDA cores) must stay within
+    ``BWD_F32_UNCHANGED`` of the plain version, as the first port did."""
     import torch
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
@@ -1115,8 +1137,21 @@ def compare_flash_bwd(shape, dtype: str) -> float:
     errs = [held_close(a, b, tol, f"flash_attention_bwd {name} {shape} "
                                   f"{dtype}")
             for name, a, b in zip(("dq", "dk", "dv"), got, want)]
+    if dtype == "bfloat16":
+        again = flash_attention_bwd(q, k, v, out, lse, dout)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"flash_attention_bwd {shape} bf16: equal bits on a second "
+              f"call")
+    else:
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            held_close(a, b, BWD_F32_UNCHANGED,
+                       f"flash_attention_bwd {name} {shape} f32 route "
+                       f"unchanged")
     print(f"flash_attention_bwd {shape} {dtype}: max abs err dq, dk, dv "
-          f"{errs} (tolerance {tol})")
+          f"{errs} (tolerance {tol})"
+          + ("; a second call gives equal bits" if dtype == "bfloat16"
+             else f"; within {BWD_F32_UNCHANGED} (f32 route unchanged)"))
     return max(errs)
 
 
@@ -1154,10 +1189,38 @@ def time_flash_bwd(shape) -> dict:
         sdpa, (qt, kt, vt), dout_t, retain_graph=True)
     row = {"shape": list(shape), "dtype": "bfloat16",
            "ms": device_ms(kernel), "busy_ms": busy_ms(kernel),
+           "parts_busy_ms": bwd_parts_ms(kernel),
            "plain_ms": busy_ms(plain), "library_ms": busy_ms(library),
            "call_ms": call_ms(kernel)}
     row.update(flash_bwd_bound(shape, 2))
+    print(f"flash_attention_bwd {tuple(shape)} bf16: {row['ms']} ms a call "
+          f"({row['busy_ms']} busy; by kernel {row['parts_busy_ms']}), "
+          f"SDPA's backward {row['library_ms']} busy, bound "
+          f"{row['bound_ms']} ({row['bound_by']})")
     return row
+
+
+# the backward's three kernels, either route (names as the profiler gives
+# them, e.g. "void (anonymous namespace)::dkdv_tc_kernel<128>(...)")
+BWD_KERNEL = re.compile(r"::(delta|dkdv|dq)_(?:tc_)?kernel<")
+
+
+def bwd_part(name: str):
+    """Which of the backward's kernels a device op is: "delta", "dkdv",
+    "dq", or None."""
+    found = BWD_KERNEL.search(name)
+    return found.group(1) if found else None
+
+
+def bwd_parts_ms(fn, reps: int = 10) -> dict:
+    """CUPTI busy ms a call of each of the backward's three kernels
+    (delta, dk/dv, dq), from one trace of ``reps`` calls."""
+    rows = traced_rows(fn, reps)
+    parts = {part: sum(ms for key, _, ms in rows if bwd_part(key) == part)
+             / reps for part in ("delta", "dkdv", "dq")}
+    check(all(ms > 0 for ms in parts.values()),
+          f"every backward kernel traced: {parts}")
+    return parts
 
 
 def compare_ssd(shape, dtype: str) -> float:
@@ -1243,7 +1306,9 @@ def compiled_kernels(anen_n: int) -> dict:
     """Registers, shared memory and blocks an SM of every compiled kernel
     at its main path's shape: flash, SSD and WKV for each route (dtype),
     flash also at head dim 160 (keys ``("flash_attention", dtype, 160)``),
-    and ``anen_distance`` at ``anen_n`` columns."""
+    the bf16 backward's dk/dv and dq kernels at ``BWD_INFO_HDS`` (a spill
+    at the train shape's head dim fails), and ``anen_distance`` at
+    ``anen_n`` columns."""
     import torch
     from repro_torch.kernels import (anen_distance, flash_attention,
                                      mamba2_ssd, rwkv6_wkv)
@@ -1264,9 +1329,19 @@ def compiled_kernels(anen_n: int) -> dict:
             N, P, pick_chunk(T), dtype)
         info[("rwkv6_wkv", name)] = rwkv6_wkv.kernel_info(
             WKV_MAIN[3], pick_chunk(WKV_MAIN[1]), dtype)
+    for hd in BWD_INFO_HDS:
+        for which in ("dkdv", "dq"):
+            info[("flash_attention_bwd", "bfloat16", f"{which} hd {hd}")] = \
+                flash_attention.bwd_kernel_info(hd, torch.bfloat16, which)
     for (kernel, name, *hd), row in info.items():
         at = f" ({hd[0]})" if hd else ""
         print(f"compiled {kernel} {name} route{at}: {row}")
+    for which in ("dkdv", "dq"):
+        row = info[("flash_attention_bwd", "bfloat16",
+                    f"{which} hd {FLASH_QWEN2_VL[3]}")]
+        check(row["spill_bytes"] == 0,
+              f"flash_attention_bwd bf16 {which} kernel spills nothing at "
+              f"hd {FLASH_QWEN2_VL[3]} (got {row['spill_bytes']} bytes)")
     return info
 
 
@@ -1695,8 +1770,7 @@ def profile_train_step(sess) -> None:
     busy = sum(r[2] for r in rows)
     kinds = {}
     for key, count, ms in rows:
-        kind = ("flash_attention_bwd" if any(w in key for w in (
-                    "dkdv_kernel", "dq_kernel", "delta_kernel")) else
+        kind = ("flash_attention_bwd" if bwd_part(key) else
                 "flash_attention" if "flash_fwd" in key else
                 "matmul" if any(w in key.lower() for w in (
                     "nvjet", "gemm", "gemv", "cutlass", "xmma", "sm90_"))
@@ -2042,10 +2116,18 @@ def main() -> None:
                      if e["name"] == "flash_attention_bwd")
     bwd_entry["shapes"] = {path: {str(k): v for k, v in shapes.items()}
                            for path, shapes in bwd_shapes.items()}
+    bwd_entry["parts_busy_ms"] = timed["flash_attention_bwd"][
+        "parts_busy_ms"]
     bwd_entry["other_shapes"] = [
-        {k: row[k] for k in ("shape", "ms", "busy_ms", "plain_ms",
-                             "library_ms", "call_ms", "bound_ms",
+        {k: row[k] for k in ("shape", "ms", "busy_ms", "parts_busy_ms",
+                             "plain_ms", "library_ms", "call_ms", "bound_ms",
                              "bound_by")} for row in bwd_more]
+    bwd_entry["compiled"] = {
+        key[2]: {k: row[k] for k in ("registers", "spill_bytes",
+                                     "blocks_per_sm")}
+        for key, row in compiled.items()
+        if key[:2] == ("flash_attention_bwd", "bfloat16") and len(key) == 3
+        and "hd" in key[2]}
     wkv_entry = next(e for e in record["kernels"]
                      if e["name"] == "rwkv6_wkv")
     wkv_entry.update(

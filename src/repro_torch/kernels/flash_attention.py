@@ -16,7 +16,9 @@ The backward replaces that kernel's ``custom_vjp`` backward, which runs
 ``models/attention.py::_flash_bwd_impl`` (FlashAttention-2: P recomputed
 from the saved lse): :func:`flash_attention_bwd` launches
 ``csrc/flash_attention_bwd.cu`` for CUDA tensors and takes
-:func:`flash_attention_bwd_plain` for CPU tensors. :func:`flash_attention`
+:func:`flash_attention_bwd_plain` for CPU tensors. Its bf16 route (the
+train path) runs on the tensor cores, with P and dS rounded to bf16 as
+operands; f32 keeps an f32 CUDA-core route. :func:`flash_attention`
 goes through an ``autograd.Function`` when grad mode is on and an input
 requires grad, so a train step's gradients flow through both kernels.
 

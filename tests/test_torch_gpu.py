@@ -189,6 +189,48 @@ def test_flash_attention_backward_kernel_matches_plain(cuda, shape, dtype):
         torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
 
 
+@pytest.mark.parametrize("shape", [(4, 512, 12, 128), (4, 100, 32, 150),
+                                   (2, 65, 3, 160)])
+def test_flash_attention_backward_bf16_gives_equal_bits(cuda, shape):
+    """The bf16 route (tensor cores) has no atomics: two calls on the same
+    inputs give the same bits."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd)
+    q, k, v = _attention_inputs(shape, torch.bfloat16, cuda)
+    dout = _attention_inputs(shape, torch.bfloat16, cuda, seed=1)[0]
+    out, lse = flash_attention(q, k, v)
+    first = flash_attention_bwd(q, k, v, out, lse, dout)
+    second = flash_attention_bwd(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("shape", [(4, 512, 12, 128), (2, 65, 3, 150)])
+def test_flash_attention_backward_f32_route_unchanged(cuda, shape):
+    """The f32 route keeps the first port's CUDA-core kernels: within 1e-5
+    of the plain version, as they were."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
+    q, k, v = _attention_inputs(shape, torch.float32, cuda)
+    dout = _attention_inputs(shape, torch.float32, cuda, seed=1)[0]
+    out, lse = flash_attention(q, k, v)
+    got = flash_attention_bwd(q, k, v, out, lse, dout)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, dout)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("which", ["dkdv", "dq"])
+def test_flash_attention_backward_bf16_kernels_fit_at_hd_128(cuda, which):
+    """At the train shape's head dim the bf16 kernels spill nothing and
+    keep 2 blocks of 4 warps an SM."""
+    from repro_torch.kernels.flash_attention import bwd_kernel_info
+    info = bwd_kernel_info(128, torch.bfloat16, which)
+    assert info["spill_bytes"] == 0
+    assert info["blocks_per_sm"] >= 2 and info["threads"] == 128
+
+
 @pytest.mark.parametrize("shape", [(2, 100, 3, 64), (1, 65, 2, 160)])
 def test_flash_attention_cuda_route_takes_grads(cuda, shape):
     """``autograd.grad`` through the forward and backward kernels (one

@@ -7,6 +7,9 @@ flash and SSD round it to bf16 first:
 
 - flash: the probabilities P, as the A operand of P·V (the row sum l and
   the lse come from the unrounded f32 P);
+- flash backward: Pᵀ as the A operand of dV += Pᵀ·dO, dSᵀ as that of
+  dK += dSᵀ·Q, and dS as that of dQ += dS·K (S, dP, delta and the lse stay
+  f32);
 - SSD: the decay-masked scores (scores ∘ decay ∘ dt) before ·X, the
   carried state S before C·S (S itself stays f32; exp(cum) scales the f32
   product's rows), and B ∘ w before Bᵀ·X.
@@ -26,12 +29,17 @@ the JAX package's oracles and its Pallas kernels in interpret mode, within
 the JAX kernel tests' bf16 tolerances (2e-2 flash, 6e-2 SSD, WKV out 5e-2
 and state 5e-1), at zamba2's widths (hd 112; P = N = 64, chunk 64,
 T = 512) and rwkv6-3b's (N = 64, chunk 64, T = 512), at a small B·H.
-Inputs come from numpy with a seed, drawn as the JAX kernel tests draw
-them.
+The flash backward's rounding is held to its plain version within 1e-2,
+the bf16 gate ``chip_smoke.py`` holds the kernel to, and to ``jax.grad``
+of the JAX oracle (below, with its tolerance), at qwen2-vl-2b's training
+head dim (128) and the widest ones (150, 160); never to the Pallas kernel
+at unequal blocks (ROADMAP C5). Inputs come from numpy with a seed, drawn
+as the JAX kernel tests draw them.
 """
 
 import math
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -39,11 +47,20 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels.flash_attention import flash_attention_plain
+from repro_torch.kernels.flash_attention import (flash_attention_bwd_plain,
+                                                 flash_attention_plain)
 from repro_torch.kernels.mamba2_ssd import pick_chunk
 from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv_plain
 
 FLASH_TOL, SSD_TOL, LSE_TOL = 2e-2, 6e-2, 2e-5
+# The flash backward in bf16. Against its plain version (f32 products, one
+# rounding of dq, dk, dv to bf16): 1e-2, the gate chip_smoke.py holds the
+# kernel to. Against jax.grad of the JAX oracle on the same bf16 inputs:
+# the JAX kernel tests hold f32 gradients at 5e-4 and have no bf16
+# gradient case; a gradient rounded once to bf16 is already up to 2^-9 of
+# |g| off (0.0078 at |g| = 4), which 5e-4 cannot hold, so the tolerance
+# scales to the one those tests give a bf16 flash result, 2e-2.
+BWD_TOL, JAX_BWD_TOL = 1e-2, 2e-2
 WKV_TOL, WKV_STATE_TOL = 5e-2, 5e-1
 NEG_INF = -1e30
 
@@ -82,6 +99,36 @@ def flash_rounded(q, k, v, block=64):
         out[:, q0:q1] = acc / l[..., None]
         lse[:, q0:q1] = m + torch.log(l)
     return out.to(q.dtype), lse
+
+
+def flash_bwd_rounded(q, k, v, out, lse, dout, block=64):
+    """``flash_attention_bwd_plain`` with Pᵀ, dSᵀ and dS rounded to bf16 as
+    the operands of dV += Pᵀ·dO, dK += dSᵀ·Q and dQ += dS·K."""
+    B, S, H, hd = q.shape
+    scale = 1.0 / math.sqrt(hd)
+    qf, kf, vf, dof = q.float(), k.float(), v.float(), dout.float()
+    delta = (dof * out.float()).sum(-1)
+    dq = torch.zeros(B, S, H, hd)
+    dk = torch.zeros_like(dq)
+    dv = torch.zeros_like(dq)
+    for q0 in range(0, S, block):
+        q1 = min(q0 + block, S)
+        qi, doi = qf[:, q0:q1], dof[:, q0:q1]
+        lsei = lse[:, q0:q1].permute(0, 2, 1)[..., None]
+        di = delta[:, q0:q1].permute(0, 2, 1)[..., None]
+        qpos = torch.arange(q0, q1)
+        for k0 in range(0, q1, block):
+            k1 = min(k0 + block, S)
+            kj, vj = kf[:, k0:k1], vf[:, k0:k1]
+            mask = qpos[:, None] >= torch.arange(k0, k1)[None, :]
+            s = torch.einsum("bqhd,bkhd->bhqk", qi, kj) * scale
+            p = torch.where(mask, torch.exp(s - lsei), torch.zeros_like(s))
+            dp = torch.einsum("bqhd,bkhd->bhqk", doi, vj)
+            ds = _bf16(p * (dp - di) * scale)
+            dq[:, q0:q1] += torch.einsum("bhqk,bkhd->bqhd", ds, kj)
+            dk[:, k0:k1] += torch.einsum("bhqk,bqhd->bkhd", ds, qi)
+            dv[:, k0:k1] += torch.einsum("bhqk,bqhd->bkhd", _bf16(p), doi)
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
 
 
 def ssd_rounded(x, dt, A, Bm, Cm, state0, chunk=64):
@@ -174,6 +221,60 @@ def test_flash_p_in_bf16_matches_pallas_interpret():
                                   interpret=True, block_q=64, block_k=64)
     np.testing.assert_allclose(_f32(out), _f32(expect), atol=FLASH_TOL,
                                rtol=FLASH_TOL)
+
+
+# qwen2-vl-2b's training head dim, then the widest head dims at ragged S
+BWD_SHAPES = [(1, 512, 2, 128), (1, 100, 2, 160), (2, 65, 3, 150)]
+
+
+def _bwd_inputs(shape, seed=11):
+    """q, k, v ~ N(0, 1) from one seed and dout from the next, in bf16, as
+    ``chip_smoke.attention_inputs`` draws them; out and lse from the bf16
+    forward's rounding (``flash_rounded``), as the card hands them over."""
+    arrays = _qkv(shape, seed) + [_qkv(shape, seed + 1)[0]]
+    q, k, v, dout = (torch.from_numpy(a).bfloat16() for a in arrays)
+    out, lse = flash_rounded(q, k, v)
+    return arrays, (q, k, v, out, lse, dout)
+
+
+def _excess(got, ref, tol):
+    """max(|got - ref| - tol·|ref|): within atol = rtol = tol iff <= tol."""
+    got, ref = _f32(got), _f32(ref)
+    return float((np.abs(got - ref) - tol * np.abs(ref)).max())
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_flash_bwd_bf16_operands_within_gate_of_plain(shape):
+    """One bf16 rounding of Pᵀ, dSᵀ and dS keeps dq, dk and dv within the
+    card's 1e-2 of the plain version; the rounding does show (the two
+    differ), so no hi + lo split is needed."""
+    _, args = _bwd_inputs(shape)
+    got = flash_bwd_rounded(*args)
+    want = flash_attention_bwd_plain(*args)
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == b.shape
+        assert _excess(a, b, BWD_TOL) <= BWD_TOL
+    assert any(not torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("shape", BWD_SHAPES)
+def test_flash_bwd_bf16_operands_within_jax_grad_tolerance(shape):
+    """The rounded backward against ``jax.vjp`` of the JAX oracle
+    ``attention_ref`` on the same bf16 q, k, v and cotangent, within
+    2e-2 (the reason is at ``JAX_BWD_TOL``)."""
+    arrays, args = _bwd_inputs(shape)
+    got = flash_bwd_rounded(*args)
+
+    @jax.jit
+    def grads(q, k, v, dout):
+        _, vjp = jax.vjp(
+            lambda a, b, c: jref.attention_ref(a, b, c, causal=True), q, k, v)
+        return vjp(dout)
+
+    for a, b in zip(got, grads(*(jnp.asarray(a, jnp.bfloat16)
+                                 for a in arrays))):
+        np.testing.assert_allclose(_f32(a), _f32(b), atol=JAX_BWD_TOL,
+                                   rtol=JAX_BWD_TOL)
 
 
 @pytest.mark.parametrize("shape", [(1, 512, 2, 64, 1, 64),

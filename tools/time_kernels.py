@@ -7,7 +7,9 @@ times each at its main path's shape with ``chip_smoke.py``'s methods
 (median device time behind a spin kernel, and CUPTI busy time): an empty
 kernel (the floor), ``anen_distance`` at (365, 3, 512) and (365, 3, 4096),
 ``rwkv6_wkv`` at (4, 512, 40, 64) in bf16 and f32, ``flash_attention`` and
-``mamba2_ssd`` at theirs in bf16. The inputs are ``chip_smoke.py``'s. It
+``mamba2_ssd`` at theirs in bf16, and ``flash_attention_bwd`` in bf16 at
+(4, 512, 12, 128) and (4, 512, 32, 112) (device time and CUPTI busy
+time). The inputs are ``chip_smoke.py``'s. It
 prints the card and one JSON line. Two trees compare on one card when
 they run in turns in one session: parent, change, change, parent.
 """
@@ -52,6 +54,14 @@ def main() -> None:
     q, k, v = cs.attention_inputs(cs.FLASH_MAIN, "bfloat16")
     rows["flash_attention bfloat16"] = cs.device_ms(
         lambda: flash_attention.flash_attention(q, k, v))
+    for shape in cs.FLASH_BWD_TIMED:
+        q, k, v = cs.attention_inputs(shape, "bfloat16")
+        dout = cs.attention_inputs(shape, "bfloat16", seed=12)[0]
+        out, lse = flash_attention.flash_attention(q, k, v)
+        fn = lambda: flash_attention.flash_attention_bwd(  # noqa: E731
+            q, k, v, out, lse, dout)
+        rows[f"flash_attention_bwd bfloat16 {shape}"] = cs.device_ms(fn)
+        rows[f"flash_attention_bwd bfloat16 {shape} busy"] = cs.busy_ms(fn)
     s = cs.ssd_inputs(cs.SSD_MAIN, "bfloat16")
     rows["mamba2_ssd bfloat16"] = cs.device_ms(
         lambda: mamba2_ssd.mamba2_ssd(*s))
