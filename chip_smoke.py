@@ -41,29 +41,38 @@ plain PyTorch version on the card, and drives the port's paths:
    M-RoPE positions (28 flash launches) and musicgen-medium (48), each one
    prefill of 4 x 512 embeddings and 15 decode steps; then its smoke
    configuration's prefill on the card against the CPU;
-7. training (``repro_torch.launch.train``): qwen2-vl-2b at its published
-   width and depth, f32 masters and AdamW state, 3 steps of 4 x 512 on the
-   synthetic stream, each step launching the flash forward 56 times (28
-   layers, each recomputed once under remat) and its backward kernel
-   (``flash_attention_bwd``) 28 times at (4, 512, 12, 128), with a
-   profile of one more step; then one train step of the stablelm-12b and
-   qwen2-vl-2b smoke configurations on the card against the CPU; then
+7. training (``repro_torch.launch.train``), f32 masters and AdamW state,
+   3 steps of 4 x 512 on the synthetic stream for each of: qwen2-vl-2b at
+   its published width and depth, each step launching the flash forward
+   56 times (28 layers, each recomputed once under remat) and its
+   backward kernel (``flash_attention_bwd``) 28 times at (4, 512, 12,
+   128); rwkv6-3b at its published width and depth (``rwkv6_wkv`` 64 and
+   ``rwkv6_wkv_bwd`` 32 times a step at (4, 512, 40, 64)); zamba2-7b at
+   its published width with its depth cut to 45 of 81 layers (7 groups of
+   6 Mamba-2 layers and the shared block, then 3: ``mamba2_ssd`` 90 and
+   ``mamba2_ssd_bwd`` 45 times a step at (4, 512, 112, 64, 1, 64), flash
+   14 and 7 at (4, 512, 32, 112)), each with a profile of one more step;
+   then one train step of the stablelm-12b, qwen2-vl-2b, zamba2-7b and
+   rwkv6-3b smoke configurations on the card against the CPU; then
    minitron-4b's smoke configuration through ``run_managed`` on
    ``TorchRTS``, 20 steps in chunks of 5 with one injected fault (one
    retry, no step trained twice).
 
-Before the serve paths it checks that the CUDA routes of the SSD and WKV
-kernels refuse an input that requires grad (no backward kernel yet), that
-flash's takes grads (``autograd.grad`` through its forward and backward
-kernels against autograd through its plain forward), holds the backward
-kernel against its plain version (bf16 on the tensor cores, with equal
-bits on a second call; f32 on the CUDA cores, within the first port's
-1e-5), times its three kernels apart, and prints every compiled kernel's
-registers, shared memory and blocks an SM (for flash, SSD and WKV each
-route: f32 on the CUDA cores, bf16 on the tensor cores; the bf16
-backward's two kernels at head dims 112, 128 and 160, failing on a spill
-at 128), and the device time of an empty kernel, the floor under every
-kernel time it prints.
+Before the serve paths it checks that the CUDA routes of the flash, SSD
+and WKV kernels take grads (``autograd.grad`` through each forward and
+backward kernel pair against autograd through the plain forward), holds
+each backward kernel against its plain version (flash: bf16 on the
+tensor cores, f32 on the CUDA cores within the first port's 1e-5; SSD
+and WKV: f32 on the CUDA cores for both dtypes, at the train shapes and
+ragged and small ones, with a nonzero final-state gradient and, for WKV,
+at the clamps; each with equal bits on a second call), times flash's
+three kernels apart and each backward kernel at its train shape, and
+prints every compiled kernel's registers, shared memory and blocks an SM
+(for flash, SSD and WKV each route: f32 on the CUDA cores, bf16 on the
+tensor cores; the bf16 flash backward's two kernels at head dims 112, 128
+and 160, failing on a spill at 128; the SSD and WKV backward at their
+train shapes, failing on a spill), and the device time of an empty
+kernel, the floor under every kernel time it prints.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after, and fails unless every kernel of the path launched. Every
@@ -90,7 +99,8 @@ SRC = os.path.join(HERE, "src")
 
 # every CUDA source of the port (src/repro_torch/kernels/csrc/<name>.cu)
 KERNEL_SOURCES = ("anen_distance", "flash_attention", "flash_attention_bwd",
-                  "mamba2_ssd", "rwkv6_wkv")
+                  "mamba2_ssd", "mamba2_ssd_bwd", "rwkv6_wkv",
+                  "rwkv6_wkv_bwd")
 
 # published peaks of one H100 SXM (NVIDIA data sheet) at a 700 W limit
 HBM_BYTES_PER_S = 3.35e12
@@ -204,8 +214,35 @@ BWD_F32_UNCHANGED = 1e-5
 # head dims of the bf16 backward kernels whose registers are printed; a
 # spill at the train shape's (128) fails the run
 BWD_INFO_HDS = (112, 128, 160)
-TRAIN = dict(arch="qwen2-vl-2b", seq_len=512, global_batch=4, steps=3)
-TRAIN_SMOKE = ("stablelm-12b", "qwen2-vl-2b")
+# the SSD and WKV backward kernels: the train shapes, a ragged T (chunk
+# 50), G = 2 and N != P (SSD), chunk 1 and N = 5 (WKV), each with a
+# nonzero state0 and final-state gradient; WKV also with channels whose
+# cumsum passes -30 and steps with w < 1e-8 ("clamped")
+SSD_BWD_SHAPES = (SSD_MAIN, (4, 100, 112, 64, 1, 64), (2, 128, 8, 64, 2, 64),
+                  (1, 100, 3, 16, 1, 8), (2, 128, 4, 32, 2, 16))
+WKV_BWD_SHAPES = (WKV_MAIN, (4, 100, 40, 64), (1, 97, 2, 64), (2, 100, 3, 16),
+                  (1, 100, 2, 5))
+WKV_BWD_CLAMPED = ((2, 128, 3, 64),)
+SCAN_GRADS = {"mamba2_ssd": ("dx", "ddt", "dA", "dBm", "dCm", "dstate0"),
+              "rwkv6_wkv": ("dr", "dk", "dv", "dw", "du", "dstate0")}
+# phase 7's full-width train runs, 3 steps of 4 x 512 each: qwen2-vl-2b,
+# rwkv6-3b at full width and depth, and zamba2-7b at full width with its
+# depth cut to 45 of 81 layers (7 groups of 6 Mamba-2 layers, each followed
+# by the shared block, then 3 trailing layers: the published 13 x 6 + 3
+# structure; 81 layers need 108 GB of f32 state and gradients, 45 about 63)
+ZAMBA_CUT = dict(name="zamba2-7b-45l", base="zamba2-7b", n_layers=45)
+TRAIN_RUNS = (dict(arch="qwen2-vl-2b", seq_len=512, global_batch=4, steps=3),
+              dict(arch="rwkv6-3b", seq_len=512, global_batch=4, steps=3),
+              dict(arch=ZAMBA_CUT["name"], seq_len=512, global_batch=4,
+                   steps=3))
+TRAIN_SHAPES = {
+    "qwen2-vl-2b": {"flash_attention": FLASH_QWEN2_VL,
+                    "flash_attention_bwd": FLASH_QWEN2_VL},
+    "rwkv6-3b": {"rwkv6_wkv": WKV_MAIN, "rwkv6_wkv_bwd": WKV_MAIN},
+    ZAMBA_CUT["name"]: {"mamba2_ssd": SSD_MAIN, "mamba2_ssd_bwd": SSD_MAIN,
+                        "flash_attention": FLASH_MAIN,
+                        "flash_attention_bwd": FLASH_MAIN}}
+TRAIN_SMOKE = ("stablelm-12b", "qwen2-vl-2b", "zamba2-7b", "rwkv6-3b")
 TRAIN_MANAGED = dict(arch="minitron-4b", total_steps=20, steps_per_chunk=5,
                      fail_once_at=5)
 
@@ -237,7 +274,7 @@ def build_kernels() -> float:
     from repro_torch.kernels import (anen_distance, flash_attention,
                                      mamba2_ssd, rwkv6_wkv)
     for kmod in (anen_distance, flash_attention, mamba2_ssd, rwkv6_wkv):
-        kmod.build()
+        kmod.build()     # the scans' build() loads their backward too
     return time.perf_counter() - t0
 
 
@@ -987,32 +1024,35 @@ def cross_check_seismic() -> None:
 
 
 def check_grad_routes() -> None:
-    """The SSD and WKV CUDA routes raise on an input that requires grad
-    while grad mode is on (no backward kernel yet) and launch nothing;
-    flash's CUDA route takes grads: ``torch.autograd.grad`` through its
-    ``autograd.Function`` (forward and backward kernels) against autograd
-    through the plain forward, in f32 at the JAX gradient tolerance."""
+    """Every model kernel's CUDA route takes grads: ``torch.autograd.grad``
+    through its ``autograd.Function`` (one forward and one backward
+    launch) against autograd through the plain forward, in f32 at the JAX
+    gradient tolerance: SSD and WKV (the gradients of every input, the
+    final state's gradient nonzero), and flash."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_bwd,
                                                      flash_attention_plain)
-    from repro_torch.kernels.mamba2_ssd import mamba2_ssd
-    from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv
-    cases = ((mamba2_ssd, ssd_inputs((1, 64, 2, 16, 1, 8), "float32")),
-             (rwkv6_wkv, wkv_inputs((1, 64, 2, 16), "float32")))
-    for fn, args in cases:
-        args[0].requires_grad_(True)
-        before = fn.launches
-        try:
-            fn(*args)
-        except RuntimeError as exc:
-            check(fn.__name__ in str(exc), f"{fn.__name__} names itself")
-            print(f"{fn.__name__} CUDA route under grad raises: {exc}")
-        else:
-            raise RuntimeError(f"check failed: {fn.__name__} ran under "
-                               f"grad on CUDA")
+    for name, shape in (("mamba2_ssd", (1, 64, 2, 16, 1, 8)),
+                        ("mamba2_ssd", (2, 100, 4, 16, 2, 8)),
+                        ("rwkv6_wkv", (1, 64, 2, 16)),
+                        ("rwkv6_wkv", (2, 100, 3, 8))):
+        fn, plain, bwd, _ = scan_fns(name)
+        args, dout, dstate = scan_bwd_inputs(name, shape, "float32")
+        args = [a.requires_grad_(True) for a in args]
+        before = (fn.launches, bwd.launches)
+        out, state = fn(*args)
+        got = torch.autograd.grad((out, state), args, (dout, dstate))
         torch.cuda.synchronize()
-        check(fn.launches == before, f"{fn.__name__}: no launch under grad")
+        check((fn.launches, bwd.launches) == (before[0] + 1, before[1] + 1),
+              f"{name} under grad: one forward and one backward launch")
+        want = torch.autograd.grad(plain(*args), args, (dout, dstate))
+        errs = [held_close(a, b, BWD_TOLERANCE["float32"],
+                           f"{name} autograd {g} {shape}")
+                for g, a, b in zip(SCAN_GRADS[name], got, want)]
+        print(f"{name} autograd.grad {shape}: max abs err "
+              f"{dict(zip(SCAN_GRADS[name], errs))} against autograd "
+              f"through the plain forward")
     for shape in ((2, 100, 3, 64), (1, 65, 2, 160)):
         q, k, v = (a.requires_grad_(True)
                    for a in attention_inputs(shape, "float32"))
@@ -1086,6 +1126,46 @@ def wkv_inputs(shape, dtype: str, seed: int = 17):
     r, k, v = (t(draw(B, T, H, N) * 0.5).to(dt) for _ in range(3))
     w = t(np.exp(-np.exp(draw(B, T, H, N) * 0.5 - 2.0))).to(dt)
     return [r, k, v, w, t(draw(H, N) * 0.3), t(draw(B, H, N, N) * 0.1)]
+
+
+def scan_fns(name: str):
+    """(wrapper, plain, backward wrapper, plain backward) of a scan."""
+    import importlib
+    mod = importlib.import_module(f"repro_torch.kernels.{name}")
+    return (getattr(mod, name), getattr(mod, f"{name}_plain"),
+            getattr(mod, f"{name}_bwd"), getattr(mod, f"{name}_bwd_plain"))
+
+
+def scan_bwd_inputs(name: str, shape, dtype: str, clamped: bool = False,
+                    seed: int = 19):
+    """A scan's inputs (as the forward checks draw them), its output
+    gradient ~ N in ``dtype`` and a final-state gradient ~ N in f32.
+    ``clamped`` (WKV): a quarter of the channels decay by e^-0.5..e^-3 a
+    step (uniform), so the cumsum passes -30 inside a chunk, and the 10th
+    step of every chunk has w = 1e-9 in channel N/2, one that decays as
+    drawn. (Where w < 1e-8 falls after the cumsum passed -30, the clamped
+    formulae multiply by 1/1e-8: terms near 1e8 cancel, and an f32
+    gradient, the plain version's as well, is off its f64 value by up to
+    4 % on small elements; CPU tests hold that case to autograd in f64
+    and to jax.grad.)"""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.mamba2_ssd import pick_chunk
+    if name == "mamba2_ssd":
+        args = ssd_inputs(shape, dtype)
+    else:
+        args = wkv_inputs(shape, dtype)
+    rng = np.random.default_rng(seed)
+    if clamped:
+        w, q = args[3], max(1, shape[3] // 4)
+        decay = rng.uniform(0.5, 3.0, (*shape[:3], q)).astype(np.float32)
+        w[..., :q] = torch.from_numpy(np.exp(-decay)).cuda().to(w.dtype)
+        w[:, 9::pick_chunk(shape[1]), :, shape[3] // 2] = 1e-9
+    dout = torch.from_numpy(rng.standard_normal(tuple(args[0].shape))
+                            .astype(np.float32)).cuda().to(_dtype(dtype))
+    dstate = torch.from_numpy(rng.standard_normal(tuple(args[5].shape))
+                              .astype(np.float32)).cuda()
+    return args, dout, dstate
 
 
 def held_close(got, ref, tol: float, what: str) -> float:
@@ -1255,6 +1335,91 @@ def compare_wkv(shape, dtype: str) -> float:
     return err
 
 
+def compare_scan_bwd(name: str, shape, dtype: str,
+                     clamped: bool = False) -> float:
+    """A scan's backward kernel against its plain version on the same
+    inputs, output gradient and nonzero final-state gradient, at
+    ``BWD_TOLERANCE``; a second call must give equal bits (its sums over
+    blocks run in a fixed order)."""
+    import torch
+    _, _, bwd, bwd_plain = scan_fns(name)
+    args, dout, dstate = scan_bwd_inputs(name, shape, dtype, clamped)
+    before = bwd.launches
+    got = bwd(*args, dout, dstate)
+    torch.cuda.synchronize()
+    check(bwd.launches == before + 1, f"{name}_bwd: one launch a call")
+    want = bwd_plain(*args, dout, dstate)
+    tol = BWD_TOLERANCE[dtype]
+    what = f"{name}_bwd {shape} {dtype}" + (" clamped" if clamped else "")
+    errs = [held_close(a, b, tol, f"{what} {g}")
+            for g, a, b in zip(SCAN_GRADS[name], got, want)]
+    for g, a, x in zip(SCAN_GRADS[name], got, args):
+        check(a.dtype == x.dtype and a.shape == x.shape,
+              f"{what} {g}: its input's dtype and shape")
+    again = bwd(*args, dout, dstate)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{what}: equal bits on a second call")
+    print(f"{what}: max abs err {dict(zip(SCAN_GRADS[name], errs))} "
+          f"(tolerance {tol}); a second call gives equal bits")
+    return max(errs)
+
+
+def ssd_bwd_bound(shape, elem: int) -> dict:
+    """x, dy, B, C read and dx, dB, dC written once in the input type;
+    dt, A, state0 read and ddt, dA, dstate0 written once in f32 (the train
+    path's final-state gradient is None: not read); per chunk and head the
+    products of the gradient (C.B^T, dy.x^T, and M, dG against dy, C, B:
+    c x c x (3N + 2P)) and of the states (S dy_t, dS' x_s, dS'^T B_s, the
+    dS and recomputed S updates: 5 c x N x P), at the tensor-core rate of
+    bf16 inputs."""
+    from repro_torch.kernels.mamba2_ssd import pick_chunk
+    B, T, H, P, G, N = shape
+    c = pick_chunk(T)
+    bytes_ = (elem * (3 * B * T * H * P + 4 * B * T * G * N)
+              + 4 * 2 * (B * T * H + H + B * H * N * P))
+    flops = 2.0 * B * H * (T // c) * (c * c * (3 * N + 2 * P)
+                                      + 5 * c * N * P)
+    return _bound(bytes_, flops, BF16_FLOPS_PER_S)
+
+
+def wkv_bwd_bound(shape, elem: int) -> dict:
+    """r, k, v, w, dout read and dr, dk, dv, dw written once in the input
+    type; u, state0 read and du, dstate0 written once in f32 (no
+    final-state gradient on the train path); per chunk and head the
+    products of the gradient (scores, dout.v^T, their products with
+    k_over, r_dec and dout: 5 c x c x N) and of the states (S dout_t,
+    dS' v_s, dS'^T k_scaled, the dS and recomputed S updates: 5 c x N x
+    N), at the tensor-core rate of bf16 inputs."""
+    from repro_torch.kernels.rwkv6_wkv import pick_chunk
+    B, T, H, N = shape
+    c = pick_chunk(T)
+    bytes_ = elem * 9 * B * T * H * N + 4 * 2 * (H * N + B * H * N * N)
+    flops = 2.0 * B * H * (T // c) * (5 * c * c * N + 5 * c * N * N)
+    return _bound(bytes_, flops, BF16_FLOPS_PER_S)
+
+
+def time_scan_bwd(name: str, shape) -> dict:
+    """The backward kernel at its train shape in bf16, as the train step
+    calls it (no final-state gradient): device time, busy time, its plain
+    version's busy time; no single PyTorch call computes it."""
+    _, _, bwd, bwd_plain = scan_fns(name)
+    args, dout, _ = scan_bwd_inputs(name, shape, "bfloat16")
+    kernel = lambda: bwd(*args, dout)                         # noqa: E731
+    plain = lambda: bwd_plain(*args, dout)                    # noqa: E731
+    row = {"shape": list(shape), "dtype": "bfloat16",
+           "ms": device_ms(kernel), "busy_ms": busy_ms(kernel),
+           "plain_ms": busy_ms(plain), "library_ms": None,
+           "call_ms": call_ms(kernel)}
+    row.update((ssd_bwd_bound if name == "mamba2_ssd" else wkv_bwd_bound)(
+        shape, 2))
+    print(f"{name}_bwd {tuple(shape)} bf16: {row['ms']} ms a call "
+          f"({row['busy_ms']} busy), plain {row['plain_ms']} busy, bound "
+          f"{row['bound_ms']} ({row['bound_by']}; f32 CUDA-core floor "
+          f"{row['f32_cuda_core_ops_ms']})")
+    return row
+
+
 def _bound(bytes_: int, flops: float, rate: float) -> dict:
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = flops / rate * 1e3
@@ -1307,8 +1472,9 @@ def compiled_kernels(anen_n: int) -> dict:
     at its main path's shape: flash, SSD and WKV for each route (dtype),
     flash also at head dim 160 (keys ``("flash_attention", dtype, 160)``),
     the bf16 backward's dk/dv and dq kernels at ``BWD_INFO_HDS`` (a spill
-    at the train shape's head dim fails), and ``anen_distance`` at
-    ``anen_n`` columns."""
+    at the train shape's head dim fails), the SSD and WKV backward kernels
+    for each dtype at their train shapes (a spill fails), and
+    ``anen_distance`` at ``anen_n`` columns."""
     import torch
     from repro_torch.kernels import (anen_distance, flash_attention,
                                      mamba2_ssd, rwkv6_wkv)
@@ -1329,6 +1495,10 @@ def compiled_kernels(anen_n: int) -> dict:
             N, P, pick_chunk(T), dtype)
         info[("rwkv6_wkv", name)] = rwkv6_wkv.kernel_info(
             WKV_MAIN[3], pick_chunk(WKV_MAIN[1]), dtype)
+        info[("mamba2_ssd_bwd", name)] = mamba2_ssd.bwd_kernel_info(
+            N, P, pick_chunk(T), dtype)
+        info[("rwkv6_wkv_bwd", name)] = rwkv6_wkv.bwd_kernel_info(
+            WKV_MAIN[3], pick_chunk(WKV_MAIN[1]), dtype)
     for hd in BWD_INFO_HDS:
         for which in ("dkdv", "dq"):
             info[("flash_attention_bwd", "bfloat16", f"{which} hd {hd}")] = \
@@ -1342,6 +1512,11 @@ def compiled_kernels(anen_n: int) -> dict:
         check(row["spill_bytes"] == 0,
               f"flash_attention_bwd bf16 {which} kernel spills nothing at "
               f"hd {FLASH_QWEN2_VL[3]} (got {row['spill_bytes']} bytes)")
+    for (kernel, name, *rest), row in info.items():
+        if kernel in ("mamba2_ssd_bwd", "rwkv6_wkv_bwd"):
+            check(row["spill_bytes"] == 0,
+                  f"{kernel} {name} kernel spills nothing at the train shape "
+                  f"(got {row['spill_bytes']} bytes)")
     return info
 
 
@@ -1742,14 +1917,42 @@ def release_all() -> None:
 
 
 def train_launches_per_step(cfg) -> dict:
-    """Kernel launches of one train step with one checkpoint a layer: each
-    attention application's flash forward twice (the pass and its
-    recomputation) and its backward once."""
-    attn = cfg.n_layers if cfg.family not in ("ssm", "hybrid") else None
-    check(attn is not None, f"{cfg.name}: only the attention stack trains "
-                            f"on the card")
-    return {"flash_attention": 2 * attn, "flash_attention_bwd": attn,
-            "mamba2_ssd": 0, "rwkv6_wkv": 0}
+    """Kernel launches of one train step with one checkpoint a layer, by
+    kernel, from the configuration: each attention application's flash
+    forward twice (the pass and its recomputation) and its backward once;
+    each Mamba-2 (hybrid) or RWKV (ssm) layer's scan forward twice and its
+    backward once; no other kernel."""
+    from repro_torch.kernels import KERNELS
+    L = cfg.n_layers
+    attn = {"ssm": 0, "hybrid": L // max(1, cfg.attn_every)}.get(
+        cfg.family, L)
+    scan = {"ssm": "rwkv6_wkv", "hybrid": "mamba2_ssd"}.get(cfg.family)
+    want = {name: 0 for name in KERNELS}
+    want.update(flash_attention=2 * attn, flash_attention_bwd=attn)
+    if scan:
+        want.update({scan: 2 * L, f"{scan}_bwd": L})
+    return want
+
+
+def register_zamba_cut() -> None:
+    """zamba2-7b's published configuration with its depth cut to
+    ``ZAMBA_CUT["n_layers"]`` layers, registered under its own name (its
+    smoke configuration is zamba2-7b's), as
+    ``examples/torch_train_ensemble.py`` registers its model."""
+    from repro_torch.models.config import get_config, register_arch
+    full = get_config(ZAMBA_CUT["base"])
+    cut = full.replace(name=ZAMBA_CUT["name"], n_layers=ZAMBA_CUT["n_layers"])
+    check(cut.n_layers % cut.attn_every == 3
+          and cut.n_layers // cut.attn_every == 7,
+          "the cut keeps 7 groups of attn_every layers and 3 trailing")
+    register_arch(ZAMBA_CUT["name"], lambda: cut,
+                  lambda: get_config(ZAMBA_CUT["base"], smoke=True))
+    print(f"{ZAMBA_CUT['name']}: zamba2-7b at full width (d {cut.d_model}, "
+          f"{cut.ssm_heads} SSD heads of {cut.ssm_head_dim}, state "
+          f"{cut.ssm_state}, shared block {cut.n_heads} x "
+          f"{cut.resolved_head_dim}), depth cut to {cut.n_layers} of "
+          f"{full.n_layers} layers: {cut.n_params()} parameters of "
+          f"{full.n_params()}")
 
 
 def profile_train_step(sess) -> None:
@@ -1772,6 +1975,10 @@ def profile_train_step(sess) -> None:
     for key, count, ms in rows:
         kind = ("flash_attention_bwd" if bwd_part(key) else
                 "flash_attention" if "flash_fwd" in key else
+                "mamba2_ssd_bwd" if "ssd_bwd" in key else
+                "rwkv6_wkv_bwd" if "wkv_bwd" in key else
+                "mamba2_ssd" if "ssd_" in key else
+                "rwkv6_wkv" if "wkv_" in key else
                 "matmul" if any(w in key.lower() for w in (
                     "nvjet", "gemm", "gemv", "cutlass", "xmma", "sm90_"))
                 else "other")
@@ -1783,34 +1990,37 @@ def profile_train_step(sess) -> None:
         print(f"  device {ms:.3f} ms  x{count}  {key[:90]}")
 
 
-def run_train_path() -> dict:
-    """qwen2-vl-2b at full width and depth through ``TrainSession``: f32
-    masters, AdamW moments, 3 steps of 4 x 512 on the synthetic stream's
-    embeddings and M-RoPE positions. Gates: finite losses and grad norms,
-    exactly 56 flash forward and 28 backward launches a step, all at (4,
-    512, 12, 128), and no SSD or WKV launch."""
+def run_train_path(run: dict) -> tuple:
+    """One model at full width through ``TrainSession``: f32 masters,
+    AdamW moments, ``run["steps"]`` steps of global_batch x seq_len on the
+    synthetic stream. Gates: finite losses and grad norms, exactly
+    ``train_launches_per_step`` launches of every kernel a step (none of
+    the others), each at the run's shape in ``TRAIN_SHAPES``. Prints peak
+    bytes, warm step seconds and tokens a second, and profiles one more
+    step. Returns the path's launches and its backward kernels' shapes."""
     import torch
     from repro_torch.kernels import KERNELS
     from repro_torch.launch.train import TrainSession
+    arch = run["arch"]
     release_all()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    sess = TrainSession(arch=TRAIN["arch"], smoke=False,
-                        seq_len=TRAIN["seq_len"],
-                        global_batch=TRAIN["global_batch"], device="cuda")
+    sess = TrainSession(arch=arch, smoke=False, seq_len=run["seq_len"],
+                        global_batch=run["global_batch"], device="cuda")
     sess.restore_or_init()
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    n = TRAIN["steps"]
+    n = run["steps"]
     reset_counts()
     out = sess.run_steps(n, save=False)
     launches = {k: fn.launches for k, fn in KERNELS.items()}
     shapes = {k: dict(fn.shapes) for k, fn in KERNELS.items()}
     peak = torch.cuda.max_memory_allocated()
     per_step = train_launches_per_step(sess.cfg)
-    tokens = TRAIN["seq_len"] * TRAIN["global_batch"]
-    print(f"train {TRAIN}: init seconds {init_s}, result {out}")
+    tokens = run["seq_len"] * run["global_batch"]
+    print(f"train {run}: {sess.cfg.n_params()} parameters, init seconds "
+          f"{init_s}, result {out}")
     print(f"max_memory_allocated bytes: {peak} (held before the phase: "
           f"{held})")
     print(f"train path launches: {launches}, shapes: "
@@ -1819,27 +2029,27 @@ def run_train_path() -> dict:
         print(f"  step {rec['step']}: loss={rec['loss']} grad_norm="
               f"{rec['grad_norm']} seconds={rec['seconds']} tokens_per_s="
               f"{tokens / rec['seconds']} launches="
-              f"{ {k: rec[k + '_launches'] for k in per_step} }")
+              f"{ {k: rec[k + '_launches'] for k, w in per_step.items() if w} }")
         check(math.isfinite(rec["loss"]) and math.isfinite(rec["grad_norm"]),
               f"train step {rec['step']}: finite loss and grad norm")
         for name, want in per_step.items():
             check(rec[f"{name}_launches"] == want,
-                  f"{name}: {want} launches a train step (got "
+                  f"{arch} {name}: {want} launches a train step (got "
                   f"{rec[name + '_launches']})")
     for name, want in per_step.items():
         check(launches[name] == want * n,
-              f"{name}: {want * n} launches on the train path")
-    for name in ("flash_attention", "flash_attention_bwd"):
-        check(set(shapes[name]) == {FLASH_QWEN2_VL},
-              f"{name} ran at {FLASH_QWEN2_VL}")
+              f"{arch} {name}: {want * n} launches on the train path")
+    for name, shape in TRAIN_SHAPES[arch].items():
+        check(set(shapes[name]) == {shape}, f"{arch} {name} ran at {shape}")
     warm = [rec["seconds"] for rec in sess.stats[1:]]
-    print(f"train warm step seconds {warm}, tokens a second "
+    print(f"train {arch} warm step seconds {warm}, tokens a second "
           f"{[tokens / w for w in warm]}, peak bytes {peak}")
     profile_train_step(sess)
     sess.state = None
     release_all()
     return ({k: launches[k] for k, want in per_step.items() if want},
-            shapes["flash_attention_bwd"])
+            {k: shapes[k] for k, want in per_step.items()
+             if want and k.endswith("_bwd")})
 
 
 def cross_check_train(arch: str) -> None:
@@ -1953,23 +2163,25 @@ def run_managed_train() -> dict:
                   f"managed train: {name} ran at {FLASH_MANAGED_TRAIN} "
                   f"(got {sorted(shapes[name])})")
         return ({k: launches[k] for k, want in per_step.items() if want},
-                shapes["flash_attention_bwd"])
+                {"flash_attention_bwd": shapes["flash_attention_bwd"]})
     finally:
         train._SESSIONS.clear()
         shutil.rmtree(ckpt, ignore_errors=True)
 
 
 def train_phase():
-    """Phase 7: the full-width train run, its profile, the smoke
+    """Phase 7: the full-width train runs with their profiles, the smoke
     configurations card against CPU, and the managed run; returns the
-    launches of each path and the backward's shapes on each."""
+    launches of each path and the backward kernels' shapes on each."""
     t0 = time.perf_counter()
-    full = f"train {TRAIN['arch']}"
-    managed = f"train {TRAIN_MANAGED['arch']} managed"
+    register_zamba_cut()
     paths, shapes = {}, {}
-    paths[full], shapes[full] = run_train_path()
+    for run in TRAIN_RUNS:
+        label = f"train {run['arch']}"
+        paths[label], shapes[label] = run_train_path(run)
     for arch in TRAIN_SMOKE:
         cross_check_train(arch)
+    managed = f"train {TRAIN_MANAGED['arch']} managed"
     paths[managed], shapes[managed] = run_managed_train()
     print(f"train phase seconds: {time.perf_counter() - t0}")
     return paths, shapes
@@ -2022,7 +2234,8 @@ def main() -> None:
     # the model kernels against their plain versions, main-path and ragged
     # shapes, f32 and bf16
     errors = {"flash_attention": [], "flash_attention_bwd": [],
-              "mamba2_ssd": [], "rwkv6_wkv": []}
+              "mamba2_ssd": [], "mamba2_ssd_bwd": [], "rwkv6_wkv": [],
+              "rwkv6_wkv_bwd": []}
     for dtype in ("float32", "bfloat16"):
         for shape in FLASH_SHAPES:
             errors["flash_attention"].append(compare_flash(shape, dtype))
@@ -2033,11 +2246,22 @@ def main() -> None:
             errors["mamba2_ssd"].append(compare_ssd(shape, dtype))
         for shape in WKV_SHAPES:
             errors["rwkv6_wkv"].append(compare_wkv(shape, dtype))
+        for shape in SSD_BWD_SHAPES:
+            errors["mamba2_ssd_bwd"].append(
+                compare_scan_bwd("mamba2_ssd", shape, dtype))
+        for shape in WKV_BWD_SHAPES:
+            errors["rwkv6_wkv_bwd"].append(
+                compare_scan_bwd("rwkv6_wkv", shape, dtype))
+        for shape in WKV_BWD_CLAMPED:
+            errors["rwkv6_wkv_bwd"].append(
+                compare_scan_bwd("rwkv6_wkv", shape, dtype, clamped=True))
     compiled = compiled_kernels(main_shape[2])
     timed = {"flash_attention": time_flash(FLASH_MAIN),
              "flash_attention_bwd": time_flash_bwd(FLASH_BWD_TIMED[0]),
              "mamba2_ssd": time_ssd(SSD_MAIN),
-             "rwkv6_wkv": time_wkv(WKV_MAIN)}
+             "mamba2_ssd_bwd": time_scan_bwd("mamba2_ssd", SSD_MAIN),
+             "rwkv6_wkv": time_wkv(WKV_MAIN),
+             "rwkv6_wkv_bwd": time_scan_bwd("rwkv6_wkv", WKV_MAIN)}
     bwd_more = [time_flash_bwd(shape) for shape in FLASH_BWD_TIMED[1:]]
     wkv_f32 = time_wkv(WKV_MAIN, "float32")
     flash_more = [time_flash(shape) for shape in FLASH_TIMED]
@@ -2084,7 +2308,11 @@ def main() -> None:
                 "flash_attention_bwd":
                     "src/repro/kernels/flash_attention.py:153",
                 "mamba2_ssd": "src/repro/kernels/mamba2_ssd.py:106",
-                "rwkv6_wkv": "src/repro/kernels/rwkv6_wkv.py:109"}
+                # no TPU backward kernel: the JAX package trains through
+                # jax.grad of these chunked scans
+                "mamba2_ssd_bwd": "src/repro/models/mamba2.py:74",
+                "rwkv6_wkv": "src/repro/kernels/rwkv6_wkv.py:109",
+                "rwkv6_wkv_bwd": "src/repro/models/rwkv6.py:85"}
     for name, row in timed.items():
         record["kernels"].append({
             "name": name, "route": "cuda",
@@ -2114,8 +2342,12 @@ def main() -> None:
         "threads": hd160["threads"]}
     bwd_entry = next(e for e in record["kernels"]
                      if e["name"] == "flash_attention_bwd")
-    bwd_entry["shapes"] = {path: {str(k): v for k, v in shapes.items()}
-                           for path, shapes in bwd_shapes.items()}
+    for entry in record["kernels"]:
+        if entry["name"].endswith("_bwd"):
+            entry["shapes"] = {
+                path: {str(k): v for k, v in by_kernel[entry["name"]].items()}
+                for path, by_kernel in bwd_shapes.items()
+                if entry["name"] in by_kernel}
     bwd_entry["parts_busy_ms"] = timed["flash_attention_bwd"][
         "parts_busy_ms"]
     bwd_entry["other_shapes"] = [
@@ -2138,6 +2370,7 @@ def main() -> None:
         if info is not None:
             entry.update(
                 registers=info["registers"],
+                spill_bytes=info["spill_bytes"],
                 smem_bytes=info["static_smem_bytes"]
                 + info["dynamic_smem_bytes"],
                 blocks_per_sm=info["blocks_per_sm"])

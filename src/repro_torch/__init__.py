@@ -56,10 +56,8 @@ Ported (the modules that touch arrays or devices):
 * :mod:`repro_torch.kernels.flash_attention`,
   :mod:`repro_torch.kernels.mamba2_ssd`,
   :mod:`repro_torch.kernels.rwkv6_wkv` — the model kernels as
-  hand-written CUDA with their plain PyTorch versions; flash attention
-  also has its backward as a CUDA kernel behind an ``autograd.Function``,
-  while the SSD and WKV CUDA routes refuse inputs that require grad (their
-  backward kernels are the next slice); oracles in
+  hand-written CUDA with their plain PyTorch versions; each also has its
+  backward as a CUDA kernel behind an ``autograd.Function``; oracles in
   :mod:`repro_torch.kernels.ref`;
 * :mod:`repro_torch.launch.serve` — batched prefill + greedy decode as
   EnTK tasks over :class:`TorchRTS`;

@@ -14,6 +14,14 @@ inputs keep an f32 CUDA-core kernel. One call is one CUDA launch.
 :func:`mamba2_ssd_plain` only for CPU tensors. The plain version is the
 JAX package's chunked reference ``models/mamba2.py::ssd_chunked`` in
 PyTorch (the port's model imports it under that name).
+
+The backward: the JAX package trains through ``jax.grad`` of
+``ssd_chunked`` (it has no backward kernel). :func:`mamba2_ssd_bwd`
+computes that gradient with ``csrc/mamba2_ssd_bwd.cu`` for CUDA tensors
+and :func:`mamba2_ssd_bwd_plain`, the same equations chunk by chunk in
+PyTorch, for CPU tensors. When grad mode is on and an input requires
+grad, :func:`mamba2_ssd` records an ``autograd.Function`` whose backward
+is :func:`mamba2_ssd_bwd`, on either device.
 """
 
 from __future__ import annotations
@@ -21,11 +29,10 @@ from __future__ import annotations
 import collections
 import ctypes
 import threading
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
-
-from . import refuse_grad
+import torch.nn.functional as F
 
 MAX_CHUNK = 64          # the kernel's largest chunk
 MAX_DIM = 128           # the kernel's largest state N and head dim P
@@ -33,6 +40,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _count_lock = threading.Lock()
 _launcher = None
+_bwd_launcher = None
 
 
 def pick_chunk(T: int, chunk: int = MAX_CHUNK) -> int:
@@ -42,6 +50,12 @@ def pick_chunk(T: int, chunk: int = MAX_CHUNK) -> int:
     while T % c:
         c -= 1
     return c
+
+
+def upcast(a: torch.Tensor) -> torch.Tensor:
+    """``a`` in f32, the plain versions' working type; f64 stays f64, so
+    that a test can hold a plain backward to autograd without rounding."""
+    return a if a.dtype == torch.float64 else a.float()
 
 
 def mamba2_ssd_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -55,11 +69,11 @@ def mamba2_ssd_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     Bsz, T, H, P = x.shape
     hpg = H // Bm.shape[2]
     c = pick_chunk(T, chunk)
-    xf, dtf, Af = x.float(), dt.float(), A.float()
-    Bh = Bm.float().repeat_interleave(hpg, dim=2)    # (B, T, H, N)
-    Ch = Cm.float().repeat_interleave(hpg, dim=2)
+    xf, dtf, Af = upcast(x), upcast(dt), upcast(A)
+    Bh = upcast(Bm).repeat_interleave(hpg, dim=2)    # (B, T, H, N)
+    Ch = upcast(Cm).repeat_interleave(hpg, dim=2)
     tri = torch.ones(c, c, dtype=torch.bool, device=x.device).tril()
-    state = state0.float()
+    state = upcast(state0)
     ys = []
     for t0 in range(0, T, c):
         xt, dtt = xf[:, t0:t0 + c], dtf[:, t0:t0 + c]
@@ -132,8 +146,10 @@ def _load():
 
 
 def build() -> None:
-    """Build (or load) the CUDA library now rather than at first launch."""
+    """Build (or load) the CUDA libraries of the forward and the backward
+    now rather than at first launch."""
     _load()
+    _load_bwd()
 
 
 def kernel_info(N: int, P: int, chunk: int, dtype: torch.dtype) -> dict:
@@ -144,26 +160,11 @@ def kernel_info(N: int, P: int, chunk: int, dtype: torch.dtype) -> dict:
     return info("mamba2_ssd", N, P, chunk, _DTYPES[dtype])
 
 
-def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
-               Bm: torch.Tensor, Cm: torch.Tensor, state0: torch.Tensor,
-               chunk: int = MAX_CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x (B,T,H,P), Bm/Cm (B,T,G,N) float32 or bfloat16; dt (B,T,H), A
-    (H,), state0 (B,H,N,P) float32 → (y (B,T,H,P) in x's dtype, state_T
-    (B,H,N,P) float32), with the chunk the JAX wrapper picks.
-
-    CUDA tensors launch the kernel on the current stream (one launch,
-    counted in ``mamba2_ssd.launches``, its (B, T, H, P, G, N) counted in
-    ``mamba2_ssd.shapes``); CPU tensors take the plain version. Anything
-    else raises, and so does the CUDA route when grad mode is on and an
-    input requires grad (its backward kernel is the next slice,
-    ROADMAP.md A12b-2)."""
-    _check(x, dt, A, Bm, Cm, state0)
-    if not 1 <= chunk <= MAX_CHUNK:
-        raise ValueError(f"mamba2_ssd takes chunks 1..{MAX_CHUNK}, got "
-                         f"{chunk}")
+def _forward(x, dt, A, Bm, Cm, state0, chunk):
+    """The forward on x's device: the plain version on the CPU, one
+    counted kernel launch on CUDA."""
     if x.device.type == "cpu":
         return mamba2_ssd_plain(x, dt, A, Bm, Cm, state0, chunk)
-    refuse_grad("mamba2_ssd", x, dt, A, Bm, Cm, state0)
     B, T, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     launch = _load()
@@ -188,5 +189,270 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return y, state
 
 
+class _MambaSSD(torch.autograd.Function):
+    """Forward kernel, backward kernel: saves the inputs; the backward
+    recomputes the chunk states from them. Gradients go to the inputs that
+    require one, each in its input's dtype; an output whose gradient is
+    not needed (the final state, in a train step) passes ``None``."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, state0, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, state0)
+        ctx.chunk = chunk
+        return _forward(x, dt, A, Bm, Cm, state0, chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, A, Bm, Cm, state0 = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        if dstate is not None:
+            dstate = dstate.contiguous()
+        grads = mamba2_ssd_bwd(x, dt, A, Bm, Cm, state0, dy, dstate,
+                               ctx.chunk)
+        return (*(g if need else None
+                  for g, need in zip(grads, ctx.needs_input_grad)), None)
+
+
+def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+               Bm: torch.Tensor, Cm: torch.Tensor, state0: torch.Tensor,
+               chunk: int = MAX_CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B,T,H,P), Bm/Cm (B,T,G,N) float32 or bfloat16; dt (B,T,H), A
+    (H,), state0 (B,H,N,P) float32 → (y (B,T,H,P) in x's dtype, state_T
+    (B,H,N,P) float32), with the chunk the JAX wrapper picks.
+
+    CUDA tensors launch the kernel on the current stream (one launch,
+    counted in ``mamba2_ssd.launches``, its (B, T, H, P, G, N) counted in
+    ``mamba2_ssd.shapes``); CPU tensors take the plain version. Anything
+    else raises. When grad mode is on and an input requires grad, the call
+    records an ``autograd.Function`` whose backward is
+    :func:`mamba2_ssd_bwd`."""
+    _check(x, dt, A, Bm, Cm, state0)
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"mamba2_ssd takes chunks 1..{MAX_CHUNK}, got "
+                         f"{chunk}")
+    if torch.is_grad_enabled() and any(
+            a.requires_grad for a in (x, dt, A, Bm, Cm, state0)):
+        return _MambaSSD.apply(x, dt, A, Bm, Cm, state0, chunk)
+    return _forward(x, dt, A, Bm, Cm, state0, chunk)
+
+
 mamba2_ssd.launches = 0
 mamba2_ssd.shapes = collections.Counter()
+
+
+# --------------------------------------------------------------------------- #
+# Backward
+# --------------------------------------------------------------------------- #
+
+def _chunk_states(xf, dtf, Af, Bh, state0, c):
+    """The f32 state at the start of each chunk, by the forward's update."""
+    states, state = [], upcast(state0)
+    for t0 in range(0, xf.shape[1], c):
+        states.append(state)
+        dtt = dtf[:, t0:t0 + c]
+        cum = torch.cumsum(dtt * Af[None, None], dim=1)
+        w_s = torch.exp(cum[:, -1:] - cum) * dtt
+        state = state * torch.exp(cum[:, -1])[..., None, None] + torch.einsum(
+            "bshn,bshp->bhnp", Bh[:, t0:t0 + c] * w_s[..., None],
+            xf[:, t0:t0 + c])
+    return states
+
+
+def mamba2_ssd_bwd_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                         Bm: torch.Tensor, Cm: torch.Tensor,
+                         state0: torch.Tensor, dy: torch.Tensor,
+                         dstate_T: Optional[torch.Tensor] = None,
+                         chunk: int = MAX_CHUNK) -> Tuple[torch.Tensor, ...]:
+    """The gradient of :func:`mamba2_ssd_plain` in PyTorch, chunk by chunk
+    from the last, with the (N, P) state's gradient dS carried back: for a
+    chunk with states S (start) and S' (end), a_t = dt_t A, cum its
+    inclusive sum, D[t, s] = exp(cum_t − cum_s) for s ≤ t and
+    M[t, s] = (C_t·B_s) D[t, s] dt_s (so y_t = e^{cum_t} C_tᵀS + Σ_s M[t, s]
+    x_s and S' = e^{cum_L} S + Σ_s e^{cum_L − cum_s} dt_s B_s x_sᵀ):
+
+    - dx_s = Σ_t M[t, s] dy_t + w_s dS'ᵀB_s, with w_s = e^{cum_L − cum_s} dt_s;
+    - dB_s = Σ_t dG[t, s] C_t + w_s dS' x_s, dC_t = Σ_s dG[t, s] B_s +
+      e^{cum_t} S dy_t, with dG[t, s] = (dy_t·x_s) D[t, s] dt_s;
+    - ddt_s = Σ_t (dy_t·x_s)(C_t·B_s) D[t, s] + e^{cum_L − cum_s} B_sᵀdS' x_s
+      + A dloga_s, and dA = Σ dt_s dloga_s, where dloga_j sums the
+      gradient times the value of every exponent whose cum difference spans
+      a_j: Q[t, s] = (dy_t·x_s) M[t, s] for s < j ≤ t (where the clamp of
+      cum_t − cum_s at 0 passes it), the readout's e^{cum_t} C_t·S dy_t for
+      t ≥ j, w_s B_sᵀdS' x_s for s < j, and e^{cum_L} Σ S ⊙ dS'. (The
+      reverse cumsum of per-step totals gives the same sum, but its terms
+      cancel: in f32 it misses the JAX tolerance on dA at the train shape.)
+    - dS = e^{cum_L} dS' + Σ_t e^{cum_t} C_t dy_tᵀ, carried to the chunk
+      before; the first chunk's is dstate0.
+
+    ``dstate_T`` None means zeros. Returns (dx, ddt, dA, dBm, dCm,
+    dstate0): dx, dBm and dCm in x's dtype (B and C summed over the heads
+    of their group), the rest f32."""
+    Bsz, T, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    hpg = H // G
+    c = pick_chunk(T, chunk)
+    xf, dtf, Af, dyf = upcast(x), upcast(dt), upcast(A), upcast(dy)
+    Bh = upcast(Bm).repeat_interleave(hpg, dim=2)    # (B, T, H, N)
+    Ch = upcast(Cm).repeat_interleave(hpg, dim=2)
+    tri = torch.ones(c, c, dtype=torch.bool, device=x.device).tril()
+    strict = tri.tril(-1)
+    states = _chunk_states(xf, dtf, Af, Bh, state0, c)
+    dS = (torch.zeros_like(upcast(state0)) if dstate_T is None
+          else upcast(dstate_T))
+    dx, dBh, dCh = (torch.empty_like(a) for a in (xf, Bh, Ch))
+    ddt = torch.empty_like(dtf)
+    dA = torch.zeros_like(Af)
+    for k in reversed(range(len(states))):
+        t0, S = k * c, states[k]
+        xt, dtt, dyt = xf[:, t0:t0 + c], dtf[:, t0:t0 + c], dyf[:, t0:t0 + c]
+        Bt, Ct = Bh[:, t0:t0 + c], Ch[:, t0:t0 + c]
+        cum = torch.cumsum(dtt * Af[None, None], dim=1)          # (B, c, H)
+        ecum = torch.exp(cum)
+        last = ecum[:, -1]                                       # (B, H)
+        dec = torch.exp(cum[:, -1:] - cum)                       # (B, c, H)
+        w_s = dec * dtt
+        # inter-chunk readout y_t += e^{cum_t} C_t·S
+        sdy = torch.einsum("bhnp,bthp->bthn", S, dyt)
+        dC = ecum[..., None] * sdy
+        inter = ecum * (Ct * sdy).sum(-1)                        # (B, c, H)
+        # intra-chunk: G = C·Bᵀ, dM = dy·xᵀ, both (B, H, t, s)
+        Gm = torch.einsum("bthn,bshn->bhts", Ct, Bt)
+        dM = torch.einsum("bthp,bshp->bhts", dyt, xt)
+        diff = (cum[:, :, None] - cum[:, None, :]).permute(0, 3, 1, 2)
+        D = torch.where(tri, torch.exp(torch.clamp(diff, max=0.0)),
+                        torch.zeros_like(diff))
+        dts = dtt.permute(0, 2, 1)[:, :, None, :]                # (B,H,1,s)
+        M = Gm * D * dts
+        dG = dM * D * dts
+        # d(cum_t − cum_s), where the clamp at 0 passes it
+        Q = torch.where(strict & (diff <= 0.0), dM * M, torch.zeros_like(M))
+        ddt_c = (dM * Gm * D).sum(2).permute(0, 2, 1)            # (B, s, H)
+        dxt = torch.einsum("bhts,bthp->bshp", M, dyt)
+        dB = torch.einsum("bhts,bthn->bshn", dG, Ct)
+        dC = dC + torch.einsum("bhts,bshn->bthn", dG, Bt)
+        # state update: S' = e^{cum_L} S + Σ_s w_s B_s x_sᵀ
+        sdx = torch.einsum("bhnp,bshp->bshn", dS, xt)            # dS' x_s
+        dB = dB + w_s[..., None] * sdx
+        dxt = dxt + w_s[..., None] * torch.einsum("bhnp,bshn->bshp", dS, Bt)
+        dW = (Bt * sdx).sum(-1)                                  # (B, c, H)
+        ddt_c = ddt_c + dec * dW
+        R = dW * w_s
+        # cum = cumsum(dt A): a_j reaches every exponent whose difference
+        # spans it, so dloga_j sums their gradients times their values (no
+        # reverse cumsum of per-step totals, whose terms cancel): Q[t, s]
+        # with s < j <= t, the readout's e^{cum_t} for t >= j, w_s's for
+        # s < j, and e^{cum_L}'s
+        U = F.pad(torch.cumsum(Q, 3)[..., :-1], (1, 0))   # Σ_{s<j} Q[t, s]
+        dloga = ((U * tri[None, None, :, :].to(U.dtype)).sum(2)
+                 .permute(0, 2, 1)
+                 + torch.flip(torch.cumsum(torch.flip(inter, [1]), 1), [1])
+                 + F.pad(torch.cumsum(R, 1)[:, :-1], (0, 0, 1, 0))
+                 + (last * (S * dS).sum((2, 3)))[:, None])
+        ddt[:, t0:t0 + c] = ddt_c + Af[None, None] * dloga
+        dA = dA + (dtt * dloga).sum((0, 1))
+        dx[:, t0:t0 + c], dBh[:, t0:t0 + c], dCh[:, t0:t0 + c] = dxt, dB, dC
+        dS = dS * last[..., None, None] + torch.einsum(
+            "bthn,bthp->bhnp", Ct * ecum[..., None], dyt)
+    dBm = dBh.reshape(Bsz, T, G, hpg, N).sum(3)
+    dCm = dCh.reshape(Bsz, T, G, hpg, N).sum(3)
+    return (dx.to(x.dtype), ddt, dA, dBm.to(Bm.dtype), dCm.to(Cm.dtype), dS)
+
+
+def _load_bwd():
+    global _bwd_launcher
+    if _bwd_launcher is None:
+        from ._build import load
+        lib = load("mamba2_ssd_bwd")
+        fn = lib.mamba2_ssd_bwd_launch
+        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 8 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        chunk_fn = lib.mamba2_ssd_bwd_chunk
+        chunk_fn.argtypes = [ctypes.c_int] * 4
+        chunk_fn.restype = ctypes.c_int
+        _bwd_launcher = (fn, chunk_fn)
+    return _bwd_launcher
+
+
+def bwd_kernel_info(N: int, P: int, chunk: int, dtype: torch.dtype) -> dict:
+    """Registers, shared memory and blocks an SM of the compiled backward
+    kernel for ``dtype`` at state N, head dim P and ``chunk``
+    (``_build.kernel_info``; needs the card)."""
+    from ._build import kernel_info as info
+    return info("mamba2_ssd_bwd", N, P, chunk, _DTYPES[dtype])
+
+
+def mamba2_ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                   Bm: torch.Tensor, Cm: torch.Tensor, state0: torch.Tensor,
+                   dy: torch.Tensor, dstate_T: Optional[torch.Tensor] = None,
+                   chunk: int = MAX_CHUNK) -> Tuple[torch.Tensor, ...]:
+    """The gradients (dx, ddt, dA, dBm, dCm, dstate0) of
+    :func:`mamba2_ssd`'s (y, state_T) against ``dy`` (B,T,H,P, x's dtype)
+    and ``dstate_T`` (B,H,N,P float32, or None for zeros), each in its
+    input's dtype.
+
+    CUDA tensors launch the backward kernel on the current stream (one
+    call, counted in ``mamba2_ssd_bwd.launches`` and its (B, T, H, P, G, N)
+    in ``.shapes``; it runs two CUDA kernels: the scan, then the fixed-order
+    sums over batches and over the heads of a group); CPU tensors take
+    :func:`mamba2_ssd_bwd_plain`. Anything else raises."""
+    _check(x, dt, A, Bm, Cm, state0)
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"mamba2_ssd_bwd takes chunks 1..{MAX_CHUNK}, got "
+                         f"{chunk}")
+    if (dy.shape != x.shape or dy.dtype != x.dtype or dy.device != x.device
+            or not dy.is_contiguous()):
+        raise ValueError("mamba2_ssd_bwd takes dy of x's shape, dtype and "
+                         "device, contiguous")
+    if dstate_T is not None and (
+            dstate_T.shape != state0.shape
+            or dstate_T.dtype != torch.float32
+            or dstate_T.device != x.device or not dstate_T.is_contiguous()):
+        raise ValueError("mamba2_ssd_bwd takes dstate_T of state0's shape, "
+                         "float32 on x's device, contiguous, or None")
+    if x.device.type == "cpu":
+        return mamba2_ssd_bwd_plain(x, dt, A, Bm, Cm, state0, dy, dstate_T,
+                                    chunk)
+    B, T, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    launch, bwd_chunk = _load_bwd()
+    dx, dBm, dCm = (torch.empty_like(a) for a in (x, Bm, Cm))
+    ddt, dA = torch.empty_like(dt), torch.empty_like(A)
+    dstate0 = torch.empty_like(state0)
+    if B == 0 or H == 0 or T == 0:     # nothing to scan: S_T = state0
+        if dstate_T is None:
+            dstate0.zero_()
+        else:
+            dstate0.copy_(dstate_T)
+        return (dx, ddt, dA.zero_(), dBm, dCm, dstate0)
+    with torch.cuda.device(x.device):
+        c = bwd_chunk(T, N, P, pick_chunk(T, chunk))
+        if c < 1:
+            raise RuntimeError(f"mamba2_ssd_bwd: no chunk of T={T} fits "
+                               f"(N={N}, P={P})")
+        f32 = dict(dtype=torch.float32, device=x.device)
+        # the chunk-start states, the per-head dB and dC and per-batch dA
+        work = [torch.empty(B * H * (T // c) * N * P, **f32),
+                torch.empty(B, T, H, N, **f32), torch.empty(B, T, H, N, **f32),
+                torch.empty(B, H, **f32)]
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = launch(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
+                     Bm.data_ptr(), Cm.data_ptr(), state0.data_ptr(),
+                     dy.data_ptr(),
+                     0 if dstate_T is None else dstate_T.data_ptr(),
+                     dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+                     dBm.data_ptr(), dCm.data_ptr(), dstate0.data_ptr(),
+                     *(w.data_ptr() for w in work), B, T, H, P, G, N, c,
+                     _DTYPES[x.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"mamba2_ssd_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+    with _count_lock:
+        mamba2_ssd_bwd.launches += 1
+        mamba2_ssd_bwd.shapes[(B, T, H, P, G, N)] += 1
+    return dx, ddt, dA, dBm, dCm, dstate0
+
+
+mamba2_ssd_bwd.launches = 0
+mamba2_ssd_bwd.shapes = collections.Counter()

@@ -17,6 +17,14 @@ every f32 operand split into two bf16 parts; float32 runs the CUDA-core
 kernel, which meets the f32 tolerance. Neither falls back to the other.
 The plain version is the JAX package's chunked reference
 ``models/rwkv6.py::wkv_chunked`` in PyTorch.
+
+The backward: the JAX package trains through ``jax.grad`` of
+``wkv_chunked`` (it has no backward kernel). :func:`rwkv6_wkv_bwd`
+computes that gradient with ``csrc/rwkv6_wkv_bwd.cu`` for CUDA tensors and
+:func:`rwkv6_wkv_bwd_plain`, the same equations chunk by chunk in PyTorch,
+for CPU tensors. When grad mode is on and an input requires grad,
+:func:`rwkv6_wkv` records an ``autograd.Function`` whose backward is
+:func:`rwkv6_wkv_bwd`, on either device.
 """
 
 from __future__ import annotations
@@ -24,12 +32,11 @@ from __future__ import annotations
 import collections
 import ctypes
 import threading
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
-from . import refuse_grad
-from .mamba2_ssd import pick_chunk
+from .mamba2_ssd import pick_chunk, upcast
 
 MAX_CHUNK = 64          # the kernel's largest chunk
 MAX_N = 64              # the kernel's largest head size
@@ -37,6 +44,7 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _count_lock = threading.Lock()
 _launcher = None
+_bwd_launcher = None
 
 
 def rwkv6_wkv_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -48,10 +56,10 @@ def rwkv6_wkv_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     value channel]. Returns (out (B,T,H,N) in r's dtype, state_T f32)."""
     T = r.shape[1]
     c = pick_chunk(T, chunk)
-    rf, kf, vf, wf = (a.float() for a in (r, k, v, w))
-    uf = u.float()
+    rf, kf, vf, wf = (upcast(a) for a in (r, k, v, w))
+    uf = upcast(u)
     strict = torch.ones(c, c, dtype=torch.bool, device=r.device).tril(-1)
-    state = state0.float()
+    state = upcast(state0)
     outs = []
     for t0 in range(0, T, c):
         rt, kt, vt, wt = (a[:, t0:t0 + c] for a in (rf, kf, vf, wf))
@@ -119,8 +127,10 @@ def _load():
 
 
 def build() -> None:
-    """Build (or load) the CUDA library now rather than at first launch."""
+    """Build (or load) the CUDA libraries of the forward and the backward
+    now rather than at first launch."""
     _load()
+    _load_bwd()
 
 
 def kernel_info(N: int, chunk: int, dtype: torch.dtype) -> dict:
@@ -131,27 +141,11 @@ def kernel_info(N: int, chunk: int, dtype: torch.dtype) -> dict:
     return info("rwkv6_wkv", N, chunk, _DTYPES[dtype])
 
 
-def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-              w: torch.Tensor, u: torch.Tensor, state0: torch.Tensor,
-              chunk: int = MAX_CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
-    """r, k, v, w (B,T,H,N) float32 or bfloat16; u (H,N), state0
-    (B,H,N,N) float32 → (out (B,T,H,N) in r's dtype, state_T (B,H,N,N)
-    float32), with the chunk the JAX wrapper picks.
-
-    CUDA tensors launch the kernel of their dtype on the current stream
-    (bfloat16: tensor cores; float32: CUDA cores; one launch,
-    counted in ``rwkv6_wkv.launches``, its (B, T, H, N) counted in
-    ``rwkv6_wkv.shapes``); CPU tensors take the plain version. Anything
-    else raises, and so does the CUDA route when grad mode is on and an
-    input requires grad (its backward kernel is the next slice,
-    ROADMAP.md A12b-2)."""
-    _check(r, k, v, w, u, state0)
-    if not 1 <= chunk <= MAX_CHUNK:
-        raise ValueError(f"rwkv6_wkv takes chunks 1..{MAX_CHUNK}, got "
-                         f"{chunk}")
+def _forward(r, k, v, w, u, state0, chunk):
+    """The forward on r's device: the plain version on the CPU, one
+    counted kernel launch on CUDA."""
     if r.device.type == "cpu":
         return rwkv6_wkv_plain(r, k, v, w, u, state0, chunk)
-    refuse_grad("rwkv6_wkv", r, k, v, w, u, state0)
     B, T, H, N = r.shape
     launch = _load()
     out = torch.empty_like(r)
@@ -175,5 +169,244 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, state
 
 
+class _RwkvWKV(torch.autograd.Function):
+    """Forward kernel, backward kernel: saves the inputs; the backward
+    recomputes the chunk states from them. Gradients go to the inputs that
+    require one, each in its input's dtype; an output whose gradient is
+    not needed (the final state, in a train step) passes ``None``."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state0, chunk):
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(r, k, v, w, u, state0)
+        ctx.chunk = chunk
+        return _forward(r, k, v, w, u, state0, chunk)
+
+    @staticmethod
+    def backward(ctx, dout, dstate):
+        r, k, v, w, u, state0 = ctx.saved_tensors
+        dout = torch.zeros_like(r) if dout is None else dout.contiguous()
+        if dstate is not None:
+            dstate = dstate.contiguous()
+        grads = rwkv6_wkv_bwd(r, k, v, w, u, state0, dout, dstate, ctx.chunk)
+        return (*(g if need else None
+                  for g, need in zip(grads, ctx.needs_input_grad)), None)
+
+
+def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, u: torch.Tensor, state0: torch.Tensor,
+              chunk: int = MAX_CHUNK) -> Tuple[torch.Tensor, torch.Tensor]:
+    """r, k, v, w (B,T,H,N) float32 or bfloat16; u (H,N), state0
+    (B,H,N,N) float32 → (out (B,T,H,N) in r's dtype, state_T (B,H,N,N)
+    float32), with the chunk the JAX wrapper picks.
+
+    CUDA tensors launch the kernel of their dtype on the current stream
+    (bfloat16: tensor cores; float32: CUDA cores; one launch,
+    counted in ``rwkv6_wkv.launches``, its (B, T, H, N) counted in
+    ``rwkv6_wkv.shapes``); CPU tensors take the plain version. Anything
+    else raises. When grad mode is on and an input requires grad, the call
+    records an ``autograd.Function`` whose backward is
+    :func:`rwkv6_wkv_bwd`."""
+    _check(r, k, v, w, u, state0)
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"rwkv6_wkv takes chunks 1..{MAX_CHUNK}, got "
+                         f"{chunk}")
+    if torch.is_grad_enabled() and any(
+            a.requires_grad for a in (r, k, v, w, u, state0)):
+        return _RwkvWKV.apply(r, k, v, w, u, state0, chunk)
+    return _forward(r, k, v, w, u, state0, chunk)
+
+
 rwkv6_wkv.launches = 0
 rwkv6_wkv.shapes = collections.Counter()
+
+
+# --------------------------------------------------------------------------- #
+# Backward
+# --------------------------------------------------------------------------- #
+
+def _logw_cum(wt: torch.Tensor):
+    """(w clamped at 1e-8, log w, raw cumsum, cum clamped at -30) of a
+    chunk, as the forward takes them."""
+    wc = torch.clamp(wt, min=1e-8)
+    logw = torch.log(wc)
+    raw = torch.cumsum(logw, dim=1)
+    return wc, logw, raw, torch.clamp(raw, min=-30.0)
+
+
+def _chunk_states(kf, vf, wf, state0, c):
+    """The f32 state at the start of each chunk, by the forward's update."""
+    states, state = [], upcast(state0)
+    for t0 in range(0, kf.shape[1], c):
+        states.append(state)
+        cum = _logw_cum(wf[:, t0:t0 + c])[3]
+        k_scaled = kf[:, t0:t0 + c] * torch.exp(cum[:, -1:] - cum)
+        state = state * torch.exp(cum[:, -1])[..., None] + torch.einsum(
+            "bshn,bshm->bhnm", k_scaled, vf[:, t0:t0 + c])
+    return states
+
+
+def rwkv6_wkv_bwd_plain(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        w: torch.Tensor, u: torch.Tensor,
+                        state0: torch.Tensor, dout: torch.Tensor,
+                        dstate_T: Optional[torch.Tensor] = None,
+                        chunk: int = MAX_CHUNK) -> Tuple[torch.Tensor, ...]:
+    """The gradient of :func:`rwkv6_wkv_plain` in PyTorch, chunk by chunk
+    from the last, with the (N, N) state's gradient dS carried back. With
+    the forward's r_dec = r e^{cum − logw}, k_over = k e^{−cum}, k_scaled =
+    k e^{cum_L − cum}, the strictly lower scores and the bonus diag_t =
+    Σ_n r u k, for a chunk with start state S and end gradient dS':
+
+    - dr_dec_t = S dout_t + Σ_{s<t} (dout_t·v_s) k_over_s, dk_over_s =
+      Σ_{t>s} (dout_t·v_s) r_dec_t, dk_scaled_s = dS' v_s;
+    - dv_s = Σ_{t>s} scores[t, s] dout_t + diag_s dout_s + dS'ᵀ k_scaled_s;
+    - dr, dk: those through their factors, plus the bonus's (dout_t·v_t) u
+      k_t and (dout_t·v_t) u r_t; du = Σ (dout_t·v_t) r_t k_t;
+    - each exponent's gradient times its value goes to the cum and logw it
+      reads (e^{cum_L} Σ_m S ⊙ dS' too); no gradient passes where the
+      cumsum is clamped at −30; the reverse cumsum takes it to logw, and
+      dw = dlogw / w where w ≥ 1e-8 (0 below the clamp);
+    - dS = e^{cum_L} dS' + Σ_t r_dec_tᵀ dout_t, carried to the chunk before;
+      the first chunk's is dstate0.
+
+    ``dstate_T`` None means zeros. Returns (dr, dk, dv, dw, du, dstate0):
+    the first four in r's dtype, du and dstate0 f32."""
+    T = r.shape[1]
+    c = pick_chunk(T, chunk)
+    rf, kf, vf, wf, dof = (upcast(a) for a in (r, k, v, w, dout))
+    uf = upcast(u)
+    strict = torch.ones(c, c, dtype=torch.bool, device=r.device).tril(-1)
+    states = _chunk_states(kf, vf, wf, state0, c)
+    dS = (torch.zeros_like(upcast(state0)) if dstate_T is None
+          else upcast(dstate_T))
+    dr, dk, dv, dw = (torch.empty_like(rf) for _ in range(4))
+    du = torch.zeros_like(uf)
+    for j in reversed(range(len(states))):
+        t0, S = j * c, states[j]
+        rt, kt, vt, wt, dot = (a[:, t0:t0 + c] for a in (rf, kf, vf, wf, dof))
+        wc, logw, raw, cum = _logw_cum(wt)
+        p_prev = torch.exp(cum - logw)
+        r_dec = rt * p_prev
+        e_neg = torch.exp(-cum)
+        k_over = kt * e_neg
+        p_last = torch.exp(cum[:, -1])                          # (B, H, N)
+        decay = torch.exp(cum[:, -1:] - cum)
+        k_scaled = kt * decay
+        scores = torch.einsum("bthn,bshn->bhts", r_dec, k_over)
+        scores = torch.where(strict, scores, torch.zeros_like(scores))
+        dscores = torch.einsum("bthm,bshm->bhts", dot, vt)
+        dscores = torch.where(strict, dscores, torch.zeros_like(dscores))
+        diag = (rt * uf[None, None] * kt).sum(-1)               # (B, c, H)
+        ddiag = (dot * vt).sum(-1)
+        dr_dec = (torch.einsum("bhnm,bthm->bthn", S, dot)
+                  + torch.einsum("bhts,bshn->bthn", dscores, k_over))
+        dk_over = torch.einsum("bhts,bthn->bshn", dscores, r_dec)
+        dk_scaled = torch.einsum("bhnm,bshm->bshn", dS, vt)
+        dv[:, t0:t0 + c] = (torch.einsum("bhts,bthm->bshm", scores, dot)
+                            + diag[..., None] * dot
+                            + torch.einsum("bshn,bhnm->bshm", k_scaled, dS))
+        bonus = ddiag[..., None] * uf[None, None]
+        dr[:, t0:t0 + c] = dr_dec * p_prev + bonus * kt
+        dk[:, t0:t0 + c] = dk_over * e_neg + dk_scaled * decay + bonus * rt
+        du = du + torch.einsum("bth,bthn->hn", ddiag, rt * kt)
+        # exponents: r_dec reads cum − logw, k_over −cum, k_scaled and
+        # p_last cum_L − cum and cum_L
+        ek = dk_scaled * k_scaled
+        dcum = dr_dec * r_dec - dk_over * k_over - ek
+        dcum[:, -1] += ek.sum(1) + p_last * (S * dS).sum(-1)
+        draw = torch.where(raw >= -30.0, dcum, torch.zeros_like(dcum))
+        dlogw = (torch.flip(torch.cumsum(torch.flip(draw, [1]), 1), [1])
+                 - dr_dec * r_dec)
+        dw[:, t0:t0 + c] = torch.where(wt >= 1e-8, dlogw / wc,
+                                       torch.zeros_like(dlogw))
+        dS = dS * p_last[..., None] + torch.einsum(
+            "bthn,bthm->bhnm", r_dec, dot)
+    dt = r.dtype
+    return dr.to(dt), dk.to(dt), dv.to(dt), dw.to(dt), du, dS
+
+
+def _load_bwd():
+    global _bwd_launcher
+    if _bwd_launcher is None:
+        from ._build import load
+        fn = load("rwkv6_wkv_bwd").rwkv6_wkv_bwd_launch
+        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _bwd_launcher = fn
+    return _bwd_launcher
+
+
+def bwd_kernel_info(N: int, chunk: int, dtype: torch.dtype) -> dict:
+    """Registers, shared memory and blocks an SM of the compiled backward
+    kernel for ``dtype`` at head size N and ``chunk``
+    (``_build.kernel_info``; needs the card)."""
+    from ._build import kernel_info as info
+    return info("rwkv6_wkv_bwd", N, chunk, _DTYPES[dtype])
+
+
+def rwkv6_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  w: torch.Tensor, u: torch.Tensor, state0: torch.Tensor,
+                  dout: torch.Tensor, dstate_T: Optional[torch.Tensor] = None,
+                  chunk: int = MAX_CHUNK) -> Tuple[torch.Tensor, ...]:
+    """The gradients (dr, dk, dv, dw, du, dstate0) of :func:`rwkv6_wkv`'s
+    (out, state_T) against ``dout`` (B,T,H,N, r's dtype) and ``dstate_T``
+    (B,H,N,N float32, or None for zeros), each in its input's dtype.
+
+    CUDA tensors launch the backward kernel on the current stream (one
+    call, counted in ``rwkv6_wkv_bwd.launches`` and its (B, T, H, N) in
+    ``.shapes``; it runs two CUDA kernels: the scan, then du's fixed-order
+    sum over batches); CPU tensors take :func:`rwkv6_wkv_bwd_plain`.
+    Anything else raises."""
+    _check(r, k, v, w, u, state0)
+    if not 1 <= chunk <= MAX_CHUNK:
+        raise ValueError(f"rwkv6_wkv_bwd takes chunks 1..{MAX_CHUNK}, got "
+                         f"{chunk}")
+    if (dout.shape != r.shape or dout.dtype != r.dtype
+            or dout.device != r.device or not dout.is_contiguous()):
+        raise ValueError("rwkv6_wkv_bwd takes dout of r's shape, dtype and "
+                         "device, contiguous")
+    if dstate_T is not None and (
+            dstate_T.shape != state0.shape
+            or dstate_T.dtype != torch.float32
+            or dstate_T.device != r.device or not dstate_T.is_contiguous()):
+        raise ValueError("rwkv6_wkv_bwd takes dstate_T of state0's shape, "
+                         "float32 on r's device, contiguous, or None")
+    if r.device.type == "cpu":
+        return rwkv6_wkv_bwd_plain(r, k, v, w, u, state0, dout, dstate_T,
+                                   chunk)
+    B, T, H, N = r.shape
+    launch = _load_bwd()
+    dr, dk, dv, dw = (torch.empty_like(r) for _ in range(4))
+    du, dstate0 = torch.empty_like(u), torch.empty_like(state0)
+    if B == 0 or H == 0 or T == 0:     # nothing to scan: S_T = state0
+        if dstate_T is None:
+            dstate0.zero_()
+        else:
+            dstate0.copy_(dstate_T)
+        return dr, dk, dv, dw, du.zero_(), dstate0
+    c = pick_chunk(T, chunk)
+    with torch.cuda.device(r.device):
+        f32 = dict(dtype=torch.float32, device=r.device)
+        # the chunk-start states and the per-batch du
+        work = [torch.empty(B * H * (T // c) * N * N, **f32),
+                torch.empty(B, H, N, **f32)]
+        stream = torch.cuda.current_stream(r.device).cuda_stream
+        err = launch(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
+                     u.data_ptr(), state0.data_ptr(), dout.data_ptr(),
+                     0 if dstate_T is None else dstate_T.data_ptr(),
+                     dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                     dw.data_ptr(), du.data_ptr(), dstate0.data_ptr(),
+                     *(a.data_ptr() for a in work), B, T, H, N, c,
+                     _DTYPES[r.dtype], stream)
+    if err != 0:
+        raise RuntimeError(f"rwkv6_wkv_bwd kernel launch failed: CUDA "
+                           f"error {err}")
+    with _count_lock:
+        rwkv6_wkv_bwd.launches += 1
+        rwkv6_wkv_bwd.shapes[(B, T, H, N)] += 1
+    return dr, dk, dv, dw, du, dstate0
+
+
+rwkv6_wkv_bwd.launches = 0
+rwkv6_wkv_bwd.shapes = collections.Counter()

@@ -11,10 +11,10 @@ steps from the latest checkpoint and writes a new one. Failure anywhere
 path, and the resubmitted chunk resumes from the checkpoint: completed
 work is never repeated, as in the JAX package.
 
-On the card a step's attention runs the flash forward and backward CUDA
-kernels; the SSD and WKV CUDA routes have no backward kernel yet and raise
-under grad, so the hybrid and ssm families train on the CPU only
-(ROADMAP.md A12b-2). Gradient compression is not ported (A12d).
+On the card a step runs the forward and backward CUDA kernels of its
+family's layers: flash attention (the attention stack, zamba2's shared
+block), the Mamba-2 SSD scan (hybrid) and the RWKV-6 WKV recurrence
+(ssm). Gradient compression is not ported (A12d).
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --managed

@@ -5,11 +5,13 @@ data-dependent decay ``a_t = exp(Δt·A)`` and rank-1 input ``Δt·B_t x_t``
 drive the state ``h_t = a_t h_{t-1} + Δt_t B_t x_tᵀ`` with readout
 ``y_t = C_tᵀ h_t + D·x_t``.
 
-Prefill runs the *chunked* SSD scan through
+Prefill and training run the *chunked* SSD scan through
 :func:`repro_torch.kernels.mamba2_ssd.mamba2_ssd`: the CUDA kernel for CUDA
 tensors, its plain version (the JAX package's ``ssd_chunked``, a loop over
-chunks carrying the (H, N, P) state) for CPU tensors. Decode is the O(1)
-recurrence plus the causal-conv ring state.
+chunks carrying the (H, N, P) state) for CPU tensors; under grad its
+``autograd.Function`` takes the backward kernel (or the plain backward)
+to x, dt, A, B and C through the contiguous copies below. Decode is the
+O(1) recurrence plus the causal-conv ring state.
 """
 
 from __future__ import annotations

@@ -6,11 +6,13 @@ interpolation, per-channel data-dependent decay ``w_t = exp(-exp(…))``, the
 ``u`` (bonus) in-place term, per-head WKV state of shape (head, N, N) with
 N = 64, grouped-norm output gating, and squared-ReLU channel mixing.
 
-Prefill runs the chunked WKV through
+Prefill and training run the chunked WKV through
 :func:`repro_torch.kernels.rwkv6_wkv.rwkv6_wkv`: the CUDA kernel for CUDA
 tensors, its plain version (the JAX package's ``wkv_chunked``, a loop over
-chunks carrying the (H, N, N) state) for CPU tensors. Decode is the O(1)
-recurrence on the carried state, in plain PyTorch.
+chunks carrying the (H, N, N) state) for CPU tensors; under grad its
+``autograd.Function`` takes the backward kernel (or the plain backward)
+to r, k, v, w and u. Decode is the O(1) recurrence on the carried state,
+in plain PyTorch.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Tests of the port that need an NVIDIA GPU: each CUDA kernel against its
-plain version (flash attention's backward too), the SSD and WKV kernels'
-refusal of autograd on their CUDA routes, flash's gradients through its
-two kernels, a qwen2-vl smoke train step on the card against the CPU,
+plain version (the backward kernels of flash attention, SSD and WKV too),
+the gradients through each forward and backward kernel pair, smoke train
+steps of qwen2-vl, zamba2 and rwkv6 on the card against the CPU,
 and the AnEn workflow (on the DAG tier), the multi-tenant service's AnEn
 sweeps, the seismic misfit sweeps (chain and DAG tiers), the zamba2, rwkv6
 and dense serving paths and the qwen2-vl prefill on embeddings on the card
@@ -129,36 +129,50 @@ def test_seismic_chain_alone_on_card_matches_cpu(cuda):
     assert np.allclose(out["cuda"][0], out["cpu"][0], rtol=1e-4, atol=0)
 
 
-def _c2_inputs(name, cuda):
+def _scan_inputs(name, shape, dtype, cuda, seed=0):
+    """The scan's inputs, its output gradient (in the input dtype) and a
+    final-state gradient."""
     if name == "mamba2_ssd":
-        return _ssd_inputs((1, 64, 2, 16, 1, 8), torch.float32, cuda)
-    return _wkv_inputs((1, 64, 2, 16), torch.float32, cuda)
+        args = _ssd_inputs(shape, dtype, cuda, seed)
+    else:
+        args = _wkv_inputs(shape, dtype, cuda, seed)
+    rng = np.random.default_rng(seed + 100)
+    dout = torch.from_numpy(rng.standard_normal(tuple(args[0].shape))
+                            .astype(np.float32)).to(cuda).to(dtype)
+    dstate = torch.from_numpy(rng.standard_normal(tuple(args[5].shape))
+                              .astype(np.float32)).to(cuda)
+    return args, dout, dstate
 
 
-@pytest.mark.parametrize("name", ["mamba2_ssd", "rwkv6_wkv"])
-def test_cuda_route_refuses_an_input_that_requires_grad(cuda, name):
-    """The SSD and WKV CUDA routes fill their outputs through ctypes and
-    have no backward kernel yet (the next slice): an input that requires
-    grad raises, naming the kernel, instead of returning outputs that
-    silently carry no gradient. Flash attention's route takes grads (its
-    backward kernel: the tests below)."""
+def _scan_fns(name):
     import importlib
-    fn = getattr(importlib.import_module(f"repro_torch.kernels.{name}"),
-                 name)
-    args = _c2_inputs(name, cuda)
-    args[0].requires_grad_(True)
-    before = fn.launches
-    with pytest.raises(RuntimeError, match=name):
-        fn(*args)
-    assert fn.launches == before
-    with torch.no_grad():                  # grad mode off: the kernel runs
-        fn(*args)
+    mod = importlib.import_module(f"repro_torch.kernels.{name}")
+    return (getattr(mod, name), getattr(mod, f"{name}_plain"),
+            getattr(mod, f"{name}_bwd"), getattr(mod, f"{name}_bwd_plain"))
+
+
+@pytest.mark.parametrize("name,shape", [("mamba2_ssd", (1, 64, 2, 16, 1, 8)),
+                                        ("mamba2_ssd", (2, 100, 4, 16, 2, 8)),
+                                        ("rwkv6_wkv", (1, 64, 2, 16)),
+                                        ("rwkv6_wkv", (2, 100, 3, 8))])
+def test_cuda_scan_route_takes_grads(cuda, name, shape):
+    """The SSD and WKV CUDA routes take grads: under grad the call records
+    the autograd.Function, launches the forward kernel once, and
+    ``autograd.grad`` launches the backward kernel once; the gradients of
+    every input (the final state's too) match autograd through the plain
+    forward at the JAX gradient tolerance, in f32."""
+    fn, plain, bwd, _ = _scan_fns(name)
+    args, dout, dstate = _scan_inputs(name, shape, torch.float32, cuda)
+    args = [a.requires_grad_(True) for a in args]
+    before = (fn.launches, bwd.launches)
+    out, state = fn(*args)
+    got = torch.autograd.grad((out, state), args, (dout, dstate))
     torch.cuda.synchronize()
-    assert fn.launches == before + 1
-    # the CPU route keeps autograd
-    cpu_args = [a.detach().cpu().requires_grad_(a.requires_grad)
-                for a in args]
-    assert fn(*cpu_args)[0].grad_fn is not None
+    assert (fn.launches, bwd.launches) == (before[0] + 1, before[1] + 1)
+    ref_out, ref_state = plain(*args)
+    want = torch.autograd.grad((ref_out, ref_state), args, (dout, dstate))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=5e-4, rtol=5e-4)
 
 
 # the backward's tolerances: f32 the JAX gradient tolerance
@@ -252,6 +266,89 @@ def test_flash_attention_cuda_route_takes_grads(cuda, shape):
     want = torch.autograd.grad(ref, (q, k, v), dout)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, atol=5e-4, rtol=5e-4)
+
+
+# the backward kernels' shapes: the train shape, a ragged T (chunk 50), G
+# = 2, N != P (SSD), chunk 1 and N = 5 (WKV)
+SSD_BWD_SHAPES = [(4, 512, 112, 64, 1, 64), (4, 100, 112, 64, 1, 64),
+                  (2, 128, 8, 64, 2, 64), (1, 100, 3, 16, 1, 8),
+                  (2, 128, 4, 32, 2, 16), (2, 64, 2, 128, 1, 128)]
+WKV_BWD_SHAPES = [(4, 512, 40, 64), (4, 100, 40, 64), (1, 97, 2, 64),
+                  (2, 100, 3, 16), (1, 100, 2, 5)]
+SCAN_BWD_CASES = ([("mamba2_ssd", s) for s in SSD_BWD_SHAPES]
+                  + [("rwkv6_wkv", s) for s in WKV_BWD_SHAPES])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,shape", SCAN_BWD_CASES)
+def test_scan_backward_kernel_matches_plain(cuda, name, shape, dtype):
+    """The SSD and WKV backward kernels against their plain versions, with
+    a nonzero state0 and final-state gradient, at ``BWD_TOLERANCES``: both
+    sum in f32 and round each gradient once to its input's dtype."""
+    _, _, bwd, bwd_plain = _scan_fns(name)
+    args, dout, dstate = _scan_inputs(name, shape, dtype, cuda)
+    before = bwd.launches
+    got = bwd(*args, dout, dstate)
+    torch.cuda.synchronize()
+    assert bwd.launches == before + 1
+    want = bwd_plain(*args, dout, dstate)
+    tol = BWD_TOLERANCES[dtype]
+    for a, b, x in zip(got, want, args):
+        assert a.dtype == x.dtype and a.shape == x.shape
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_wkv_backward_kernel_matches_plain_at_the_clamps(cuda, dtype):
+    """A quarter of the channels decay by e^-0.5..e^-3 a step, so their
+    cumsum passes -30 inside a chunk, and channel 32 has w = 1e-9 at the
+    10th step of each chunk: no gradient passes either clamp, on both
+    sides. (The two clamps in one channel multiply by 1/1e-8 where terms
+    near 1e8 cancel in f32: ``chip_smoke.scan_bwd_inputs``.)"""
+    _, _, bwd, bwd_plain = _scan_fns("rwkv6_wkv")
+    args, dout, dstate = _scan_inputs("rwkv6_wkv", (2, 128, 3, 64), dtype,
+                                      cuda)
+    rng = np.random.default_rng(5)
+    w = args[3]
+    w[..., :16] = torch.from_numpy(np.exp(-rng.uniform(
+        0.5, 3.0, (2, 128, 3, 16))).astype(np.float32)).to(cuda).to(dtype)
+    w[:, 9::64, :, 32] = 1e-9
+    got = bwd(*args, dout, dstate)
+    want = bwd_plain(*args, dout, dstate)
+    tol = BWD_TOLERANCES[dtype]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+    assert torch.equal(got[3][:, 9::64, :, 32],
+                       torch.zeros_like(got[3][:, 9::64, :, 32]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name,shape", [("mamba2_ssd", (4, 512, 112, 64, 1,
+                                                        64)),
+                                        ("mamba2_ssd", (2, 100, 4, 32, 2,
+                                                        16)),
+                                        ("rwkv6_wkv", (4, 512, 40, 64)),
+                                        ("rwkv6_wkv", (2, 100, 3, 16))])
+def test_scan_backward_gives_equal_bits(cuda, name, shape, dtype):
+    """No atomics: the sums over blocks (dA, du, the group's dB and dC)
+    run in a fixed order, so two calls give the same bits."""
+    _, _, bwd, _ = _scan_fns(name)
+    args, dout, dstate = _scan_inputs(name, shape, dtype, cuda)
+    first = bwd(*args, dout, dstate)
+    second = bwd(*args, dout, dstate)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_backward_kernels_spill_nothing_at_the_train_shapes(cuda,
+                                                                dtype):
+    from repro_torch.kernels import mamba2_ssd, rwkv6_wkv
+    for info in (mamba2_ssd.bwd_kernel_info(64, 64, 64, dtype),
+                 rwkv6_wkv.bwd_kernel_info(64, 64, dtype)):
+        assert info["spill_bytes"] == 0, info
+        assert info["blocks_per_sm"] >= 1 and info["threads"] == 512, info
 
 
 def _attention_inputs(shape, dtype, cuda, seed=0):
@@ -606,6 +703,50 @@ def test_qwen2_vl_smoke_train_step_on_card_matches_cpu(cuda):
     assert (flash_attention.launches - before[0],
             flash_attention_bwd.launches - before[1]) == (
         2 * cfg.n_layers, cfg.n_layers)
+    cpu, mc = step(cpu, batch)
+    np.testing.assert_allclose(float(mg["loss"]), float(mc["loss"]),
+                               atol=0.08, rtol=0.05)
+    np.testing.assert_allclose(float(mg["grad_norm"]),
+                               float(mc["grad_norm"]), rtol=0.05)
+    assert moments_rel_err(gpu["opt"], cpu["opt"]) <= 0.05
+    assert_update_written(params0, gpu["params"], gpu["opt"],
+                          float(mg["lr"]))
+    assert_update_written(params0, cpu["params"], cpu["opt"],
+                          float(mc["lr"]))
+
+
+@pytest.mark.parametrize("arch", ["zamba2-7b", "rwkv6-3b"])
+def test_scan_smoke_train_step_on_card_matches_cpu(cuda, arch):
+    """One train step of zamba2's (SSD and the shared flash block) and
+    rwkv6's (WKV) smoke configurations from the same f32 state on the card
+    and on the CPU, S = 100 (chunk 50): on the card each scan's forward
+    twice and its backward once a layer (one checkpoint a layer); loss,
+    grad norm, moments and each parameter's write held as in the qwen2-vl
+    test above."""
+    from _torch_update import (assert_update_written, clone_tree,
+                               moments_rel_err)
+    from repro_torch.data import make_stream
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models import steps
+    from repro_torch.models.config import get_config
+    cfg = get_config(arch, smoke=True)
+    batch = {k: torch.from_numpy(v)
+             for k, v in make_stream(cfg, 100, 4).batch(0).items()}
+    cpu = steps.init_train_state(cfg, 0, "cpu")
+    gpu = _to(cpu, cuda)
+    params0 = clone_tree(cpu["params"])
+    step = steps.make_train_step(cfg)
+    before = {k: fn.launches for k, fn in KERNELS.items()}
+    gpu, mg = step(gpu, {k: v.to(cuda) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    launched = {k: fn.launches - before[k] for k, fn in KERNELS.items()}
+    L = cfg.n_layers
+    attn = L // cfg.attn_every if cfg.family == "hybrid" else 0
+    scan = "mamba2_ssd" if cfg.family == "hybrid" else "rwkv6_wkv"
+    want = {k: 0 for k in KERNELS}
+    want.update({scan: 2 * L, scan + "_bwd": L,
+                 "flash_attention": 2 * attn, "flash_attention_bwd": attn})
+    assert launched == want
     cpu, mc = step(cpu, batch)
     np.testing.assert_allclose(float(mg["loss"]), float(mc["loss"]),
                                atol=0.08, rtol=0.05)

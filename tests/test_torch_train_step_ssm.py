@@ -1,11 +1,11 @@
 """The port's train step against the JAX package's for the ssm family (rwkv6-3b) at smoke size on the CPU.
 
-This family trains on the CPU only: the SSD and WKV CUDA routes
-have no backward kernel yet and refuse inputs that require grad (their
-backward kernels are the next slice), while their plain versions are
-torch ops that autograd differentiates, as the JAX package trains through
-its differentiable reference scans. Per configuration: ``loss_fn`` and
-every gradient leaf in f32 within 1e-4 of JAX's; ``adamw_update`` fed
+On the CPU the scan's ``autograd.Function`` takes its plain forward and
+plain backward (the gradient JAX takes of its differentiable reference
+scans); on the card, its forward and backward CUDA kernels
+(``tests/test_torch_gpu.py`` holds a smoke train step on the card to the
+same step on the CPU). Per configuration: ``loss_fn`` and every gradient
+leaf in f32 within 1e-4 of JAX's; ``adamw_update`` fed
 JAX's gradients within 1e-6 of JAX's update; one ``make_train_step``
 step; remat on against off. Shared cases and tolerances:
 ``tests/_torch_train.py``.
