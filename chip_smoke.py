@@ -61,18 +61,20 @@ plain PyTorch version on the card, and drives the port's paths:
 Before the serve paths it checks that the CUDA routes of the flash, SSD
 and WKV kernels take grads (``autograd.grad`` through each forward and
 backward kernel pair against autograd through the plain forward), holds
-each backward kernel against its plain version (flash: bf16 on the
-tensor cores, f32 on the CUDA cores within the first port's 1e-5; SSD
-and WKV: f32 on the CUDA cores for both dtypes, at the train shapes and
-ragged and small ones, with a nonzero final-state gradient and, for WKV,
-at the clamps; each with equal bits on a second call), times flash's
-three kernels apart and each backward kernel at its train shape, and
-prints every compiled kernel's registers, shared memory and blocks an SM
-(for flash, SSD and WKV each route: f32 on the CUDA cores, bf16 on the
-tensor cores; the bf16 flash backward's two kernels at head dims 112, 128
-and 160, failing on a spill at 128; the SSD and WKV backward at their
-train shapes, failing on a spill), and the device time of an empty
-kernel, the floor under every kernel time it prints.
+each backward kernel against its plain version (flash, SSD and WKV: bf16
+on the tensor cores, f32 on the CUDA cores; flash's f32 route within the
+first port's 1e-5, the SSD's and WKV's f32 errors within 1e-5 of the
+first port's; SSD and WKV at the train shapes and ragged and small ones,
+with a nonzero final-state gradient and, for WKV, at the clamps; each
+with equal bits on a second call), times flash's three kernels apart,
+the SSD's and WKV's bf16 kernels apart, and each backward kernel at its
+train shape, and prints every compiled kernel's registers, shared memory
+and blocks an SM (for flash, SSD and WKV each route: f32 on the CUDA
+cores, bf16 on the tensor cores; the bf16 flash backward's two kernels
+at head dims 112, 128 and 160, failing on a spill at 128; the SSD and
+WKV backward kernels at their train shapes, failing on a spill), and the
+device time of an empty kernel, the floor under every kernel time it
+prints.
 
 Each path runs with the launch counts set to 0 just before it and read
 just after, and fails unless every kernel of the path launched. Every
@@ -215,14 +217,39 @@ BWD_F32_UNCHANGED = 1e-5
 # spill at the train shape's (128) fails the run
 BWD_INFO_HDS = (112, 128, 160)
 # the SSD and WKV backward kernels: the train shapes, a ragged T (chunk
-# 50), G = 2 and N != P (SSD), chunk 1 and N = 5 (WKV), each with a
-# nonzero state0 and final-state gradient; WKV also with channels whose
-# cumsum passes -30 and steps with w < 1e-8 ("clamped")
+# 50), G = 2 (also at T = 100) and N != P and N = 5 (SSD), chunk 1 and N =
+# 5 and 32 (WKV), each with a nonzero state0 and final-state gradient; WKV
+# also with channels whose cumsum passes -30 and steps with w < 1e-8
+# ("clamped")
 SSD_BWD_SHAPES = (SSD_MAIN, (4, 100, 112, 64, 1, 64), (2, 128, 8, 64, 2, 64),
-                  (1, 100, 3, 16, 1, 8), (2, 128, 4, 32, 2, 16))
+                  (1, 100, 3, 16, 1, 8), (2, 128, 4, 32, 2, 16),
+                  (2, 100, 8, 64, 2, 64), (1, 100, 3, 16, 1, 5))
 WKV_BWD_SHAPES = (WKV_MAIN, (4, 100, 40, 64), (1, 97, 2, 64), (2, 100, 3, 16),
-                  (1, 100, 2, 5))
+                  (1, 100, 2, 5), (2, 100, 4, 32))
 WKV_BWD_CLAMPED = ((2, 128, 3, 64),)
+# The f32 routes of the SSD and WKV backward stay the CUDA-core scans of
+# commit ff86033: the digest (scan_bwd_digest) of their gradients on these
+# inputs, shape by shape, as that commit's kernels give them
+# (tools/scan_bwd_digest.py --src on that commit's src; NVIDIA H100 80GB
+# HBM3, 700.00 W, nvcc 12.9). The route is deterministic and independent of
+# the plain version, so a run must give the same bits: no gradient moves
+# at all, let alone by BWD_F32_UNCHANGED. (Another nvcc may round one
+# differently: then take the digests again from that commit.)
+SCAN_BWD_F32_DIGEST = {
+    ("mamba2_ssd", SSD_MAIN, False): "9bf70f372e946b64",
+    ("mamba2_ssd", (4, 100, 112, 64, 1, 64), False): "11c8c2028ee674aa",
+    ("mamba2_ssd", (2, 128, 8, 64, 2, 64), False): "c7e1f5ca6dfb44d6",
+    ("mamba2_ssd", (1, 100, 3, 16, 1, 8), False): "a5b251034fec3894",
+    ("mamba2_ssd", (2, 128, 4, 32, 2, 16), False): "31a371aa61c54267",
+    ("mamba2_ssd", (2, 100, 8, 64, 2, 64), False): "a25ab6671887eddc",
+    ("mamba2_ssd", (1, 100, 3, 16, 1, 5), False): "a58d2db8e09843d1",
+    ("rwkv6_wkv", WKV_MAIN, False): "c96227d259a20175",
+    ("rwkv6_wkv", (4, 100, 40, 64), False): "664ab01d13f6a1d6",
+    ("rwkv6_wkv", (1, 97, 2, 64), False): "09084e558f26e48d",
+    ("rwkv6_wkv", (2, 100, 3, 16), False): "8103c751199b779d",
+    ("rwkv6_wkv", (1, 100, 2, 5), False): "e6c149facaa6b132",
+    ("rwkv6_wkv", (2, 100, 4, 32), False): "f943119e770f7fb3",
+    ("rwkv6_wkv", (2, 128, 3, 64), True): "12edd9cdd1a892c7"}
 SCAN_GRADS = {"mamba2_ssd": ("dx", "ddt", "dA", "dBm", "dCm", "dstate0"),
               "rwkv6_wkv": ("dr", "dk", "dv", "dw", "du", "dstate0")}
 # phase 7's full-width train runs, 3 steps of 4 x 512 each: qwen2-vl-2b,
@@ -1360,9 +1387,26 @@ def compare_scan_bwd(name: str, shape, dtype: str,
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           f"{what}: equal bits on a second call")
+    if dtype == "float32":
+        digest = scan_bwd_digest(got)
+        was = SCAN_BWD_F32_DIGEST[(name, tuple(shape), clamped)]
+        check(digest == was, f"{what}: f32 route unchanged (digest {digest}, "
+                             f"commit ff86033's {was})")
     print(f"{what}: max abs err {dict(zip(SCAN_GRADS[name], errs))} "
-          f"(tolerance {tol}); a second call gives equal bits")
+          f"(tolerance {tol}); a second call gives equal bits"
+          + ("; the f32 route's bits are commit ff86033's"
+             if dtype == "float32" else ""))
     return max(errs)
+
+
+def scan_bwd_digest(grads) -> str:
+    """The first 16 hex digits of the sha256 of the gradients' bytes, in
+    order."""
+    import hashlib
+    h = hashlib.sha256()
+    for g in grads:
+        h.update(g.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def ssd_bwd_bound(shape, elem: int) -> dict:
@@ -1399,24 +1443,66 @@ def wkv_bwd_bound(shape, elem: int) -> dict:
     return _bound(bytes_, flops, BF16_FLOPS_PER_S)
 
 
+# the bf16 scan backwards' kernels (names as the profiler gives them, e.g.
+# "void (anonymous namespace)::ssd_bwd_chunk_kernel<64>(...)")
+SCAN_BWD_KERNEL = re.compile(r"::(?:ssd|wkv)_bwd_(walk|chunk|reduce)_kernel")
+SCAN_BWD_PARTS = ("walk", "chunk", "reduce")
+
+
+def scan_bwd_workspace_bytes(name: str, shape) -> int:
+    """Bytes the bf16 route moves through its f32 workspaces beyond the
+    function's own (not in the bound): the chunk states and their
+    gradients, written by the walk and read by the chunk kernel; SSD also
+    the per-head dB and dC, written and summed."""
+    from repro_torch.kernels.mamba2_ssd import pick_chunk
+    if name == "mamba2_ssd":
+        B, T, H, P, G, N = shape
+        state = B * H * (T // pick_chunk(T)) * N * P * 4
+        return 2 * 2 * state + 2 * 2 * B * T * H * N * 4
+    B, T, H, N = shape
+    return 2 * 2 * B * H * (T // pick_chunk(T)) * N * N * 4
+
+
+def scan_bwd_parts_ms(name: str, fn, reps: int = 10) -> dict:
+    """CUPTI busy ms a call of each of the bf16 scan backward's kernels,
+    from one trace of ``reps`` calls."""
+    rows = traced_rows(fn, reps)
+    parts = {}
+    for key, _, ms in rows:
+        found = SCAN_BWD_KERNEL.search(key)
+        if found:
+            parts[found.group(1)] = parts.get(found.group(1), 0.0) + ms / reps
+    check(set(parts) == set(SCAN_BWD_PARTS),
+          f"every {name} backward kernel traced: {parts}")
+    return {part: parts[part] for part in SCAN_BWD_PARTS}
+
+
 def time_scan_bwd(name: str, shape) -> dict:
     """The backward kernel at its train shape in bf16, as the train step
-    calls it (no final-state gradient): device time, busy time, its plain
-    version's busy time; no single PyTorch call computes it."""
+    calls it (no final-state gradient): device time, busy time (also by
+    kernel) and its plain version's busy time; no single PyTorch call
+    computes it. Also printed, outside the kernels line: the bytes the
+    design moves through its f32 workspaces, counted from the shape."""
     _, _, bwd, bwd_plain = scan_fns(name)
     args, dout, _ = scan_bwd_inputs(name, shape, "bfloat16")
     kernel = lambda: bwd(*args, dout)                         # noqa: E731
     plain = lambda: bwd_plain(*args, dout)                    # noqa: E731
     row = {"shape": list(shape), "dtype": "bfloat16",
            "ms": device_ms(kernel), "busy_ms": busy_ms(kernel),
+           "parts_busy_ms": scan_bwd_parts_ms(name, kernel),
            "plain_ms": busy_ms(plain), "library_ms": None,
            "call_ms": call_ms(kernel)}
     row.update((ssd_bwd_bound if name == "mamba2_ssd" else wkv_bwd_bound)(
         shape, 2))
     print(f"{name}_bwd {tuple(shape)} bf16: {row['ms']} ms a call "
-          f"({row['busy_ms']} busy), plain {row['plain_ms']} busy, bound "
-          f"{row['bound_ms']} ({row['bound_by']}; f32 CUDA-core floor "
+          f"({row['busy_ms']} busy; by kernel {row['parts_busy_ms']}), "
+          f"plain {row['plain_ms']} busy, bound {row['bound_ms']} "
+          f"({row['bound_by']}; f32 CUDA-core floor "
           f"{row['f32_cuda_core_ops_ms']})")
+    work = scan_bwd_workspace_bytes(name, shape)
+    print(f"{name}_bwd {tuple(shape)} bf16 workspace traffic (counted from "
+          f"the shape, not measured): {work} bytes, "
+          f"{work / HBM_BYTES_PER_S * 1e3} ms at the memory rate")
     return row
 
 
@@ -1473,8 +1559,10 @@ def compiled_kernels(anen_n: int) -> dict:
     flash also at head dim 160 (keys ``("flash_attention", dtype, 160)``),
     the bf16 backward's dk/dv and dq kernels at ``BWD_INFO_HDS`` (a spill
     at the train shape's head dim fails), the SSD and WKV backward kernels
-    for each dtype at their train shapes (a spill fails), and
-    ``anen_distance`` at ``anen_n`` columns."""
+    for each dtype at their train shapes (the bf16 route's chunk kernel,
+    and its walk over the chunk states under keys ``(name, "bfloat16",
+    "walk")``; a spill fails), and ``anen_distance`` at ``anen_n``
+    columns."""
     import torch
     from repro_torch.kernels import (anen_distance, flash_attention,
                                      mamba2_ssd, rwkv6_wkv)
@@ -1499,6 +1587,10 @@ def compiled_kernels(anen_n: int) -> dict:
             N, P, pick_chunk(T), dtype)
         info[("rwkv6_wkv_bwd", name)] = rwkv6_wkv.bwd_kernel_info(
             WKV_MAIN[3], pick_chunk(WKV_MAIN[1]), dtype)
+    info[("mamba2_ssd_bwd", "bfloat16", "walk")] = mamba2_ssd.bwd_kernel_info(
+        N, P, pick_chunk(T), torch.bfloat16, "walk")
+    info[("rwkv6_wkv_bwd", "bfloat16", "walk")] = rwkv6_wkv.bwd_kernel_info(
+        WKV_MAIN[3], pick_chunk(WKV_MAIN[1]), torch.bfloat16, "walk")
     for hd in BWD_INFO_HDS:
         for which in ("dkdv", "dq"):
             info[("flash_attention_bwd", "bfloat16", f"{which} hd {hd}")] = \
@@ -2360,6 +2452,14 @@ def main() -> None:
         for key, row in compiled.items()
         if key[:2] == ("flash_attention_bwd", "bfloat16") and len(key) == 3
         and "hd" in key[2]}
+    for name in ("mamba2_ssd_bwd", "rwkv6_wkv_bwd"):
+        entry = next(e for e in record["kernels"] if e["name"] == name)
+        entry.update(
+            parts_busy_ms=timed[name]["parts_busy_ms"],
+            compiled_parts={part: {k: compiled[(name, "bfloat16", part)][k]
+                                   for k in ("registers", "spill_bytes",
+                                             "blocks_per_sm")}
+                            for part in ("walk",)})
     wkv_entry = next(e for e in record["kernels"]
                      if e["name"] == "rwkv6_wkv")
     wkv_entry.update(

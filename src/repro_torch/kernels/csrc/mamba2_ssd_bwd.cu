@@ -41,29 +41,74 @@
 // recomputed among them): 19 us on the bf16 tensor cores, 0.28 ms in f32
 // on the CUDA cores.
 //
-// Design (the first, simple one; a tensor-core route is later work): one
-// block of 512 threads per (b, h), f32 arithmetic on the CUDA cores for
-// both input types, one rounding of each gradient to its input's type at
-// the end (so the bf16 route adds no operand rounding). The block first
-// walks the chunks forward and writes the state at each chunk's start to
-// a workspace (B x H x chunks x N x P f32, 58.7 MB at the train shape),
-// then walks them backward with dS in shared memory: per chunk it stages x,
-// dy, B, C, S as f32 (odd pitches), builds C.B^T and dy.x^T for s <= t and
-// Q from them, sums Q's rows as prefixes and then its columns into the
-// spanned sums, scales C.B^T and dy.x^T in place into M and dG, and writes
-// dx and the per-head dB and dC; one thread then walks the chunk's
-// vectors into dloga, ddt and dA. Sums over blocks use no atomics: the per-head dB
-// and dC (B x T x H x N f32 each) and the per-batch dA partials go to
-// workspaces, and a second kernel sums them in a fixed order (over the
-// heads of a group, over batches), so a second call gives equal bits. The
-// chunk is the forward's (the largest c <= 64 that divides T) unless the
-// shared memory does not hold it (N and P near 128): then the largest
-// divisor of T below it that fits, which gives the same gradient up to
-// rounding (mamba2_ssd_bwd_chunk tells the wrapper).
+// bf16 route (the train path; ssd_bwd_walk_kernel, ssd_bwd_chunk_kernel,
+// ssd_bwd_reduce_kernel): the scan is a linear recurrence in the chunk
+// state, so given a chunk's start state S and its end state's gradient
+// dS' every term above is local to the chunk, the spanned dloga sums
+// included. Three launches, one call:
+//   1. the walk, a block per (b, h) and direction, 4 warps holding the
+//      state in f32 registers (16 rows each): forwards it writes S_k and
+//      adds (B o w)^T . x, backwards it writes dS'_k and adds (C o
+//      exp(cum))^T . dy, each scaled by exp(cum_L) first; the next chunk's
+//      tiles come by cp.async while the tensor cores work on this one;
+//   2. the chunk kernel, a block per (chunk, h, b) (3,584 at the train
+//      shape, where the scan had 448), 4 warps of 16 chunk rows: C.B^T and
+//      dy.x^T, the elementwise M, dG, Q and the ddt column sums in f32, Q's
+//      row prefixes by quad shuffle scans and their spanned column sums,
+//      dC = exp(cum) S dy + dG.B (dG as A fragments from registers), then
+//      (M and dG in shared memory, where S was) dx = M^T.dy + w dS'^T B and
+//      dB = dG^T.C + w dS' x (ldmatrix.trans); warp 0 turns the vectors
+//      into dloga, ddt and the chunk's part of dA by shuffle scans;
+//   3. the fixed-order sums (dB and dC over the heads of a group, four
+//      columns a thread; dA over batches and chunks), so a second call
+//      gives equal bits; no atomics.
+// Every product runs as mma.sync.m16n8k16, bf16 operands and f32 sums.
+// C.B^T and dy.x^T take two bf16 inputs and are exact. Every f32 operand
+// (B o w, C o exp(cum), S, dS', M and dG) is split into bf16 hi + lo (x =
+// hi + lo to about 16 bits, two mma against a bf16 input): one rounding of
+// each, as the forward does, takes dx, dB and dC past the 1e-2 gate
+// against the plain version, and so does leaving any one of them rounded
+// once (tests/test_torch_scan_bwd_rounding.py). Q, its spanned sums and
+// the per-step vectors stay f32 on the CUDA cores (dA's cancellation, as
+// above). N and P pad to kD = 16, 32, 64 or 128 with zeros in shared
+// memory and the chunk to 64 rows, so the chunk is always the forward's.
+// Workspaces beyond the bound: S_k and dS'_k (58.7 MB each at the train
+// shape, written by the walk and read by the chunk kernel) and the
+// per-head dB and dC (58.7 MB each, written and summed): 470 MB, 0.14 ms
+// at 3.35 TB/s, 58.7 MB more memory than the f32 route. At kD = 64 the
+// chunk kernel holds 96,000 bytes of shared memory and 184 registers (2
+// blocks an SM), the walk 38,400 bytes and 160 registers (3 blocks), no
+// spill. Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W), bf16 at
+// (4, 512, 112, 64, 1, 64): 0.3849 ms a call, 0.3442 CUPTI busy (by
+// kernel, from another trace: walk 0.0957, chunk kernel 0.2600, sums
+// 0.0545), 12x its byte bound; the first port's CUDA-core scan took
+// 3.1984 ms there.
+//
+// f32 route (ssd_bwd_kernel, the first port's, unchanged, then
+// ssd_bwd_reduce_kernel with one dA part a batch, which sums in the first
+// port's order): it meets the f32 gradient tolerance (5e-4), which TF32
+// products cannot. One block of 512 threads per (b, h), f32 arithmetic on
+// the CUDA cores. The block first walks the chunks forward and writes the
+// state at each chunk's start to a workspace (B x H x chunks x N x P f32,
+// 58.7 MB at the train shape), then walks them backward with dS in shared
+// memory: per chunk it stages x, dy, B, C, S as f32 (odd pitches), builds
+// C.B^T and dy.x^T for s <= t and Q from them, sums Q's rows as prefixes
+// and then its columns into the spanned sums, scales C.B^T and dy.x^T in
+// place into M and dG, and writes dx and the per-head dB and dC; one
+// thread then walks the chunk's vectors into dloga, ddt and dA. The
+// per-head dB and dC and the per-batch dA partials go to workspaces, and
+// the second kernel sums them in a fixed order (over the heads of a
+// group, over batches). The chunk is the forward's unless the shared
+// memory does not hold it (N and P near 128): then the largest divisor of
+// T below it that fits, which gives the same gradient up to rounding
+// (mamba2_ssd_bwd_chunk tells the wrapper).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "scan_bwd.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -364,35 +409,56 @@ ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   if (tid == 0) dA_part[static_cast<size_t>(b) * H + h] = dA_acc;
 }
 
-// The sums over blocks, in a fixed order: dBm and dCm over the heads of
-// each group, dA over batches.
+// The sums over blocks, in a fixed order, four columns a thread (16-byte
+// loads where N % 4 == 0, eight heads' in flight): dBm and dCm over the
+// heads of each group, dA over batches and then over each batch's `parts`
+// (1 on the f32 route, the chunks on the bf16 route).
 template <typename T>
 __global__ void ssd_bwd_reduce_kernel(const float* __restrict__ dBh,
                                       const float* __restrict__ dCh,
                                       const float* __restrict__ dA_part,
                                       T* __restrict__ dBm, T* __restrict__ dCm,
                                       float* __restrict__ dA, int B,
-                                      size_t rows, int H, int G, int N) {
+                                      size_t rows, int H, int G, int N,
+                                      int parts) {
   const int hpg = H / G;
-  const size_t total = rows * G * N;   // rows = B * T
+  const int nq = (N + 3) / 4;
+  const bool vec = N % 4 == 0;
+  const size_t total = rows * G * nq;   // rows = B * T
   for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x;
        i < total; i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    const size_t n = i % N;
-    const size_t g = (i / N) % G;
-    const size_t row = i / (static_cast<size_t>(N) * G);
-    const size_t base = (row * H + g * hpg) * N + n;
-    float sb = 0.0f, sc = 0.0f;
+    const int n = 4 * static_cast<int>(i % nq);
+    const size_t g = (i / nq) % G;
+    const size_t row = i / (static_cast<size_t>(nq) * G);
+    const size_t base = (row * H + g * hpg) * N;
+    float4 sb = make_float4(0.0f, 0.0f, 0.0f, 0.0f), sc = sb;
+#pragma unroll 8
     for (int j = 0; j < hpg; ++j) {
-      sb += dBh[base + static_cast<size_t>(j) * N];
-      sc += dCh[base + static_cast<size_t>(j) * N];
+      const size_t o = base + static_cast<size_t>(j) * N;
+      const float4 a = scan::load4(dBh + o, n, N, vec);
+      const float4 c = scan::load4(dCh + o, n, N, vec);
+      sb = make_float4(sb.x + a.x, sb.y + a.y, sb.z + a.z, sb.w + a.w);
+      sc = make_float4(sc.x + c.x, sc.y + c.y, sc.z + c.z, sc.w + c.w);
     }
-    st(dBm + i, sb);
-    st(dCm + i, sc);
+    T* ob = dBm + (row * G + g) * N;
+    T* oc = dCm + (row * G + g) * N;
+    const float vb[4] = {sb.x, sb.y, sb.z, sb.w};
+    const float vc[4] = {sc.x, sc.y, sc.z, sc.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (n + e < N) {
+        st(ob + n + e, vb[e]);
+        st(oc + n + e, vc[e]);
+      }
+    }
   }
   if (blockIdx.x == 0) {
     for (int h = threadIdx.x; h < H; h += blockDim.x) {
       float s = 0.0f;
-      for (int b = 0; b < B; ++b) s += dA_part[static_cast<size_t>(b) * H + h];
+      for (int b = 0; b < B; ++b) {
+        const float* p = dA_part + (static_cast<size_t>(b) * H + h) * parts;
+        for (int k = 0; k < parts; ++k) s += p[k];
+      }
       dA[h] = s;
     }
   }
@@ -447,7 +513,7 @@ int launch(const void* x, const float* dt, const float* A, const void* Bm,
   ssd_bwd_reduce_kernel<T><<<static_cast<unsigned>(blocks), threads, 0,
                              stream>>>(dBh, dCh, dA_part, static_cast<T*>(dBm),
                                        static_cast<T*>(dCm), dA, B, rows, H, G,
-                                       N);
+                                       N, 1);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -457,29 +523,787 @@ bool valid(int T_len, int H, int P, int G, int N, int chunk) {
          T_len % chunk == 0;
 }
 
+// --------------------------------------------------------------------------
+// bf16 route: tensor cores, the chunks in parallel
+// --------------------------------------------------------------------------
+
+constexpr int kRows = 64;             // chunk rows in shared memory
+constexpr int kCPitch = kRows + 8;    // pitch of the c x c tiles
+constexpr int kTcWarps = 4;           // the chunk kernel: 16 rows a warp
+constexpr int kTcThreads = 32 * kTcWarps;
+
+// kD: N and P padded to 16, 32, 64 or 128, with a pitch of kD + 8.
+template <int kD>
+__host__ __device__ constexpr int tc_pitch() { return kD + 8; }
+
+// The walk kernel: 16 state rows a warp; two stages of the factor's (B or
+// C) and the operand's (x or dy) tiles and of dt; each warp's row scales.
+template <int kD>
+__host__ __device__ constexpr int walk_threads() { return 32 * (kD / 16); }
+
+template <int kD>
+constexpr size_t walk_smem_bytes() {
+  return sizeof(bf16) * 4 * kRows * tc_pitch<kD>() +
+         sizeof(float) * (2 + kD / 16) * kRows;
+}
+
+// The chunk kernel: x, dy, B, C tiles, dS' (hi, lo), a union of S (hi, lo)
+// and of M and dG (hi, lo each), then the chunk's f32 vectors: dt, cum,
+// exp(cum), exp(cum_L - cum), the readout's exponent gradient, dW, the
+// warps' column sums of the ddt products and of Q's spanned prefix sums,
+// the rows' sums of S o dS'.
+template <int kD>
+__host__ __device__ constexpr int union_elems() {
+  return 2 * kD * tc_pitch<kD>() > 4 * kRows * kCPitch
+             ? 2 * kD * tc_pitch<kD>()
+             : 4 * kRows * kCPitch;
+}
+
+template <int kD>
+constexpr size_t chunk_smem_bytes() {
+  return sizeof(bf16) * (4 * kRows * tc_pitch<kD>() + 2 * kD * tc_pitch<kD>() +
+                         union_elems<kD>()) +
+         sizeof(float) * (6 * kRows + 2 * kTcWarps * kRows + kD);
+}
+
+// Warp-wide: the inclusive cumsum of dt * a over the chunk, lane holding
+// rows lane (c0) and lane + 32 (c1) of dts (zeros past the chunk), and the
+// chunk's last (cl).
+__device__ __forceinline__ void chunk_cum(const float* dts, float a, int c,
+                                          int lane, float& c0, float& c1,
+                                          float& cl) {
+  c0 = dts[lane] * a;
+  c1 = dts[lane + 32] * a;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float u0 = __shfl_up_sync(0xffffffffu, c0, off);
+    const float u1 = __shfl_up_sync(0xffffffffu, c1, off);
+    if (lane >= off) {
+      c0 += u0;
+      c1 += u1;
+    }
+  }
+  c1 += __shfl_sync(0xffffffffu, c0, 31);
+  const float lo = __shfl_sync(0xffffffffu, c0, (c - 1) & 31);
+  const float hi = __shfl_sync(0xffffffffu, c1, (c - 1) & 31);
+  cl = c > 32 ? hi : lo;
+}
+
+// The chunk's x, dy (P columns) and B, C (N columns) into kRows-row tiles
+// (zeros past the chunk and the widths), and dt into dts.
+template <int kD, int kThreads>
+__device__ __forceinline__ void load_chunk(
+    bf16* xs, bf16* dys, bf16* bs, bf16* cs, float* dts,
+    const bf16* __restrict__ x, const bf16* __restrict__ dy,
+    const float* __restrict__ dt, const bf16* __restrict__ Bm,
+    const bf16* __restrict__ Cm, int b, int h, int T_len, int H, int P,
+    int G, int N, int t0, int c, bool vec) {
+  constexpr int kPitch = tc_pitch<kD>();
+  const int grp = h / (H / G);
+  const size_t x_stride = static_cast<size_t>(H) * P;
+  const size_t bc_stride = static_cast<size_t>(G) * N;
+  const size_t xo = (static_cast<size_t>(b) * T_len * H + h) * P;
+  const size_t bo = (static_cast<size_t>(b) * T_len * G + grp) * N;
+  tc::load_rows<kRows, kD, kPitch, kThreads>(xs, x + xo, x_stride, t0, t0 + c,
+                                            P, vec);
+  tc::load_rows<kRows, kD, kPitch, kThreads>(dys, dy + xo, x_stride, t0,
+                                            t0 + c, P, vec);
+  tc::load_rows<kRows, kD, kPitch, kThreads>(bs, Bm + bo, bc_stride, t0,
+                                            t0 + c, N, vec);
+  tc::load_rows<kRows, kD, kPitch, kThreads>(cs, Cm + bo, bc_stride, t0,
+                                            t0 + c, N, vec);
+  for (int r = threadIdx.x; r < kRows; r += kThreads) {
+    dts[r] = r < c ? dt[(static_cast<size_t>(b) * T_len + t0 + r) * H + h]
+                   : 0.0f;
+  }
+  tc::cp_async_commit();
+}
+
+// Kernel 1, per (h, b) and direction (blockIdx.z): the chunk states. Warp w
+// holds rows 16 w.. of the state in f32 registers (C tiles) and walks the
+// chunks, the next chunk's tiles copied by cp.async into the other stage
+// while this one is used. blockIdx.z = 0 walks forwards from S_0 = state0,
+// writing S_k into `states` and then S_{k+1} = exp(cum_L) S_k + (B o w)^T
+// . x; blockIdx.z = 1 walks backwards from dS'_{K-1} = dstate_T (or 0),
+// writing dS'_k into `dstates` and then dS'_{k-1} = exp(cum_L) dS'_k +
+// (C o exp(cum))^T . dy, and last dstate0. The factors B o w and C o
+// exp(cum) are split into bf16 hi + lo.
+template <int kD>
+__global__ void __launch_bounds__(walk_threads<kD>())
+ssd_bwd_walk_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
+                    const float* __restrict__ A, const bf16* __restrict__ Bm,
+                    const bf16* __restrict__ Cm, const bf16* __restrict__ dy,
+                    const float* __restrict__ state0,
+                    const float* __restrict__ dstate_T,
+                    float* __restrict__ states, float* __restrict__ dstates,
+                    float* __restrict__ dstate0, int T_len, int H, int P,
+                    int G, int N, int c, bool vec) {
+  constexpr int kThreads = walk_threads<kD>();
+  constexpr int kPitch = tc_pitch<kD>();
+  constexpr int kTile = kRows * kPitch;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* tiles = reinterpret_cast<bf16*>(smem_raw);   // stage: factor, operand
+  float* dts = reinterpret_cast<float*>(tiles + 4 * kTile);   // 2 x kRows
+  float* scale = dts + 2 * kRows;                             // warps x kRows
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const bool grad = blockIdx.z == 1;
+  const int n0 = 16 * warp;
+  const int grp = h / (H / G);
+  const float a = A[h];
+  const int n_chunks = T_len / c;
+  const size_t x_stride = static_cast<size_t>(H) * P;
+  const size_t bc_stride = static_cast<size_t>(G) * N;
+  const bf16* fac = (grad ? Cm : Bm) +
+                    (static_cast<size_t>(b) * T_len * G + grp) * N;
+  const bf16* opd = (grad ? dy : x) +
+                    (static_cast<size_t>(b) * T_len * H + h) * P;
+  const float* dtb = dt + static_cast<size_t>(b) * T_len * H + h;
+  const size_t NP = static_cast<size_t>(N) * P;
+  const size_t bh = static_cast<size_t>(b) * H + h;
+  float* out = (grad ? dstates : states) + bh * n_chunks * NP;
+
+  auto load = [&](int k, int st) {
+    const int t0 = k * c;
+    tc::load_rows<kRows, kD, kPitch, kThreads>(tiles + 2 * st * kTile, fac,
+                                              bc_stride, t0, t0 + c, N, vec);
+    tc::load_rows<kRows, kD, kPitch, kThreads>(tiles + (2 * st + 1) * kTile,
+                                              opd, x_stride, t0, t0 + c, P,
+                                              vec);
+    for (int r = threadIdx.x; r < kRows; r += kThreads) {
+      const bool ok = r < c;
+      tc::cp_async4(dts + st * kRows + r,
+                    ok ? dtb + static_cast<size_t>(t0 + r) * H : dtb,
+                    ok ? 4 : 0);
+    }
+    tc::cp_async_commit();
+  };
+
+  // the state's rows n0 + g and n0 + g + 8, all kD columns
+  float sacc[kD / 8][4];
+  const float* init = grad ? dstate_T : state0;
+#pragma unroll
+  for (int j = 0; j < kD / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = n0 + g + 8 * (e >> 1);
+      const int p = 8 * j + 2 * t + (e & 1);
+      sacc[j][e] = init != nullptr && n < N && p < P
+                       ? init[bh * NP + static_cast<size_t>(n) * P + p]
+                       : 0.0f;
+    }
+  }
+  auto store_state = [&](float* dst) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int n = n0 + g + 8 * r;
+      if (n >= N) continue;
+#pragma unroll
+      for (int j = 0; j < kD / 8; ++j) {
+        scan::store_pair(dst + static_cast<size_t>(n) * P, 8 * j + 2 * t, P,
+                         sacc[j][2 * r], sacc[j][2 * r + 1]);
+      }
+    }
+  };
+
+  load(grad ? n_chunks - 1 : 0, 0);
+  for (int i = 0; i < n_chunks; ++i) {
+    const int k = grad ? n_chunks - 1 - i : i;
+    const int st = i & 1;
+    if (i + 1 < n_chunks) {
+      load(grad ? k - 1 : k + 1, st ^ 1);
+      tc::cp_async_wait<1>();   // chunk k has landed, the next in flight
+    } else {
+      tc::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* fs = tiles + 2 * st * kTile;
+    const bf16* os = tiles + (2 * st + 1) * kTile;
+    // this warp's row scales: exp(cum_L - cum_s) dt_s (forward) or
+    // exp(cum_t) (backward)
+    float c0, c1, cl;
+    chunk_cum(dts + st * kRows, a, c, lane, c0, c1, cl);
+    float* sc = scale + warp * kRows;
+    if (grad) {
+      sc[lane] = expf(c0);
+      sc[lane + 32] = expf(c1);
+    } else {
+      sc[lane] = expf(cl - c0) * dts[st * kRows + lane];
+      sc[lane + 32] = expf(cl - c1) * dts[st * kRows + lane + 32];
+    }
+    __syncwarp();
+    store_state(out + static_cast<size_t>(k) * NP);
+    const float e = expf(cl);
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) sacc[j][q] *= e;
+#pragma unroll
+    for (int kk = 0; kk < kRows / 16; ++kk) {
+      if (kk * 16 >= c) break;
+      uint32_t af[4], hi[4], lo[4];
+      tc::lda_t(af, fs, kPitch, n0, kk * 16);
+      const float w0 = sc[kk * 16 + 2 * t];
+      const float w1 = sc[kk * 16 + 2 * t + 1];
+      const float w2 = sc[kk * 16 + 8 + 2 * t];
+      const float w3 = sc[kk * 16 + 9 + 2 * t];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float2 f = tc::unpack_bf16(af[q]);
+        tc::split_bf16(f.x * (q < 2 ? w0 : w2), f.y * (q < 2 ? w1 : w3),
+                       hi[q], lo[q]);
+      }
+      uint32_t bv[kD / 16][4];
+#pragma unroll
+      for (int j = 0; j < kD / 16; ++j) tc::ldb_t(bv[j], os, kPitch, j * 16, kk * 16);
+      tc::mma_pairs<kD / 16>(sacc, hi, bv);
+      tc::mma_pairs<kD / 16>(sacc, lo, bv);
+    }
+    __syncthreads();   // the stage is read: the next load may take it
+  }
+  if (grad) store_state(dstate0 + bh * NP);
+}
+
+// Kernel 2, per (chunk k, h, b), 4 warps, warp w owning chunk rows
+// 16 w..16 w + 15: the chunk's gradient from its start state S and its end
+// state's gradient dS' (both f32 from kernel 1, split into bf16 hi + lo).
+// dx, the head's dB and dC (f32, summed by kernel 3), ddt and the chunk's
+// part of dA.
+template <int kD>
+__global__ void __launch_bounds__(kTcThreads)
+ssd_bwd_chunk_kernel(const bf16* __restrict__ x, const float* __restrict__ dt,
+                     const float* __restrict__ A, const bf16* __restrict__ Bm,
+                     const bf16* __restrict__ Cm, const bf16* __restrict__ dy,
+                     const float* __restrict__ states,
+                     const float* __restrict__ dstates, bf16* __restrict__ dx,
+                     float* __restrict__ ddt, float* __restrict__ dBh,
+                     float* __restrict__ dCh, float* __restrict__ dA_part,
+                     int T_len, int H, int P, int G, int N, int c, bool vec) {
+  constexpr int kPitch = tc_pitch<kD>();
+  constexpr int kTile = kRows * kPitch;
+  constexpr int kSteps = kD / 16;             // k steps over N or P
+  constexpr int kOut = kD < 64 ? kD : 64;     // output columns a pass
+  constexpr int kNT = kOut / 8;
+  constexpr int kCTile = kRows * kCPitch;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dys = xs + kTile;
+  bf16* bs = dys + kTile;
+  bf16* cs = bs + kTile;
+  bf16* ds_hi = cs + kTile;                   // dS', rows n, columns p
+  bf16* ds_lo = ds_hi + kD * kPitch;
+  bf16* un = ds_lo + kD * kPitch;
+  bf16* s_hi = un;                            // S, until barrier (3)
+  bf16* s_lo = un + kD * kPitch;
+  bf16* m_hi = un;                            // then M and dG, rows t,
+  bf16* m_lo = m_hi + kCTile;                 // columns s
+  bf16* g_hi = m_lo + kCTile;
+  bf16* g_lo = g_hi + kCTile;
+  float* dts = reinterpret_cast<float*>(un + union_elems<kD>());
+  float* cum = dts + kRows;
+  float* ecum = cum + kRows;                  // exp(cum_t)
+  float* dec = ecum + kRows;                  // exp(cum_L - cum_s)
+  float* inter = dec + kRows;                 // exp(cum_t) C_t . S dy_t
+  float* dws = inter + kRows;                 // B_s^T dS' x_s
+  float* cole = dws + kRows;                  // warps x kRows
+  float* span = cole + kTcWarps * kRows;      // warps x kRows
+  float* rowsum = span + kTcWarps * kRows;    // kD: sum_p S o dS'
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int k = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n_chunks = gridDim.x;
+  const int t0 = k * c;
+  const float a = A[h];
+  const int r0 = 16 * warp;
+  load_chunk<kD, kTcThreads>(xs, dys, bs, cs, dts, x, dy, dt, Bm, Cm, b, h,
+                             T_len, H, P, G, N, t0, c, vec);
+
+  // S and dS' into their hi and lo copies (zeros past N and P), and the
+  // rows' sums of S o dS'
+  {
+    const size_t base =
+        ((static_cast<size_t>(b) * H + h) * n_chunks + k) * N * P;
+    scan::load_states<kD, kTcThreads>(states + base, dstates + base, N, P,
+                                      s_hi, s_lo, ds_hi, ds_lo, rowsum);
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();   // (1) the chunk and the states are in
+
+  if (warp == 0) {
+    float c0, c1, cl;
+    chunk_cum(dts, a, c, lane, c0, c1, cl);
+    cum[lane] = c0;
+    cum[lane + 32] = c1;
+    ecum[lane] = expf(c0);
+    ecum[lane + 32] = expf(c1);
+    dec[lane] = expf(cl - c0);
+    dec[lane + 32] = expf(cl - c1);
+  }
+  __syncthreads();   // (2) the chunk's vectors
+
+  // G = C.B^T and dM = dy.x^T on this warp's rows t, column tiles s <= r0
+  // + 15 (the rest is masked): both operands bf16 inputs, exact products
+  float gm[8][4], dm[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) gm[j][e] = dm[j][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < kSteps; ++kk) {
+    uint32_t ca[4], ya[4];
+    tc::lda(ca, cs, kPitch, r0, kk * 16);
+    tc::lda(ya, dys, kPitch, r0, kk * 16);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (j > warp) continue;
+      uint32_t bb[4], xb[4];
+      tc::ldb(bb, bs, kPitch, j * 16, kk * 16);
+      tc::ldb(xb, xs, kPitch, j * 16, kk * 16);
+      tc::mma_bf16(gm[2 * j], ca, bb[0], bb[1]);
+      tc::mma_bf16(gm[2 * j + 1], ca, bb[2], bb[3]);
+      tc::mma_bf16(dm[2 * j], ya, xb[0], xb[1]);
+      tc::mma_bf16(dm[2 * j + 1], ya, xb[2], xb[3]);
+    }
+  }
+  // D = exp(min(cum_t - cum_s, 0)) at s <= t: M = G o D o dt_s and dG =
+  // dM o D o dt_s in place; the ddt products dM o G o D summed down the
+  // columns; Q = dM o M at s < t where the clamp passes the difference
+  float q[8][4];
+  {
+    float col[8][2];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      col[j][0] = col[j][1] = 0.0f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int tt = r0 + g + 8 * (e >> 1);
+        const int ss = 8 * j + 2 * t + (e & 1);
+        const float diff = cum[tt] - cum[ss];
+        const float d = ss <= tt ? expf(fminf(diff, 0.0f)) : 0.0f;
+        const float gv = gm[j][e];
+        const float dv = dm[j][e];
+        const float mv = gv * d * dts[ss];
+        col[j][e & 1] += dv * gv * d;
+        q[j][e] = ss < tt && diff <= 0.0f ? dv * mv : 0.0f;
+        gm[j][e] = mv;
+        dm[j][e] = dv * d * dts[ss];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float v = tc::column_sum(col[j][i]);
+        if (g == 0) cole[warp * kRows + 8 * j + 2 * t + i] = v;
+      }
+    }
+  }
+  // each row of Q to its exclusive prefix sums U[t, j] = sum_{s<j} Q[t, s]
+  // (a scan over the quad, tile by tile), and U summed down the columns
+  // at t >= j: the Q[t, s] whose exponent spans a_j
+  {
+    float run[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      float col[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const float qa = q[j][2 * r];
+        const float qb = q[j][2 * r + 1];
+        float inc = qa + qb;
+        float y = __shfl_up_sync(0xffffffffu, inc, 1, 4);
+        if (t >= 1) inc += y;
+        y = __shfl_up_sync(0xffffffffu, inc, 2, 4);
+        if (t >= 2) inc += y;
+        float ex = __shfl_up_sync(0xffffffffu, inc, 1, 4);
+        if (t == 0) ex = 0.0f;
+        const float ua = run[r] + ex;
+        const float ub = ua + qa;
+        const int tt = r0 + g + 8 * r;
+        const int s0 = 8 * j + 2 * t;
+        col[0] += s0 <= tt ? ua : 0.0f;
+        col[1] += s0 + 1 <= tt ? ub : 0.0f;
+        run[r] += __shfl_sync(0xffffffffu, inc, 3, 4);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float v = tc::column_sum(col[i]);
+        if (g == 0) span[warp * kRows + 8 * j + 2 * t + i] = v;
+      }
+    }
+  }
+
+  // dC_t = exp(cum_t) S dy_t + sum_s dG[t, s] B_s, per block of output
+  // columns: S dy_t with S's hi and lo as B operands, dG from registers
+  // (hi and lo A fragments, k steps s <= r0 + 15); the readout's exponent
+  // gradient exp(cum_t) C_t . S dy_t on the way
+  uint32_t gh[4][4], gl[4][4];
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) tc::c_to_a_split(dm[2 * kk], dm[2 * kk + 1], gh[kk], gl[kk]);
+  const size_t row0 = static_cast<size_t>(b) * T_len + t0;
+  {
+    float ip[2] = {0.0f, 0.0f};
+    const float e0 = ecum[r0 + g];
+    const float e1 = ecum[r0 + g + 8];
+#pragma unroll
+    for (int n0 = 0; n0 < kD; n0 += kOut) {
+      float acc[kNT][4];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        uint32_t ya[4], bh[kNT / 2][4], bl[kNT / 2][4];
+        tc::lda(ya, dys, kPitch, r0, kk * 16);
+#pragma unroll
+        for (int j = 0; j < kNT / 2; ++j) {
+          tc::ldb(bh[j], s_hi, kPitch, n0 + 16 * j, kk * 16);
+          tc::ldb(bl[j], s_lo, kPitch, n0 + 16 * j, kk * 16);
+        }
+        tc::mma_pairs<kNT / 2>(acc, ya, bh);
+        tc::mma_pairs<kNT / 2>(acc, ya, bl);
+      }
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const int n = n0 + 8 * j + 2 * t;
+        const float2 c0 = tc::ld_bf16x2(cs + (r0 + g) * kPitch + n);
+        const float2 c1 = tc::ld_bf16x2(cs + (r0 + g + 8) * kPitch + n);
+        ip[0] = fmaf(c0.x, acc[j][0], fmaf(c0.y, acc[j][1], ip[0]));
+        ip[1] = fmaf(c1.x, acc[j][2], fmaf(c1.y, acc[j][3], ip[1]));
+        acc[j][0] *= e0;
+        acc[j][1] *= e0;
+        acc[j][2] *= e1;
+        acc[j][3] *= e1;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (kk > warp) continue;
+        uint32_t bv[kNT / 2][4];
+#pragma unroll
+        for (int j = 0; j < kNT / 2; ++j) tc::ldb_t(bv[j], bs, kPitch, n0 + 16 * j, kk * 16);
+        tc::mma_pairs<kNT / 2>(acc, gh[kk], bv);
+        tc::mma_pairs<kNT / 2>(acc, gl[kk], bv);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int tt = r0 + g + 8 * r;
+        if (tt >= c) continue;
+        float* dst = dCh + ((row0 + tt) * H + h) * N;
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          scan::store_pair(dst, n0 + 8 * j + 2 * t, N, acc[j][2 * r],
+                           acc[j][2 * r + 1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float v = tc::quad_sum(ip[r]);
+      if (t == 0) inter[r0 + g + 8 * r] = ecum[r0 + g + 8 * r] * v;
+    }
+  }
+  __syncthreads();   // (3) every read of S is done: M and dG take its place
+  tc::store_split<8>(gm, m_hi, m_lo, kCPitch, r0);
+  tc::store_split<8>(dm, g_hi, g_lo, kCPitch, r0);
+  __syncthreads();   // (4) M and dG are in
+
+  // this warp's rows s: dx_s = w_s dS'^T B_s + sum_t M[t, s] dy_t and
+  // dB_s = w_s dS' x_s + sum_t dG[t, s] C_t (M^T and dG^T through
+  // ldmatrix.trans, k steps t >= r0); dW_s = B_s . dS' x_s
+  {
+    const float w0 = dec[r0 + g] * dts[r0 + g];
+    const float w1 = dec[r0 + g + 8] * dts[r0 + g + 8];
+#pragma unroll
+    for (int n0 = 0; n0 < kD; n0 += kOut) {
+      float acc[kNT][4];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        uint32_t ba[4], bh[kNT / 2][4], bl[kNT / 2][4];
+        tc::lda(ba, bs, kPitch, r0, kk * 16);
+#pragma unroll
+        for (int j = 0; j < kNT / 2; ++j) {
+          tc::ldb_t(bh[j], ds_hi, kPitch, n0 + 16 * j, kk * 16);
+          tc::ldb_t(bl[j], ds_lo, kPitch, n0 + 16 * j, kk * 16);
+        }
+        tc::mma_pairs<kNT / 2>(acc, ba, bh);
+        tc::mma_pairs<kNT / 2>(acc, ba, bl);
+      }
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        acc[j][0] *= w0;
+        acc[j][1] *= w0;
+        acc[j][2] *= w1;
+        acc[j][3] *= w1;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (kk < warp || kk * 16 >= c) continue;
+        uint32_t mh[4], ml[4], bv[kNT / 2][4];
+        tc::lda_t(mh, m_hi, kCPitch, r0, kk * 16);
+        tc::lda_t(ml, m_lo, kCPitch, r0, kk * 16);
+#pragma unroll
+        for (int j = 0; j < kNT / 2; ++j) tc::ldb_t(bv[j], dys, kPitch, n0 + 16 * j, kk * 16);
+        tc::mma_pairs<kNT / 2>(acc, mh, bv);
+        tc::mma_pairs<kNT / 2>(acc, ml, bv);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int ss = r0 + g + 8 * r;
+        if (ss >= c) continue;
+        bf16* dst = dx + ((row0 + ss) * H + h) * P;
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          const int p = n0 + 8 * j + 2 * t;
+          const float v0 = acc[j][2 * r];
+          const float v1 = acc[j][2 * r + 1];
+          if ((P & 1) == 0) {
+            if (p < P) {
+              *reinterpret_cast<uint32_t*>(dst + p) = tc::pack_bf16(v0, v1);
+            }
+          } else {
+            if (p < P) dst[p] = __float2bfloat16_rn(v0);
+            if (p + 1 < P) dst[p + 1] = __float2bfloat16_rn(v1);
+          }
+        }
+      }
+    }
+    float wp[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int n0 = 0; n0 < kD; n0 += kOut) {
+      float acc[kNT][4];
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        uint32_t xa[4], bh[kNT / 2][4], bl[kNT / 2][4];
+        tc::lda(xa, xs, kPitch, r0, kk * 16);
+#pragma unroll
+        for (int j = 0; j < kNT / 2; ++j) {
+          tc::ldb(bh[j], ds_hi, kPitch, n0 + 16 * j, kk * 16);
+          tc::ldb(bl[j], ds_lo, kPitch, n0 + 16 * j, kk * 16);
+        }
+        tc::mma_pairs<kNT / 2>(acc, xa, bh);
+        tc::mma_pairs<kNT / 2>(acc, xa, bl);
+      }
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const int n = n0 + 8 * j + 2 * t;
+        const float2 b0 = tc::ld_bf16x2(bs + (r0 + g) * kPitch + n);
+        const float2 b1 = tc::ld_bf16x2(bs + (r0 + g + 8) * kPitch + n);
+        wp[0] = fmaf(b0.x, acc[j][0], fmaf(b0.y, acc[j][1], wp[0]));
+        wp[1] = fmaf(b1.x, acc[j][2], fmaf(b1.y, acc[j][3], wp[1]));
+        acc[j][0] *= w0;
+        acc[j][1] *= w0;
+        acc[j][2] *= w1;
+        acc[j][3] *= w1;
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (kk < warp || kk * 16 >= c) continue;
+        uint32_t gah[4], gal[4], bv[kNT / 2][4];
+        tc::lda_t(gah, g_hi, kCPitch, r0, kk * 16);
+        tc::lda_t(gal, g_lo, kCPitch, r0, kk * 16);
+#pragma unroll
+        for (int j = 0; j < kNT / 2; ++j) tc::ldb_t(bv[j], cs, kPitch, n0 + 16 * j, kk * 16);
+        tc::mma_pairs<kNT / 2>(acc, gah, bv);
+        tc::mma_pairs<kNT / 2>(acc, gal, bv);
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int ss = r0 + g + 8 * r;
+        if (ss >= c) continue;
+        float* dst = dBh + ((row0 + ss) * H + h) * N;
+#pragma unroll
+        for (int j = 0; j < kNT; ++j) {
+          scan::store_pair(dst, n0 + 8 * j + 2 * t, N, acc[j][2 * r],
+                           acc[j][2 * r + 1]);
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float v = tc::quad_sum(wp[r]);
+      if (t == 0) dws[r0 + g + 8 * r] = v;
+    }
+  }
+  __syncthreads();   // (5) the chunk's vectors are in
+
+  // warp 0, lane holding rows j = lane and lane + 32: dloga_j = the
+  // spanned Q + the readouts at t >= j (a suffix scan) + w_s's exponents at
+  // s < j (a prefix scan) + exp(cum_L) sum S o dS'; then ddt and dA's part
+  if (warp == 0) {
+    float ssd = 0.0f;
+    for (int n = lane; n < kD; n += 32) ssd += rowsum[n];
+    const float tail = ecum[c - 1] * tc::warp_sum(ssd);
+    float i0 = dws[lane] * dec[lane] * dts[lane];
+    float i1 = dws[lane + 32] * dec[lane + 32] * dts[lane + 32];
+    float s0 = inter[63 - lane];
+    float s1 = inter[31 - lane];
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float y0 = __shfl_up_sync(0xffffffffu, i0, off);
+      const float y1 = __shfl_up_sync(0xffffffffu, i1, off);
+      const float z0 = __shfl_up_sync(0xffffffffu, s0, off);
+      const float z1 = __shfl_up_sync(0xffffffffu, s1, off);
+      if (lane >= off) {
+        i0 += y0;
+        i1 += y1;
+        s0 += z0;
+        s1 += z1;
+      }
+    }
+    const float tot = __shfl_sync(0xffffffffu, i0, 31);
+    float e0 = __shfl_up_sync(0xffffffffu, i0, 1);
+    float e1 = __shfl_up_sync(0xffffffffu, i1, 1);
+    if (lane == 0) e0 = e1 = 0.0f;
+    e1 += tot;
+    s1 += __shfl_sync(0xffffffffu, s0, 31);
+    const float suf0 = __shfl_sync(0xffffffffu, s1, 31 - lane);
+    const float suf1 = __shfl_sync(0xffffffffu, s0, 31 - lane);
+    float dA_acc = 0.0f;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int j = lane + 32 * r;
+      float sp = 0.0f, ce = 0.0f;
+#pragma unroll
+      for (int w = 0; w < kTcWarps; ++w) {
+        sp += span[w * kRows + j];
+        ce += cole[w * kRows + j];
+      }
+      const float dloga = sp + (r ? e1 : e0) + tail + (r ? suf1 : suf0);
+      if (j < c) {
+        ddt[(row0 + j) * H + h] = ce + dec[j] * dws[j] + a * dloga;
+      }
+      dA_acc = fmaf(dts[j], dloga, dA_acc);
+    }
+    dA_acc = tc::warp_sum(dA_acc);
+    if (lane == 0) {
+      dA_part[(static_cast<size_t>(b) * H + h) * n_chunks + k] = dA_acc;
+    }
+  }
+}
+
+template <int kD>
+int set_smem_tc() {
+  cudaError_t err = cudaFuncSetAttribute(
+      ssd_bwd_walk_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(walk_smem_bytes<kD>()));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaFuncSetAttribute(
+      ssd_bwd_chunk_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(chunk_smem_bytes<kD>())));
+}
+
+template <int kD>
+int launch_tc(const void* x, const float* dt, const float* A, const void* Bm,
+              const void* Cm, const float* state0, const void* dy,
+              const float* dstate_T, void* dx, float* ddt, float* dA,
+              void* dBm, void* dCm, float* dstate0, float* states,
+              float* dstates, float* dBh, float* dCh, float* dA_part, int B,
+              int T_len, int H, int P, int G, int N, int c,
+              cudaStream_t stream) {
+  int err = set_smem_tc<kD>();
+  if (err != 0) return err;
+  const bf16* xb = static_cast<const bf16*>(x);
+  const bf16* bb = static_cast<const bf16*>(Bm);
+  const bf16* cb = static_cast<const bf16*>(Cm);
+  const bf16* yb = static_cast<const bf16*>(dy);
+  const bool vec = P % 8 == 0 && N % 8 == 0 && tc::aligned16(x) &&
+                   tc::aligned16(dy) && tc::aligned16(Bm) && tc::aligned16(Cm);
+  const int n_chunks = T_len / c;
+  ssd_bwd_walk_kernel<kD><<<dim3(H, B, 2), walk_threads<kD>(),
+                            walk_smem_bytes<kD>(), stream>>>(
+      xb, dt, A, bb, cb, yb, state0, dstate_T, states, dstates, dstate0, T_len,
+      H, P, G, N, c, vec);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  const dim3 grid(n_chunks, H, B);
+  ssd_bwd_chunk_kernel<kD><<<grid, kTcThreads, chunk_smem_bytes<kD>(),
+                             stream>>>(xb, dt, A, bb, cb, yb, states, dstates,
+                                       static_cast<bf16*>(dx), ddt, dBh, dCh,
+                                       dA_part, T_len, H, P, G, N, c, vec);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  const size_t quads = static_cast<size_t>(B) * T_len * G * ((N + 3) / 4);
+  const size_t blocks = (quads + 255) / 256;
+  ssd_bwd_reduce_kernel<bf16><<<static_cast<unsigned>(blocks < 4096 ? blocks
+                                                                  : 4096),
+                              256, 0, stream>>>(
+      dBh, dCh, dA_part, static_cast<bf16*>(dBm), static_cast<bf16*>(dCm), dA,
+      B, static_cast<size_t>(B) * T_len, H, G, N, n_chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel `part` of the bf16 route (0 the chunk kernel, 1 the walk).
+template <int kD>
+int info_tc(int part, int* info) {
+  const int err = set_smem_tc<kD>();
+  if (err != 0) return err;
+  if (part == 1) {
+    return tc::kernel_info(ssd_bwd_walk_kernel<kD>, walk_threads<kD>(),
+                           walk_smem_bytes<kD>(), info);
+  }
+  return tc::kernel_info(ssd_bwd_chunk_kernel<kD>, kTcThreads,
+                         chunk_smem_bytes<kD>(), info);
+}
+
+// Dispatch on max(N, P) padded to 16, 32, 64 or 128.
+template <typename Fn>
+int with_dim(int N, int P, Fn&& fn) {
+  const int d = N > P ? N : P;
+  if (d <= 16) return fn(std::integral_constant<int, 16>{});
+  if (d <= 32) return fn(std::integral_constant<int, 32>{});
+  if (d <= 64) return fn(std::integral_constant<int, 64>{});
+  if (d <= 128) return fn(std::integral_constant<int, 128>{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// The chunk the backward takes for the forward's `chunk`: the largest
-// divisor of T_len <= chunk whose shared memory fits the card; 0 if none.
-extern "C" int mamba2_ssd_bwd_chunk(int T_len, int N, int P, int chunk) {
+// The chunk the backward takes for the forward's `chunk`: for bf16
+// (dtype 1) the forward's own; for f32 the largest divisor of T_len <=
+// chunk whose shared memory fits the card; 0 if none.
+extern "C" int mamba2_ssd_bwd_chunk(int T_len, int N, int P, int chunk,
+                                    int dtype) {
   if (!valid(T_len, 1, P, 1, N, chunk)) return 0;
+  if (dtype == 1) return chunk;
   return fit_chunk(T_len, N, P, chunk);
 }
 
 // x, dy, dx: (B, T, H, P); dt, ddt: (B, T, H) f32; A, dA: (H,) f32; Bm,
 // Cm, dBm, dCm: (B, T, G, N); state0, dstate_T, dstate0: (B, H, N, P) f32
 // (dstate_T may be null: zeros). Workspaces, f32: states (B * H * T/chunk
-// * N * P), dBh and dCh (B, T, H, N), dA_part (B, H). x, dy, dx, Bm, Cm,
-// dBm, dCm are f32 (dtype 0) or bf16 (dtype 1); all contiguous. `chunk`
-// divides T and is one mamba2_ssd_bwd_chunk gave. Launches the scan and
-// the reduction on `stream`; returns cudaGetLastError() (0 on success).
+// * N * P), dBh and dCh (B, T, H, N), dA_part (B, H; on the bf16 route
+// B, H, T/chunk), and on the bf16 route only dstates (as states; null on
+// the f32 route). x, dy, dx, Bm, Cm,
+// dBm, dCm are f32 (dtype 0: the CUDA-core scan) or bf16 (dtype 1: the
+// tensor-core route); all contiguous. `chunk` divides T and is one
+// mamba2_ssd_bwd_chunk gave. Launches the kernels on `stream`; returns
+// cudaGetLastError() (0 on success).
 extern "C" int mamba2_ssd_bwd_launch(
     const void* x, const float* dt, const float* A, const void* Bm,
     const void* Cm, const float* state0, const void* dy,
     const float* dstate_T, void* dx, float* ddt, float* dA, void* dBm,
-    void* dCm, float* dstate0, float* states, float* dBh, float* dCh,
-    float* dA_part, int B, int T_len, int H, int P, int G, int N, int chunk,
-    int dtype, void* stream) {
+    void* dCm, float* dstate0, float* states, float* dstates, float* dBh,
+    float* dCh, float* dA_part, int B, int T_len, int H, int P, int G, int N,
+    int chunk, int dtype, void* stream) {
   if (B <= 0 || H <= 0) return 0;
   if (!valid(T_len, H, P, G, N, chunk) || B > 65535 || H > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -491,24 +1315,28 @@ extern "C" int mamba2_ssd_bwd_launch(
                          T_len, H, P, G, N, chunk, st);
   }
   if (dtype == 1) {
-    return launch<bf16>(x, dt, A, Bm, Cm, state0, dy, dstate_T, dx, ddt, dA,
-                        dBm, dCm, dstate0, states, dBh, dCh, dA_part, B,
-                        T_len, H, P, G, N, chunk, st);
+    return with_dim(N, P, [&](auto d) {
+      return launch_tc<decltype(d)::value>(
+          x, dt, A, Bm, Cm, state0, dy, dstate_T, dx, ddt, dA, dBm, dCm,
+          dstate0, states, dstates, dBh, dCh, dA_part, B, T_len, H, P, G, N,
+          chunk, st);
+    });
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The compiled scan kernel for `dtype` at (N, P, chunk): info[0..5] as
-// tc::kernel_info gives them (registers, static and dynamic shared memory,
-// spill bytes, blocks an SM, threads a block). Returns a CUDA error code.
+// The compiled kernel for `dtype` at (N, P, chunk): f32 its one scan
+// kernel; bf16 kernel `part` (0 the chunk kernel, 1 the walk). info[0..5] as tc::kernel_info gives them (registers,
+// static and dynamic shared memory, spill bytes, blocks an SM, threads a
+// block). Returns a CUDA error code.
 extern "C" int mamba2_ssd_bwd_info(int N, int P, int chunk, int dtype,
-                                   int* info) {
+                                   int part, int* info) {
   if (P < 1 || P > kMaxDim || N < 1 || N > kMaxDim || chunk < 1 ||
       chunk > kMaxChunk) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = smem_floats(chunk, N, P) * sizeof(float);
   if (dtype == 0) {
+    const size_t smem = smem_floats(chunk, N, P) * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
         ssd_bwd_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
@@ -516,11 +1344,9 @@ extern "C" int mamba2_ssd_bwd_info(int N, int P, int chunk, int dtype,
     return tc::kernel_info(ssd_bwd_kernel<float>, kThreads, smem, info);
   }
   if (dtype == 1) {
-    cudaError_t err = cudaFuncSetAttribute(
-        ssd_bwd_kernel<bf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    return tc::kernel_info(ssd_bwd_kernel<bf16>, kThreads, smem, info);
+    return with_dim(N, P, [&](auto d) {
+      return info_tc<decltype(d)::value>(part, info);
+    });
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

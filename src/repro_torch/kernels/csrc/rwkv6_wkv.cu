@@ -401,21 +401,9 @@ __device__ __forceinline__ float lg2(float x) {
   return y;
 }
 
-// x0, x1 as bf16 pairs hi and lo with x = hi + lo to about 16 bits.
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = tc::pack_bf16(x0, x1);
-  const float2 h = tc::unpack_bf16(hi);
-  lo = tc::pack_bf16(x0 - h.x, x1 - h.y);
-}
-
-__device__ __forceinline__ float2 ld_bf16x2(const bf16* p) {
-  return tc::unpack_bf16(*reinterpret_cast<const uint32_t*>(p));
-}
-
-__device__ __forceinline__ void st_bf16x2(bf16* p, uint32_t v) {
-  *reinterpret_cast<uint32_t*>(p) = v;
-}
+using tc::ld_bf16x2;
+using tc::split_bf16;
+using tc::st_bf16x2;
 
 // acc[2 i], acc[2 i + 1] += a . (B fragment pair i) for i < n: one mma on
 // each of 2 n accumulators in turn.

@@ -40,24 +40,70 @@
 // recomputed among them): 7 us on the bf16 tensor cores, 0.1 ms in f32 on
 // the CUDA cores.
 //
-// Design (the first, simple one; a tensor-core route is later work): one
-// block of 512 threads per (b, h), f32 arithmetic on the CUDA cores for
-// both input types, one rounding of each gradient to its input's type at
-// the end (no bf16 operand rounding, which misses the JAX tolerance for
-// WKV: tests/test_torch_tensor_core_rounding.py). The block walks the
-// chunks forward and writes the state at each chunk's start to a workspace
-// (B x H x chunks x N x N f32, 21 MB at the train shape), then walks them
-// backward with dS in shared memory. Per chunk: r, k, v, w, dout staged as
-// f32 (odd pitches); one thread a channel runs the cumsum; the factors
-// r_dec, k_over, k_scaled in parallel; the strictly lower scores and
-// dout.v^T; then dr, dk, dv (written out) and dcum, a thread a channel
-// walking it back (the -30 mask) into dlogw; then dw and the carried dS. du
-// sums over batches without atomics: per-batch partials to a workspace, a
-// second kernel sums them in order, so a second call gives equal bits.
+// bf16 route (the train path; wkv_bwd_walk_kernel, wkv_bwd_chunk_kernel,
+// wkv_bwd_reduce_kernel): given a chunk's start state S and its end
+// state's gradient dS', every term above is local to the chunk, the -30
+// mask and the L-step terms included. Three launches, one call:
+//   1. the walk, a block per (h, b) and direction, 8 warps holding the
+//      state in f32 registers: per chunk log w and its cumsum (a warp a
+//      channel, shuffle scans), then forwards it writes S_j and adds
+//      k_scaled^T . v, backwards it writes dS'_j and adds r_dec^T . dout,
+//      each after exp(cum_L) scales the key channels' rows; the next
+//      chunk's r/k, v/dout and w come by cp.async meanwhile. It takes
+//      logf and expf, as the chunk kernel does, so both kernels see the
+//      same cum and decays;
+//   2. the chunk kernel, a block per (chunk, h, b) (1,280 at the train
+//      shape, where the scan had 160), 16 warps: warp w owns chunk rows
+//      16 (w % 4).. and a quarter of the output columns. It builds the
+//      cumsum and the factors r_dec, k_over, k_scaled again, the strictly
+//      lower scores (shared out across the warps of a row block) and
+//      dout.v^T, dr_dec = dout.S^T + dscores.k_over, dk_over = dscores^T
+//      .r_dec, dk_scaled = v.dS'^T and dv = scores^T.dout + k_scaled.dS'
+//      (ldmatrix.trans for the transposes), dr and dk, dcum and its
+//      column sums; then a warp a channel walks dcum back under the -30
+//      mask into dlogw (shuffle scans), and dw = dlogw / w where w >= 1e-8
+//      (0 below, as torch.clamp passes it);
+//   3. du's fixed-order sum over batches and chunks; no atomics, so a
+//      second call gives equal bits.
+// Every product runs as mma.sync.m16n8k16, bf16 operands and f32 sums.
+// dout.v^T takes two bf16 inputs and is exact; every f32 operand (r_dec,
+// k_over, k_scaled, the scores, dout.v^T, S and dS') is split into bf16
+// hi + lo, three mma a product of two such and two against a bf16 input:
+// one rounding misses by far (ROADMAP C4; tests/test_torch_scan_bwd_
+// rounding.py). The clamps are masked in f32 as the f32 route masks them
+// (C9). N pads to kD = 16, 32 or 64 with zeros and the chunk to 64 rows.
+// Workspaces beyond the bound: S_j and dS'_j (21 MB each at the train
+// shape, written by the walk and read by the chunk kernel): 84 MB, 25 us
+// at 3.35 TB/s. The chunk kernel holds 211,712 bytes of shared memory (the
+// split operands' tiles) and 123 registers, so one block of 16 warps an
+// SM; the walk 90,624 bytes and 80 registers (2 blocks); no spill.
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W), bf16 at (4, 512, 40,
+// 64): 0.3572 ms a call, 0.3170 CUPTI busy (walk 0.1112, chunk kernel
+// 0.2017, sum 0.0035), 12x its byte bound (0.3309 with __logf and __expf
+// in the walk); the first port's CUDA-core scan took 1.6151 ms there. What
+// holds it: with one block an SM nothing hides a block's loads, and the
+// walk's per-chunk log, cumsum and factors run in series with the state's
+// update.
+//
+// f32 route (wkv_bwd_kernel, the first port's, unchanged): it meets the f32
+// gradient tolerance (5e-4). One block of 512 threads per (b, h), f32
+// arithmetic on the CUDA cores. The block walks the chunks forward and
+// writes the state at each chunk's start to a workspace (B x H x chunks x
+// N x N f32, 21 MB at the train shape), then walks them backward with dS
+// in shared memory. Per chunk: r, k, v, w, dout staged as f32 (odd
+// pitches); one thread a channel runs the cumsum; the factors r_dec,
+// k_over, k_scaled in parallel; the strictly lower scores and dout.v^T;
+// then dr, dk, dv (written out) and dcum, a thread a channel walking it
+// back (the -30 mask) into dlogw; then dw and the carried dS. du sums over
+// batches without atomics: per-batch partials to a workspace, the second
+// kernel sums them in order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <type_traits>
+
+#include "scan_bwd.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -319,13 +365,22 @@ wkv_bwd_kernel(const T* __restrict__ r, const T* __restrict__ k,
   if (tid < N) du_part[(static_cast<size_t>(b) * H + h) * N + tid] = du_acc;
 }
 
-// du = the per-batch partials summed in batch order.
+// du = the partials summed in a fixed order: over batches, and over the
+// `parts` partials of each (batch, head) (1 on the f32 route, the chunks on
+// the bf16 route).
 __global__ void wkv_bwd_reduce_kernel(const float* __restrict__ du_part,
-                                      float* __restrict__ du, int B, int HN) {
+                                      float* __restrict__ du, int B, int H,
+                                      int N, int parts) {
+  const int HN = H * N;
   for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < HN;
        i += gridDim.x * blockDim.x) {
+    const int h = i / N;
+    const int n = i - h * N;
     float s = 0.0f;
-    for (int b = 0; b < B; ++b) s += du_part[static_cast<size_t>(b) * HN + i];
+    for (int b = 0; b < B; ++b) {
+      const float* p = du_part + (static_cast<size_t>(b) * H + h) * parts * N + n;
+      for (int k = 0; k < parts; ++k) s += p[static_cast<size_t>(k) * N];
+    }
     du[i] = s;
   }
 }
@@ -351,7 +406,7 @@ int launch(const void* r, const void* k, const void* v, const void* w,
   if (err != cudaSuccess) return static_cast<int>(err);
   const int HN = H * N;
   wkv_bwd_reduce_kernel<<<(HN + 255) / 256, 256, 0, stream>>>(du_part, du, B,
-                                                              HN);
+                                                              H, N, 1);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -360,21 +415,816 @@ bool valid(int T_len, int N, int chunk) {
          T_len >= 1 && T_len % chunk == 0;
 }
 
+// --------------------------------------------------------------------------
+// bf16 route: tensor cores, the chunks in parallel
+// --------------------------------------------------------------------------
+
+constexpr int kRows = 64;             // chunk rows in shared memory
+constexpr int kCPitch = kRows + 8;    // pitch of the c x c tiles
+constexpr int kRowWarps = 4;          // the chunk kernel: 16 rows a warp,
+constexpr int kColWarps = 4;          // up to four warps a row block, each
+constexpr int kTcWarps = kRowWarps * kColWarps;   // a share of the columns
+constexpr int kTcThreads = 32 * kTcWarps;
+constexpr float kMinW = 1e-8f;
+constexpr float kMinCum = -30.0f;
+
+// kD: N padded to 16, 32 or 64, with a pitch of kD + 8 (bf16 tiles) or
+// kD + 1 (f32 buffers, whose columns the scans walk).
+template <int kD>
+__host__ __device__ constexpr int tc_pitch() { return kD + 8; }
+
+template <int kD>
+__host__ __device__ constexpr int f_pitch() { return kD + 1; }
+
+// The walk kernel: 8 warps, 16 state rows and kD / kWalkSplit columns
+// each (warps past the state take no part in the update); two stages of
+// the factor's (k or r), the operand's (v or dout) and w's tiles; log w's
+// cumsum (f32); the factor's hi and lo; exp(cum_L).
+constexpr int kWalkWarps = 8;
+constexpr int kWalkThreads = 32 * kWalkWarps;
+
+template <int kD>
+__host__ __device__ constexpr int walk_split() {
+  return kWalkWarps / (kD / 16) < kD / 16 ? kWalkWarps / (kD / 16) : kD / 16;
+}
+
+template <int kD>
+constexpr size_t walk_smem_bytes() {
+  return sizeof(bf16) * 8 * kRows * tc_pitch<kD>() +
+         sizeof(float) * (kRows * f_pitch<kD>() + kD);
+}
+
+// The chunk kernel: r, k, v, w, dout tiles; r_dec, k_over, k_scaled (hi,
+// lo); a union of S (hi, lo) and of dr_dec o r_dec (f32); dS' (hi, lo); the
+// scores and dout.v^T (hi, lo); the cumsum and dcum (f32); vectors.
+template <int kD>
+__host__ __device__ constexpr int s_union_bytes() {
+  return 2 * kD * tc_pitch<kD>() * 2 > kRows * f_pitch<kD>() * 4
+             ? 2 * kD * tc_pitch<kD>() * 2
+             : kRows * f_pitch<kD>() * 4;
+}
+
+template <int kD>
+constexpr size_t chunk_smem_bytes() {
+  return sizeof(bf16) * (11 * kRows * tc_pitch<kD>() +
+                         2 * kD * tc_pitch<kD>() + 4 * kRows * kCPitch) +
+         s_union_bytes<kD>() +
+         sizeof(float) * (2 * kRows * f_pitch<kD>() + 3 * kD + 2 * kRows +
+                          2 * kRowWarps * kD);
+}
+
+// A pair of values to a bf16 row at column n (n even), within N.
+__device__ __forceinline__ void store_pair(bf16* row, int n, int N, float v0,
+                                           float v1) {
+  if ((N & 1) == 0) {
+    if (n < N) tc::st_bf16x2(row + n, tc::pack_bf16(v0, v1));
+  } else {
+    if (n < N) row[n] = __float2bfloat16_rn(v0);
+    if (n + 1 < N) row[n + 1] = __float2bfloat16_rn(v1);
+  }
+}
+
+// Warp-wide inclusive scan of column n of an f32 buffer of kRows rows
+// (pitch fp), down the rows or (reverse) up them; lane l holds rows l and
+// l + 32 (reversed: 63 - l and 31 - l). `add` is added at row `at` first;
+// rows whose `mask` entry is below kMinCum add nothing (mask may be null).
+__device__ __forceinline__ void scan_column(float* buf, const float* mask,
+                                            int fp, int n, bool reverse,
+                                            int at, float add) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = reverse ? 63 - lane : lane;
+  const int r1 = reverse ? 31 - lane : lane + 32;
+  float v0 = buf[r0 * fp + n] + (r0 == at ? add : 0.0f);
+  float v1 = buf[r1 * fp + n] + (r1 == at ? add : 0.0f);
+  if (mask != nullptr) {
+    if (mask[r0 * fp + n] < kMinCum) v0 = 0.0f;
+    if (mask[r1 * fp + n] < kMinCum) v1 = 0.0f;
+  }
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const float u0 = __shfl_up_sync(0xffffffffu, v0, off);
+    const float u1 = __shfl_up_sync(0xffffffffu, v1, off);
+    if (lane >= off) {
+      v0 += u0;
+      v1 += u1;
+    }
+  }
+  v1 += __shfl_sync(0xffffffffu, v0, 31);
+  buf[r0 * fp + n] = v0;
+  buf[r1 * fp + n] = v1;
+}
+
+// log w (0 past the chunk and past N) into lw, then its cumsum over the
+// chunk in place, a warp a channel.
+template <int kD, int kThreads>
+__device__ __forceinline__ void chunk_cumsum(float* lw, const bf16* ws,
+                                             int c, int N) {
+  constexpr int kPitch = tc_pitch<kD>();
+  constexpr int fp = f_pitch<kD>();
+  constexpr int kWarps = kThreads / 32;
+  for (int i = threadIdx.x; i < kRows * kD; i += kThreads) {
+    const int t = i / kD;
+    const int n = i - t * kD;
+    const float wv = fmaxf(__bfloat162float(ws[t * kPitch + n]), kMinW);
+    lw[t * fp + n] = t < c && n < N ? logf(wv) : 0.0f;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < (kD + kWarps - 1) / kWarps; ++i) {
+    const int n = (threadIdx.x >> 5) + i * kWarps;
+    if (n < kD) scan_column(lw, nullptr, fp, n, false, -1, 0.0f);
+  }
+  __syncthreads();
+}
+
+// The chunk's r, k, v, w, dout (rows t0.., zeros past the chunk and N).
+template <int kD, int kThreads>
+__device__ __forceinline__ void load_chunk(bf16* rs, bf16* ks, bf16* vs,
+                                           bf16* ws, bf16* dos,
+                                           const bf16* r, const bf16* k,
+                                           const bf16* v, const bf16* w,
+                                           const bf16* dout, size_t base,
+                                           size_t stride, int t0, int c,
+                                           int N, bool vec) {
+  constexpr int kPitch = tc_pitch<kD>();
+  tc::load_rows<kRows, kD, kPitch, kThreads>(rs, r + base, stride, t0, t0 + c,
+                                            N, vec);
+  tc::load_rows<kRows, kD, kPitch, kThreads>(ks, k + base, stride, t0, t0 + c,
+                                            N, vec);
+  tc::load_rows<kRows, kD, kPitch, kThreads>(vs, v + base, stride, t0, t0 + c,
+                                            N, vec);
+  tc::load_rows<kRows, kD, kPitch, kThreads>(ws, w + base, stride, t0, t0 + c,
+                                            N, vec);
+  tc::load_rows<kRows, kD, kPitch, kThreads>(dos, dout + base, stride, t0,
+                                            t0 + c, N, vec);
+  tc::cp_async_commit();
+}
+
+// Kernel 1, per (h, b) and direction (blockIdx.z): the chunk states. The
+// warps hold the state in f32 registers (C tiles) and walk the chunks, the
+// next chunk's tiles copied by cp.async into the other stage while this
+// one is used. blockIdx.z = 0 walks forwards from S_0 = state0, writing S_j
+// into `states` and then S_{j+1} = exp(cum_L) o S_j + k_scaled^T . v;
+// blockIdx.z = 1 walks backwards from dS'_{K-1} = dstate_T (or 0), writing
+// dS'_j into `dstates` and then dS'_{j-1} = exp(cum_L) o dS'_j + r_dec^T .
+// dout, and last dstate0. exp(cum_L) scales each key channel's row; the
+// factors k_scaled and r_dec are split into bf16 hi + lo.
+template <int kD>
+__global__ void __launch_bounds__(kWalkThreads)
+wkv_bwd_walk_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ w,
+                    const bf16* __restrict__ dout,
+                    const float* __restrict__ state0,
+                    const float* __restrict__ dstate_T,
+                    float* __restrict__ states, float* __restrict__ dstates,
+                    float* __restrict__ dstate0, int T_len, int H, int N,
+                    int c, bool vec) {
+  constexpr int kPitch = tc_pitch<kD>();
+  constexpr int kTile = kRows * kPitch;
+  constexpr int fp = f_pitch<kD>();
+  constexpr int kSplit = walk_split<kD>();
+  constexpr int kNTc = kD / 8 / kSplit;        // 8-column tiles a warp
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* tiles = reinterpret_cast<bf16*>(smem_raw);   // stage: fac, opd, w
+  bf16* f_hi = tiles + 6 * kTile;
+  bf16* f_lo = f_hi + kTile;
+  float* raw = reinterpret_cast<float*>(f_lo + kTile);   // log w's cumsum
+  float* plast = raw + kRows * fp;                        // exp(cum_L)
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const bool grad = blockIdx.z == 1;
+  const int n_chunks = T_len / c;
+  const size_t stride = static_cast<size_t>(H) * N;
+  const size_t base = (static_cast<size_t>(b) * T_len * H + h) * N;
+  const bf16* fac = grad ? r : k;
+  const bf16* opd = grad ? dout : v;
+  const size_t NN = static_cast<size_t>(N) * N;
+  const size_t bh = static_cast<size_t>(b) * H + h;
+  float* out = (grad ? dstates : states) + bh * n_chunks * NN;
+  // warp (rb, ch): state rows 16 rb.., columns c0..c0 + kD / kSplit
+  const int rb = warp % (kD / 16);
+  const int ch = warp / (kD / 16);
+  const bool active = ch < kSplit;
+  const int n0 = 16 * rb;
+  const int c0 = ch * (kD / kSplit);
+
+  auto load = [&](int j, int st) {
+    const int t0 = j * c;
+    bf16* dst = tiles + 3 * st * kTile;
+    tc::load_rows<kRows, kD, kPitch, kWalkThreads>(dst, fac + base, stride,
+                                                  t0, t0 + c, N, vec);
+    tc::load_rows<kRows, kD, kPitch, kWalkThreads>(dst + kTile, opd + base,
+                                                  stride, t0, t0 + c, N, vec);
+    tc::load_rows<kRows, kD, kPitch, kWalkThreads>(dst + 2 * kTile, w + base,
+                                                  stride, t0, t0 + c, N, vec);
+    tc::cp_async_commit();
+  };
+
+  float sacc[kNTc][4];
+  const float* init = grad ? dstate_T : state0;
+#pragma unroll
+  for (int q = 0; q < kNTc; ++q) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int n = n0 + g + 8 * (e >> 1);
+      const int m = c0 + 8 * q + 2 * t + (e & 1);
+      sacc[q][e] = active && init != nullptr && n < N && m < N
+                       ? init[bh * NN + static_cast<size_t>(n) * N + m]
+                       : 0.0f;
+    }
+  }
+  auto store_state = [&](float* dst) {
+    if (!active) return;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int n = n0 + g + 8 * half;
+      if (n >= N) continue;
+#pragma unroll
+      for (int q = 0; q < kNTc; ++q) {
+        scan::store_pair(dst + static_cast<size_t>(n) * N, c0 + 8 * q + 2 * t,
+                         N, sacc[q][2 * half], sacc[q][2 * half + 1]);
+      }
+    }
+  };
+
+  load(grad ? n_chunks - 1 : 0, 0);
+  for (int i = 0; i < n_chunks; ++i) {
+    const int j = grad ? n_chunks - 1 - i : i;
+    const int st = i & 1;
+    tc::cp_async_wait<0>();
+    __syncthreads();   // the chunk has landed; the other stage is read
+    if (i + 1 < n_chunks) load(grad ? j - 1 : j + 1, st ^ 1);
+    const bf16* fs = tiles + 3 * st * kTile;
+    const bf16* os = fs + kTile;
+    const bf16* ws = os + kTile;
+    store_state(out + static_cast<size_t>(j) * NN);
+    // cum, log w and the factors as the chunk kernel computes them (logf,
+    // expf), so both see the same decays
+    chunk_cumsum<kD, kWalkThreads>(raw, ws, c, N);
+    // k_scaled = k exp(cum_L - cum) or r_dec = r exp(cum - log w), split
+    for (int idx = threadIdx.x; idx < kRows * kD / 2; idx += kWalkThreads) {
+      const int tt = idx / (kD / 2);
+      const int n = 2 * (idx - tt * (kD / 2));
+      const int o = tt * kPitch + n;
+      const float2 fv = tc::ld_bf16x2(fs + o), wv = tc::ld_bf16x2(ws + o);
+      float f[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const float cum = fmaxf(raw[tt * fp + n + q], kMinCum);
+        if (grad) {
+          const bool ok = tt < c && n + q < N;
+          const float lw = ok ? logf(fmaxf(q ? wv.y : wv.x, kMinW)) : 0.0f;
+          f[q] = (q ? fv.y : fv.x) * expf(cum - lw);
+        } else {
+          const float cl = fmaxf(raw[(c - 1) * fp + n + q], kMinCum);
+          f[q] = (q ? fv.y : fv.x) * expf(cl - cum);
+        }
+      }
+      uint32_t hi, lo;
+      tc::split_bf16(f[0], f[1], hi, lo);
+      tc::st_bf16x2(f_hi + o, hi);
+      tc::st_bf16x2(f_lo + o, lo);
+    }
+    for (int n = threadIdx.x; n < kD; n += kWalkThreads) {
+      plast[n] = expf(fmaxf(raw[(c - 1) * fp + n], kMinCum));
+    }
+    __syncthreads();   // the factor and exp(cum_L) are in
+    if (active) {
+      const float e0 = plast[n0 + g];
+      const float e1 = plast[n0 + g + 8];
+#pragma unroll
+      for (int q = 0; q < kNTc; ++q) {
+        sacc[q][0] *= e0;
+        sacc[q][1] *= e0;
+        sacc[q][2] *= e1;
+        sacc[q][3] *= e1;
+      }
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; ++kk) {
+        if (kk * 16 >= c) break;
+        uint32_t ah[4], al[4], bv[kNTc / 2][4];
+        tc::lda_t(ah, f_hi, kPitch, n0, kk * 16);
+        tc::lda_t(al, f_lo, kPitch, n0, kk * 16);
+#pragma unroll
+        for (int q = 0; q < kNTc / 2; ++q) {
+          tc::ldb_t(bv[q], os, kPitch, c0 + q * 16, kk * 16);
+        }
+        tc::mma_pairs<kNTc / 2>(sacc, ah, bv);
+        tc::mma_pairs<kNTc / 2>(sacc, al, bv);
+      }
+    }
+  }
+  if (grad) store_state(dstate0 + bh * NN);
+}
+
+// Kernel 2, per (chunk j, h, b), 16 warps, warp w owning chunk rows 16 (w %
+// 4).. and a share of the columns: the chunk's gradient from its start
+// state S and its end state's gradient dS' (f32 from kernel 1). Every
+// operand that is f32 here
+// is split into bf16 hi + lo (three mma a product of two such, two with a
+// bf16 input); dr, dk, dv, dw and the chunk's part of du.
+template <int kD>
+__global__ void __launch_bounds__(kTcThreads)
+wkv_bwd_chunk_kernel(const bf16* __restrict__ r, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ w,
+                     const float* __restrict__ u,
+                     const bf16* __restrict__ dout,
+                     const float* __restrict__ states,
+                     const float* __restrict__ dstates, bf16* __restrict__ dr,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv,
+                     bf16* __restrict__ dw, float* __restrict__ du_part,
+                     int T_len, int H, int N, int c, bool vec) {
+  constexpr int kPitch = tc_pitch<kD>();
+  constexpr int kTile = kRows * kPitch;
+  constexpr int kSteps = kD / 16;
+  constexpr int kNT = kD / 8;
+  constexpr int kCTile = kRows * kCPitch;
+  constexpr int fp = f_pitch<kD>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* rs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ks = rs + kTile;
+  bf16* vs = ks + kTile;
+  bf16* ws = vs + kTile;
+  bf16* dos = ws + kTile;
+  bf16* rd_hi = dos + kTile;     // r_dec
+  bf16* rd_lo = rd_hi + kTile;
+  bf16* ko_hi = rd_lo + kTile;   // k_over
+  bf16* ko_lo = ko_hi + kTile;
+  bf16* kc_hi = ko_lo + kTile;   // k_scaled
+  bf16* kc_lo = kc_hi + kTile;
+  unsigned char* un = reinterpret_cast<unsigned char*>(kc_lo + kTile);
+  bf16* s_hi = reinterpret_cast<bf16*>(un);   // S until barrier (5),
+  bf16* s_lo = s_hi + kD * kPitch;
+  float* fbuf = reinterpret_cast<float*>(un);  // then dr_dec o r_dec
+  bf16* ds_hi = reinterpret_cast<bf16*>(un + s_union_bytes<kD>());   // dS'
+  bf16* ds_lo = ds_hi + kD * kPitch;
+  bf16* sc_hi = ds_lo + kD * kPitch;           // scores, rows t, columns s
+  bf16* sc_lo = sc_hi + kCTile;
+  bf16* dsc_hi = sc_lo + kCTile;               // dout.v^T, strictly lower
+  bf16* dsc_lo = dsc_hi + kCTile;
+  float* raw = reinterpret_cast<float*>(dsc_lo + kCTile);   // the cumsum
+  float* dcm = raw + kRows * fp;               // dcum, then dlogw's sum
+  float* us = dcm + kRows * fp;
+  float* plast = us + kD;                      // exp(cum_L)
+  float* ssd = plast + kD;                     // sum_m S o dS'
+  float* diag = ssd + kD;                      // sum_n r u k
+  float* ddiag = diag + kRows;                 // dout . v
+  float* ekp = ddiag + kRows;                  // row blocks x kD
+  float* dup = ekp + kRowWarps * kD;           // row blocks x kD
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int j = blockIdx.x;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n_chunks = gridDim.x;
+  const int t0 = j * c;
+  // warp (rw, ch): chunk rows 16 rw.., a kSplit-th of the output columns
+  // of the c x N products from c0 (16 columns or more a warp; warps ch >=
+  // kSplit take none)
+  constexpr int kSplit = kD / 16 < kColWarps ? kD / 16 : kColWarps;
+  constexpr int kNTc = kNT / kSplit;           // 8-column tiles a warp
+  const int rw = warp % kRowWarps;
+  const int ch = warp / kRowWarps;
+  const bool cols = ch < kSplit;
+  const int c0 = ch * (kD / kSplit);
+  const int r0 = 16 * rw;
+  const size_t stride = static_cast<size_t>(H) * N;
+  const size_t base = (static_cast<size_t>(b) * T_len * H + h) * N;
+  const size_t bhj = (static_cast<size_t>(b) * H + h) * n_chunks + j;
+  load_chunk<kD, kTcThreads>(rs, ks, vs, ws, dos, r, k, v, w, dout, base,
+                             stride, t0, c, N, vec);
+
+  // S and dS' into their hi and lo copies (zeros past N), and the rows'
+  // sums of S o dS'
+  scan::load_states<kD, kTcThreads>(states + bhj * N * N, dstates + bhj * N * N,
+                                    N, N, s_hi, s_lo, ds_hi, ds_lo, ssd);
+  for (int n = threadIdx.x; n < kD; n += kTcThreads) {
+    us[n] = n < N ? u[h * N + n] : 0.0f;
+  }
+  tc::cp_async_wait<0>();
+  __syncthreads();   // (1) the chunk and the states are in
+  chunk_cumsum<kD, kTcThreads>(raw, ws, c, N);   // (2), (3)
+
+  // the factors, split; exp(cum_L); the bonus sum_n r u k and dout . v of
+  // each row, a warp a row
+  for (int i = threadIdx.x; i < kRows * kD / 2; i += kTcThreads) {
+    const int tt = i / (kD / 2);
+    const int n = 2 * (i - tt * (kD / 2));
+    const int o = tt * kPitch + n;
+    const float2 rv = tc::ld_bf16x2(rs + o), kv = tc::ld_bf16x2(ks + o), wv = tc::ld_bf16x2(ws + o);
+    float rd[2], ko[2], kc[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const bool ok = tt < c && n + q < N;
+      const float cum = fmaxf(raw[tt * fp + n + q], kMinCum);
+      const float cl = fmaxf(raw[(c - 1) * fp + n + q], kMinCum);
+      const float lw = ok ? logf(fmaxf(q ? wv.y : wv.x, kMinW)) : 0.0f;
+      const float kq = q ? kv.y : kv.x;
+      rd[q] = (q ? rv.y : rv.x) * expf(cum - lw);
+      ko[q] = kq * expf(-cum);
+      kc[q] = kq * expf(cl - cum);
+    }
+    uint32_t hi, lo;
+    tc::split_bf16(rd[0], rd[1], hi, lo);
+    tc::st_bf16x2(rd_hi + o, hi);
+    tc::st_bf16x2(rd_lo + o, lo);
+    tc::split_bf16(ko[0], ko[1], hi, lo);
+    tc::st_bf16x2(ko_hi + o, hi);
+    tc::st_bf16x2(ko_lo + o, lo);
+    tc::split_bf16(kc[0], kc[1], hi, lo);
+    tc::st_bf16x2(kc_hi + o, hi);
+    tc::st_bf16x2(kc_lo + o, lo);
+  }
+  for (int n = threadIdx.x; n < kD; n += kTcThreads) {
+    plast[n] = expf(fmaxf(raw[(c - 1) * fp + n], kMinCum));
+  }
+  for (int tt = warp; tt < kRows; tt += kTcWarps) {
+    const int n = 2 * lane;
+    float a = 0.0f, d = 0.0f;
+    if (n < kD) {
+      const int o = tt * kPitch + n;
+      const float2 rv = tc::ld_bf16x2(rs + o), kv = tc::ld_bf16x2(ks + o);
+      const float2 vv = tc::ld_bf16x2(vs + o), ov = tc::ld_bf16x2(dos + o);
+      a = fmaf(rv.x * us[n], kv.x, rv.y * us[n + 1] * kv.y);
+      d = fmaf(ov.x, vv.x, ov.y * vv.y);
+    }
+    a = tc::warp_sum(a);
+    d = tc::warp_sum(d);
+    if (lane == 0) {
+      diag[tt] = a;
+      ddiag[tt] = d;
+    }
+  }
+  __syncthreads();   // (4) the factors are in
+
+  // this warp's rows t: dout . v^T on the column tiles s <= r0 + 15 and
+  // the scores = r_dec . k_over^T on those of them with q % kSplit = ch,
+  // masked strictly lower; its columns of dr_dec = S dout_t + sum_{s<t}
+  // (dout_t . v_s) k_over_s
+  float sc[8][4], dsc[8][4], acc[kNTc][4];
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[q][e] = dsc[q][e] = 0.0f;
+#pragma unroll
+  for (int q = 0; q < kNTc; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[q][e] = 0.0f;
+  if (cols) {
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      uint32_t rh[4], rl[4], da[4];
+      tc::lda(da, dos, kPitch, r0, kk * 16);
+      if (ch <= rw) {
+        tc::lda(rh, rd_hi, kPitch, r0, kk * 16);
+        tc::lda(rl, rd_lo, kPitch, r0, kk * 16);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        if (q > rw) continue;
+        uint32_t bv[1][4];
+        tc::ldb(bv[0], vs, kPitch, q * 16, kk * 16);
+        tc::mma_pairs<1>(dsc + 2 * q, da, bv);
+        if (q % kSplit == ch) {
+          uint32_t bh[1][4], bl[1][4];
+          tc::ldb(bh[0], ko_hi, kPitch, q * 16, kk * 16);
+          tc::ldb(bl[0], ko_lo, kPitch, q * 16, kk * 16);
+          tc::mma_pairs<1>(sc + 2 * q, rh, bh);
+          tc::mma_pairs<1>(sc + 2 * q, rh, bl);
+          tc::mma_pairs<1>(sc + 2 * q, rl, bh);
+        }
+      }
+      uint32_t sh[kNTc / 2][4], sl[kNTc / 2][4];
+#pragma unroll
+      for (int q = 0; q < kNTc / 2; ++q) {
+        tc::ldb(sh[q], s_hi, kPitch, c0 + q * 16, kk * 16);
+        tc::ldb(sl[q], s_lo, kPitch, c0 + q * 16, kk * 16);
+      }
+      tc::mma_pairs<kNTc / 2>(acc, da, sh);
+      tc::mma_pairs<kNTc / 2>(acc, da, sl);
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int tt = r0 + g + 8 * (e >> 1);
+        const int ss = 8 * q + 2 * t + (e & 1);
+        if (ss >= tt) sc[q][e] = dsc[q][e] = 0.0f;
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (kk > rw) continue;
+      uint32_t ah[4], al[4], bh[kNTc / 2][4], bl[kNTc / 2][4];
+      tc::c_to_a_split(dsc[2 * kk], dsc[2 * kk + 1], ah, al);
+#pragma unroll
+      for (int q = 0; q < kNTc / 2; ++q) {
+        tc::ldb_t(bh[q], ko_hi, kPitch, c0 + q * 16, kk * 16);
+        tc::ldb_t(bl[q], ko_lo, kPitch, c0 + q * 16, kk * 16);
+      }
+      tc::mma_pairs<kNTc / 2>(acc, ah, bh);
+      tc::mma_pairs<kNTc / 2>(acc, ah, bl);
+      tc::mma_pairs<kNTc / 2>(acc, al, bh);
+    }
+  }
+  __syncthreads();   // (5) every read of S is done: dr_dec o r_dec takes its place
+
+  // dr = dr_dec exp(cum - log w) + (dout_t . v_t) u k_t; dcum = dr_dec o
+  // r_dec (for now); this warp's score and dout.v^T tiles to shared memory
+#pragma unroll
+  for (int q = 0; q < kNTc; ++q) {
+    if (!cols) break;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int tt = r0 + g + 8 * half;
+      const int n = c0 + 8 * q + 2 * t;
+      const int o = tt * kPitch + n;
+      const float2 rv = tc::ld_bf16x2(rs + o), kv = tc::ld_bf16x2(ks + o), wv = tc::ld_bf16x2(ws + o);
+      float out[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const bool ok = tt < c && n + i < N;
+        const float cum = fmaxf(raw[tt * fp + n + i], kMinCum);
+        const float lw = ok ? logf(fmaxf(i ? wv.y : wv.x, kMinW)) : 0.0f;
+        const float e1 = expf(cum - lw);
+        const float drd = acc[q][2 * half + i];
+        out[i] = fmaf(drd, e1, ddiag[tt] * us[n + i] * (i ? kv.y : kv.x));
+        const float f = drd * ((i ? rv.y : rv.x) * e1);
+        fbuf[tt * fp + n + i] = f;
+        dcm[tt * fp + n + i] = f;
+      }
+      if (tt < c) {
+        store_pair(dr + base + static_cast<size_t>(t0 + tt) * stride, n, N,
+                   out[0], out[1]);
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (!cols || q > rw || q % kSplit != ch) continue;
+    tc::store_split<2>(sc + 2 * q, sc_hi + 16 * q, sc_lo + 16 * q, kCPitch,
+                       r0);
+    tc::store_split<2>(dsc + 2 * q, dsc_hi + 16 * q, dsc_lo + 16 * q,
+                       kCPitch, r0);
+  }
+  __syncthreads();   // (6) the score tiles are in
+
+  // this warp's rows s and columns: dk_over = sum_{t>s} (dout_t . v_s)
+  // r_dec_t, dk_scaled = dS' v_s, then dk; dcum -= dk_over o k_over +
+  // dk_scaled o k_scaled; the columns' sums of dk_scaled o k_scaled and of
+  // (dout_s . v_s) r_s k_s
+  if (cols) {
+    float ako[kNTc][4], aks[kNTc][4];
+#pragma unroll
+    for (int q = 0; q < kNTc; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ako[q][e] = aks[q][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (kk < rw || kk * 16 >= c) continue;
+      uint32_t ah[4], al[4], bh[kNTc / 2][4], bl[kNTc / 2][4];
+      tc::lda_t(ah, dsc_hi, kCPitch, r0, kk * 16);
+      tc::lda_t(al, dsc_lo, kCPitch, r0, kk * 16);
+#pragma unroll
+      for (int q = 0; q < kNTc / 2; ++q) {
+        tc::ldb_t(bh[q], rd_hi, kPitch, c0 + q * 16, kk * 16);
+        tc::ldb_t(bl[q], rd_lo, kPitch, c0 + q * 16, kk * 16);
+      }
+      tc::mma_pairs<kNTc / 2>(ako, ah, bh);
+      tc::mma_pairs<kNTc / 2>(ako, ah, bl);
+      tc::mma_pairs<kNTc / 2>(ako, al, bh);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      uint32_t va[4], bh[kNTc / 2][4], bl[kNTc / 2][4];
+      tc::lda(va, vs, kPitch, r0, kk * 16);
+#pragma unroll
+      for (int q = 0; q < kNTc / 2; ++q) {
+        tc::ldb(bh[q], ds_hi, kPitch, c0 + q * 16, kk * 16);
+        tc::ldb(bl[q], ds_lo, kPitch, c0 + q * 16, kk * 16);
+      }
+      tc::mma_pairs<kNTc / 2>(aks, va, bh);
+      tc::mma_pairs<kNTc / 2>(aks, va, bl);
+    }
+#pragma unroll
+    for (int q = 0; q < kNTc; ++q) {
+      float ec[2] = {0.0f, 0.0f}, uc[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int ss = r0 + g + 8 * half;
+        const int n = c0 + 8 * q + 2 * t;
+        const int o = ss * kPitch + n;
+        const float2 rv = tc::ld_bf16x2(rs + o), kv = tc::ld_bf16x2(ks + o);
+        float out[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float cum = fmaxf(raw[ss * fp + n + i], kMinCum);
+          const float cl = fmaxf(raw[(c - 1) * fp + n + i], kMinCum);
+          const float en = expf(-cum);
+          const float ed = expf(cl - cum);
+          const float kq = i ? kv.y : kv.x;
+          const float rq = i ? rv.y : rv.x;
+          const float dko = ako[q][2 * half + i];
+          const float dks = aks[q][2 * half + i];
+          out[i] = fmaf(dko, en, fmaf(dks, ed, ddiag[ss] * us[n + i] * rq));
+          const float ek = dks * (kq * ed);
+          dcm[ss * fp + n + i] -= fmaf(dko, kq * en, ek);
+          ec[i] += ek;
+          uc[i] = fmaf(ddiag[ss], rq * kq, uc[i]);
+        }
+        if (ss < c) {
+          store_pair(dk + base + static_cast<size_t>(t0 + ss) * stride, n, N,
+                     out[0], out[1]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float e = tc::column_sum(ec[i]);
+        const float d = tc::column_sum(uc[i]);
+        if (g == 0) {
+          ekp[rw * kD + c0 + 8 * q + 2 * t + i] = e;
+          dup[rw * kD + c0 + 8 * q + 2 * t + i] = d;
+        }
+      }
+    }
+  }
+  // dv_s = sum_{t>s} scores[t, s] dout_t + diag_s dout_s + dS'^T k_scaled_s
+  if (cols) {
+    float acc2[kNTc][4];
+#pragma unroll
+    for (int q = 0; q < kNTc; ++q)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc2[q][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (kk < rw || kk * 16 >= c) continue;
+      uint32_t ah[4], al[4], bv[kNTc / 2][4];
+      tc::lda_t(ah, sc_hi, kCPitch, r0, kk * 16);
+      tc::lda_t(al, sc_lo, kCPitch, r0, kk * 16);
+#pragma unroll
+      for (int q = 0; q < kNTc / 2; ++q) tc::ldb_t(bv[q], dos, kPitch, c0 + q * 16, kk * 16);
+      tc::mma_pairs<kNTc / 2>(acc2, ah, bv);
+      tc::mma_pairs<kNTc / 2>(acc2, al, bv);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kSteps; ++kk) {
+      uint32_t ah[4], al[4], bh[kNTc / 2][4], bl[kNTc / 2][4];
+      tc::lda(ah, kc_hi, kPitch, r0, kk * 16);
+      tc::lda(al, kc_lo, kPitch, r0, kk * 16);
+#pragma unroll
+      for (int q = 0; q < kNTc / 2; ++q) {
+        tc::ldb_t(bh[q], ds_hi, kPitch, c0 + q * 16, kk * 16);
+        tc::ldb_t(bl[q], ds_lo, kPitch, c0 + q * 16, kk * 16);
+      }
+      tc::mma_pairs<kNTc / 2>(acc2, ah, bh);
+      tc::mma_pairs<kNTc / 2>(acc2, ah, bl);
+      tc::mma_pairs<kNTc / 2>(acc2, al, bh);
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int ss = r0 + g + 8 * half;
+      if (ss >= c) continue;
+#pragma unroll
+      for (int q = 0; q < kNTc; ++q) {
+        const int m = c0 + 8 * q + 2 * t;
+        const float2 ov = tc::ld_bf16x2(dos + ss * kPitch + m);
+        store_pair(dv + base + static_cast<size_t>(t0 + ss) * stride, m, N,
+                   fmaf(diag[ss], ov.x, acc2[q][2 * half]),
+                   fmaf(diag[ss], ov.y, acc2[q][2 * half + 1]));
+      }
+    }
+  }
+  __syncthreads();   // (7) dcum and the column sums are in
+
+  // dcum at the chunk's last row takes sum_s dk_scaled o k_scaled and
+  // exp(cum_L) sum_m S o dS'; its reverse cumsum, where the -30 clamp
+  // passes it, is dlogw's sum (a warp a channel); du's part
+#pragma unroll
+  for (int i = 0; i < (kD + kTcWarps - 1) / kTcWarps; ++i) {
+    const int n = warp + i * kTcWarps;
+    if (n >= kD) continue;
+    float tail = plast[n] * ssd[n];
+#pragma unroll
+    for (int q = 0; q < kRowWarps; ++q) tail += ekp[q * kD + n];
+    scan_column(dcm, raw, fp, n, true, c - 1, tail);
+  }
+  for (int n = threadIdx.x; n < N; n += kTcThreads) {
+    float s = 0.0f;
+#pragma unroll
+    for (int q = 0; q < kRowWarps; ++q) s += dup[q * kD + n];
+    du_part[bhj * N + n] = s;
+  }
+  __syncthreads();   // (8) dlogw's sums are in
+
+  // dw = dlogw / w where w >= 1e-8 (0 below the clamp)
+  for (int i = threadIdx.x; i < c * kD / 2; i += kTcThreads) {
+    const int tt = i / (kD / 2);
+    const int n = 2 * (i - tt * (kD / 2));
+    const float2 wv = tc::ld_bf16x2(ws + tt * kPitch + n);
+    float out[2];
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const float wq = q ? wv.y : wv.x;
+      const float dlogw = dcm[tt * fp + n + q] - fbuf[tt * fp + n + q];
+      out[q] = wq >= kMinW ? dlogw / fmaxf(wq, kMinW) : 0.0f;
+    }
+    store_pair(dw + base + static_cast<size_t>(t0 + tt) * stride, n, N,
+               out[0], out[1]);
+  }
+}
+
+template <int kD>
+int set_smem_tc() {
+  cudaError_t err = cudaFuncSetAttribute(
+      wkv_bwd_walk_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(walk_smem_bytes<kD>()));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaFuncSetAttribute(
+      wkv_bwd_chunk_kernel<kD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(chunk_smem_bytes<kD>())));
+}
+
+template <int kD>
+int launch_tc(const void* r, const void* k, const void* v, const void* w,
+              const float* u, const float* state0, const void* dout,
+              const float* dstate_T, void* dr, void* dk, void* dv, void* dw,
+              float* du, float* dstate0, float* states, float* dstates,
+              float* du_part, int B, int T_len, int H, int N, int c,
+              cudaStream_t stream) {
+  int err = set_smem_tc<kD>();
+  if (err != 0) return err;
+  const bf16* rb = static_cast<const bf16*>(r);
+  const bf16* kb = static_cast<const bf16*>(k);
+  const bf16* vb = static_cast<const bf16*>(v);
+  const bf16* wb = static_cast<const bf16*>(w);
+  const bf16* ob = static_cast<const bf16*>(dout);
+  const bool vec = N % 8 == 0 && tc::aligned16(r) && tc::aligned16(k) &&
+                   tc::aligned16(v) && tc::aligned16(w) && tc::aligned16(dout);
+  const int n_chunks = T_len / c;
+  wkv_bwd_walk_kernel<kD><<<dim3(H, B, 2), kWalkThreads, walk_smem_bytes<kD>(),
+                            stream>>>(rb, kb, vb, wb, ob, state0, dstate_T,
+                                      states, dstates, dstate0, T_len, H, N, c,
+                                      vec);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  wkv_bwd_chunk_kernel<kD><<<dim3(n_chunks, H, B), kTcThreads,
+                             chunk_smem_bytes<kD>(), stream>>>(
+      rb, kb, vb, wb, u, ob, states, dstates, static_cast<bf16*>(dr),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), static_cast<bf16*>(dw),
+      du_part, T_len, H, N, c, vec);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  wkv_bwd_reduce_kernel<<<(H * N + 255) / 256, 256, 0, stream>>>(
+      du_part, du, B, H, N, n_chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Kernel `part` of the bf16 route (0 the chunk kernel, 1 the walk).
+template <int kD>
+int info_tc(int part, int* info) {
+  const int err = set_smem_tc<kD>();
+  if (err != 0) return err;
+  if (part == 1) {
+    return tc::kernel_info(wkv_bwd_walk_kernel<kD>, kWalkThreads,
+                           walk_smem_bytes<kD>(), info);
+  }
+  return tc::kernel_info(wkv_bwd_chunk_kernel<kD>, kTcThreads,
+                         chunk_smem_bytes<kD>(), info);
+}
+
+// Dispatch on N padded to 16, 32 or 64.
+template <typename Fn>
+int with_dim(int N, Fn&& fn) {
+  if (N <= 16) return fn(std::integral_constant<int, 16>{});
+  if (N <= 32) return fn(std::integral_constant<int, 32>{});
+  if (N <= 64) return fn(std::integral_constant<int, 64>{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// r, k, v, w, dout, dr, dk, dv, dw: (B, T, H, N), f32 (dtype 0) or bf16
-// (dtype 1); u, du: (H, N) f32; state0, dstate_T, dstate0: (B, H, N, N)
-// f32 (dstate_T may be null: zeros). Workspaces, f32: states (B * H *
-// T/chunk * N * N), du_part (B, H, N). All contiguous; `chunk` divides T
-// (at N <= 64 and chunks <= 64 the shared memory, at most 217,344 bytes,
-// fits). Launches the scan and du's sum on `stream`; returns
-// cudaGetLastError() (0 on success).
+// r, k, v, w, dout, dr, dk, dv, dw: (B, T, H, N), f32 (dtype 0: the
+// CUDA-core scan) or bf16 (dtype 1: the tensor-core route); u, du: (H, N)
+// f32; state0, dstate_T, dstate0: (B, H, N, N) f32 (dstate_T may be null:
+// zeros). Workspaces, f32: states (B * H * T/chunk * N * N), du_part (B,
+// H, N; on the bf16 route B, H, T/chunk, N), and on the bf16 route only
+// dstates (as states; null on the f32 route). All contiguous; `chunk` divides T (at N <= 64 and chunks <= 64
+// the shared memory, at most 217,344 bytes, fits). Launches the kernels on
+// `stream`; returns cudaGetLastError() (0 on success).
 extern "C" int rwkv6_wkv_bwd_launch(
     const void* r, const void* k, const void* v, const void* w,
     const float* u, const float* state0, const void* dout,
     const float* dstate_T, void* dr, void* dk, void* dv, void* dw, float* du,
-    float* dstate0, float* states, float* du_part, int B, int T_len, int H,
-    int N, int chunk, int dtype, void* stream) {
+    float* dstate0, float* states, float* dstates, float* du_part, int B,
+    int T_len, int H, int N, int chunk, int dtype, void* stream) {
   if (B <= 0 || H <= 0) return 0;
   if (!valid(T_len, N, chunk) || B > 65535 || H > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -386,22 +1236,26 @@ extern "C" int rwkv6_wkv_bwd_launch(
                          chunk, st);
   }
   if (dtype == 1) {
-    return launch<bf16>(r, k, v, w, u, state0, dout, dstate_T, dr, dk, dv, dw,
-                        du, dstate0, states, du_part, B, T_len, H, N, chunk,
-                        st);
+    return with_dim(N, [&](auto d) {
+      return launch_tc<decltype(d)::value>(
+          r, k, v, w, u, state0, dout, dstate_T, dr, dk, dv, dw, du, dstate0,
+          states, dstates, du_part, B, T_len, H, N, chunk, st);
+    });
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The compiled scan kernel for `dtype` at (N, chunk): info[0..5] as
-// tc::kernel_info gives them (registers, static and dynamic shared memory,
-// spill bytes, blocks an SM, threads a block). Returns a CUDA error code.
-extern "C" int rwkv6_wkv_bwd_info(int N, int chunk, int dtype, int* info) {
+// The compiled kernel for `dtype` at (N, chunk): f32 its one scan kernel;
+// bf16 kernel `part` (0 the chunk kernel, 1 the walk). info[0..5] as tc::kernel_info gives them (registers, static and
+// dynamic shared memory, spill bytes, blocks an SM, threads a block).
+// Returns a CUDA error code.
+extern "C" int rwkv6_wkv_bwd_info(int N, int chunk, int dtype, int part,
+                                  int* info) {
   if (N < 1 || N > kMaxN || chunk < 1 || chunk > kMaxChunk) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const size_t smem = smem_floats(chunk, N) * sizeof(float);
   if (dtype == 0) {
+    const size_t smem = smem_floats(chunk, N) * sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
         wkv_bwd_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
@@ -409,11 +1263,9 @@ extern "C" int rwkv6_wkv_bwd_info(int N, int chunk, int dtype, int* info) {
     return tc::kernel_info(wkv_bwd_kernel<float>, kThreads, smem, info);
   }
   if (dtype == 1) {
-    cudaError_t err = cudaFuncSetAttribute(
-        wkv_bwd_kernel<bf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    return tc::kernel_info(wkv_bwd_kernel<bf16>, kThreads, smem, info);
+    return with_dim(N, [&](auto d) {
+      return info_tc<decltype(d)::value>(part, info);
+    });
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,5 +1,6 @@
 // Warp-level tensor-core and async-copy helpers shared by the bf16 kernels
-// (flash_attention.cu, mamba2_ssd.cu), as inline PTX for sm_90a.
+// (flash attention, SSD and WKV, forward and backward), as inline PTX for
+// sm_90a.
 //
 // mma.sync.m16n8k16 (bf16 operands, f32 sums), one warp each. Fragments,
 // with g = lane / 4 and t = lane % 4:
@@ -89,6 +90,122 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 __device__ __forceinline__ float2 unpack_bf16(uint32_t v) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// x0, x1 as bf16 pairs hi and lo with x = hi + lo to about 16 bits.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = pack_bf16(x0, x1);
+  const float2 h = unpack_bf16(hi);
+  lo = pack_bf16(x0 - h.x, x1 - h.y);
+}
+
+// Two neighbouring bf16 values (4-byte aligned) as f32, and a packed pair
+// stored.
+__device__ __forceinline__ float2 ld_bf16x2(const __nv_bfloat16* p) {
+  return unpack_bf16(*reinterpret_cast<const uint32_t*>(p));
+}
+
+__device__ __forceinline__ void st_bf16x2(__nv_bfloat16* p, uint32_t v) {
+  *reinterpret_cast<uint32_t*>(p) = v;
+}
+
+// Fragments from bf16 tiles in shared memory (row pitch a multiple of 8
+// elements; m0, n0, k0 multiples of 8), through ldmatrix:
+//   lda:   A (16 x 16) at rows m0.., columns k0.. of a row-major (m, k) tile;
+//   lda_t: the same of the transpose of a row-major (k, m) tile;
+//   ldb:   B of two 8-column tiles, columns n0.. and n0 + 8.. (b[0], b[1]
+//          then b[2], b[3]), k0..k0+15, from a row-major (n, k) tile;
+//   ldb_t: the same from a row-major (k, n) tile.
+__device__ __forceinline__ void lda(uint32_t (&a)[4],
+                                    const __nv_bfloat16* tile, int pitch,
+                                    int m0, int k0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(a, tile + (m0 + (lane & 15)) * pitch + k0 + (lane >> 4) * 8);
+}
+
+__device__ __forceinline__ void lda_t(uint32_t (&a)[4],
+                                      const __nv_bfloat16* tile, int pitch,
+                                      int m0, int k0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4_trans(a, tile + (k0 + (lane >> 4) * 8 + (lane & 7)) * pitch + m0 +
+                       ((lane >> 3) & 1) * 8);
+}
+
+__device__ __forceinline__ void ldb(uint32_t (&b)[4],
+                                    const __nv_bfloat16* tile, int pitch,
+                                    int n0, int k0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4(b, tile + (n0 + (lane >> 4) * 8 + (lane & 7)) * pitch + k0 +
+                 ((lane >> 3) & 1) * 8);
+}
+
+__device__ __forceinline__ void ldb_t(uint32_t (&b)[4],
+                                      const __nv_bfloat16* tile, int pitch,
+                                      int n0, int k0) {
+  const int lane = threadIdx.x & 31;
+  ldsm_x4_trans(b, tile + (k0 + ((lane >> 3) & 1) * 8 + (lane & 7)) * pitch +
+                       n0 + (lane >> 4) * 8);
+}
+
+// acc[2 i], acc[2 i + 1] += a . (b[i][0..1], b[i][2..3]) for i < kN.
+template <int kN>
+__device__ __forceinline__ void mma_pairs(float (*acc)[4],
+                                          const uint32_t (&a)[4],
+                                          const uint32_t (&b)[kN][4]) {
+#pragma unroll
+  for (int i = 0; i < kN; ++i) {
+    mma_bf16(acc[2 * i], a, b[i][0], b[i][1]);
+    mma_bf16(acc[2 * i + 1], a, b[i][2], b[i][3]);
+  }
+}
+
+// The A fragment of k step kk of a 16-row block held as C tiles (c0 the
+// tile of columns 16 kk.., c1 that of 16 kk + 8..), split into hi and lo.
+__device__ __forceinline__ void c_to_a_split(const float (&c0)[4],
+                                             const float (&c1)[4],
+                                             uint32_t (&hi)[4],
+                                             uint32_t (&lo)[4]) {
+  split_bf16(c0[0], c0[1], hi[0], lo[0]);
+  split_bf16(c0[2], c0[3], hi[1], lo[1]);
+  split_bf16(c1[0], c1[1], hi[2], lo[2]);
+  split_bf16(c1[2], c1[3], hi[3], lo[3]);
+}
+
+// C tiles acc[j] of a 16-row block (rows r0 + g and r0 + g + 8, columns
+// 8 j + 2 t..) into bf16 tiles hi and lo (x = hi + lo) at rows r0...
+template <int kNT>
+__device__ __forceinline__ void store_split(const float (*acc)[4],
+                                            __nv_bfloat16* hi,
+                                            __nv_bfloat16* lo, int pitch,
+                                            int r0) {
+  const int lane = threadIdx.x & 31;
+  const int off = (r0 + (lane >> 2)) * pitch + 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    uint32_t h, l;
+    split_bf16(acc[j][0], acc[j][1], h, l);
+    *reinterpret_cast<uint32_t*>(hi + off + 8 * j) = h;
+    *reinterpret_cast<uint32_t*>(lo + off + 8 * j) = l;
+    split_bf16(acc[j][2], acc[j][3], h, l);
+    *reinterpret_cast<uint32_t*>(hi + off + 8 * j + 8 * pitch) = h;
+    *reinterpret_cast<uint32_t*>(lo + off + 8 * j + 8 * pitch) = l;
+  }
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  }
+  return v;
+}
+
+// The sum over the 8 lanes g of one t (the rows of a C tile's column).
+__device__ __forceinline__ float column_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 4);
+  v += __shfl_xor_sync(0xffffffffu, v, 8);
+  return v + __shfl_xor_sync(0xffffffffu, v, 16);
 }
 
 __device__ __forceinline__ float quad_max(float v) {

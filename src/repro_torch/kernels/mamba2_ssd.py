@@ -365,22 +365,26 @@ def _load_bwd():
         from ._build import load
         lib = load("mamba2_ssd_bwd")
         fn = lib.mamba2_ssd_bwd_launch
-        fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 8 + [
+        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 8 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         chunk_fn = lib.mamba2_ssd_bwd_chunk
-        chunk_fn.argtypes = [ctypes.c_int] * 4
+        chunk_fn.argtypes = [ctypes.c_int] * 5
         chunk_fn.restype = ctypes.c_int
         _bwd_launcher = (fn, chunk_fn)
     return _bwd_launcher
 
 
-def bwd_kernel_info(N: int, P: int, chunk: int, dtype: torch.dtype) -> dict:
+def bwd_kernel_info(N: int, P: int, chunk: int, dtype: torch.dtype,
+                    part: str = "chunk") -> dict:
     """Registers, shared memory and blocks an SM of the compiled backward
-    kernel for ``dtype`` at state N, head dim P and ``chunk``
-    (``_build.kernel_info``; needs the card)."""
+    kernel for ``dtype`` at state N, head dim P and ``chunk``: f32 its one
+    scan kernel; bf16 the ``part`` of its route ("chunk": the chunk
+    kernel, "walk": the walk over the chunk states).
+    ``_build.kernel_info``; needs the card."""
     from ._build import kernel_info as info
-    return info("mamba2_ssd_bwd", N, P, chunk, _DTYPES[dtype])
+    return info("mamba2_ssd_bwd", N, P, chunk, _DTYPES[dtype],
+                int(part == "walk"))
 
 
 def mamba2_ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -392,10 +396,13 @@ def mamba2_ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     and ``dstate_T`` (B,H,N,P float32, or None for zeros), each in its
     input's dtype.
 
-    CUDA tensors launch the backward kernel on the current stream (one
+    CUDA tensors launch the backward kernels on the current stream (one
     call, counted in ``mamba2_ssd_bwd.launches`` and its (B, T, H, P, G, N)
-    in ``.shapes``; it runs two CUDA kernels: the scan, then the fixed-order
-    sums over batches and over the heads of a group); CPU tensors take
+    in ``.shapes``). bf16 runs three CUDA kernels: a walk over the chunks
+    writing each chunk's start state and its end state's gradient (f32,
+    the updates on the tensor cores), every chunk's gradient on the tensor
+    cores, and the fixed-order sums over batches, chunks and the heads of
+    a group; f32 runs two: the CUDA-core scan, then the sums. CPU tensors take
     :func:`mamba2_ssd_bwd_plain`. Anything else raises."""
     _check(x, dt, A, Bm, Cm, state0)
     if not 1 <= chunk <= MAX_CHUNK:
@@ -426,16 +433,22 @@ def mamba2_ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         else:
             dstate0.copy_(dstate_T)
         return (dx, ddt, dA.zero_(), dBm, dCm, dstate0)
+    dtype = _DTYPES[x.dtype]
     with torch.cuda.device(x.device):
-        c = bwd_chunk(T, N, P, pick_chunk(T, chunk))
+        c = bwd_chunk(T, N, P, pick_chunk(T, chunk), dtype)
         if c < 1:
             raise RuntimeError(f"mamba2_ssd_bwd: no chunk of T={T} fits "
                                f"(N={N}, P={P})")
+        K, tc = T // c, x.dtype == torch.bfloat16
         f32 = dict(dtype=torch.float32, device=x.device)
-        # the chunk-start states, the per-head dB and dC and per-batch dA
-        work = [torch.empty(B * H * (T // c) * N * P, **f32),
+        # the chunk-start states; on the bf16 route also the gradients of
+        # the chunks' end states; the per-head dB and dC; dA's partials, a
+        # (batch, head) each on the f32 route, a (batch, head, chunk) on
+        # the bf16 route
+        work = [torch.empty(B * H * K * N * P, **f32),
+                torch.empty(B * H * K * N * P, **f32) if tc else None,
                 torch.empty(B, T, H, N, **f32), torch.empty(B, T, H, N, **f32),
-                torch.empty(B, H, **f32)]
+                torch.empty(B * H * (K if tc else 1), **f32)]
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = launch(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                      Bm.data_ptr(), Cm.data_ptr(), state0.data_ptr(),
@@ -443,8 +456,8 @@ def mamba2_ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
                      0 if dstate_T is None else dstate_T.data_ptr(),
                      dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
                      dBm.data_ptr(), dCm.data_ptr(), dstate0.data_ptr(),
-                     *(w.data_ptr() for w in work), B, T, H, P, G, N, c,
-                     _DTYPES[x.dtype], stream)
+                     *(0 if w is None else w.data_ptr() for w in work),
+                     B, T, H, P, G, N, c, dtype, stream)
     if err != 0:
         raise RuntimeError(f"mamba2_ssd_bwd kernel launch failed: CUDA "
                            f"error {err}")

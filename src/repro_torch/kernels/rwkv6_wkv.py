@@ -330,19 +330,23 @@ def _load_bwd():
     if _bwd_launcher is None:
         from ._build import load
         fn = load("rwkv6_wkv_bwd").rwkv6_wkv_bwd_launch
-        fn.argtypes = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 6 + [
+        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 6 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _bwd_launcher = fn
     return _bwd_launcher
 
 
-def bwd_kernel_info(N: int, chunk: int, dtype: torch.dtype) -> dict:
+def bwd_kernel_info(N: int, chunk: int, dtype: torch.dtype,
+                    part: str = "chunk") -> dict:
     """Registers, shared memory and blocks an SM of the compiled backward
-    kernel for ``dtype`` at head size N and ``chunk``
-    (``_build.kernel_info``; needs the card)."""
+    kernel for ``dtype`` at head size N and ``chunk``: f32 its one scan
+    kernel; bf16 the ``part`` of its route ("chunk": the chunk kernel,
+    "walk": the walk over the chunk states). ``_build.kernel_info``; needs
+    the card."""
     from ._build import kernel_info as info
-    return info("rwkv6_wkv_bwd", N, chunk, _DTYPES[dtype])
+    return info("rwkv6_wkv_bwd", N, chunk, _DTYPES[dtype],
+                int(part == "walk"))
 
 
 def rwkv6_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -353,11 +357,15 @@ def rwkv6_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (out, state_T) against ``dout`` (B,T,H,N, r's dtype) and ``dstate_T``
     (B,H,N,N float32, or None for zeros), each in its input's dtype.
 
-    CUDA tensors launch the backward kernel on the current stream (one
+    CUDA tensors launch the backward kernels on the current stream (one
     call, counted in ``rwkv6_wkv_bwd.launches`` and its (B, T, H, N) in
-    ``.shapes``; it runs two CUDA kernels: the scan, then du's fixed-order
-    sum over batches); CPU tensors take :func:`rwkv6_wkv_bwd_plain`.
-    Anything else raises."""
+    ``.shapes``). bf16 runs three CUDA kernels: a walk over the chunks
+    writing each chunk's start state and its end state's gradient (f32,
+    the updates on the tensor cores), every chunk's gradient on the tensor
+    cores (every f32 operand split into bf16 hi + lo), and du's
+    fixed-order sum over batches and chunks; f32 runs two: the CUDA-core
+    scan, then du's sum.
+    CPU tensors take :func:`rwkv6_wkv_bwd_plain`. Anything else raises."""
     _check(r, k, v, w, u, state0)
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"rwkv6_wkv_bwd takes chunks 1..{MAX_CHUNK}, got "
@@ -386,19 +394,24 @@ def rwkv6_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             dstate0.copy_(dstate_T)
         return dr, dk, dv, dw, du.zero_(), dstate0
     c = pick_chunk(T, chunk)
+    K, dtype = T // c, _DTYPES[r.dtype]
+    tc = r.dtype == torch.bfloat16
     with torch.cuda.device(r.device):
         f32 = dict(dtype=torch.float32, device=r.device)
-        # the chunk-start states and the per-batch du
-        work = [torch.empty(B * H * (T // c) * N * N, **f32),
-                torch.empty(B, H, N, **f32)]
+        # the chunk-start states; on the bf16 route also the gradients of
+        # the chunks' end states; du's partials, a (batch, head) each on
+        # the f32 route, a (batch, head, chunk) on the bf16 route
+        work = [torch.empty(B * H * K * N * N, **f32),
+                torch.empty(B * H * K * N * N, **f32) if tc else None,
+                torch.empty(B * H * (K if tc else 1) * N, **f32)]
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = launch(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                      u.data_ptr(), state0.data_ptr(), dout.data_ptr(),
                      0 if dstate_T is None else dstate_T.data_ptr(),
                      dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                      dw.data_ptr(), du.data_ptr(), dstate0.data_ptr(),
-                     *(a.data_ptr() for a in work), B, T, H, N, c,
-                     _DTYPES[r.dtype], stream)
+                     *(0 if a is None else a.data_ptr() for a in work),
+                     B, T, H, N, c, dtype, stream)
     if err != 0:
         raise RuntimeError(f"rwkv6_wkv_bwd kernel launch failed: CUDA "
                            f"error {err}")

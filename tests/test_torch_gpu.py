@@ -269,12 +269,14 @@ def test_flash_attention_cuda_route_takes_grads(cuda, shape):
 
 
 # the backward kernels' shapes: the train shape, a ragged T (chunk 50), G
-# = 2, N != P (SSD), chunk 1 and N = 5 (WKV)
+# = 2 (also at T = 100), N != P and N = 5 (SSD), chunk 1, N = 5 and 32
+# (WKV); the bf16 routes pad N and P to 16, 32, 64 or 128
 SSD_BWD_SHAPES = [(4, 512, 112, 64, 1, 64), (4, 100, 112, 64, 1, 64),
                   (2, 128, 8, 64, 2, 64), (1, 100, 3, 16, 1, 8),
-                  (2, 128, 4, 32, 2, 16), (2, 64, 2, 128, 1, 128)]
+                  (2, 128, 4, 32, 2, 16), (2, 64, 2, 128, 1, 128),
+                  (2, 100, 8, 64, 2, 64), (1, 100, 3, 16, 1, 5)]
 WKV_BWD_SHAPES = [(4, 512, 40, 64), (4, 100, 40, 64), (1, 97, 2, 64),
-                  (2, 100, 3, 16), (1, 100, 2, 5)]
+                  (2, 100, 3, 16), (1, 100, 2, 5), (2, 100, 4, 32)]
 SCAN_BWD_CASES = ([("mamba2_ssd", s) for s in SSD_BWD_SHAPES]
                   + [("rwkv6_wkv", s) for s in WKV_BWD_SHAPES])
 
@@ -327,11 +329,14 @@ def test_wkv_backward_kernel_matches_plain_at_the_clamps(cuda, dtype):
                                                         64)),
                                         ("mamba2_ssd", (2, 100, 4, 32, 2,
                                                         16)),
+                                        ("mamba2_ssd", (2, 100, 8, 64, 2,
+                                                        64)),
                                         ("rwkv6_wkv", (4, 512, 40, 64)),
                                         ("rwkv6_wkv", (2, 100, 3, 16))])
 def test_scan_backward_gives_equal_bits(cuda, name, shape, dtype):
-    """No atomics: the sums over blocks (dA, du, the group's dB and dC)
-    run in a fixed order, so two calls give the same bits."""
+    """No atomics: the sums over blocks (dA, du, the group's dB and dC;
+    on the bf16 routes also over chunks) run in a fixed order, so two
+    calls give the same bits."""
     _, _, bwd, _ = _scan_fns(name)
     args, dout, dstate = _scan_inputs(name, shape, dtype, cuda)
     first = bwd(*args, dout, dstate)
@@ -344,11 +349,23 @@ def test_scan_backward_gives_equal_bits(cuda, name, shape, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_scan_backward_kernels_spill_nothing_at_the_train_shapes(cuda,
                                                                 dtype):
+    """f32: the CUDA-core scan, 512 threads; bf16: both kernels of the
+    tensor-core route (SSD: the walk and the chunk kernel 4 warps each, the
+    chunk kernel 2 blocks an SM; WKV: the walk 8 warps, the chunk kernel
+    16)."""
     from repro_torch.kernels import mamba2_ssd, rwkv6_wkv
-    for info in (mamba2_ssd.bwd_kernel_info(64, 64, 64, dtype),
-                 rwkv6_wkv.bwd_kernel_info(64, 64, dtype)):
-        assert info["spill_bytes"] == 0, info
-        assert info["blocks_per_sm"] >= 1 and info["threads"] == 512, info
+    bf16 = dtype == torch.bfloat16
+    for part in ("chunk", "walk") if bf16 else ("chunk",):
+        ssd = mamba2_ssd.bwd_kernel_info(64, 64, 64, dtype, part)
+        wkv = rwkv6_wkv.bwd_kernel_info(64, 64, dtype, part)
+        for info, threads in ((ssd, 128), (wkv, 512 if part == "chunk"
+                                           else 256)):
+            assert info["spill_bytes"] == 0, (part, info)
+            assert info["blocks_per_sm"] >= 1, (part, info)
+            assert info["threads"] == (threads if bf16 else 512), (part, info)
+    if bf16:
+        chunk = mamba2_ssd.bwd_kernel_info(64, 64, 64, dtype, "chunk")
+        assert chunk["blocks_per_sm"] >= 2, chunk
 
 
 def _attention_inputs(shape, dtype, cuda, seed=0):
