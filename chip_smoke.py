@@ -41,7 +41,17 @@ plain PyTorch version on the card, and drives the port's paths:
    M-RoPE positions (28 flash launches) and musicgen-medium (48), each one
    prefill of 4 x 512 embeddings and 15 decode steps; then its smoke
    configuration's prefill on the card against the CPU;
-7. training (``repro_torch.launch.train``), f32 masters and AdamW state,
+7. serving the MoE family at its published widths with the same traffic
+   as 3-5, its depth cut to fit the card: dbrx-132b with 10 of 40 layers
+   (33.8e9 parameters, 67.6 GB in bf16; ``flash_attention`` 10 launches a
+   batch at (4, 512, 48, 128)) and llama4-maverick-400b-a17b with two
+   groups of a dense and an MoE layer (35.0e9, 70.1 GB; 4 at (4, 512, 40,
+   128)); prefill's and decode's device time split by the MoE layer's
+   profiler ranges (route, dispatch, experts, combine, shared expert) and
+   the rest; each with its smoke configuration on the card against the
+   CPU, in bf16 with the card's routes pinned to the CPU's and in f32
+   with the chosen experts compared;
+8. training (``repro_torch.launch.train``), f32 masters and AdamW state,
    3 steps of 4 x 512 on the synthetic stream for each of: qwen2-vl-2b at
    its published width and depth, each step launching the flash forward
    56 times (28 layers, each recomputed once under remat) and its
@@ -52,8 +62,9 @@ plain PyTorch version on the card, and drives the port's paths:
    6 Mamba-2 layers and the shared block, then 3: ``mamba2_ssd`` 90 and
    ``mamba2_ssd_bwd`` 45 times a step at (4, 512, 112, 64, 1, 64), flash
    14 and 7 at (4, 512, 32, 112)), each with a profile of one more step;
-   then one train step of the stablelm-12b, qwen2-vl-2b, zamba2-7b and
-   rwkv6-3b smoke configurations on the card against the CPU; then
+   then one train step of the stablelm-12b, qwen2-vl-2b, zamba2-7b,
+   rwkv6-3b, dbrx-132b and llama4-maverick smoke configurations on the
+   card against the CPU; then
    minitron-4b's smoke configuration through ``run_managed`` on
    ``TorchRTS``, 20 steps in chunks of 5 with one injected fault (one
    retry, no step trained twice).
@@ -88,6 +99,7 @@ The last two lines of standard output are the kernels' JSON record and
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -156,13 +168,29 @@ FLASH_MINITRON = (4, 512, 24, 128)
 FLASH_QWEN2_VL = (4, 512, 12, 128)
 FLASH_MUSICGEN = (4, 512, 24, 64)
 FLASH_MANAGED_TRAIN = (8, 128, 4, 32)     # minitron-4b smoke, run_managed
+FLASH_DBRX = (4, 512, 48, 128)
+FLASH_LLAMA4 = (4, 512, 40, 128)
+# the MoE family served at its published widths with the depth cut to fit
+# the card's 80 GB (weights in bf16, about 1 GB of activations beside
+# them): dbrx-132b with 10 of its 40 layers (67.6 GB), llama4-maverick
+# with two groups of 2 (a dense layer and an MoE layer of all 128 experts
+# and the shared expert; 70.1 GB); a third group would take 103 GB
+MOE_CUTS = (dict(name="dbrx-132b-10l", base="dbrx-132b", n_layers=10,
+                 params=33_823_979_520),
+            dict(name="llama4-maverick-400b-a17b-4l",
+                 base="llama4-maverick-400b-a17b", n_layers=4,
+                 params=35_037_557_760))
+MOE_SERVES = tuple(dict(SERVE, arch=cut["name"]) for cut in MOE_CUTS)
 MAIN_SHAPES = {"zamba2-7b": {"flash_attention": FLASH_MAIN,
                              "mamba2_ssd": SSD_MAIN},
                "rwkv6-3b": {"rwkv6_wkv": WKV_MAIN},
                "stablelm-12b": {"flash_attention": FLASH_STABLELM},
                "minitron-4b": {"flash_attention": FLASH_MINITRON},
                "qwen2-vl-2b": {"flash_attention": FLASH_QWEN2_VL},
-               "musicgen-medium": {"flash_attention": FLASH_MUSICGEN}}
+               "musicgen-medium": {"flash_attention": FLASH_MUSICGEN},
+               "dbrx-132b-10l": {"flash_attention": FLASH_DBRX},
+               "llama4-maverick-400b-a17b-4l": {
+                   "flash_attention": FLASH_LLAMA4}}
 FLASH_SHAPES = (FLASH_MAIN, (4, 100, 32, 112), (4, 300, 32, 112),
                 # hd 32 and the tile edges S = 1, 63, 65
                 (1, 1, 2, 32), (2, 63, 3, 32), (2, 65, 3, 32),
@@ -171,10 +199,12 @@ FLASH_SHAPES = (FLASH_MAIN, (4, 100, 32, 112), (4, 300, 32, 112),
                 FLASH_STABLELM, FLASH_MINITRON, FLASH_QWEN2_VL,
                 FLASH_MUSICGEN, (4, 100, 32, 160), (2, 65, 3, 160),
                 (4, 100, 32, 150), (2, 65, 3, 150),
-                # the managed train run's shape (phase 7)
-                FLASH_MANAGED_TRAIN)
-# timed beside FLASH_MAIN: the widest head dim and minitron's
-FLASH_TIMED = (FLASH_STABLELM, FLASH_MINITRON)
+                # the managed train run's shape (phase 8), the MoE serve
+                # shapes (phase 7)
+                FLASH_MANAGED_TRAIN, FLASH_DBRX, FLASH_LLAMA4)
+# timed beside FLASH_MAIN: the widest head dim, minitron's and the MoE
+# serve shapes
+FLASH_TIMED = (FLASH_STABLELM, FLASH_MINITRON, FLASH_DBRX, FLASH_LLAMA4)
 SSD_SHAPES = (SSD_MAIN, (4, 100, 112, 64, 1, 64), (2, 128, 8, 64, 2, 64),
               # chunk 50 at N = 8, P = 16; G = 2 at N = 16, P = 32
               (1, 100, 3, 16, 1, 8), (2, 128, 4, 32, 2, 16))
@@ -191,8 +221,11 @@ TOLERANCE = {"flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
              "rwkv6_wkv": {"float32": 1e-4, "bfloat16": 5e-2}}
 # the JAX package's kernel-vs-reference model tolerance
 MODEL_ATOL, MODEL_RTOL = 0.08, 0.05
+# the MoE smoke configurations card against CPU in f32 (atol = rtol), as
+# tests/test_torch_gpu.py holds them
+MOE_F32_TOL = 1e-3
 
-# phase 7, training: the flash backward's shapes (the zamba2 shape, the
+# phase 8, training: the flash backward's shapes (the zamba2 shape, the
 # qwen2-vl training shape, the managed run's, hd 160 and 150, and GQA-free
 # ragged S at the 64-row tiles' edges), its tolerances, the full-width
 # train run, the smoke configurations held card against CPU, and the
@@ -252,7 +285,7 @@ SCAN_BWD_F32_DIGEST = {
     ("rwkv6_wkv", (2, 128, 3, 64), True): "12edd9cdd1a892c7"}
 SCAN_GRADS = {"mamba2_ssd": ("dx", "ddt", "dA", "dBm", "dCm", "dstate0"),
               "rwkv6_wkv": ("dr", "dk", "dv", "dw", "du", "dstate0")}
-# phase 7's full-width train runs, 3 steps of 4 x 512 each: qwen2-vl-2b,
+# phase 8's full-width train runs, 3 steps of 4 x 512 each: qwen2-vl-2b,
 # rwkv6-3b at full width and depth, and zamba2-7b at full width with its
 # depth cut to 45 of 81 layers (7 groups of 6 Mamba-2 layers, each followed
 # by the shared block, then 3 trailing layers: the published 13 x 6 + 3
@@ -269,7 +302,8 @@ TRAIN_SHAPES = {
     ZAMBA_CUT["name"]: {"mamba2_ssd": SSD_MAIN, "mamba2_ssd_bwd": SSD_MAIN,
                         "flash_attention": FLASH_MAIN,
                         "flash_attention_bwd": FLASH_MAIN}}
-TRAIN_SMOKE = ("stablelm-12b", "qwen2-vl-2b", "zamba2-7b", "rwkv6-3b")
+TRAIN_SMOKE = ("stablelm-12b", "qwen2-vl-2b", "zamba2-7b", "rwkv6-3b",
+               "dbrx-132b", "llama4-maverick-400b-a17b")
 TRAIN_MANAGED = dict(arch="minitron-4b", total_steps=20, steps_per_chunk=5,
                      fail_once_at=5)
 
@@ -509,14 +543,16 @@ def run_main_path() -> dict:
 def device_rows(prof) -> list:
     """(name, count, device ms) of every kernel, copy and set that the
     profiler saw on the device, largest first. CPU-side ops are left out
-    (their device time repeats their kernels'), and so is the "Command
-    Buffer Full" wait, which is host time."""
+    (their device time repeats their kernels'), and so are the "Command
+    Buffer Full" wait, which is host time, and the device-side spans of
+    the MoE layer's profiler ranges, which repeat their kernels'."""
     from torch.autograd import DeviceType
+    from repro_torch.models.moe import RANGES
     rows = [(e.key, e.count, e.self_device_time_total / 1e3)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0
-            and e.key != "Command Buffer Full"]
+            and e.key != "Command Buffer Full" and e.key not in RANGES]
     rows.sort(key=lambda r: -r[2])
     return rows
 
@@ -1769,13 +1805,31 @@ def profile_serve(sess, traffic: dict) -> None:
                   sess.decode, {"inputs": inputs}, greedy)
 
 
+def device_ms_by_range(prof) -> dict:
+    """Device ms of a profiled window by the MoE layer's profiler ranges
+    (``repro_torch.models.moe.RANGES``: route, dispatch, experts, combine,
+    shared expert), each the kernels of the ops run inside it, read from
+    the host-side range; and ``outside_moe``, the rest of the window's
+    device time (attention, dense layers, norms, embedding and head)."""
+    from torch.autograd import DeviceType
+    from repro_torch.models.moe import RANGES
+    kinds = {name: 0.0 for name in RANGES}
+    for e in prof.events():
+        if e.name in kinds and e.device_type == DeviceType.CPU:
+            kinds[e.name] += e.device_time_total / 1e3
+    kinds["outside_moe"] = (sum(r[2] for r in device_rows(prof))
+                            - sum(kinds.values()))
+    return kinds
+
+
 def profile_steps(label: str, cfg, params, prefill_step, decode_step,
                   batch: dict, next_input, steps: int = 4) -> None:
     """One more full-width prefill, then ``steps`` decode steps (each fed
     ``next_input(logits)``), each under ``torch.profiler``: device time by
-    kernel and by kind, the device's busy share of the wall time (profiler
-    overhead included) and device ops per decoded token. Their launches
-    are not counted: the path's counts were read before."""
+    kernel and by kind, with experts by the MoE layer's profiler ranges
+    too (:func:`device_ms_by_range`), the device's busy share of the wall
+    time (profiler overhead included) and device ops per decoded token.
+    Their launches are not counted: the path's counts were read before."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.launch.serve import _merge_cache
@@ -1821,6 +1875,12 @@ def profile_steps(label: str, cfg, params, prefill_step, decode_step,
               f"{busy / 1e3 / wall}, device ops per call "
               f"{sum(r[1] for r in rows) / n}, device ms by kind per call: "
               f"{ {k: v / n for k, v in kinds.items()} }")
+        if cfg.n_experts:
+            by_range = {k: v / n for k, v in device_ms_by_range(prof).items()}
+            print(f"profiled {label} {phase}: device ms by MoE range per "
+                  f"call: {by_range}")
+            check(by_range["moe_experts"] > 0,
+                  f"{label} {phase}: the MoE ranges hold device time")
         for key, count, ms in rows[:12]:
             print(f"  device {ms:.3f} ms  x{count}  {key[:90]}")
 
@@ -1830,47 +1890,152 @@ def to_cuda(tree):
             for k, v in tree.items()}
 
 
+class MoeRoutes:
+    """Every MoE layer's chosen experts, on the host in call order
+    (``seen``). With ``pins`` set, each call takes the next pinned choice
+    in place of its own (its gates its own probabilities at the pinned
+    experts, renormalised) and counts the tokens whose own choice differed
+    (``flips`` of ``rows``)."""
+
+    def __init__(self):
+        self.seen, self.pins = [], None
+        self.next = self.flips = self.rows = 0
+
+    def pin(self, pins: list) -> None:
+        self.pins, self.next = list(pins), 0
+
+
+@contextlib.contextmanager
+def moe_routes(cfg, f32: bool):
+    """For a configuration with experts: record every MoE layer's chosen
+    experts (:class:`MoeRoutes`), computing in f32 (``COMPUTE_DTYPE``)
+    when ``f32``; yields the record (nothing for the other families). In
+    bf16 a rounding difference between the devices in a router's input
+    flips near-tied choices (margins below the devices' probability
+    difference) and moves a token's output by a whole expert, past any
+    tolerance on the logits. So the MoE cross-checks run twice: in bf16
+    with the card's routes pinned to the CPU's, at the model tolerance,
+    and in f32 with the chosen experts compared exactly, at
+    ``MOE_F32_TOL``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.models import moe, transformer
+    routes = MoeRoutes()
+    if not cfg.n_experts:
+        yield routes
+        return
+    route, dtype = moe._route, transformer.COMPUTE_DTYPE
+
+    def recorded(x2d, router, c):
+        gates, experts, aux = route(x2d, router, c)
+        if routes.pins is not None:
+            pin = routes.pins[routes.next].to(experts.device)
+            routes.next += 1
+            flipped = (experts != pin).any(-1)
+            routes.flips += int(flipped.sum())
+            routes.rows += int(pin.shape[0])
+            if bool(flipped.any()):
+                probs = torch.softmax(x2d.float() @ router.float(), dim=-1)
+                g = probs.gather(1, pin)
+                g = g / torch.clamp(g.sum(-1, keepdim=True), min=1e-9)
+                top1 = F.one_hot(pin[:, 0], c.n_experts).float().mean(0)
+                aux = c.n_experts * torch.sum(probs.mean(0) * top1)
+                gates, experts = g.to(x2d.dtype), pin
+        routes.seen.append(experts.cpu())
+        return gates, experts, aux
+    moe._route = recorded
+    if f32:
+        transformer.COMPUTE_DTYPE = torch.float32
+    try:
+        yield routes
+    finally:
+        moe._route, transformer.COMPUTE_DTYPE = route, dtype
+
+
+def check_routes_equal(arch: str, gpu: list, cpu: list) -> None:
+    import torch
+    check(len(gpu) == len(cpu) and all(torch.equal(a, b)
+                                       for a, b in zip(gpu, cpu)),
+          f"{arch}: the card's chosen experts equal the CPU's, layer by "
+          f"layer")
+    if gpu:
+        print(f"{arch}: {len(gpu)} MoE routings, experts equal on the card "
+              f"and the CPU")
+
+
+def moe_runs(cfg) -> list:
+    """(label, f32, atol, rtol) of each card-against-CPU run: bf16 at the
+    model tolerance (routes pinned where there are experts), then with
+    experts f32 at ``MOE_F32_TOL``."""
+    runs = [("bf16", False, MODEL_ATOL, MODEL_RTOL)]
+    if cfg.n_experts:
+        runs.append(("f32", True, MOE_F32_TOL, MOE_F32_TOL))
+    return runs
+
+
+def pinned_note(routes: MoeRoutes) -> str:
+    return (f", routes pinned to the CPU's ({routes.flips} of "
+            f"{routes.rows} token choices of its own differed)"
+            if routes.rows else "")
+
+
 def cross_check_serve(arch: str) -> None:
     """The smoke configuration on the card against the CPU, with the same
     weights (drawn once on the CPU, copied to the card), at a prompt length
     of 100 (a ragged last tile for the flash kernel, chunk 50 for SSD and
-    WKV)."""
+    WKV), in bf16 at the model tolerance. With experts the bf16 run pins
+    the card's routes to the CPU's, and a second run in f32 compares the
+    chosen experts exactly and the logits within ``MOE_F32_TOL``
+    (:func:`moe_routes`)."""
     import numpy as np
     import torch
     from repro_torch.launch.serve import ServeSession
     from repro_torch.models.config import get_config
     from repro_torch.models.transformer import init_params
     cfg = get_config(arch, smoke=True)
-    params = init_params(cfg, 0, torch.bfloat16, "cpu")
-    cpu = ServeSession(arch, smoke=True, device="cpu", params=params)
-    gpu = ServeSession(arch, smoke=True, device="cuda",
-                       params=to_cuda(params))
     prompts = np.random.default_rng(7).integers(0, cfg.vocab_size, (4, 100))
-    lg, _ = gpu.prefill(gpu.params, {"inputs": torch.from_numpy(prompts)
-                                     .cuda()})
-    lc, _ = cpu.prefill(cpu.params, {"inputs": torch.from_numpy(prompts)})
-    lg = lg.cpu()
-    diff = float((lg - lc).abs().max())
-    excess = float(((lg - lc).abs() - MODEL_RTOL * lc.abs()).max())
-    check(bool(torch.isfinite(lg).all()), f"{arch} smoke cuda logits finite")
-    check(excess <= MODEL_ATOL, f"{arch} smoke prefill logits cuda vs cpu "
-                                f"within atol {MODEL_ATOL} / rtol "
-                                f"{MODEL_RTOL} (worst excess {excess})")
-    tg = gpu.generate(prompts, 8)
-    tc = cpu.generate(prompts, 8)
-    print(f"serve cross-check {arch} (smoke, cuda vs cpu): prefill logits "
-          f"max abs diff {diff}; greedy tokens equal "
-          f"{float((tg == tc).mean())}")
+    for label, f32, atol, rtol in moe_runs(cfg):
+        with moe_routes(cfg, f32) as routes:
+            params = init_params(cfg, 0, torch.float32 if f32
+                                 else torch.bfloat16, "cpu")
+            cpu = ServeSession(arch, smoke=True, device="cpu", params=params)
+            gpu = ServeSession(arch, smoke=True, device="cuda",
+                               params=to_cuda(params))
+            lc, _ = cpu.prefill(cpu.params,
+                                {"inputs": torch.from_numpy(prompts)})
+            n = len(routes.seen)
+            if not f32:
+                routes.pin(routes.seen[:n])
+            lg, _ = gpu.prefill(gpu.params, {"inputs": torch.from_numpy(
+                prompts).cuda()})
+            note = pinned_note(routes)
+            routes.pins = None
+            if f32:
+                check_routes_equal(arch, routes.seen[n:], routes.seen[:n])
+            lg, lc = lg.float().cpu(), lc.float()
+            diff = float((lg - lc).abs().max())
+            excess = float(((lg - lc).abs() - rtol * lc.abs()).max())
+            check(bool(torch.isfinite(lg).all()),
+                  f"{arch} smoke cuda logits finite")
+            check(excess <= atol, f"{arch} smoke prefill logits cuda vs "
+                                  f"cpu ({label}) within atol {atol} / "
+                                  f"rtol {rtol} (worst excess {excess})")
+            tg = gpu.generate(prompts, 8)
+            tc = cpu.generate(prompts, 8)
+        print(f"serve cross-check {arch} (smoke, cuda vs cpu, {label}"
+              f"{note}): prefill logits max abs diff {diff}; greedy tokens "
+              f"equal {float((tg == tc).mean())}")
 
 
-def serve_phase(traffic: dict) -> dict:
-    """The serve path of one model, its profile and its smoke cross-check;
-    returns the launches of the path's kernels. Nothing of the phase
-    outlives it, so the next phase's peak memory is its own."""
+def serve_phase(traffic: dict, smoke_arch: str = None) -> dict:
+    """The serve path of one model, its profile and its smoke cross-check
+    (of ``smoke_arch``'s smoke configuration, by default the traffic's
+    arch); returns the launches of the path's kernels. Nothing of the
+    phase outlives it, so the next phase's peak memory is its own."""
     serve_path = run_serve_path(traffic)
     sess = serve_path["session"]
     profile_serve(sess, traffic)
-    cross_check_serve(traffic["arch"])
+    cross_check_serve(smoke_arch or traffic["arch"])
     return {name: serve_path["launches"][name]
             for name, want in per_batch_launches(sess.cfg).items() if want}
 
@@ -1993,7 +2158,52 @@ def embed_phase(run: dict) -> dict:
 
 
 # --------------------------------------------------------------------------- #
-# Phase 7: training
+# Phase 7: the MoE family at full width, its depth cut
+# --------------------------------------------------------------------------- #
+
+def register_moe_cuts() -> None:
+    """Each of ``MOE_CUTS``: its base's published configuration with the
+    depth cut, registered under its own name (its smoke configuration is
+    the base's), as :func:`register_zamba_cut` does; its parameter count,
+    bf16 bytes and active count beside the full configuration's."""
+    from repro_torch.models.config import get_config, register_arch
+    for cut in MOE_CUTS:
+        full = get_config(cut["base"])
+        cfg = full.replace(name=cut["name"], n_layers=cut["n_layers"])
+        register_arch(cut["name"], lambda cfg=cfg: cfg,
+                      lambda base=cut["base"]: get_config(base, smoke=True))
+        n = cfg.n_params()
+        check(n == cut["params"], f"{cut['name']}: {cut['params']} "
+                                  f"parameters (got {n})")
+        print(f"{cut['name']}: {cut['base']} at full width (d "
+              f"{cfg.d_model}, {cfg.n_heads}:{cfg.n_kv_heads} heads of "
+              f"{cfg.resolved_head_dim}, {cfg.n_experts} experts of d_ff "
+              f"{cfg.d_ff}, top-{cfg.experts_per_token}, MoE every "
+              f"{cfg.moe_layer_period}, shared expert "
+              f"{cfg.moe_shared_expert}), depth cut to {cfg.n_layers} of "
+              f"{full.n_layers} layers: {n} parameters ({2 * n} bytes in "
+              f"bf16) of {full.n_params()}, {cfg.n_active_params()} active "
+              f"of {full.n_active_params()}")
+
+
+def moe_phase() -> dict:
+    """Phase 7: each MoE cut served with ``SERVE``'s traffic after
+    :func:`release_all` (so its peak is its own), its profile with the
+    device time by MoE range, and its base's smoke configuration
+    on the card against the CPU; returns each path's launches."""
+    t0 = time.perf_counter()
+    register_moe_cuts()
+    paths = {}
+    for traffic, cut in zip(MOE_SERVES, MOE_CUTS):
+        release_all()
+        paths[traffic["arch"]] = serve_phase(traffic, smoke_arch=cut["base"])
+    release_sessions()
+    print(f"moe phase seconds: {time.perf_counter() - t0}")
+    return paths
+
+
+# --------------------------------------------------------------------------- #
+# Phase 8: training
 # --------------------------------------------------------------------------- #
 
 def release_all() -> None:
@@ -2156,7 +2366,10 @@ def cross_check_train(arch: str) -> None:
     parameter by about ±lr = 3e-6, below any tolerance on the parameters
     themselves, so on each side every parameter is held to the update
     its own moments give, within two f32 spacings
-    (``tests/_torch_update.py``)."""
+    (``tests/_torch_update.py``). With experts the bf16 step pins the
+    card's routes to the CPU's, and a second step in f32 compares the
+    chosen experts exactly and loss, grad norm and moments within
+    ``MOE_F32_TOL`` (:func:`moe_routes`)."""
     import torch
     from repro_torch.data import make_stream
     from repro_torch.models import steps
@@ -2167,36 +2380,48 @@ def cross_check_train(arch: str) -> None:
     cfg = get_config(arch, smoke=True)
     batch = {k: torch.from_numpy(v)
              for k, v in make_stream(cfg, 100, 4).batch(0).items()}
-    cpu = steps.init_train_state(cfg, 0, "cpu")
-    gpu = to_cuda(cpu)
-    before = clone_tree(cpu["params"])
     step = steps.make_train_step(cfg)
-    gpu, mg = step(gpu, to_cuda(batch))
-    cpu, mc = step(cpu, batch)
-    lg, lc = float(mg["loss"]), float(mc["loss"])
-    ng, nc = float(mg["grad_norm"]), float(mc["grad_norm"])
-    m_err = moments_rel_err(gpu["opt"], cpu["opt"])
-    u_gpu = update_err(before, gpu["params"], gpu["opt"], float(mg["lr"]))
-    u_cpu = update_err(before, cpu["params"], cpu["opt"], float(mc["lr"]))
-    moved = max(float((a.cpu() - b).abs().max())
-                for a, b in zip(steps.leaves(gpu["params"]),
-                                steps.leaves(before)))
-    print(f"train cross-check {arch} (smoke, cuda vs cpu): loss {lg} vs "
-          f"{lc}, grad norm {ng} vs {nc}, moments leaf-wise rel err "
-          f"{m_err}, update err (tolerances) cuda {u_gpu} cpu {u_cpu}, "
-          f"largest move {moved} (lr {float(mg['lr'])})")
-    check(math.isfinite(lg) and math.isfinite(ng), f"{arch} finite")
-    check(abs(lg - lc) <= MODEL_ATOL + MODEL_RTOL * abs(lc),
-          f"{arch} train loss cuda vs cpu within the model tolerance")
-    check(abs(ng - nc) <= MODEL_RTOL * abs(nc),
-          f"{arch} grad norm cuda vs cpu within rtol {MODEL_RTOL}")
-    check(int(gpu["opt"]["step"]) == int(cpu["opt"]["step"]) == 1,
-          f"{arch} one step on each side")
-    check(m_err <= MODEL_RTOL,
-          f"{arch} moments cuda vs cpu leaf by leaf within rtol "
-          f"{MODEL_RTOL}")
-    check(u_gpu <= 1.0 and u_cpu <= 1.0,
-          f"{arch} every parameter written from its own moments")
+    for label, f32, atol, rtol in moe_runs(cfg):
+        cpu = steps.init_train_state(cfg, 0, "cpu")
+        gpu = to_cuda(cpu)
+        before = clone_tree(cpu["params"])
+        with moe_routes(cfg, f32) as routes:
+            cpu, mc = step(cpu, batch)
+            n = len(routes.seen)
+            if not f32:
+                routes.pin(routes.seen[:n])
+            gpu, mg = step(gpu, to_cuda(batch))
+            note = pinned_note(routes)
+        if f32:
+            check_routes_equal(arch, routes.seen[n:], routes.seen[:n])
+        lg, lc = float(mg["loss"]), float(mc["loss"])
+        ng, nc = float(mg["grad_norm"]), float(mc["grad_norm"])
+        m_err = moments_rel_err(gpu["opt"], cpu["opt"])
+        u_gpu = update_err(before, gpu["params"], gpu["opt"],
+                           float(mg["lr"]))
+        u_cpu = update_err(before, cpu["params"], cpu["opt"],
+                           float(mc["lr"]))
+        moved = max(float((a.cpu() - b).abs().max())
+                    for a, b in zip(steps.leaves(gpu["params"]),
+                                    steps.leaves(before)))
+        print(f"train cross-check {arch} (smoke, cuda vs cpu, {label}"
+              f"{note}): loss {lg} vs {lc}, grad norm {ng} vs {nc}, moments "
+              f"leaf-wise rel err {m_err}, update err (tolerances) cuda "
+              f"{u_gpu} cpu {u_cpu}, largest move {moved} (lr "
+              f"{float(mg['lr'])})")
+        check(math.isfinite(lg) and math.isfinite(ng), f"{arch} finite")
+        check(abs(lg - lc) <= atol + rtol * abs(lc),
+              f"{arch} train loss cuda vs cpu ({label}) within atol {atol} "
+              f"/ rtol {rtol}")
+        check(abs(ng - nc) <= rtol * abs(nc),
+              f"{arch} grad norm cuda vs cpu ({label}) within rtol {rtol}")
+        check(int(gpu["opt"]["step"]) == int(cpu["opt"]["step"]) == 1,
+              f"{arch} one step on each side")
+        check(m_err <= rtol,
+              f"{arch} moments cuda vs cpu ({label}) leaf by leaf within "
+              f"rtol {rtol}")
+        check(u_gpu <= 1.0 and u_cpu <= 1.0,
+              f"{arch} every parameter written from its own moments")
 
 
 def run_managed_train() -> dict:
@@ -2262,7 +2487,7 @@ def run_managed_train() -> dict:
 
 
 def train_phase():
-    """Phase 7: the full-width train runs with their profiles, the smoke
+    """Phase 8: the full-width train runs with their profiles, the smoke
     configurations card against CPU, and the managed run; returns the
     launches of each path and the backward kernels' shapes on each."""
     t0 = time.perf_counter()
@@ -2371,7 +2596,7 @@ def main() -> None:
         by_path[traffic["arch"]] = serve_phase(traffic)
     for run in EMBED_RUNS:
         by_path[run["arch"]] = embed_phase(run)
-    release_sessions()
+    by_path.update(moe_phase())
     train_paths, bwd_shapes = train_phase()
     by_path.update(train_paths)
     launches = {name: sum(path.get(name, 0) for path in by_path.values())

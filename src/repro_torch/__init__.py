@@ -32,7 +32,8 @@ Ported (the modules that touch arrays or devices):
 * :mod:`repro_torch.kernels.anen_distance` — the analog-similarity
   distance as a hand-written CUDA kernel (``kernels/csrc/``) with its
   plain PyTorch version, built by :mod:`repro_torch.kernels._build`;
-* :mod:`repro_torch.fusion.handles` — tensor-backed result handles;
+* :mod:`repro_torch.fusion.handles` — tensor-backed result handles, and
+  the read side of the JAX package's sharded spill records;
 * :mod:`repro_torch.fusion.engine` — the scalar, per-stage fused, chain
   (composed ``vmap`` links) and DAG (masked device reductions in the
   composed segment) tiers; the sharded tier is not ported;
@@ -50,9 +51,8 @@ Ported (the modules that touch arrays or devices):
   misfit-chain workflows;
 * :mod:`repro_torch.models` and :mod:`repro_torch.configs` — the model
   registry (all ten configurations) and, end to end in the JAX package's
-  parameter layout, the hybrid (zamba2), ``ssm`` (rwkv6) and
-  attention-stack (dense, vlm, audio) families; the ``moe`` family is not
-  ported;
+  parameter layout, every family: hybrid (zamba2), ``ssm`` (rwkv6) and
+  the attention stack (dense, ``moe``, vlm, audio);
 * :mod:`repro_torch.kernels.flash_attention`,
   :mod:`repro_torch.kernels.mamba2_ssd`,
   :mod:`repro_torch.kernels.rwkv6_wkv` — the model kernels as

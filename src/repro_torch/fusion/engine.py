@@ -38,7 +38,7 @@ composed segment, and their value is broadcast into the next ensemble node
 as a device tensor.
 
 The sharded tier of the JAX package (a member axis split over a device
-mesh) is not ported.
+mesh) is not ported (``ROADMAP.md`` A10b).
 
 Failure isolation: a member whose outputs contain non-finite values at
 link *k* FAILS at *k* and its downstream links fail with an upstream

@@ -16,7 +16,12 @@ values. Replay decodes the record back into an :class:`ArrayResult` over a
 host array (verifying the hash); a missing or corrupted spill raises, which
 the resume path answers by re-running the producer.
 
-The sharded spill format of the JAX package waits for the sharded tier.
+Sharded spills: the JAX package journals an output split across devices
+per shard, ``{"__codec__": "sharded_array", "shards": [{"sha256", "path",
+"rows"}, ...], "shape", "dtype"}``. The port reads such records back (a
+journal the JAX package wrote resumes here) into one host array, every
+shard verified; writing them waits for the sharded tier (``ROADMAP.md``
+A10b).
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from ..core.exceptions import MissingError
 from ..core.results import register_result_codec, register_result_spiller
 
 CODEC = "fused_array"
+SHARDED_CODEC = "sharded_array"
 
 
 def to_host(value: Any) -> np.ndarray:
@@ -159,15 +165,41 @@ class LazySlice(ArrayResult):
         return getattr(self._parent, "dtype", None)
 
 
-def _decode(record: Dict[str, Any]) -> ArrayResult:
-    path, sha256 = record.get("path"), record.get("sha256")
+def _verify_load(path: Optional[str], sha256: Optional[str],
+                 kind: str) -> np.ndarray:
     if not path or not os.path.exists(path):
-        raise MissingError(f"fused-array spill missing: {path!r}")
+        raise MissingError(f"{kind} spill missing: {path!r}")
     host = np.load(path)
     digest = hashlib.sha256(np.ascontiguousarray(host).tobytes()).hexdigest()
     if digest != sha256:
-        raise MissingError(f"fused-array spill corrupted: {path!r} "
+        raise MissingError(f"{kind} spill corrupted: {path!r} "
                            f"(content hash mismatch)")
+    return host
+
+
+def _decode(record: Dict[str, Any]) -> ArrayResult:
+    return ArrayResult(_verify_load(record.get("path"), record.get("sha256"),
+                                    "fused-array"))
+
+
+def _decode_sharded(record: Dict[str, Any]) -> ArrayResult:
+    """Rebuild a sharded spill: every per-shard sha256 must verify, and the
+    shard row counts must tile the recorded global shape — any mismatch is
+    the ``result_omitted`` contract (raise, producer re-runs on resume)."""
+    shards = record.get("shards") or []
+    if not shards:
+        raise MissingError("sharded-array spill record has no shards")
+    blocks = [_verify_load(s.get("path"), s.get("sha256"), "sharded-array")
+              for s in shards]
+    for block, s in zip(blocks, shards):
+        if int(block.shape[0]) != int(s.get("rows", -1)):
+            raise MissingError(
+                f"sharded-array spill corrupted: {s.get('path')!r} "
+                f"(shard row count mismatch)")
+    host = np.concatenate(blocks, axis=0) if len(blocks) > 1 else blocks[0]
+    if list(host.shape) != list(record.get("shape") or host.shape):
+        raise MissingError("sharded-array spill corrupted: reassembled "
+                           "shape does not match record")
     return ArrayResult(host)
 
 
@@ -183,4 +215,5 @@ def _spill_bare_array(value: Any, spill_dir: str) -> Optional[Dict[str, Any]]:
 
 
 register_result_codec(CODEC, _decode)
+register_result_codec(SHARDED_CODEC, _decode_sharded)
 register_result_spiller(_spill_bare_array)

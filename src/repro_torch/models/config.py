@@ -4,11 +4,10 @@ Every assigned architecture lives in ``repro_torch/configs/<id>.py`` and
 registers itself here via :func:`register_arch`. Each registration provides
 the exact published configuration plus a reduced ``smoke`` variant of the
 same family (small widths/layers/experts) for CPU tests. The port's model
-runs every family without experts: ``hybrid`` (zamba2-7b), ``ssm``
-(rwkv6-3b), ``dense`` (chatglm3-6b, minitron-4b, stablelm-12b,
-starcoder2-7b), ``vlm`` (qwen2-vl-2b) and ``audio`` (musicgen-medium).
-The ``moe`` configurations are registered but not yet ported
-(``ROADMAP.md``).
+runs every family: ``hybrid`` (zamba2-7b), ``ssm`` (rwkv6-3b), ``dense``
+(chatglm3-6b, minitron-4b, stablelm-12b, starcoder2-7b), ``moe``
+(dbrx-132b, llama4-maverick-400b-a17b), ``vlm`` (qwen2-vl-2b) and
+``audio`` (musicgen-medium).
 """
 
 from __future__ import annotations
@@ -100,6 +99,10 @@ class ModelConfig:
         (nothing is allocated)."""
         from . import transformer
         return transformer.count_params(self)
+
+    def n_active_params(self) -> int:
+        from . import transformer
+        return transformer.count_params(self, active_only=True)
 
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)

@@ -11,11 +11,12 @@ one application of a single *shared* attention+MLP block (parameters
 reused across all applications — the Zamba trick); trailing Mamba layers
 after the last group. SSM (rwkv6): a uniform stack of RWKV-6 layers, each
 carrying its token shifts and (H, N, N) WKV state. Attention stack (dense,
-vlm, audio without experts): a uniform stack of pre-norm attention + MLP
-layers; vlm and audio take precomputed (B, S, d_model) embeddings, and
-qwen2-vl's M-RoPE takes (B, 3, S) positions. Configurations with experts
-(the ``moe`` family) are not ported yet and raise ``NotImplementedError``
-(``ROADMAP.md``).
+moe, vlm, audio): pre-norm attention + MLP layers; vlm and audio take
+precomputed (B, S, d_model) embeddings, and qwen2-vl's M-RoPE takes (B, 3,
+S) positions. With experts (moe) the stack is ``n_layers //
+moe_layer_period`` groups of ``period - 1`` dense layers and one MoE layer
+(:mod:`repro_torch.models.moe`), as llama4-maverick alternates them; the
+MoE layers' load-balance losses are summed into the backbone's aux loss.
 
 :func:`apply_backbone` runs the stack for training and for prefill. With
 ``cfg.remat == "full"`` and grad mode on, each layer (each attention-stack,
@@ -33,21 +34,13 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
-from . import mamba2, rwkv6
+from . import mamba2, moe, rwkv6
 from .attention import attention, decode_attention, update_cache
 from .config import ModelConfig
 from .mlp import gated_mlp, init_gated_mlp, normal, rms_norm
 from .rope import apply_rope, default_positions
 
 COMPUTE_DTYPE = torch.bfloat16
-
-
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts layers are not ported to "
-            f"repro_torch yet (ROADMAP.md A12c); the families without "
-            f"experts run")
 
 
 # --------------------------------------------------------------------------- #
@@ -86,7 +79,6 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     device. ``device="meta"`` gives shapes and dtypes without allocating.
     The values differ from the JAX package's for the same seed; tests
     carry JAX's parameters over with :mod:`repro_torch.models.convert`."""
-    _require_ported(cfg)
     dev = (torch.device("meta") if str(device) == "meta"
            else resolve_device(device))
     gen = None
@@ -116,7 +108,22 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                                   gated=cfg.mlp_gated),
         }
         return params
-    # dense / audio / vlm: the uniform attention stack
+    # dense / moe / audio / vlm: the attention stack; with experts, G
+    # groups of period - 1 dense layers and one MoE layer
+    if cfg.n_experts:
+        period = cfg.moe_layer_period
+        G = cfg.n_layers // period
+        blocks = {
+            "norms": _init_norms(cfg, dev, G * period),
+            "attn": _init_attn(gen, cfg, param_dtype, dev, G * period),
+            "moe": moe.init_moe(gen, cfg, G, param_dtype, dev),
+        }
+        if period > 1:
+            blocks["mlp"] = init_gated_mlp(gen, D, cfg.d_ff, param_dtype,
+                                           dev, G * (period - 1),
+                                           gated=cfg.mlp_gated)
+        params["blocks"] = blocks
+        return params
     L = cfg.n_layers
     params["blocks"] = {
         "norms": _init_norms(cfg, dev, L),
@@ -127,8 +134,8 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     return params
 
 
-# matmul weights cast to bf16 for compute (mixed precision); norms, decays
-# and other numerics-sensitive leaves stay fp32
+# matmul weights cast to bf16 for compute (mixed precision); norms, router,
+# decays and other numerics-sensitive leaves stay fp32
 _COMPUTE_CAST = frozenset({
     "embed", "lm_head", "wq", "wk", "wv", "wo", "wg", "wu", "wd",
     "wr", "ck", "cv", "cr", "wz", "wx", "wb", "wc", "wdt",
@@ -150,18 +157,34 @@ def cast_for_compute(params: Dict) -> Dict:
     return out
 
 
-def _leaves(tree: Dict):
-    for leaf in tree.values():
+def _named_leaves(tree: Dict, path: Tuple[str, ...] = ()):
+    """(keys from the root, leaf) for every leaf of a nested dict."""
+    for key, leaf in tree.items():
         if isinstance(leaf, dict):
-            yield from _leaves(leaf)
+            yield from _named_leaves(leaf, path + (key,))
         else:
-            yield leaf
+            yield path + (key,), leaf
 
 
-def count_params(cfg: ModelConfig) -> int:
-    """Parameter count from the meta device: nothing is allocated."""
-    return sum(leaf.numel()
-               for leaf in _leaves(init_params(cfg, device="meta")))
+def _leaves(tree: Dict):
+    return (leaf for _, leaf in _named_leaves(tree))
+
+
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Parameter count from the meta device: nothing is allocated. With
+    ``active_only``, the expert matrices count at ``experts_per_token /
+    n_experts``, as the JAX package counts them: every ``wg``/``wu``/``wd``
+    under ``moe``, the shared expert's too (``ROADMAP.md`` C10)."""
+    total = expert = 0
+    for keys, leaf in _named_leaves(init_params(cfg, device="meta")):
+        n = leaf.numel()
+        total += n
+        if "moe" in keys and any(k in ("wg", "wu", "wd") for k in keys):
+            expert += n
+    if not active_only or not cfg.n_experts:
+        return total
+    frac = cfg.experts_per_token / cfg.n_experts
+    return int(total - expert + expert * frac)
 
 
 # --------------------------------------------------------------------------- #
@@ -271,18 +294,16 @@ def apply_backbone(params: Dict, cfg: ModelConfig, h: torch.Tensor,
                    ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
     """Run the layer stack. h: (B,S,D) embeddings (compute dtype).
 
-    Returns (hidden, aux loss (0: no family here has experts), cache or
-    None). The cache layout matches :func:`init_cache` without
-    ``length``."""
-    _require_ported(cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    Returns (hidden, aux loss (the MoE layers' summed load-balance loss; 0
+    without experts), cache or None). The cache layout matches
+    :func:`init_cache` without ``length``."""
     if cfg.family == "ssm":
         h, cache = _apply_rwkv(params, cfg, h, want_cache)
     elif cfg.family == "hybrid":
         h, cache = _apply_zamba(params, cfg, h, positions, want_cache)
     else:
-        h, cache = _apply_attn_stack(params, cfg, h, positions, want_cache)
-    return h, aux, cache
+        return _apply_attn_stack(params, cfg, h, positions, want_cache)
+    return h, torch.zeros((), dtype=torch.float32, device=h.device), cache
 
 
 def _apply_rwkv(params: Dict, cfg: ModelConfig, h: torch.Tensor,
@@ -329,29 +350,69 @@ def _apply_zamba(params: Dict, cfg: ModelConfig, h: torch.Tensor,
                "v": torch.stack(vs)}
 
 
+def _ffn_residual(p: Dict, h: torch.Tensor, cfg: ModelConfig,
+                  attn_out: torch.Tensor):
+    """The second half of an attention-stack layer: h + a, then + its MLP
+    or MoE of the norm. Returns (out, the MoE's aux loss or None)."""
+    if "moe" not in p:
+        return _mlp_residual(p["mlp"], p["norms"]["ln2"], h, cfg,
+                             attn_out), None
+    h = h + attn_out
+    m, aux = moe.moe_apply(p["moe"], rms_norm(h, p["norms"]["ln2"],
+                                              cfg.norm_eps), cfg)
+    return h + m, aux
+
+
 def _attn_layer(p: Dict, h: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, want_cache: bool):
-    """One pre-norm attention + MLP layer of the attention stack."""
+    """One pre-norm attention + MLP (or MoE) layer of the attention stack:
+    (out, kv or None, aux loss or None)."""
     a, kv = attn_block(p["attn"], rms_norm(h, p["norms"]["ln1"],
                                            cfg.norm_eps),
                        cfg, positions, want_cache)
-    return _mlp_residual(p["mlp"], p["norms"]["ln2"], h, cfg, a), kv
+    h, aux = _ffn_residual(p, h, cfg, a)
+    return h, kv, aux
+
+
+def _stack_layers(blocks: Dict, cfg: ModelConfig) -> list:
+    """Each layer of the attention stack as its parameters' dict, with
+    ``mlp`` or, for the last layer of each group of ``moe_layer_period``
+    (with experts), ``moe``."""
+    if not cfg.n_experts:
+        return _layers(blocks, cfg.n_layers)
+    period = cfg.moe_layer_period
+    G = cfg.n_layers // period
+    norms = _layers(blocks["norms"], G * period)
+    attn = _layers(blocks["attn"], G * period)
+    moes = _layers(blocks["moe"], G)
+    mlps = _layers(blocks["mlp"], G * (period - 1)) if period > 1 else []
+    out = []
+    for li in range(G * period):
+        g, i = divmod(li, period)
+        ffn = ({"moe": moes[g]} if i == period - 1
+               else {"mlp": mlps[g * (period - 1) + i]})
+        out.append({"norms": norms[li], "attn": attn[li], **ffn})
+    return out
 
 
 def _apply_attn_stack(params: Dict, cfg: ModelConfig, h: torch.Tensor,
                       positions: torch.Tensor, want_cache: bool):
-    """The attention stack: (hidden, {"k", "v"} of shape (L, B, S, Hkv *
-    kv_repeat, hd) in the compute dtype, or None)."""
+    """The attention stack: (hidden, summed MoE aux loss, {"k", "v"} of
+    shape (L, B, S, Hkv * kv_repeat, hd) in the compute dtype, or None).
+    Each layer is one checkpoint, the MoE layers too."""
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     ks, vs = [], []
-    for p in _layers(params["blocks"], cfg.n_layers):
-        h, kv = _run_layer(cfg, _attn_layer, p, h, cfg, positions,
-                           want_cache)
+    for p in _stack_layers(params["blocks"], cfg):
+        h, kv, a = _run_layer(cfg, _attn_layer, p, h, cfg, positions,
+                              want_cache)
+        if a is not None:
+            aux = aux + a
         if want_cache:
             ks.append(kv[0])
             vs.append(kv[1])
     if not want_cache:
-        return h, None
-    return h, {"k": torch.stack(ks), "v": torch.stack(vs)}
+        return h, aux, None
+    return h, aux, {"k": torch.stack(ks), "v": torch.stack(vs)}
 
 
 # --------------------------------------------------------------------------- #
@@ -379,7 +440,6 @@ def logits_head(params: Dict, cfg: ModelConfig, h: torch.Tensor
 def prefill(params: Dict, cfg: ModelConfig, inputs: torch.Tensor,
             positions: Optional[torch.Tensor] = None):
     """Returns (last-token logits (B, V) f32, cache)."""
-    _require_ported(cfg)
     B, S = inputs.shape[:2]
     h = embed_inputs(params, cfg, inputs)
     if positions is None and cfg.family != "ssm":
@@ -397,7 +457,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     RWKV states (ssm); the stacked Mamba states and the shared block's
     (G, B, max_len, Hkv * kv_repeat, hd) k/v (hybrid); or every layer's
     (L, B, max_len, Hkv * kv_repeat, hd) k/v (attention stack)."""
-    _require_ported(cfg)
     dev = resolve_device(device)
     if cfg.family == "ssm":
         state = rwkv6.init_state(cfg, batch, dev)
@@ -425,7 +484,6 @@ def decode(params: Dict, cfg: ModelConfig, token: torch.Tensor,
     place (new k/v slot, new Mamba or RWKV states) and returned in a new
     dict with ``length + 1``. Default positions are ``length``, as (B, 3,
     1) for M-RoPE."""
-    _require_ported(cfg)
     B = token.shape[0]
     length = cache["length"]
     h = embed_inputs(params, cfg, token)
@@ -480,12 +538,12 @@ def _decode_zamba(params, cfg, h, positions, cache):
 
 def _decode_attn_stack(params, cfg, h, positions, cache):
     """One token through the attention stack, layer by layer, each writing
-    its new k/v slot into its slice of the stacked cache in place."""
+    its new k/v slot into its slice of the stacked cache in place. The MoE
+    layers' aux losses are discarded, as in the JAX package."""
     length = cache["length"]
-    for li in range(cfg.n_layers):
-        p = _layer(params["blocks"], li)
+    for li, p in enumerate(_stack_layers(params["blocks"], cfg)):
         a, _, _ = attn_decode_block(
             p["attn"], rms_norm(h, p["norms"]["ln1"], cfg.norm_eps), cfg,
             positions, cache["k"][li], cache["v"][li], length)
-        h = _mlp_residual(p["mlp"], p["norms"]["ln2"], h, cfg, a)
+        h, _aux = _ffn_residual(p, h, cfg, a)
     return h

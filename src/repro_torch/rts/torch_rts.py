@@ -57,7 +57,8 @@ tenant mix, and the per-tenant ``members``, ``shared_dispatches`` and
 tasks are never held: they go to their assemblers as before.
 
 The sharded tier of the JAX package (one carrier across a device mesh) is
-not ported: a carrier runs on one device.
+not ported (``ROADMAP.md`` A10b): a carrier runs on one device, and a wide
+group micro-batches on any inventory, two or more cards included.
 """
 
 from __future__ import annotations

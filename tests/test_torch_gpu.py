@@ -1,11 +1,11 @@
 """Tests of the port that need an NVIDIA GPU: each CUDA kernel against its
 plain version (the backward kernels of flash attention, SSD and WKV too),
 the gradients through each forward and backward kernel pair, smoke train
-steps of qwen2-vl, zamba2 and rwkv6 on the card against the CPU,
-and the AnEn workflow (on the DAG tier), the multi-tenant service's AnEn
-sweeps, the seismic misfit sweeps (chain and DAG tiers), the zamba2, rwkv6
-and dense serving paths and the qwen2-vl prefill on embeddings on the card
-against the same runs on the CPU. They skip where ``torch.cuda.is_available()`` is False. This file
+steps of qwen2-vl, zamba2, rwkv6 and the MoE family on the card against
+the CPU, and the AnEn workflow (on the DAG tier), the multi-tenant
+service's AnEn sweeps, the seismic misfit sweeps (chain and DAG tiers),
+the zamba2, rwkv6, dense and MoE serving paths and the qwen2-vl prefill on
+embeddings on the card against the same runs on the CPU. They skip where ``torch.cuda.is_available()`` is False. This file
 imports nothing of JAX, so it also runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -770,6 +770,141 @@ def test_scan_smoke_train_step_on_card_matches_cpu(cuda, arch):
     np.testing.assert_allclose(float(mg["grad_norm"]),
                                float(mc["grad_norm"]), rtol=0.05)
     assert moments_rel_err(gpu["opt"], cpu["opt"]) <= 0.05
+    assert_update_written(params0, gpu["params"], gpu["opt"],
+                          float(mg["lr"]))
+    assert_update_written(params0, cpu["params"], cpu["opt"],
+                          float(mc["lr"]))
+
+
+MOE_ARCHS = ["dbrx-132b", "llama4-maverick-400b-a17b"]
+
+
+def _equal_bits(a, b):
+    if isinstance(a, dict):
+        return all(_equal_bits(a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return a == b
+
+
+def _f32_routes(monkeypatch):
+    """Compute in f32 and record every MoE layer's chosen experts (on the
+    host, in call order). In bf16 a rounding difference between the
+    devices in a router's input flips near-tied choices and moves a
+    token's output by a whole expert, so the card is held to the CPU in
+    f32, the chosen experts first."""
+    from repro_torch.models import moe, transformer
+    routes = []
+    route = moe._route
+
+    def recorded(x2d, router, cfg):
+        out = route(x2d, router, cfg)
+        routes.append(out[1].cpu())
+        return out
+    monkeypatch.setattr(moe, "_route", recorded)
+    monkeypatch.setattr(transformer, "COMPUTE_DTYPE", torch.float32)
+    return routes
+
+
+def _assert_routes_equal(routes, n):
+    assert n and len(routes) == 2 * n
+    assert all(torch.equal(a, b) for a, b in zip(routes[:n], routes[n:]))
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_smoke_serve_on_card_matches_cpu(cuda, arch, monkeypatch):
+    """The MoE smoke configurations in bf16 on the card: prefill launches
+    flash once a layer, a second prefill gives the same bits (a
+    deterministic dispatch and combine), and a short generation stays in
+    the vocabulary. Then in f32, the same weights on both devices: the
+    chosen experts equal the CPU's, layer by layer, and the logits and
+    cache agree within 1e-3."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.launch.serve import ServeSession
+    from repro_torch.models.config import get_config
+    from repro_torch.models.transformer import init_params
+    cfg = get_config(arch, smoke=True)
+    tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 100))
+    batch = {"inputs": torch.from_numpy(tokens).to(cuda)}
+    gpu = ServeSession(arch, smoke=True, device=cuda)
+    before = flash_attention.launches
+    lg, cg = gpu.prefill(gpu.params, batch)
+    torch.cuda.synchronize()
+    assert flash_attention.launches - before == cfg.n_layers
+    lg2, cg2 = gpu.prefill(gpu.params, batch)
+    assert torch.equal(lg, lg2) and _equal_bits(cg, cg2)
+    out = gpu.generate(tokens, 4)
+    assert out.shape == (4, 4)
+    assert ((out >= 0) & (out < cfg.vocab_size)).all()
+    assert gpu.stats[-1]["flash_attention_launches"] == cfg.n_layers
+
+    routes = _f32_routes(monkeypatch)
+    params = init_params(cfg, 0, torch.float32, "cpu")
+    cpu = ServeSession(arch, smoke=True, device="cpu", params=params)
+    gpu = ServeSession(arch, smoke=True, device=cuda,
+                       params=_to(params, cuda))
+    lg, cg = gpu.prefill(gpu.params, batch)
+    n = len(routes)
+    lc, cc = cpu.prefill(cpu.params, {"inputs": torch.from_numpy(tokens)})
+    _assert_routes_equal(routes, n)
+    torch.testing.assert_close(lg.cpu(), lc, atol=1e-3, rtol=1e-3)
+    torch.testing.assert_close(cg["k"].cpu(), cc["k"], atol=1e-3,
+                               rtol=1e-3)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_smoke_train_step_on_card_matches_cpu(cuda, arch, monkeypatch):
+    """The MoE smoke configurations' train step, S = 100. In bf16 on the
+    card, the loss and every gradient of a second pass from the same
+    state give the same bits as a first (no atomic in the combine or its
+    backward). Then one step in f32 from the same state on the card and
+    on the CPU: flash's forward twice and its backward once a layer on the
+    card, the chosen experts equal the CPU's, loss, grad norm and moments
+    within 1e-3, and each parameter's write held as in the qwen2-vl test
+    above."""
+    from _torch_update import (assert_update_written, clone_tree,
+                               moments_rel_err)
+    from repro_torch.data import make_stream
+    from repro_torch.kernels import KERNELS
+    from repro_torch.models import steps
+    from repro_torch.models.config import get_config
+    cfg = get_config(arch, smoke=True)
+    batch = {k: torch.from_numpy(v)
+             for k, v in make_stream(cfg, 100, 4).batch(0).items()}
+    gbatch = {k: v.to(cuda) for k, v in batch.items()}
+    cpu = steps.init_train_state(cfg, 0, "cpu")
+    gpu = _to(cpu, cuda)
+
+    def grads():
+        params = clone_tree(gpu["params"])
+        leaves = steps.leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss, _ = steps.loss_fn(params, cfg, gbatch)
+        return [loss.detach()] + list(torch.autograd.grad(loss, leaves))
+
+    first, second = grads(), grads()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+    routes = _f32_routes(monkeypatch)
+    params0 = clone_tree(cpu["params"])
+    step = steps.make_train_step(cfg)
+    before = {k: fn.launches for k, fn in KERNELS.items()}
+    gpu, mg = step(gpu, gbatch)
+    torch.cuda.synchronize()
+    n = len(routes)
+    launched = {k: fn.launches - before[k] for k, fn in KERNELS.items()}
+    want = {k: 0 for k in KERNELS}
+    want.update(flash_attention=2 * cfg.n_layers,
+                flash_attention_bwd=cfg.n_layers)
+    assert launched == want
+    cpu, mc = step(cpu, batch)
+    _assert_routes_equal(routes, n)
+    np.testing.assert_allclose(float(mg["loss"]), float(mc["loss"]),
+                               atol=1e-3, rtol=1e-3)
+    np.testing.assert_allclose(float(mg["grad_norm"]),
+                               float(mc["grad_norm"]), rtol=1e-3)
+    assert moments_rel_err(gpu["opt"], cpu["opt"]) <= 1e-3
     assert_update_written(params0, gpu["params"], gpu["opt"],
                           float(mg["lr"]))
     assert_update_written(params0, cpu["params"], cpu["opt"],

@@ -53,7 +53,8 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
     for name in ("models.config", "models.transformer", "models.mamba2",
                  "models.attention", "models.steps", "models.convert",
                  "configs.zamba2_7b", "configs.rwkv6_3b",
-                 "models.rwkv6", "kernels.flash_attention",
+                 "models.rwkv6", "models.moe", "configs.dbrx_132b",
+                 "kernels.flash_attention",
                  "kernels.mamba2_ssd", "kernels.rwkv6_wkv", "kernels.ref",
                  "launch.serve", "apps.seismic", "apps.seismic.solver",
                  "apps.seismic.workflow", "optim", "optim.adamw", "data",

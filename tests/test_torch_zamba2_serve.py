@@ -246,12 +246,32 @@ def test_bf16_round_trip_is_bit_exact():
     np.testing.assert_array_equal(back, np.asarray(x))
 
 
+def _shapes(tree):
+    """{path: (shape, dtype name)} of a nested dict of arrays or
+    tensors."""
+    out = {}
+    for key, leaf in tree.items():
+        if isinstance(leaf, dict):
+            out.update({f"{key}/{k}": v for k, v in _shapes(leaf).items()})
+        elif key != "length":
+            out[key] = (tuple(leaf.shape), str(leaf.dtype).split(".")[-1])
+    return out
+
+
+@pytest.mark.parametrize("smoke", [True, False])
 @pytest.mark.parametrize("arch", ["dbrx-132b", "llama4-maverick-400b-a17b"])
-def test_other_families_raise_naming_the_roadmap(arch):
-    """The configurations with experts (the ``moe`` family) are not ported
-    yet; every family without them is."""
-    cfg = tconfig(arch, smoke=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttf.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ttf.init_cache(cfg, 1, 8, "cpu")
+def test_moe_families_init_like_jax(arch, smoke):
+    """The configurations with experts (the ``moe`` family) are ported:
+    ``init_params`` (on the meta device at full width) and ``init_cache``
+    give the JAX package's keys, shapes and dtypes, so ``params_from_numpy``
+    carries JAX's parameters over unchanged."""
+    jcfg, tcfg = jconfig(arch, smoke=smoke), tconfig(arch, smoke=smoke)
+    jp = jax.eval_shape(lambda k: jtf.init_params(jcfg, k, jnp.float32),
+                        jax.random.PRNGKey(0))
+    tp = ttf.init_params(tcfg, device="meta" if not smoke else "cpu")
+    assert _shapes(tp) == _shapes(jp)
+    assert "moe" in tp["blocks"] and tp["blocks"]["moe"]["router"].dtype \
+        == torch.float32
+    jc = jax.eval_shape(lambda: jtf.init_cache(jcfg, 2, 8))
+    tc = ttf.init_cache(tcfg, 2, 8, "cpu")
+    assert _shapes(tc) == _shapes(jc) and tc["length"] == 0
