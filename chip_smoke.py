@@ -68,6 +68,15 @@ plain PyTorch version on the card, and drives the port's paths:
    minitron-4b's smoke configuration through ``run_managed`` on
    ``TorchRTS``, 20 steps in chunks of 5 with one injected fault (one
    retry, no step trained twice).
+9. The dry-run tier (``repro_torch.launch.dryrun`` on a one-device mesh:
+   fake tensors on the card's device type) predicts qwen2-vl-2b's full
+   train step and minitron-4b's prefill at (4, 512); each step then runs
+   for real, and the prediction must meet its ``max_memory_allocated``
+   within 15 %, its kernel launches exactly and its matmul FLOPs
+   (``FlopCounterMode``) within 1e-6. Then int8 gradient compression on
+   the card gives the CPU's bits, and minitron-4b's smoke
+   ``TrainSession(grad_compression="int8")`` allocates its zero f32
+   error state on the card and trains the losses of an uncompressed one.
 
 Before the serve paths it checks that the CUDA routes of the flash, SSD
 and WKV kernels take grads (``autograd.grad`` through each forward and
@@ -116,10 +125,28 @@ KERNEL_SOURCES = ("anen_distance", "flash_attention", "flash_attention_bwd",
                   "mamba2_ssd", "mamba2_ssd_bwd", "rwkv6_wkv",
                   "rwkv6_wkv_bwd")
 
-# published peaks of one H100 SXM (NVIDIA data sheet) at a 700 W limit
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
-BF16_FLOPS_PER_S = 989e12      # dense, tensor cores
+
+def _load_costs():
+    """This tree's ``repro_torch/kernels/costs.py`` (the kernels' bounds
+    and the published peaks of one H100 SXM, NVIDIA data sheet, 700 W:
+    one definition, shared with the dry-run), loaded by its path, so that
+    a tool that puts another tree's ``src`` first still reads these."""
+    import importlib.util
+    path = os.path.join(SRC, "repro_torch", "kernels", "costs.py")
+    spec = importlib.util.spec_from_file_location("_chip_smoke_costs", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+_costs = _load_costs()
+HBM_BYTES_PER_S = _costs.HBM_BYTES_PER_S
+FP32_FLOPS_PER_S = _costs.FP32_FLOPS_PER_S
+BF16_FLOPS_PER_S = _costs.BF16_FLOPS_PER_S
+distance_bound = _costs.distance_bound
+flash_bound, flash_bwd_bound = _costs.flash_bound, _costs.flash_bwd_bound
+ssd_bound, ssd_bwd_bound = _costs.ssd_bound, _costs.ssd_bwd_bound
+wkv_bound, wkv_bwd_bound = _costs.wkv_bound, _costs.wkv_bwd_bound
 
 MAIN = dict(seed=0, ny=428, nx=614, n_hist=365, per_iter=1024, max_iters=4,
             n_tasks=8, slots=4, timeout=900.0)
@@ -434,16 +461,6 @@ def distance_inputs(shape, seed: int = 7):
     fn = torch.from_numpy(rng.standard_normal((v, n)).astype(np.float32))
     return fh.cuda(), fn.cuda()
 
-
-def distance_bound(shape) -> dict:
-    """Least time for (H, V, N): each input read once and the output
-    written once, in f32, against 3·H·V·N f32 operations."""
-    h, v, n = shape
-    bytes_ = 4 * (h * v * n + v * n + h * n)
-    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = 3 * h * v * n / FP32_FLOPS_PER_S * 1e3
-    return {"bytes": bytes_, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def compare_distance(shape) -> dict:
@@ -1298,16 +1315,6 @@ def compare_flash_bwd(shape, dtype: str) -> float:
     return max(errs)
 
 
-def flash_bwd_bound(shape, elem: int) -> dict:
-    """q, k, v, out, dout read and dq, dk, dv written once in the input
-    type, lse read in f32; five products (S, dP, dq, dk, dv) of 2 hd flops
-    for each of the S(S+1)/2 causal (q, k) pairs of each (b, h), at the
-    tensor-core rate of bf16 inputs."""
-    B, S, H, hd = shape
-    bytes_ = 8 * B * S * H * hd * elem + 4 * B * S * H
-    flops = 10.0 * B * H * hd * S * (S + 1) / 2
-    return _bound(bytes_, flops, BF16_FLOPS_PER_S)
-
 
 def time_flash_bwd(shape) -> dict:
     """The backward kernel (device time, busy time), its plain version
@@ -1445,38 +1452,6 @@ def scan_bwd_digest(grads) -> str:
     return h.hexdigest()[:16]
 
 
-def ssd_bwd_bound(shape, elem: int) -> dict:
-    """x, dy, B, C read and dx, dB, dC written once in the input type;
-    dt, A, state0 read and ddt, dA, dstate0 written once in f32 (the train
-    path's final-state gradient is None: not read); per chunk and head the
-    products of the gradient (C.B^T, dy.x^T, and M, dG against dy, C, B:
-    c x c x (3N + 2P)) and of the states (S dy_t, dS' x_s, dS'^T B_s, the
-    dS and recomputed S updates: 5 c x N x P), at the tensor-core rate of
-    bf16 inputs."""
-    from repro_torch.kernels.mamba2_ssd import pick_chunk
-    B, T, H, P, G, N = shape
-    c = pick_chunk(T)
-    bytes_ = (elem * (3 * B * T * H * P + 4 * B * T * G * N)
-              + 4 * 2 * (B * T * H + H + B * H * N * P))
-    flops = 2.0 * B * H * (T // c) * (c * c * (3 * N + 2 * P)
-                                      + 5 * c * N * P)
-    return _bound(bytes_, flops, BF16_FLOPS_PER_S)
-
-
-def wkv_bwd_bound(shape, elem: int) -> dict:
-    """r, k, v, w, dout read and dr, dk, dv, dw written once in the input
-    type; u, state0 read and du, dstate0 written once in f32 (no
-    final-state gradient on the train path); per chunk and head the
-    products of the gradient (scores, dout.v^T, their products with
-    k_over, r_dec and dout: 5 c x c x N) and of the states (S dout_t,
-    dS' v_s, dS'^T k_scaled, the dS and recomputed S updates: 5 c x N x
-    N), at the tensor-core rate of bf16 inputs."""
-    from repro_torch.kernels.rwkv6_wkv import pick_chunk
-    B, T, H, N = shape
-    c = pick_chunk(T)
-    bytes_ = elem * 9 * B * T * H * N + 4 * 2 * (H * N + B * H * N * N)
-    flops = 2.0 * B * H * (T // c) * (5 * c * c * N + 5 * c * N * N)
-    return _bound(bytes_, flops, BF16_FLOPS_PER_S)
 
 
 # the bf16 scan backwards' kernels (names as the profiler gives them, e.g.
@@ -1542,51 +1517,8 @@ def time_scan_bwd(name: str, shape) -> dict:
     return row
 
 
-def _bound(bytes_: int, flops: float, rate: float) -> dict:
-    t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / rate * 1e3
-    return {"bytes": bytes_, "flops": flops,
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "f32_cuda_core_ops_ms": flops / FP32_FLOPS_PER_S * 1e3}
 
 
-def flash_bound(shape, elem: int) -> dict:
-    """q, k, v read once and out written once in the input type, lse in
-    f32; 2 products of 2 hd flops for each of the S(S+1)/2 causal (q, k)
-    pairs of each (b, h), at the tensor-core rate of bf16 inputs."""
-    B, S, H, hd = shape
-    bytes_ = 4 * B * S * H * hd * elem + 4 * B * S * H
-    flops = 4.0 * B * H * hd * S * (S + 1) / 2
-    return _bound(bytes_, flops, BF16_FLOPS_PER_S)
-
-
-def ssd_bound(shape, elem: int) -> dict:
-    """x, B, C read and y written once in the input type, dt, A, state0
-    read and the final state written once in f32; per chunk and head the
-    Pallas body's four products (C.B^T, scores.x, C.S, B^T.x), at the
-    tensor-core rate of bf16 inputs."""
-    from repro_torch.kernels.mamba2_ssd import pick_chunk
-    B, T, H, P, G, N = shape
-    c = pick_chunk(T)
-    bytes_ = (elem * (2 * B * T * H * P + 2 * B * T * G * N)
-              + 4 * (B * T * H + H + 2 * B * H * N * P))
-    flops = 2.0 * B * H * (T // c) * (c * c * N + c * c * P + 2 * c * N * P)
-    return _bound(bytes_, flops, BF16_FLOPS_PER_S)
-
-
-def wkv_bound(shape, elem: int, rate: float = BF16_FLOPS_PER_S) -> dict:
-    """r, k, v, w read and out written once in the input type, u and
-    state0 read and the final state written once in f32; per chunk and head
-    the Pallas body's four products (scores, scores.v, the readout, the
-    state update), at ``rate`` (the tensor-core rate of bf16 inputs by
-    default)."""
-    from repro_torch.kernels.rwkv6_wkv import pick_chunk
-    B, T, H, N = shape
-    c = pick_chunk(T)
-    bytes_ = elem * 5 * B * T * H * N + 4 * (H * N + 2 * B * H * N * N)
-    flops = 2.0 * B * H * (T // c) * (2 * c * c * N + 2 * c * N * N)
-    return _bound(bytes_, flops, rate)
 
 
 def compiled_kernels(anen_n: int) -> dict:
@@ -2504,6 +2436,160 @@ def train_phase():
     return paths, shapes
 
 
+# phase 9: the one-device dry-run against the card. Each step's predicted
+# peak memory must be within DRYRUN_PEAK_TOL of the measured one; launches
+# exact; matmul FLOPs within DRYRUN_FLOP_TOL of FlopCounterMode's
+DRYRUN_STEPS = (("qwen2-vl-2b", "train", 4, 512),
+                ("minitron-4b", "prefill", 4, 512))
+DRYRUN_PEAK_TOL = 0.15
+DRYRUN_FLOP_TOL = 1e-6
+# the dry-run's kernel ops by the name the wrappers count launches under
+DRYRUN_OPS = {"flash_fwd": "flash_attention",
+              "flash_bwd": "flash_attention_bwd",
+              "ssd_fwd": "mamba2_ssd", "ssd_bwd": "mamba2_ssd_bwd",
+              "wkv_fwd": "rwkv6_wkv", "wkv_bwd": "rwkv6_wkv_bwd"}
+
+
+def real_inputs(cfg, shape, device):
+    """Seeded inputs of the shapes and dtypes ``input_specs`` gives."""
+    import torch
+    from repro_torch.models.input_specs import input_specs
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    out = {}
+    for name, spec in input_specs(cfg, shape)["batch"].items():
+        if spec.dtype == torch.bfloat16:
+            out[name] = torch.randn(spec.shape, generator=gen,
+                                    device=device).to(torch.bfloat16)
+        elif name == "positions":
+            pos = torch.arange(spec.shape[-1], device=device,
+                               dtype=torch.int32)
+            out[name] = pos.expand(spec.shape).contiguous()
+        else:
+            out[name] = torch.randint(0, cfg.vocab_size, spec.shape,
+                                      generator=gen, device=device,
+                                      dtype=torch.int32)
+    return out
+
+
+def dryrun_check(arch: str, kind: str, batch: int, seq: int) -> dict:
+    """The one-device dry-run's prediction of one step (fake tensors on
+    the card's device type), then the same step run for real: its peak
+    (``max_memory_allocated`` over what was held before its state and
+    inputs were built), its kernels' launches and, in a second run under
+    ``FlopCounterMode``, its matmul FLOPs."""
+    import torch
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.dryrun import cell_record
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.op_analysis import matmul_flops_of
+    from repro_torch.models import steps
+    from repro_torch.models.config import ShapeConfig, get_config
+    cfg = get_config(arch)
+    shape = ShapeConfig(f"{kind}_{batch}x{seq}", seq, batch, kind)
+    t0 = time.perf_counter()
+    rec = cell_record(arch, shape.name, Mesh(("data", "model"), (1, 1)),
+                      device="cuda", cfg=cfg, shape=shape)
+    predict_s = time.perf_counter() - t0
+    pred = rec["memory"]["peak_bytes_per_device"]
+    release_all()
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    if kind == "train":
+        args = (steps.init_train_state(cfg, 0, "cuda"),)
+        fn = steps.make_train_step(cfg)
+    else:
+        args = (steps.transformer.init_params(cfg, 0, torch.float32,
+                                              "cuda"),)
+        fn = steps.make_prefill_step(cfg)
+    args = (*args, real_inputs(cfg, shape, "cuda"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = {k: f.launches for k, f in KERNELS.items()}
+    out = fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    launches = {k: f.launches - before[k] for k, f in KERNELS.items()}
+    del out
+    flops = matmul_flops_of(fn, *args)
+    del args
+    release_all()
+    want = {DRYRUN_OPS[op]: n for op, n in rec["launches"].items()}
+    got = {k: n for k, n in launches.items() if n}
+    err = abs(pred - peak) / peak
+    flop_err = abs(rec["per_device"]["matmul_flops"] - flops) / flops
+    row = {"arch": arch, "kind": kind, "shape": [batch, seq],
+           "predicted_peak_bytes": pred, "measured_peak_bytes": peak,
+           "peak_rel_err": err, "predicted_launches": want,
+           "measured_launches": got,
+           "predicted_matmul_flops": rec["per_device"]["matmul_flops"],
+           "measured_matmul_flops": flops, "flop_rel_err": flop_err,
+           "predict_s": predict_s, "trace_s": rec["trace_s"]}
+    print(f"dryrun {arch} {kind} ({batch}, {seq}) on the card: {row}")
+    check(err <= DRYRUN_PEAK_TOL,
+          f"{arch} {kind}: predicted peak {pred} within "
+          f"{DRYRUN_PEAK_TOL} of the measured {peak} (off by {err})")
+    check(want == got, f"{arch} {kind}: predicted launches {want} == "
+                       f"measured {got}")
+    check(flop_err <= DRYRUN_FLOP_TOL,
+          f"{arch} {kind}: matmul FLOPs {rec['per_device']['matmul_flops']}"
+          f" within {DRYRUN_FLOP_TOL} of FlopCounterMode's {flops}")
+    return row
+
+
+def compression_check() -> None:
+    """int8 gradient compression on the card gives the CPU's bits, and a
+    smoke ``TrainSession(grad_compression="int8")`` on the card allocates
+    its zero f32 error state there and trains the losses of an
+    uncompressed session."""
+    import torch
+    from repro_torch.launch import train
+    from repro_torch.optim import compression
+    gen = torch.Generator().manual_seed(0)
+    g = torch.randn((1 << 20) + 123, generator=gen) * 3.0
+    g[:2048] *= 1e-14                  # a block at the scale's floor
+    qc, sc = compression.compress_int8(g)
+    qg, sg = compression.compress_int8(g.cuda())
+    dc = compression.decompress_int8(qc, sc, g.shape)
+    dg = compression.decompress_int8(qg, sg, g.shape)
+    check(torch.equal(qg.cpu(), qc), "int8 blocks on the card == CPU's")
+    check(torch.equal(sg.cpu().view(torch.int32), sc.view(torch.int32)),
+          "int8 scales on the card == CPU's bits")
+    check(torch.equal(dg.cpu().view(torch.int32), dc.view(torch.int32)),
+          "dequantized values on the card == CPU's bits")
+    kw = dict(arch="minitron-4b", smoke=True, seq_len=64, global_batch=4,
+              device="cuda")
+    plain = train.TrainSession(**kw)
+    comp = train.TrainSession(grad_compression="int8", **kw)
+    plain.run_steps(3, save=False)
+    comp.run_steps(3, save=False)
+    losses = [r["loss"] for r in comp.stats]
+    check(losses == [r["loss"] for r in plain.stats],
+          f"int8 session's losses {losses} == uncompressed "
+          f"{[r['loss'] for r in plain.stats]}")
+    errs = list(steps_leaves(comp.error_state))
+    check(all(e.device.type == "cuda" and e.dtype == torch.float32
+              and not e.any() for e in errs),
+          "int8 error state: zero f32 on the card")
+    print(f"int8 compression: card == CPU bits on {g.numel()} values; "
+          f"smoke TrainSession(grad_compression='int8') on the card: "
+          f"{len(errs)} error leaves, losses {losses}")
+
+
+def steps_leaves(tree):
+    from repro_torch.optim.adamw import leaves
+    return leaves(tree)
+
+
+def dryrun_phase() -> list:
+    """Phase 9: the dry-run tier and int8 compression on the card."""
+    t0 = time.perf_counter()
+    rows = [dryrun_check(*step) for step in DRYRUN_STEPS]
+    compression_check()
+    print(f"dryrun phase seconds: {time.perf_counter() - t0}")
+    return rows
+
+
 def main() -> None:
     sys.stdout.reconfigure(line_buffering=True)   # a cut run keeps its log
     sys.path.insert(0, SRC)
@@ -2599,6 +2685,7 @@ def main() -> None:
     by_path.update(moe_phase())
     train_paths, bwd_shapes = train_phase()
     by_path.update(train_paths)
+    dryrun_rows = dryrun_phase()
     launches = {name: sum(path.get(name, 0) for path in by_path.values())
                 for name in timed}
     print(f"model kernel launches by path: {by_path}")
@@ -2699,6 +2786,7 @@ def main() -> None:
                 smem_bytes=info["static_smem_bytes"]
                 + info["dynamic_smem_bytes"],
                 blocks_per_sm=info["blocks_per_sm"])
+    print(f"dryrun on the card: {json.dumps(dryrun_rows)}")
     print(f"script seconds: {time.perf_counter() - t_start}")
     print(card_line())
     print(json.dumps(record))

@@ -40,6 +40,8 @@ from typing import Tuple
 
 import torch
 
+from ._library import kernel_op, strategies
+
 BLOCK = 64             # the plain version's q and kv tile (rows)
 MAX_HEAD_DIM = 160     # the kernels' largest head dim (stablelm-12b's)
 NEG_INF = -1e30
@@ -165,13 +167,30 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     return out, lse
 
 
+def _fwd_fake(q, k, v):
+    B, S, H, _ = q.shape
+    return torch.empty_like(q), q.new_empty((B, S, H), dtype=torch.float32)
+
+
+def _fwd_rule(q, k, v):
+    """Batch or heads sharded (lse (B, S, H) alike), computed locally."""
+    return strategies((q, k, v), 2, batch=((0, 0), (0, 0, 0)),
+                      heads=((2, 2), (2, 2, 2)))
+
+
+@kernel_op("flash_fwd", _fwd_fake, _fwd_rule)
+def _flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _forward(q, k, v)
+
+
 class _FlashAttention(torch.autograd.Function):
     """Forward kernel, backward kernel: saves (q, k, v, out, lse), as the
     JAX ``custom_vjp`` does; lse is an output without a gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v):
-        out, lse = _forward(q, k, v)
+        out, lse = _flash_fwd(q, k, v)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.mark_non_differentiable(lse)
         return out, lse
@@ -189,15 +208,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
     CUDA tensors launch the kernel on the current stream (one launch,
     counted in ``flash_attention.launches``, its (B, S, H, hd) counted in
-    ``flash_attention.shapes``); CPU tensors take the plain version.
-    Anything else raises. When grad mode is on and an input requires grad,
-    the call records an ``autograd.Function`` whose backward is
-    :func:`flash_attention_bwd` (lse gets no gradient)."""
+    ``flash_attention.shapes``); CPU tensors take the plain version; fake
+    tensors compute nothing (``repro_torch::flash_fwd``'s fake
+    implementation). Anything else raises. When grad mode is on and an
+    input requires grad, the call records an ``autograd.Function`` whose
+    backward is :func:`flash_attention_bwd` (lse gets no gradient)."""
     _check(q, k, v)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
         return _FlashAttention.apply(q, k, v)
-    return _forward(q, k, v)
+    return _flash_fwd(q, k, v)
 
 
 flash_attention.launches = 0
@@ -280,8 +300,8 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA tensors launch the backward kernel on the current stream (one
     call, counted in ``flash_attention_bwd.launches`` and its (B, S, H,
     hd) in ``.shapes``; it runs three CUDA kernels: delta, dk/dv, dq); CPU
-    tensors take :func:`flash_attention_bwd_plain`. Anything else
-    raises."""
+    tensors take :func:`flash_attention_bwd_plain`; fake tensors compute
+    nothing. Anything else (a meta device too) raises."""
     _check(q, k, v)
     for name, t in (("out", out), ("dout", dout)):
         if (t.shape != q.shape or t.dtype != q.dtype
@@ -293,8 +313,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or lse.device != q.device or not lse.is_contiguous()):
         raise ValueError(f"flash_attention_bwd takes lse (B, S, H) = "
                          f"{(B, S, H)} float32 on q's device, contiguous")
+    return _flash_bwd(q, k, v, out, lse, dout)
+
+
+def _backward(q, k, v, out, lse, dout):
+    """The backward on q's device: the plain version on the CPU, one
+    counted call of the backward kernels on CUDA."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, lse, dout)
+    B, S, H, hd = q.shape
     launch = _load_bwd()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     if q.numel() == 0:
@@ -317,3 +344,20 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.shapes = collections.Counter()
+
+
+def _bwd_fake(q, k, v, out, lse, dout):
+    return tuple(torch.empty_like(q) for _ in range(3))
+
+
+def _bwd_rule(q, k, v, out, lse, dout):
+    args = (q, k, v, out, lse, dout)
+    return strategies(args, 3, batch=((0,) * 3, (0,) * 6),
+                      heads=((2,) * 3, (2,) * 6))
+
+
+@kernel_op("flash_bwd", _bwd_fake, _bwd_rule)
+def _flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               out: torch.Tensor, lse: torch.Tensor, dout: torch.Tensor
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _backward(q, k, v, out, lse, dout)

@@ -34,6 +34,9 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ._library import kernel_op, strategies
+from .costs import pick_chunk  # noqa: F401  (the scans' chunk rule)
+
 MAX_CHUNK = 64          # the kernel's largest chunk
 MAX_DIM = 128           # the kernel's largest state N and head dim P
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -41,15 +44,6 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _count_lock = threading.Lock()
 _launcher = None
 _bwd_launcher = None
-
-
-def pick_chunk(T: int, chunk: int = MAX_CHUNK) -> int:
-    """The largest c <= ``chunk`` that divides T, as the JAX wrapper picks
-    it."""
-    c = min(chunk, T)
-    while T % c:
-        c -= 1
-    return c
 
 
 def upcast(a: torch.Tensor) -> torch.Tensor:
@@ -189,6 +183,32 @@ def _forward(x, dt, A, Bm, Cm, state0, chunk):
     return y, state
 
 
+def _heads_ok(Bm) -> bool:
+    """Heads shard only with one B/C group (each head reads its group)."""
+    shape = getattr(Bm, "shape", None)
+    return shape is not None and shape[2] == 1
+
+
+def _fwd_fake(x, dt, A, Bm, Cm, state0, chunk):
+    return torch.empty_like(x), torch.empty_like(state0)
+
+
+def _fwd_rule(x, dt, A, Bm, Cm, state0, chunk):
+    """Batch sharded, or heads (one B/C group), computed locally."""
+    args = (x, dt, A, Bm, Cm, state0, chunk)
+    named = {"batch": ((0, 0), (0, 0, None, 0, 0, 0, None))}
+    if _heads_ok(Bm):
+        named["heads"] = ((2, 1), (2, 2, 0, None, None, 1, None))
+    return strategies(args, 2, **named)
+
+
+@kernel_op("ssd_fwd", _fwd_fake, _fwd_rule)
+def _ssd_fwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, state0: torch.Tensor,
+             chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _forward(x, dt, A, Bm, Cm, state0, chunk)
+
+
 class _MambaSSD(torch.autograd.Function):
     """Forward kernel, backward kernel: saves the inputs; the backward
     recomputes the chunk states from them. Gradients go to the inputs that
@@ -200,7 +220,7 @@ class _MambaSSD(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(x, dt, A, Bm, Cm, state0)
         ctx.chunk = chunk
-        return _forward(x, dt, A, Bm, Cm, state0, chunk)
+        return _ssd_fwd(x, dt, A, Bm, Cm, state0, chunk)
 
     @staticmethod
     def backward(ctx, dy, dstate):
@@ -234,7 +254,7 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     if torch.is_grad_enabled() and any(
             a.requires_grad for a in (x, dt, A, Bm, Cm, state0)):
         return _MambaSSD.apply(x, dt, A, Bm, Cm, state0, chunk)
-    return _forward(x, dt, A, Bm, Cm, state0, chunk)
+    return _ssd_fwd(x, dt, A, Bm, Cm, state0, chunk)
 
 
 mamba2_ssd.launches = 0
@@ -418,6 +438,12 @@ def mamba2_ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
             or dstate_T.device != x.device or not dstate_T.is_contiguous()):
         raise ValueError("mamba2_ssd_bwd takes dstate_T of state0's shape, "
                          "float32 on x's device, contiguous, or None")
+    return _ssd_bwd(x, dt, A, Bm, Cm, state0, dy, dstate_T, chunk)
+
+
+def _backward(x, dt, A, Bm, Cm, state0, dy, dstate_T, chunk):
+    """The backward on x's device: the plain version on the CPU, one
+    counted call of the backward kernels on CUDA."""
     if x.device.type == "cpu":
         return mamba2_ssd_bwd_plain(x, dt, A, Bm, Cm, state0, dy, dstate_T,
                                     chunk)
@@ -469,3 +495,28 @@ def mamba2_ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 mamba2_ssd_bwd.launches = 0
 mamba2_ssd_bwd.shapes = collections.Counter()
+
+
+def _bwd_fake(x, dt, A, Bm, Cm, state0, dy, dstate_T, chunk):
+    return tuple(torch.empty_like(a) for a in (x, dt, A, Bm, Cm, state0))
+
+
+def _bwd_rule(x, dt, A, Bm, Cm, state0, dy, dstate_T, chunk):
+    """Batch sharded (dA summed over it: partial), or heads (one B/C
+    group; dB and dC summed over the heads: partial)."""
+    args = (x, dt, A, Bm, Cm, state0, dy, dstate_T, chunk)
+    named = {"batch": ((0, 0, "P", 0, 0, 0),
+                       (0, 0, None, 0, 0, 0, 0, 0, None))}
+    if _heads_ok(Bm):
+        named["heads"] = ((2, 2, 0, "P", "P", 1),
+                          (2, 2, 0, None, None, 1, 2, 1, None))
+    return strategies(args, 6, **named)
+
+
+@kernel_op("ssd_bwd", _bwd_fake, _bwd_rule)
+def _ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+             Bm: torch.Tensor, Cm: torch.Tensor, state0: torch.Tensor,
+             dy: torch.Tensor, dstate_T: Optional[torch.Tensor],
+             chunk: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _backward(x, dt, A, Bm, Cm, state0, dy, dstate_T, chunk)

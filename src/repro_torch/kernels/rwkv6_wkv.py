@@ -36,6 +36,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ._library import kernel_op, strategies
 from .mamba2_ssd import pick_chunk, upcast
 
 MAX_CHUNK = 64          # the kernel's largest chunk
@@ -169,6 +170,24 @@ def _forward(r, k, v, w, u, state0, chunk):
     return out, state
 
 
+def _fwd_fake(r, k, v, w, u, state0, chunk):
+    return torch.empty_like(r), torch.empty_like(state0)
+
+
+def _fwd_rule(r, k, v, w, u, state0, chunk):
+    """Batch or heads sharded, computed locally."""
+    return strategies((r, k, v, w, u, state0, chunk), 2,
+                      batch=((0, 0), (0, 0, 0, 0, None, 0, None)),
+                      heads=((2, 1), (2, 2, 2, 2, 0, 1, None)))
+
+
+@kernel_op("wkv_fwd", _fwd_fake, _fwd_rule)
+def _wkv_fwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor, state0: torch.Tensor,
+             chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _forward(r, k, v, w, u, state0, chunk)
+
+
 class _RwkvWKV(torch.autograd.Function):
     """Forward kernel, backward kernel: saves the inputs; the backward
     recomputes the chunk states from them. Gradients go to the inputs that
@@ -180,7 +199,7 @@ class _RwkvWKV(torch.autograd.Function):
         ctx.set_materialize_grads(False)
         ctx.save_for_backward(r, k, v, w, u, state0)
         ctx.chunk = chunk
-        return _forward(r, k, v, w, u, state0, chunk)
+        return _wkv_fwd(r, k, v, w, u, state0, chunk)
 
     @staticmethod
     def backward(ctx, dout, dstate):
@@ -214,7 +233,7 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if torch.is_grad_enabled() and any(
             a.requires_grad for a in (r, k, v, w, u, state0)):
         return _RwkvWKV.apply(r, k, v, w, u, state0, chunk)
-    return _forward(r, k, v, w, u, state0, chunk)
+    return _wkv_fwd(r, k, v, w, u, state0, chunk)
 
 
 rwkv6_wkv.launches = 0
@@ -380,6 +399,12 @@ def rwkv6_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             or dstate_T.device != r.device or not dstate_T.is_contiguous()):
         raise ValueError("rwkv6_wkv_bwd takes dstate_T of state0's shape, "
                          "float32 on r's device, contiguous, or None")
+    return _wkv_bwd(r, k, v, w, u, state0, dout, dstate_T, chunk)
+
+
+def _backward(r, k, v, w, u, state0, dout, dstate_T, chunk):
+    """The backward on r's device: the plain version on the CPU, one
+    counted call of the backward kernels on CUDA."""
     if r.device.type == "cpu":
         return rwkv6_wkv_bwd_plain(r, k, v, w, u, state0, dout, dstate_T,
                                    chunk)
@@ -423,3 +448,25 @@ def rwkv6_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 rwkv6_wkv_bwd.launches = 0
 rwkv6_wkv_bwd.shapes = collections.Counter()
+
+
+def _bwd_fake(r, k, v, w, u, state0, dout, dstate_T, chunk):
+    return tuple(torch.empty_like(a) for a in (r, k, v, w, u, state0))
+
+
+def _bwd_rule(r, k, v, w, u, state0, dout, dstate_T, chunk):
+    """Batch sharded (du summed over it: partial) or heads sharded."""
+    return strategies((r, k, v, w, u, state0, dout, dstate_T, chunk), 6,
+                      batch=((0, 0, 0, 0, "P", 0),
+                             (0, 0, 0, 0, None, 0, 0, 0, None)),
+                      heads=((2, 2, 2, 2, 0, 1),
+                             (2, 2, 2, 2, 0, 1, 2, 1, None)))
+
+
+@kernel_op("wkv_bwd", _bwd_fake, _bwd_rule)
+def _wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             w: torch.Tensor, u: torch.Tensor, state0: torch.Tensor,
+             dout: torch.Tensor, dstate_T: Optional[torch.Tensor],
+             chunk: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                  torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _backward(r, k, v, w, u, state0, dout, dstate_T, chunk)

@@ -14,7 +14,9 @@ work is never repeated, as in the JAX package.
 On the card a step runs the forward and backward CUDA kernels of its
 family's layers: flash attention (the attention stack, zamba2's shared
 block), the Mamba-2 SSD scan (hybrid) and the RWKV-6 WKV recurrence
-(ssm). Gradient compression is not ported (A12d).
+(ssm). ``grad_compression="int8"`` allocates the int8 error-feedback
+state (:mod:`~repro_torch.optim.compression`) at the first ``run_steps``,
+as the JAX trainer does; neither wires it into the step.
 
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu
     PYTHONPATH=src python -m repro_torch.launch.train --device cpu --managed
@@ -39,6 +41,7 @@ from ..device import DeviceLike, device_name, resolve_device
 from ..kernels import KERNELS
 from ..models import steps as steps_mod
 from ..models.config import get_config
+from ..optim import compression
 from ..optim.adamw import AdamWConfig
 from ..rts.base import ResourceDescription
 from ..rts.torch_rts import TorchRTS
@@ -46,13 +49,6 @@ from ..rts.torch_rts import TorchRTS
 
 _SESSIONS: Dict[str, "TrainSession"] = {}
 _SESSIONS_LOCK = threading.Lock()
-
-
-def _refuse_compression(grad_compression: Optional[str]) -> None:
-    if grad_compression is not None:
-        raise NotImplementedError(
-            f"grad_compression={grad_compression!r}: gradient compression is "
-            f"not ported to repro_torch yet (ROADMAP.md A12d)")
 
 
 class TrainSession:
@@ -66,15 +62,16 @@ class TrainSession:
                  global_batch: int, ckpt_dir: Optional[str] = None,
                  grad_compression: Optional[str] = None,
                  lr: float = 3e-4, device: DeviceLike = None) -> None:
-        _refuse_compression(grad_compression)
         self.device = resolve_device(device)
         self.cfg = get_config(arch, smoke=smoke)
         self.ckpt = CheckpointManager(ckpt_dir) if ckpt_dir else None
         self.stream = make_stream(self.cfg, seq_len, global_batch)
         opt = AdamWConfig(lr=lr, warmup_steps=20, total_steps=100000)
+        self.compression = grad_compression
         self._step_fn = steps_mod.make_train_step(self.cfg, opt)
         self.state = None
         self.step = 0
+        self.error_state = None
         self.stats: List[Dict[str, Any]] = []
 
     def restore_or_init(self) -> int:
@@ -93,6 +90,8 @@ class TrainSession:
 
     def run_steps(self, n: int, save: bool = True) -> Dict[str, Any]:
         self.restore_or_init()
+        if self.compression == "int8" and self.error_state is None:
+            self.error_state = compression.init_error(self.state["params"])
         pf = Prefetcher(self.stream, start_step=self.step)
         losses = []
         first = self.step
@@ -149,9 +148,9 @@ def train_chunk(arch: str, smoke: bool, seq_len: int, global_batch: int,
     ``fail_once_at``: testing hook — raise once when the global step passes
     this value (exercises the resubmission path; the retry resumes from the
     checkpoint)."""
-    _refuse_compression(grad_compression)
     sess = get_session(ckpt_dir, arch=arch, smoke=smoke, seq_len=seq_len,
-                       global_batch=global_batch, ckpt_dir=ckpt_dir, lr=lr,
+                       global_batch=global_batch, ckpt_dir=ckpt_dir,
+                       grad_compression=grad_compression, lr=lr,
                        device=device)
     start = sess.restore_or_init()
     if fail_once_at is not None and start <= fail_once_at:

@@ -19,6 +19,8 @@ from typing import Tuple
 import torch
 
 from ..kernels.flash_attention import NEG_INF, flash_attention
+from . import pspec_ctx
+from .pspec_ctx import constrain
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -26,7 +28,22 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """One query position against a KV cache.
 
     q (B, 1, Hq, hd); k_cache, v_cache (B, S, Hkv, hd); ``length`` — an
-    int or (B,) tensor of valid cache slots."""
+    int or (B,) tensor of valid cache slots. Under an activation context
+    each device attends its own batch rows and heads (the cache's
+    sequence gathered where it is sharded)."""
+    c = pspec_ctx.active()
+    if c is not None and pspec_ctx.is_dtensor(q):
+        tp_ok = q.shape[2] % c.tp_size == 0 and k_cache.shape[2] % \
+            c.tp_size == 0
+        spec = ("dp" if q.shape[0] % c.dp_size == 0 else None, None,
+                "tp" if tp_ok else None, None)
+        return pspec_ctx.local(
+            lambda a, k, v: _decode_attention(a, k, v, length),
+            in_specs=[spec] * 3, out_specs=spec)(q, k_cache, v_cache)
+    return _decode_attention(q, k_cache, v_cache, length)
+
+
+def _decode_attention(q, k_cache, v_cache, length):
     B, _one, Hq, hd = q.shape
     S, Hkv = k_cache.shape[1], k_cache.shape[2]
     g = Hq // Hkv
@@ -48,8 +65,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
     """Causal self-attention for prefill: the flash kernel's output.
 
     q, k, v: (B, S, H, hd) with kv already repeated to H (MHA view).
-    """
-    return flash_attention(q, k, v)[0]
+    Under an activation context the kernel's operands and output lie
+    batch on the data axes, heads on the model axis (where JAX pins the
+    reference's accumulators)."""
+    q, k, v = (constrain(t, "dp", None, "tp", None) for t in (q, k, v))
+    return constrain(flash_attention(q, k, v)[0], "dp", None, "tp", None)
 
 
 def update_cache(k_cache: torch.Tensor, v_cache: torch.Tensor,

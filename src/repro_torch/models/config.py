@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,3 +166,16 @@ def get_config(arch: str, smoke: bool = False, **overrides) -> ModelConfig:
 def list_archs() -> List[str]:
     return list(ARCH_IDS)
 
+
+
+def cells(include_skipped: bool = False):
+    """Yield (arch, shape, skip_reason|None) for the 40 assigned cells."""
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for shape_name, shape in SHAPES.items():
+            skip: Optional[str] = None
+            if shape_name == "long_500k" and not cfg.sub_quadratic:
+                skip = ("full-attention architecture: no sub-quadratic path "
+                        "at 524288 context")
+            if skip is None or include_skipped:
+                yield arch, shape, skip

@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from ..kernels.mamba2_ssd import mamba2_ssd
 from .config import ModelConfig
 from .mlp import normal, rms_norm
+from .pspec_ctx import constrain
 
 __all__ = ["N_GROUPS", "dims", "init_mamba_layer", "ssd_decode",
            "causal_conv", "mamba_block", "mamba_decode", "init_state"]
@@ -113,10 +114,15 @@ def mamba_block(p: Dict, x: torch.Tensor, cfg: ModelConfig, state: Dict,
     """One Mamba2 layer. x: (B,T,D)."""
     B, T, _ = x.shape
     d_inner = cfg.d_inner
-    h = rms_norm(x, p["ln"], cfg.norm_eps)
-    z = h @ p["wz"]
-    xbc = torch.cat([h @ p["wx"], h @ p["wb"], h @ p["wc"]], dim=-1)
-    dt_raw = h @ p["wdt"]
+    x = constrain(x, "dp", "tp" if cfg.sp else None, None)
+    h = constrain(rms_norm(x, p["ln"], cfg.norm_eps), "dp", None, None)
+    # under an activation context the projections (and so their
+    # gradients) lie batch on the data axes, features on the model axis
+    z = constrain(h @ p["wz"], "dp", None, "tp")
+    xbc = torch.cat([constrain(h @ p["wx"], "dp", None, "tp"),
+                     constrain(h @ p["wb"], "dp", None, None),
+                     constrain(h @ p["wc"], "dp", None, None)], dim=-1)
+    dt_raw = constrain(h @ p["wdt"], "dp", None, "tp")
     xbc, conv_state = causal_conv(xbc, p["conv_w"], p["conv_b"],
                                   state["conv"])
     xs, Bm, Cm = _split_xbc(xbc, cfg)
@@ -130,7 +136,8 @@ def mamba_block(p: Dict, x: torch.Tensor, cfg: ModelConfig, state: Dict,
     y = y.reshape(B, T, d_inner)
     # gated RMSNorm (mamba2's norm-before-out-proj, gated by z)
     y = rms_norm(y * F.silu(z), p["out_norm"], cfg.norm_eps)
-    out = y @ p["out_proj"]
+    out = constrain(y @ p["out_proj"], "dp", "tp" if cfg.sp else None, None,
+                    pin_grad=False)
     return x + out, {"conv": conv_state, "ssm": ssm_state}
 
 

@@ -25,6 +25,7 @@ import torch
 from ..kernels.rwkv6_wkv import rwkv6_wkv
 from .config import ModelConfig
 from .mlp import normal, rms_norm
+from .pspec_ctx import constrain
 
 HEAD_N = 64      # RWKV head size (fixed across the published family)
 LORA_RANK = 32
@@ -129,7 +130,8 @@ def _time_mix_inputs(p: Dict, x: torch.Tensor, shifted: torch.Tensor):
     xg)."""
     xx = shifted - x
     base = x + xx * p["maa_x"].to(x.dtype)
-    t = torch.tanh(base @ p["maa_w1"].to(x.dtype))          # (B,T,5R)
+    t = constrain(torch.tanh(base @ p["maa_w1"].to(x.dtype)),  # (B,T,5R)
+                  "dp", None, None)
     t = t.reshape(*base.shape[:2], 5, LORA_RANK)            # (B,T,5,R)
     deltas = torch.einsum("btfr,frd->btfd", t,
                           p["maa_w2"].to(x.dtype))          # (B,T,5,D)
@@ -142,9 +144,9 @@ def _time_mix_inputs(p: Dict, x: torch.Tensor, shifted: torch.Tensor):
 def decay(p: Dict, xw: torch.Tensor) -> torch.Tensor:
     """Per-step decay ``exp(-exp(d))`` in (0, 1), computed in f32 (the
     double exponential)."""
-    dd = (p["decay"].float()
-          + torch.tanh(xw.float() @ p["decay_w1"].float())
-          @ p["decay_w2"].float())
+    low = constrain(torch.tanh(xw.float() @ p["decay_w1"].float()),
+                    "dp", None, None)
+    dd = p["decay"].float() + low @ p["decay_w2"].float()
     return torch.exp(-torch.exp(dd))
 
 
@@ -168,10 +170,12 @@ def time_mix(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     shifted = _token_shift(x, shift_state)
     xw, xk, xv, xr, xg = _time_mix_inputs(p, x, shifted)
 
-    r = (xr @ p["wr"]).reshape(B, T, H, HEAD_N)
-    k = (xk @ p["wk"]).reshape(B, T, H, HEAD_N)
-    v = (xv @ p["wv"]).reshape(B, T, H, HEAD_N)
-    g = silu(xg @ p["wg"])
+    # under an activation context the projections (and so their
+    # gradients) lie batch on the data axes, features on the model axis
+    r = constrain(xr @ p["wr"], "dp", None, "tp").reshape(B, T, H, HEAD_N)
+    k = constrain(xk @ p["wk"], "dp", None, "tp").reshape(B, T, H, HEAD_N)
+    v = constrain(xv @ p["wv"], "dp", None, "tp").reshape(B, T, H, HEAD_N)
+    g = silu(constrain(xg @ p["wg"], "dp", None, "tp"))
     w = decay(p, xw).reshape(B, T, H, HEAD_N)
     u = p["bonus"].float().reshape(H, HEAD_N)
     # the decay reaches the kernel rounded to r's dtype, as in the JAX model
@@ -187,8 +191,9 @@ def channel_mix(p: Dict, x: torch.Tensor, shift_state: torch.Tensor,
     xx = shifted - x
     xk = x + xx * p["cmix_k"].to(x.dtype)
     xr = x + xx * p["cmix_r"].to(x.dtype)
-    k = torch.square(torch.relu(xk @ p["ck"]))
-    return sigmoid(xr @ p["cr"]) * (k @ p["cv"]), x[:, -1]
+    k = torch.square(torch.relu(constrain(xk @ p["ck"], "dp", None, "tp")))
+    r = constrain(xr @ p["cr"], "dp", None, None)
+    return sigmoid(r) * (k @ p["cv"]), x[:, -1]
 
 
 def _add_norm(x: torch.Tensor, y: torch.Tensor, scale: torch.Tensor,
@@ -203,11 +208,16 @@ def _add_norm(x: torch.Tensor, y: torch.Tensor, scale: torch.Tensor,
 def rwkv_block(p: Dict, x: torch.Tensor, cfg: ModelConfig, state: Dict,
                ) -> Tuple[torch.Tensor, Dict]:
     """One RWKV layer (time-mix + channel-mix with pre-norms)."""
-    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    x = constrain(x, "dp", "tp" if cfg.sp else None, None)
+    # the norms' outputs with their sequence gathered (token shift, matmuls)
+    h = constrain(rms_norm(x, p["ln1"], cfg.norm_eps), "dp", None, None)
     tm, s1, wkv = time_mix(p, h, cfg, state["tm_shift"], state["wkv"])
-    x, h = _add_norm(x, tm, p["ln2"], cfg.norm_eps)
-    cm, s2 = channel_mix(p, h, state["cm_shift"])
-    x = x + cm
+    sp = "tp" if cfg.sp else None
+    x, h = _add_norm(x, constrain(tm, "dp", sp, None, pin_grad=False),
+                     p["ln2"], cfg.norm_eps)
+    cm, s2 = channel_mix(p, constrain(h, "dp", None, None),
+                         state["cm_shift"])
+    x = x + constrain(cm, "dp", sp, None, pin_grad=False)
     return x, {"tm_shift": s1, "cm_shift": s2, "wkv": wkv}
 
 

@@ -23,6 +23,8 @@ from ..optim.adamw import AdamWConfig, adamw_init, adamw_update, leaves
 from . import transformer
 from .config import ModelConfig
 from .mlp import rms_norm
+from . import pspec_ctx
+from .pspec_ctx import constrain, gather_for_compute
 from .rope import default_positions
 
 AUX_COEF = 0.01
@@ -31,7 +33,14 @@ CE_CHUNK = 512
 
 def _ce_chunk(hx: torch.Tensor, w: torch.Tensor, lx: torch.Tensor
               ) -> torch.Tensor:
-    logits = (hx @ w).float()
+    logits = constrain((hx @ w).float(), "dp", None, "tp")
+    if pspec_ctx.is_dtensor(logits):
+        # vocab-parallel: the max and the sum of exponentials reduced over
+        # the vocab shards, the gold logit from its own shard
+        m = logits.detach().amax(-1, keepdim=True)
+        logz = (m + torch.log(torch.exp(logits - m).sum(-1, keepdim=True))
+                )[..., 0]
+        return torch.sum(logz - pspec_ctx.vocab_gold(logits, lx))
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, lx.long()[..., None])[..., 0]
     return torch.sum(logz - gold)
@@ -45,9 +54,10 @@ def chunked_ce_loss(params: Dict, cfg: ModelConfig, hidden: torch.Tensor,
     c = min(CE_CHUNK, S)
     while S % c:
         c -= 1
-    h = rms_norm(hidden, params["final_norm"], cfg.norm_eps)
+    h = constrain(rms_norm(hidden, params["final_norm"], cfg.norm_eps),
+                  "dp", None, None)
     w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    w = w.to(h.dtype)
+    w = gather_for_compute(w.to(h.dtype))
     total = torch.zeros((), dtype=torch.float32, device=h.device)
     for i in range(S // c):
         hx, lx = h[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]

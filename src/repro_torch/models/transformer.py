@@ -34,10 +34,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..device import DeviceLike, resolve_device
-from . import mamba2, moe, rwkv6
+from . import mamba2, moe, pspec_ctx, rwkv6
 from .attention import attention, decode_attention, update_cache
 from .config import ModelConfig
 from .mlp import gated_mlp, init_gated_mlp, normal, rms_norm
+from .pspec_ctx import constrain
 from .rope import apply_rope, default_positions
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -71,6 +72,13 @@ def _init_norms(cfg: ModelConfig, device, n_layers: int = 0) -> Dict:
                               device=device)}
 
 
+def _device(device: DeviceLike) -> torch.device:
+    """``"meta"`` as itself (shapes and dtypes, nothing allocated), any
+    other device through :func:`resolve_device`."""
+    return (torch.device("meta") if str(device) == "meta"
+            else resolve_device(device))
+
+
 def init_params(cfg: ModelConfig, seed: int = 0,
                 param_dtype: torch.dtype = torch.float32,
                 device: DeviceLike = None) -> Dict:
@@ -79,8 +87,7 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     device. ``device="meta"`` gives shapes and dtypes without allocating.
     The values differ from the JAX package's for the same seed; tests
     carry JAX's parameters over with :mod:`repro_torch.models.convert`."""
-    dev = (torch.device("meta") if str(device) == "meta"
-           else resolve_device(device))
+    dev = _device(device)
     gen = None
     if dev.type != "meta":
         gen = torch.Generator(device=dev)
@@ -134,6 +141,13 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     return params
 
 
+def abstract_params(cfg: ModelConfig,
+                    param_dtype: torch.dtype = torch.float32) -> Dict:
+    """The parameters on the meta device: their structure, shapes and
+    dtypes, allocated nowhere (the dry-run's input)."""
+    return init_params(cfg, param_dtype=param_dtype, device="meta")
+
+
 # matmul weights cast to bf16 for compute (mixed precision); norms, router,
 # decays and other numerics-sensitive leaves stay fp32
 _COMPUTE_CAST = frozenset({
@@ -143,15 +157,24 @@ _COMPUTE_CAST = frozenset({
 })
 
 
-def cast_for_compute(params: Dict) -> Dict:
+def cast_for_compute(params: Dict, _path: Tuple[str, ...] = ()) -> Dict:
     """fp32 master params → bf16 compute copies for the matmul weights
-    (bf16 leaves are returned as they are, not copied)."""
+    (bf16 leaves are returned as they are, not copied).
+
+    Under an activation context with parameter specs, each bf16 copy is
+    held to its f32 master's sharding: the cast runs on-shard and the
+    gather moves bf16 (half the FSDP bytes), as in the JAX package."""
+    ctx = pspec_ctx.active()
     out = {}
     for name, leaf in params.items():
         if isinstance(leaf, dict):
-            out[name] = cast_for_compute(leaf)
+            out[name] = cast_for_compute(leaf, _path + (name,))
         elif name in _COMPUTE_CAST and leaf.dtype == torch.float32:
             out[name] = leaf.to(COMPUTE_DTYPE)
+            if ctx is not None:
+                out[name] = pspec_ctx.constrain_to(
+                    out[name],
+                    ctx.param_spec(pspec_ctx.path_str(_path + (name,))))
         else:
             out[name] = leaf
     return out
@@ -200,6 +223,7 @@ def _project_qkv(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     q = (x @ p["wq"]).reshape(B, S, Hq, hd)
     k = (x @ p["wk"]).reshape(B, S, Hkv, hd)
     v = (x @ p["wv"]).reshape(B, S, Hkv, hd)
+    q = constrain(q, "dp", None, "tp", None)
     q = apply_rope(q, positions, cfg)
     k = apply_rope(k, positions, cfg)
     return q, k, v
@@ -216,8 +240,18 @@ def attn_block(p: Dict, x: torch.Tensor, cfg: ModelConfig,
     B, S, _ = x.shape
     Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
     q, k, v = _project_qkv(p, x, cfg, positions)
-    kr = _repeat_heads(k, Hq // Hkv).contiguous()
-    vr = _repeat_heads(v, Hq // Hkv).contiguous()
+    if not want_cache:
+        # training: the sequence gathered on the Hkv-head tensors before
+        # the GQA repeat (JAX's C1b)
+        k = constrain(k, "dp", None, None, None)
+        v = constrain(v, "dp", None, None, None)
+    # the gradient of the repeat goes back to its own layout (the kv
+    # heads whole): its backward sums groups of heads, which a model-axis
+    # shard of fewer kv heads than the axis cannot hold
+    kr = constrain(_repeat_heads(k, Hq // Hkv).contiguous(),
+                   "dp", None, "tp", None, pin_grad=False)
+    vr = constrain(_repeat_heads(v, Hq // Hkv).contiguous(),
+                   "dp", None, "tp", None, pin_grad=False)
     o = attention(q.contiguous(), kr, vr)
     out = o.reshape(B, S, Hq * cfg.resolved_head_dim) @ p["wo"]
     if want_cache:
@@ -247,8 +281,25 @@ def attn_decode_block(p: Dict, x: torch.Tensor, cfg: ModelConfig,
 def _mlp_residual(mlp: Dict, ln2: torch.Tensor, x: torch.Tensor,
                   cfg: ModelConfig, attn_out: torch.Tensor) -> torch.Tensor:
     """The second half of a pre-norm layer: x + a, then + MLP(norm)."""
-    x = x + attn_out
-    return x + gated_mlp(mlp, rms_norm(x, ln2, cfg.norm_eps), cfg)
+    x = x + _residual(attn_out, cfg)
+    return x + _residual(gated_mlp(mlp, _normed(x, ln2, cfg), cfg), cfg)
+
+
+def _residual(y: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """A sub-block's output as the residual stream lies under an
+    activation context: batch on the data axes, the sequence on the model
+    axis with ``cfg.sp`` (a reduce-scatter of the partial sums forward, an
+    all-gather of the gradient backward, as sequence parallelism runs)."""
+    return constrain(y, "dp", "tp" if cfg.sp else None, None,
+                     pin_grad=False)
+
+
+def _normed(x: torch.Tensor, scale: torch.Tensor, cfg: ModelConfig
+            ) -> torch.Tensor:
+    """The pre-norm of a sub-block's input, its sequence gathered under an
+    activation context (the input of its projections: the all-gather
+    GSPMD inserts after a sequence-parallel residual)."""
+    return constrain(rms_norm(x, scale, cfg.norm_eps), "dp", None, None)
 
 
 def _layer(tree: Dict, i: int) -> Dict:
@@ -262,9 +313,17 @@ def _layers(tree: Dict, n: int) -> list:
     through one ``unbind`` a leaf: its backward stacks the layers'
     gradients once, where ``n`` index ops would each write a full-size
     gradient."""
-    parts = {k: _layers(v, n) if isinstance(v, dict) else v.unbind(0)
-             for k, v in tree.items()}
+    parts = {k: _layers(v, n) if isinstance(v, dict)
+             else pspec_ctx.unstack(v) for k, v in tree.items()}
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def _gathered(fn):
+    """``fn`` with its first argument, a layer's parameters, gathered for
+    compute (:func:`pspec_ctx.gather_for_compute`)."""
+    def run(p, *args):
+        return fn(pspec_ctx.gather_for_compute(p), *args)
+    return run
 
 
 def _run_layer(cfg: ModelConfig, fn, *args):
@@ -272,7 +331,11 @@ def _run_layer(cfg: ModelConfig, fn, *args):
     checkpointed (its activations recomputed in the backward), so training
     keeps one layer's activations at a time. One layer a checkpoint, not
     JAX's nested group + layer layout: a step then launches each kernel of
-    a layer exactly twice forward (the pass and its recomputation)."""
+    a layer exactly twice forward (the pass and its recomputation). Under
+    an activation context the layer's parameters are gathered inside the
+    region (FSDP)."""
+    if pspec_ctx.active() is not None:
+        fn = _gathered(fn)
     if cfg.remat == "full" and torch.is_grad_enabled():
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
@@ -320,8 +383,7 @@ def _apply_rwkv(params: Dict, cfg: ModelConfig, h: torch.Tensor,
 def _shared_block(shared: Dict, h: torch.Tensor, cfg: ModelConfig,
                   positions: torch.Tensor, want_cache: bool):
     """One application of zamba2's shared attention + MLP block."""
-    a, kv = attn_block(shared["attn"],
-                       rms_norm(h, shared["ln1"], cfg.norm_eps), cfg,
+    a, kv = attn_block(shared["attn"], _normed(h, shared["ln1"], cfg), cfg,
                        positions, want_cache)
     return _mlp_residual(shared["mlp"], shared["ln2"], h, cfg, a), kv
 
@@ -357,18 +419,18 @@ def _ffn_residual(p: Dict, h: torch.Tensor, cfg: ModelConfig,
     if "moe" not in p:
         return _mlp_residual(p["mlp"], p["norms"]["ln2"], h, cfg,
                              attn_out), None
-    h = h + attn_out
-    m, aux = moe.moe_apply(p["moe"], rms_norm(h, p["norms"]["ln2"],
-                                              cfg.norm_eps), cfg)
-    return h + m, aux
+    h = h + _residual(attn_out, cfg)
+    m, aux = moe.moe_apply(p["moe"], _normed(h, p["norms"]["ln2"], cfg),
+                           cfg)
+    return h + _residual(m, cfg), aux
 
 
 def _attn_layer(p: Dict, h: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor, want_cache: bool):
     """One pre-norm attention + MLP (or MoE) layer of the attention stack:
     (out, kv or None, aux loss or None)."""
-    a, kv = attn_block(p["attn"], rms_norm(h, p["norms"]["ln1"],
-                                           cfg.norm_eps),
+    h = constrain(h, "dp", "tp" if cfg.sp else None, None)
+    a, kv = attn_block(p["attn"], _normed(h, p["norms"]["ln1"], cfg),
                        cfg, positions, want_cache)
     h, aux = _ffn_residual(p, h, cfg, a)
     return h, kv, aux
@@ -422,8 +484,10 @@ def _apply_attn_stack(params: Dict, cfg: ModelConfig, h: torch.Tensor,
 def embed_inputs(params: Dict, cfg: ModelConfig, inputs: torch.Tensor
                  ) -> torch.Tensor:
     if cfg.embedding_inputs:
-        return inputs.to(COMPUTE_DTYPE)
-    return params["embed"][inputs.long()].to(COMPUTE_DTYPE)
+        out = inputs.to(COMPUTE_DTYPE)
+    else:
+        out = params["embed"][inputs.long()].to(COMPUTE_DTYPE)
+    return constrain(out, "dp", "tp" if cfg.sp else None, None)
 
 
 def logits_head(params: Dict, cfg: ModelConfig, h: torch.Tensor
@@ -456,8 +520,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     """Decode cache of zeros and ``length`` (a Python int): the stacked
     RWKV states (ssm); the stacked Mamba states and the shared block's
     (G, B, max_len, Hkv * kv_repeat, hd) k/v (hybrid); or every layer's
-    (L, B, max_len, Hkv * kv_repeat, hd) k/v (attention stack)."""
-    dev = resolve_device(device)
+    (L, B, max_len, Hkv * kv_repeat, hd) k/v (attention stack).
+    ``device="meta"`` gives its shapes and dtypes only."""
+    dev = _device(device)
     if cfg.family == "ssm":
         state = rwkv6.init_state(cfg, batch, dev)
         return {"length": 0,
@@ -511,9 +576,10 @@ def _copy_states(states: Dict, li: int, new: Dict) -> None:
 
 
 def _decode_rwkv(params, cfg, h, states):
-    for li in range(cfg.n_layers):
-        h, s_new = rwkv6.rwkv_decode(_layer(params["blocks"], li), h, cfg,
-                                     _layer(states, li))
+    for li, p in enumerate(_layers(params["blocks"], cfg.n_layers)):
+        h, s_new = pspec_ctx.run_local(
+            lambda p_, h_, s_: rwkv6.rwkv_decode(p_, h_, cfg, s_), p, h,
+            _layer(states, li))
         _copy_states(states, li, s_new)
     return h
 
@@ -523,9 +589,10 @@ def _decode_zamba(params, cfg, h, positions, cache):
     length = cache["length"]
     shared = params["shared_attn"]
     states = cache["mamba"]
-    for li in range(cfg.n_layers):
-        h, s_new = mamba2.mamba_decode(_layer(params["mamba"], li), h, cfg,
-                                       _layer(states, li))
+    for li, p in enumerate(_layers(params["mamba"], cfg.n_layers)):
+        h, s_new = pspec_ctx.run_local(
+            lambda p_, h_, s_: mamba2.mamba_decode(p_, h_, cfg, s_), p, h,
+            _layer(states, li))
         _copy_states(states, li, s_new)
         if (li + 1) % E == 0:
             gi = li // E

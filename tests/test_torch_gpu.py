@@ -5,7 +5,10 @@ steps of qwen2-vl, zamba2, rwkv6 and the MoE family on the card against
 the CPU, and the AnEn workflow (on the DAG tier), the multi-tenant
 service's AnEn sweeps, the seismic misfit sweeps (chain and DAG tiers),
 the zamba2, rwkv6, dense and MoE serving paths and the qwen2-vl prefill on
-embeddings on the card against the same runs on the CPU. They skip where ``torch.cuda.is_available()`` is False. This file
+embeddings on the card against the same runs on the CPU; int8 gradient
+compression (the CPU's bits, a smoke ``TrainSession``) and the one-device
+dry-run against a real step's peak memory, launches and matmul FLOPs.
+They skip where ``torch.cuda.is_available()`` is False. This file
 imports nothing of JAX, so it also runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
@@ -909,3 +912,82 @@ def test_moe_smoke_train_step_on_card_matches_cpu(cuda, arch, monkeypatch):
                           float(mg["lr"]))
     assert_update_written(params0, cpu["params"], cpu["opt"],
                           float(mc["lr"]))
+
+
+# --------------------------------------------------------------------------- #
+# int8 gradient compression and the dry-run tier on the card
+# --------------------------------------------------------------------------- #
+
+def test_int8_compression_on_card_equals_cpu_bits(cuda):
+    from repro_torch.optim import compression
+    gen = torch.Generator().manual_seed(1)
+    g = torch.randn((1 << 20) + 77, generator=gen) * 5.0
+    g[:2048] *= 1e-14                  # a block at the scale's floor
+    qc, sc = compression.compress_int8(g)
+    qg, sg = compression.compress_int8(g.to(cuda))
+    assert torch.equal(qg.cpu(), qc)
+    assert torch.equal(sg.cpu().view(torch.int32), sc.view(torch.int32))
+    err = compression.init_error({"w": g.to(cuda)})
+    new_g, new_e = compression.ef_compressed_mean({"w": g.to(cuda)}, err)
+    cg, ce = compression.ef_compressed_mean(
+        {"w": g}, compression.init_error({"w": g}))
+    assert torch.equal(new_g["w"].cpu().view(torch.int32),
+                       cg["w"].view(torch.int32))
+    assert torch.equal(new_e["w"].cpu().view(torch.int32),
+                       ce["w"].view(torch.int32))
+
+
+def test_int8_train_session_on_card(cuda):
+    from repro_torch.launch import train
+    from repro_torch.optim.adamw import leaves
+    kw = dict(arch="minitron-4b", smoke=True, seq_len=32, global_batch=2,
+              device="cuda")
+    plain = train.TrainSession(**kw)
+    comp = train.TrainSession(grad_compression="int8", **kw)
+    plain.run_steps(2, save=False)
+    comp.run_steps(2, save=False)
+    assert [r["loss"] for r in comp.stats] == [r["loss"] for r in
+                                                plain.stats]
+    errs = leaves(comp.error_state)
+    assert len(errs) == len(leaves(comp.state["params"]))
+    assert all(e.is_cuda and e.dtype == torch.float32 and not e.any()
+               for e in errs)
+
+
+def test_one_device_dryrun_predicts_a_real_step(cuda):
+    """minitron-4b at its published width, 2 layers, one train step of 2 x
+    256: the dry-run's peak within 15 % of ``max_memory_allocated``, its
+    flash launches exact, its matmul FLOPs within 1e-6 of
+    ``FlopCounterMode``'s."""
+    from repro_torch.kernels import KERNELS
+    from repro_torch.launch.dryrun import cell_record
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.launch.op_analysis import matmul_flops_of
+    from repro_torch.models import steps
+    from repro_torch.models.config import ShapeConfig, get_config
+    from repro_torch.models.input_specs import input_specs
+    cfg = get_config("minitron-4b", n_layers=2)
+    shape = ShapeConfig("t", 256, 2, "train")
+    rec = cell_record("minitron-4b", "t", Mesh(("data", "model"), (1, 1)),
+                      device="cuda", cfg=cfg, shape=shape)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    state = steps.init_train_state(cfg, 0, cuda)
+    specs = input_specs(cfg, shape)["batch"]
+    batch = {k: torch.randint(0, cfg.vocab_size, v.shape, device=cuda,
+                              dtype=torch.int32) for k, v in specs.items()}
+    fn = steps.make_train_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = {k: f.launches for k, f in KERNELS.items()}
+    fn(state, batch)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    got = {k: f.launches - before[k] for k, f in KERNELS.items()
+           if f.launches != before[k]}
+    pred = rec["memory"]["peak_bytes_per_device"]
+    assert abs(pred - peak) / peak <= 0.15, (pred, peak)
+    assert got == {"flash_attention": rec["launches"]["flash_fwd"],
+                   "flash_attention_bwd": rec["launches"]["flash_bwd"]}
+    flops = matmul_flops_of(fn, state, batch)
+    assert abs(rec["per_device"]["matmul_flops"] - flops) <= 1e-6 * flops

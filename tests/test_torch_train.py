@@ -74,13 +74,33 @@ def test_train_chunk_is_registered():
     assert resolve_executable("reg://train_chunk") is train.train_chunk
 
 
-def test_grad_compression_is_refused_by_name():
-    with pytest.raises(NotImplementedError, match="A12d"):
-        train.TrainSession("minitron-4b", True, 16, 2,
-                           grad_compression="int8", device="cpu")
-    with pytest.raises(NotImplementedError, match="A12d"):
-        train.train_chunk("minitron-4b", True, 16, 2, "unused", 1,
-                          grad_compression="int8", device="cpu")
+def test_grad_compression_is_refused_by_name(tmp_path, fresh_sessions):
+    """``grad_compression="int8"`` is accepted, as by the JAX trainer: the
+    first ``run_steps`` allocates a zero f32 error state of the parameters'
+    shapes, and the losses equal an uncompressed run's (the step does not
+    use the state, as in the JAX package). ``train_chunk`` passes it on."""
+    kw = dict(arch="minitron-4b", smoke=True, seq_len=16, global_batch=2,
+              device="cpu")
+    plain = train.TrainSession(**kw)
+    comp = train.TrainSession(grad_compression="int8", **kw)
+    assert comp.error_state is None
+    out_plain = plain.run_steps(2, save=False)
+    out_comp = comp.run_steps(2, save=False)
+    assert [r["loss"] for r in comp.stats] == [r["loss"] for r in
+                                                plain.stats]
+    assert out_comp["loss_last"] == out_plain["loss_last"]
+    assert plain.error_state is None
+    params = train.steps_mod.leaves(comp.state["params"])
+    errors = train.steps_mod.leaves(comp.error_state)
+    assert len(errors) == len(params)
+    for e, p in zip(errors, params):
+        assert e.dtype == torch.float32 and e.shape == p.shape
+        assert e.device == p.device and not e.any()
+    ckpt = str(tmp_path / "ckpt")
+    train.train_chunk("minitron-4b", True, 16, 2, ckpt, 1,
+                      grad_compression="int8", device="cpu")
+    sess = train.get_session(ckpt)
+    assert sess.compression == "int8" and sess.error_state is not None
 
 
 def test_default_device_raises_without_cuda(tmp_path):

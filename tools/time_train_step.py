@@ -3,7 +3,7 @@
     python3 tools/time_train_step.py --src PATH/src [--steps 5]
 
 Builds the kernels of the tree under ``PATH`` (its own ``build/``), runs
-``chip_smoke.py``'s train configuration (``TRAIN``: qwen2-vl-2b at full
+``chip_smoke.py``'s first train run (``TRAIN_RUNS[0]``: qwen2-vl-2b at full
 width and depth, 4 x 512, f32 masters and AdamW) through that tree's
 ``TrainSession`` for ``--steps`` steps, the first of them cold, then one
 more step under the profiler (``chip_smoke.profile_train_step``: wall,
@@ -39,13 +39,14 @@ def main() -> None:
     from repro_torch.launch.train import TrainSession
     flash_attention.build()
 
-    sess = TrainSession(arch=cs.TRAIN["arch"], smoke=False,
-                        seq_len=cs.TRAIN["seq_len"],
-                        global_batch=cs.TRAIN["global_batch"], device="cuda")
+    train = cs.TRAIN_RUNS[0]               # qwen2-vl-2b, 4 x 512
+    sess = TrainSession(arch=train["arch"], smoke=False,
+                        seq_len=train["seq_len"],
+                        global_batch=train["global_batch"], device="cuda")
     sess.restore_or_init()
     sess.run_steps(args.steps, save=False)
     warm = [rec["seconds"] for rec in sess.stats[1:]]
-    tokens = cs.TRAIN["seq_len"] * cs.TRAIN["global_batch"]
+    tokens = train["seq_len"] * train["global_batch"]
     cs.profile_train_step(sess)
     print(cs.card_line())
     print(json.dumps({"src": os.path.abspath(args.src),
