@@ -22,6 +22,19 @@ plain PyTorch version on the card, and drives the port's paths:
    forward->misfit chain alone on the chain tier, then with its sum gather
    as one DAG carrier; then a small sweep on the card against the CPU.
    This path runs no kernel of the repository;
+2b. the sharded tier on lanes of the card
+   (``repro_torch.device.virtual_devices``, each lane a place with its own
+   CUDA stream, as the JAX package's tests run its tier on forced host
+   devices): ``anen_distance_sharded`` on 2 and 4 lanes at (365, 3, 1024),
+   (365, 3, 4096) and (365, 3, 510), bit-equal to ``anen_distance`` with
+   one launch a lane, timed beside it; AnEn at the main path's grid and
+   history with 64 members x 128 locations a round on 4 lanes (one
+   ``dag-shard`` carrier a round, ``anen_distance`` once a lane at (365,
+   3, 2048)), its values equal bit for bit to the same description with
+   ``shard=False``; the seismic sweep as one ``dag-shard`` carrier on 4
+   lanes, misfits bit-equal and the sum within 1e-4 of the unsharded
+   run's. With two or more cards it runs again over the cards; with one
+   it prints that the distinct-card run was not made;
 3. serving zamba2-7b at its published widths with random weights drawn on
    the card (``repro_torch.launch.serve.run_managed``): 2 EnTK request
    batches of 4 prompts x 512 tokens, 16 greedy new tokens each, whose
@@ -173,6 +186,18 @@ SERVICE = dict(tenants=4, waves=2, members=8, locs=128, slots=4,
 # the chaos sub-phase's kernel faults (rate 0.1)
 CHAOS_KERNEL_SEED = 23
 TIMED_REPS = 60
+# the sharded tier on lanes of the card (repro_torch.device.virtual_devices,
+# the counterpart of the JAX package's forced host devices): B2 on 2 and 4
+# lanes at the main path's shapes and a ragged N, 365 % 4 != 0 padding H
+SHARD_LANES = (2, 4)
+SHARD_SHAPES = ((365, 3, 1024), (365, 3, 4096), (365, 3, 510))
+# AnEn at the main path's grid and history, 64 members x 128 locations a
+# round (JaxRTS's default shard_min_members), on 4 lanes and 4 slots:
+# plan_mesh gives one dispatch of 16 members a lane (DEFAULT_MAX_BATCH
+# 4096), so the distance runs once a lane at (365, 3, 16 x 128)
+SHARDED_ANEN = dict(MAIN, per_iter=8192, n_tasks=64, max_iters=2)
+SHARDED_LANES = 4
+SHARDED_ANEN_SHAPE = (MAIN["n_hist"], 3, 2048)
 
 # the serve paths: zamba2-7b, rwkv6-3b, stablelm-12b and minitron-4b at
 # full width with the same traffic, and the kernels' shapes on them
@@ -502,8 +527,9 @@ def time_distance(shape) -> dict:
 def reset_counts() -> None:
     """Every kernel wrapper's launch count (and shape count) to 0."""
     from repro_torch.kernels import KERNELS
-    from repro_torch.kernels.anen_distance import anen_distance
-    for fn in (anen_distance, *KERNELS.values()):
+    from repro_torch.kernels.anen_distance import (anen_distance,
+                                                   anen_distance_sharded)
+    for fn in (anen_distance, anen_distance_sharded, *KERNELS.values()):
         fn.launches = 0
         fn.shapes.clear()
 
@@ -1101,6 +1127,204 @@ def cross_check_seismic() -> None:
     check(abs(on_gpu["total_misfit"] - on_cpu["total_misfit"])
           <= 1e-4 * abs(on_cpu["total_misfit"]),
           "seismic cuda vs cpu total within 1e-4")
+
+
+# --------------------------------------------------------------------------- #
+# The sharded tier over lanes of the card (and over two cards, where there
+# are two)
+# --------------------------------------------------------------------------- #
+
+def places_of(kind: str, n: int) -> list:
+    """``n`` lanes of the card, or the first ``n`` cards."""
+    import torch
+    from repro_torch.device import virtual_devices
+    if kind == "lanes":
+        return virtual_devices("cuda", n)
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def sharded_distance(shape, places: list, timer) -> dict:
+    """B2 on ``places`` against B1 over the whole H on the same inputs:
+    bit-equal (rows are independent), one B1 launch a place a call; then
+    timed beside B1 and its plain version, and B1 alone at the shard
+    shape (one place's launch). On lanes of one card the calls queue
+    behind a spin (:func:`device_ms`); across cards a call's copies
+    between them hold the host, so each call is timed alone on an idle
+    device (:func:`call_ms`): ``timer`` is one of the two, and
+    ``timed_by`` says which."""
+    import torch
+    from repro_torch.kernels.anen_distance import (anen_distance,
+                                                   anen_distance_plain,
+                                                   anen_distance_sharded)
+    h, v, n = shape
+    d = len(places)
+    per = -(-h // d)
+    fh, fn = distance_inputs(shape)
+    b1, b2 = anen_distance.launches, anen_distance_sharded.launches
+    got = anen_distance_sharded(fh, fn, places)
+    torch.cuda.synchronize()
+    check(anen_distance.launches - b1 == d
+          and anen_distance_sharded.launches - b2 == d,
+          f"anen_distance_sharded on {d} places at {shape}: one launch a "
+          f"place")
+    ref = anen_distance(fh, fn)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    check(torch.equal(got, ref),
+          f"anen_distance_sharded bit-equal to anen_distance at {shape} on "
+          f"{d} places (max abs err {err})")
+    shard = fh[:per].contiguous()
+    kernel = lambda: anen_distance_sharded(fh, fn, places)   # noqa: E731
+    row = {"shape": list(shape), "places": d, "shard_shape": [per, v, n],
+           "timed_by": timer.__name__,
+           "max_abs_err": err, "ms": timer(kernel),
+           "b1_ms": timer(lambda: anen_distance(fh, fn)),
+           "shard_ms": timer(lambda: anen_distance(shard, fn)),
+           "plain_ms": timer(lambda: anen_distance_plain(fh, fn)),
+           "call_ms": call_ms(kernel),
+           "b1_call_ms": call_ms(lambda: anen_distance(fh, fn))}
+    row.update(distance_bound(shape))
+    row["shard_bound_ms"] = distance_bound((per, v, n))["bound_ms"]
+    return row
+
+
+def run_sharded_anen(places: list) -> dict:
+    """AnEn at full width on the sharded tier (one dag-shard carrier a
+    round, the distance once a place), counts at 0 just before and read
+    just after; then the same description with ``shard=False`` on the
+    card: the values must be equal bit for bit."""
+    import torch
+    from repro_torch.apps.anen import workflow as wf
+    from repro_torch.kernels.anen_distance import anen_distance
+    d = len(places)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = wf.run_random(device="cuda", places=places, **SHARDED_ANEN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = anen_distance.launches
+    shapes = dict(anen_distance.shapes)
+    t0 = time.perf_counter()
+    ref = wf.run_random(device="cuda", places=places, shard=False,
+                        **SHARDED_ANEN)
+    torch.cuda.synchronize()
+    ref_wall = time.perf_counter() - t0
+    # once more sharded, for its wall only: the first run's first round
+    # also pays the lanes' first use
+    t0 = time.perf_counter()
+    again = wf.run_random(device="cuda", places=places, **SHARDED_ANEN)
+    torch.cuda.synchronize()
+    again_wall = time.perf_counter() - t0
+    stats, rounds = res["fusion_stats"], res["rounds"]
+    print(f"sharded AnEn on {d} places ({places[0]} ...): wall_s={wall} "
+          f"round wall seconds={res['round_seconds']} fusion_stats={stats}")
+    print(f"  anen_distance launches {launches}, shapes "
+          f"{ {str(k): c for k, c in shapes.items()} }")
+    print(f"  unsharded (shard=False, same places): wall_s={ref_wall} "
+          f"round wall seconds={ref['round_seconds']} "
+          f"fusion_stats={ref['fusion_stats']}")
+    print(f"  sharded again: wall_s={again_wall} round wall seconds="
+          f"{again['round_seconds']}")
+    check(res["all_done"] and ref["all_done"], "sharded AnEn: all DONE")
+    check(rounds == SHARDED_ANEN["max_iters"] == ref["rounds"],
+          "sharded AnEn rounds")
+    check(stats["shard_carriers"] >= 1 and stats["shard_carriers"] == rounds
+          and stats["dag_carriers"] == rounds,
+          f"sharded AnEn: one dag-shard carrier a round ({stats})")
+    check(stats["sharded_dispatches"] == 2 * rounds,
+          "sharded AnEn: the batched node and the refine/max segment "
+          "sharded each round")
+    check(stats["scalar_fallback"] == 0 and stats["degraded"] == 0,
+          "sharded AnEn: scalar_fallback == degraded == 0")
+    check(ref["fusion_stats"]["shard_carriers"] == 0,
+          "shard=False: no shard carrier")
+    check(launches == d * rounds and launches > 0
+          and shapes == {SHARDED_ANEN_SHAPE: d * rounds},
+          f"sharded AnEn: anen_distance once a place a dispatch at "
+          f"{SHARDED_ANEN_SHAPE} (got {launches}, {shapes})")
+    check(len(res["values"]) == rounds * SHARDED_ANEN["per_iter"]
+          and res["values"] == ref["values"],
+          "sharded AnEn values equal the shard=False run's bit for bit")
+    check(res["errors"] == ref["errors"]
+          and all(math.isfinite(e) for e in res["errors"]),
+          "sharded AnEn errors equal and finite")
+    check(again["values"] == res["values"], "sharded AnEn: second run equal")
+    return {"wall_s": wall, "unsharded_wall_s": ref_wall,
+            "again_wall_s": again_wall,
+            "round_seconds": res["round_seconds"],
+            "again_round_seconds": again["round_seconds"],
+            "unsharded_round_seconds": ref["round_seconds"],
+            "launches": launches, "shapes": shapes, "fusion_stats": stats}
+
+
+def run_sharded_seismic(places: list) -> dict:
+    """The seismic sweep (SEISMIC) as a sharded DAG on ``places``: one
+    dag-shard carrier; per-member misfits bit-equal to the ``shard=False``
+    run's, the sum within 1e-4 relative (the CI bound)."""
+    import torch
+    from repro_torch.apps.seismic.workflow import run_misfit_chain
+    kw = {k: v for k, v in SEISMIC.items() if k not in ("n_events", "slots")}
+    n, slots = SEISMIC["n_events"], SEISMIC["slots"]
+    reset_counts()
+    t0 = time.perf_counter()
+    res = run_misfit_chain(n, slots, device="cuda", places=places, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = run_misfit_chain(n, slots, device="cuda", places=places,
+                           shard=False, **kw)
+    torch.cuda.synchronize()
+    ref_wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    again = run_misfit_chain(n, slots, device="cuda", places=places, **kw)
+    torch.cuda.synchronize()
+    again_wall = time.perf_counter() - t0
+    stats = res["fusion_stats"]
+    total, want = res["total_misfit"], ref["total_misfit"]
+    rel = abs(total - want) / abs(want)
+    print(f"sharded seismic DAG on {len(places)} places: wall_s={wall} "
+          f"total={total} unsharded wall_s={ref_wall} total={want} "
+          f"relative diff={rel} sharded again wall_s={again_wall} "
+          f"fusion_stats={stats}")
+    check(res["all_done"] and ref["all_done"], "sharded seismic: all DONE")
+    check(stats["dag_carriers"] == 1 and stats["shard_carriers"] == 1,
+          "sharded seismic: one dag-shard carrier")
+    check(stats["sharded_dispatches"] == SEISMIC_DAG_DISPATCHES,
+          "sharded seismic: one sharded dispatch")
+    check(stats["scalar_fallback"] == 0 and stats["degraded"] == 0,
+          "sharded seismic: scalar_fallback == degraded == 0")
+    check(ref["fusion_stats"]["shard_carriers"] == 0,
+          "shard=False: no shard carrier")
+    check(res["misfits"] == ref["misfits"],
+          "sharded seismic: per-member misfits bit-equal")
+    check(math.isfinite(total) and rel <= 1e-4,
+          f"sharded seismic: sum within 1e-4 relative ({rel})")
+    check(again["misfits"] == res["misfits"],
+          "sharded seismic: second run equal")
+    return {"wall_s": wall, "unsharded_wall_s": ref_wall,
+            "again_wall_s": again_wall, "rel": rel}
+
+
+def sharded_phase(kind: str = "lanes") -> dict:
+    """B2, AnEn and the seismic sweep on the sharded tier over lanes of
+    the card (``kind="lanes"``) or over the first cards."""
+    import torch
+    if kind == "cards":
+        widths = (min(4, torch.cuda.device_count()),)
+        places = places_of("cards", widths[0])
+    else:
+        widths = SHARD_LANES
+        places = places_of("lanes", SHARDED_LANES)
+    timer = device_ms if kind == "lanes" else call_ms
+    rows = [sharded_distance(shape, places_of(kind, d), timer)
+            for d in widths for shape in SHARD_SHAPES]
+    for row in rows:
+        print(f"anen_distance_sharded on {kind} {row}")
+    reset_counts()
+    anen = run_sharded_anen(places)
+    seismic = run_sharded_seismic(places)
+    return {"rows": rows, "anen": anen, "seismic": seismic,
+            "places": len(places)}
 
 
 def check_grad_routes() -> None:
@@ -2632,6 +2856,12 @@ def main() -> None:
     run_seismic_dag(SEISMIC)
     profile_seismic_dag(SEISMIC)
     cross_check_seismic()
+    sharded = sharded_phase("lanes")
+    if torch.cuda.device_count() >= 2:
+        sharded["cards"] = sharded_phase("cards")
+    else:
+        print(f"sharded tier on distinct cards: not run "
+              f"({torch.cuda.device_count()} device)")
     check_grad_routes()
 
     # the model kernels against their plain versions, main-path and ragged
@@ -2708,6 +2938,35 @@ def main() -> None:
         "shape": at_main["shape"],
         "empty_kernel_ms": floor_ms,
     }]}
+    b2 = next(r for r in sharded["rows"]
+              if r["places"] == SHARDED_LANES
+              and tuple(r["shape"]) == ANEN_MAIN_SHAPE)
+    record["kernels"].append({
+        "name": "anen_distance_sharded",
+        "route": "cuda",
+        # B1's kernel once a place: the wrapper has no source of its own
+        "source": "src/repro_torch/kernels/csrc/anen_distance.cu",
+        "wrapper": "src/repro_torch/kernels/anen_distance.py",
+        "replaces": "src/repro/kernels/anen_distance.py:97",
+        "places": SHARDED_LANES,
+        "places_are": "lanes of one card (virtual devices)",
+        # B1 launches of the sharded AnEn path: one a lane a dispatch
+        "launches": sharded["anen"]["launches"],
+        "shapes": {str(k): v for k, v in sharded["anen"]["shapes"].items()},
+        "max_abs_err": max(r["max_abs_err"] for r in sharded["rows"]),
+        "ms": b2["ms"],
+        "plain_ms": b2["plain_ms"],
+        "call_ms": b2["call_ms"],
+        "bound_ms": b2["bound_ms"],
+        "bound_by": b2["bound_by"],
+        "library_ms": None,
+        "shape": b2["shape"],
+        "shard_shape": b2["shard_shape"],
+        "shard_ms": b2["shard_ms"],
+        "shard_bound_ms": b2["shard_bound_ms"],
+        "b1_ms": b2["b1_ms"],
+        "distinct_cards": "cards" in sharded,
+    })
     replaces = {"flash_attention": "src/repro/kernels/flash_attention.py:103",
                 "flash_attention_bwd":
                     "src/repro/kernels/flash_attention.py:153",

@@ -28,19 +28,25 @@ labels) are therefore separate objects in the two packages.
 
 Ported (the modules that touch arrays or devices):
 
-* :mod:`repro_torch.device` — device resolution, no silent CPU fallback;
+* :mod:`repro_torch.device` — device resolution, no silent CPU fallback,
+  and virtual devices (lanes of one device, each with its own CUDA
+  stream: the counterpart of JAX's forced host device count);
 * :mod:`repro_torch.kernels.anen_distance` — the analog-similarity
   distance as a hand-written CUDA kernel (``kernels/csrc/``) with its
-  plain PyTorch version, built by :mod:`repro_torch.kernels._build`;
-* :mod:`repro_torch.fusion.handles` — tensor-backed result handles, and
-  the read side of the JAX package's sharded spill records;
+  plain PyTorch version, built by :mod:`repro_torch.kernels._build`, and
+  its sharded form over a mesh of places (B1's kernel once a place);
+* :mod:`repro_torch.fusion.handles` — tensor-backed result handles,
+  sharded values and both sides of the JAX package's sharded spill
+  records;
 * :mod:`repro_torch.fusion.engine` — the scalar, per-stage fused, chain
-  (composed ``vmap`` links) and DAG (masked device reductions in the
-  composed segment) tiers; the sharded tier is not ported;
+  (composed ``vmap`` links), DAG (masked device reductions in the
+  composed segment) and sharded tiers (the member axis split over a mesh
+  of cards or lanes, one launch a place on its own stream, reductions
+  combined from the places' partials);
 * :mod:`repro_torch.rts.torch_rts` — :class:`TorchRTS`, the device RTS,
-  with the chain and DAG carriers' assembly and the serving mode's
-  continuous-batching window, tenant interleaving and per-tenant
-  accounting;
+  with the chain, DAG and shard carriers' assembly, the shard hold
+  buffer, and the serving mode's continuous-batching window, tenant
+  interleaving and per-tenant accounting;
 * :mod:`repro_torch.serve.service` — :class:`EnsembleService` over
   :class:`TorchRTS` on ``device`` (``serve/__init__.py`` exports what the
   JAX package's does);
@@ -64,5 +70,6 @@ Ported (the modules that touch arrays or devices):
 * :mod:`repro_torch.optim`, :mod:`repro_torch.checkpoint` and
   :mod:`repro_torch.launch.train` — AdamW (in place), the checkpoint
   store in the JAX package's layout, and the EnTK-managed, checkpointed
-  trainer over :class:`TorchRTS` (gradient compression is not ported).
+  trainer over :class:`TorchRTS` (int8 gradient compression on one
+  device; its mean over a data axis needs a process group, not taken).
 """

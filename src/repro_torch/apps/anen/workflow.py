@@ -23,14 +23,18 @@ JAX package, to a fusable DAG (``analog_values → analog_refine → max``)
 that runs as ONE carrier on the DAG tier: ``analog_values``' hand-batched
 implementation is the entry node and launches the CUDA ``anen_distance``
 kernel once, at the whole round's width; ``analog_refine`` and the masked
-``max`` then run as one composed segment on the device.
+``max`` then run as one composed segment on the device. Given ``places``
+(cards, or lanes of one card from
+:func:`~repro_torch.device.virtual_devices`), a round at least
+``shard_min_members`` members wide runs on the sharded tier: each place
+launches the kernel once on its shard of the members.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, List
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -40,6 +44,7 @@ from ...core import AppManager, register_executable
 from ...device import DeviceLike, device_name
 from ...fusion import fusable, fusable_reduction
 from ...fusion.handles import ArrayResult, to_host
+from ...fusion.plans import DEFAULT_SHARD_MIN_MEMBERS
 from ...rts.base import ResourceDescription
 from ...rts.torch_rts import TorchRTS
 from .anen import (AnEnConfig, compute_analogs, dataset_from_numpy,
@@ -350,7 +355,9 @@ class _SearchState:
 def _run(method: str, seed: int, *, ny: int, nx: int, n_hist: int,
          per_iter: int, max_iters: int, n_tasks: int, slots: int,
          timeout: float, fuse: bool = True,
-         device: DeviceLike = None) -> Dict:
+         device: DeviceLike = None,
+         places: Optional[Sequence[Any]] = None, shard: bool = True,
+         shard_min_members: int = DEFAULT_SHARD_MIN_MEMBERS) -> Dict:
     dev = device_name(device)
     cfg = AnEnConfig(ny=ny, nx=nx, n_hist=n_hist, seed=seed)
     search = _SearchState(method, seed, cfg, per_iter, max_iters, n_tasks,
@@ -361,7 +368,8 @@ def _run(method: str, seed: int, *, ny: int, nx: int, n_hist: int,
         # the fused path: congruent analog members of one round batch into
         # a single dispatch on the device (fuse=False reproduces the
         # per-task scalar behaviour bit-for-bit)
-        rts = TorchRTS(device=dev, slot_oversubscribe=slots)
+        rts = TorchRTS(device=dev, devices=places, slot_oversubscribe=slots,
+                       shard=shard, shard_min_members=shard_min_members)
         rts_box.append(rts)
         return rts
 
@@ -383,6 +391,7 @@ def _run(method: str, seed: int, *, ny: int, nx: int, n_hist: int,
             "rounds": search.iteration,
             "errors": search.errors, "final_rmse": search.errors[-1],
             "round_seconds": search.round_seconds,
+            "values": search.values,
             "fusion_stats": stats,
             "all_done": amgr.all_done}
 

@@ -12,14 +12,17 @@ The misfit sweeps run on :class:`~repro_torch.rts.torch_rts.TorchRTS`:
 tier composes both links, the seismograms staying on the device), and with
 the ``total_misfit`` sum gather it is a fusable DAG (one DAG carrier, the
 sum reduced on the device). Every member kernel takes a static ``device``
-argument and defaults to CUDA.
+argument and defaults to CUDA. Given ``places`` (cards, or lanes of one
+card from :func:`~repro_torch.device.virtual_devices`), a sweep at least
+``shard_min_members`` wide runs on the sharded tier: the DAG's member axis
+split over the places, its sum combined from their partials.
 """
 
 from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, List
+from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -29,6 +32,7 @@ from ...core import AppManager, Pipeline, Stage, Task, register_executable
 from ...device import DeviceLike, device_name
 from ...fusion import fusable, fusable_reduction
 from ...fusion.handles import to_host
+from ...fusion.plans import DEFAULT_SHARD_MIN_MEMBERS
 from ...rts.base import ResourceDescription
 from ...rts.local import LocalRTS
 from ...rts.torch_rts import TorchRTS
@@ -181,11 +185,15 @@ def build_misfit_chain(n_events: int, *, nx: int = 64, nz: int = 64,
 
 
 def _run_gathered(ens: api.Ensemble, objective, slots: int, device: str,
-                  timeout: float, **run_kw) -> Dict:
+                  timeout: float,
+                  places: Optional[Sequence[Any]] = None,
+                  rts_kw: Optional[Dict[str, Any]] = None,
+                  **run_kw) -> Dict:
     rts_box: List[TorchRTS] = []
 
     def make_rts() -> TorchRTS:
-        rts_box.append(TorchRTS(device=device, slot_oversubscribe=slots))
+        rts_box.append(TorchRTS(device=device, devices=places,
+                                slot_oversubscribe=slots, **(rts_kw or {})))
         return rts_box[-1]
 
     t0 = time.time()
@@ -209,16 +217,26 @@ def run_misfit_chain(n_events: int, slots: int = 4, *, nx: int = 64,
                      nt: int = 120, seed: int = 0, dv: float = 0.0,
                      fuse: bool = True, chain: bool = True,
                      timeout: float = 600.0,
-                     device: DeviceLike = None) -> Dict:
+                     device: DeviceLike = None,
+                     places: Optional[Sequence[Any]] = None,
+                     shard: bool = True,
+                     shard_min_members: int = DEFAULT_SHARD_MIN_MEMBERS
+                     ) -> Dict:
     """Evaluate the forward→misfit→Σ sweep on the TorchRTS data plane.
 
     ``chain=False`` runs the identical 2-stage description per-stage-fused;
-    ``fuse=False`` runs it member-per-task — the parity baselines."""
+    ``fuse=False`` runs it member-per-task — the parity baselines. With
+    ``places`` the RTS's inventory is those places, and a sweep at least
+    ``shard_min_members`` wide shards its DAG across them; ``shard=False``
+    pins it to one device."""
     dev = device_name(device)
     ens = build_misfit_chain(n_events, nx=nx, nz=nx, nt=nt, seed=seed,
                              dv=dv, fuse=fuse, device=dev)
     objective = api.gather(ens, total_misfit, name=f"total-chain-{seed}")
-    out = _run_gathered(ens, objective, slots, dev, timeout, chain=chain)
+    out = _run_gathered(ens, objective, slots, dev, timeout, places=places,
+                        rts_kw={"shard": shard,
+                                "shard_min_members": shard_min_members},
+                        chain=chain, shard=shard)
     out.update(n_events=n_events, fused=fuse, chained=chain)
     return out
 

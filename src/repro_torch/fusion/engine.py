@@ -37,8 +37,16 @@ reductions run masked on the device (:func:`_apply_reduction`) inside the
 composed segment, and their value is broadcast into the next ensemble node
 as a device tensor.
 
-The sharded tier of the JAX package (a member axis split over a device
-mesh) is not ported (``ROADMAP.md`` A10b).
+Sharded tier: a carrier leased a mesh of places (:func:`build_mesh` —
+distinct CUDA devices, or lanes of one device,
+:class:`~repro_torch.device.VirtualDevice`) splits its member axis into
+one equal shard per place and runs every dispatch on each place's shard,
+inside that place's device and stream context, so the places' launches
+overlap. Intermediates stay on their place between links
+(:class:`~repro_torch.fusion.handles.ShardedValue`); each place records
+its own completion event, and a member's fan-out waits only on the place
+that owns its row. A DAG reduction combines the places' partials on the
+leader, in place order, and copies the result back to every place.
 
 Failure isolation: a member whose outputs contain non-finite values at
 link *k* FAILS at *k* and its downstream links fail with an upstream
@@ -53,6 +61,8 @@ from the last journaled link.
 
 from __future__ import annotations
 
+import contextlib
+import math
 import threading
 import time
 import traceback
@@ -65,9 +75,10 @@ from torch.utils import _pytree as pytree
 
 from .. import telemetry as tel
 from ..core.pst import Task, resolve_executable
+from ..device import VirtualDevice, place_device
 from ..rts.base import TaskCompletion
 from .groups import FusionSpec, fusion_spec, parse_dag_tag, reduction_spec
-from .handles import ArrayResult, LazySlice, to_host
+from .handles import ArrayResult, LazySlice, ShardedValue, to_host
 
 Deliver = Callable[[TaskCompletion], None]
 
@@ -443,10 +454,11 @@ class _LinkPlan:
     """One prepared chain link: resolved kernel + stacked batch kwargs."""
 
     __slots__ = ("tasks", "fn", "spec", "static_kw", "shared_kw", "stacked",
-                 "valid_lens", "carry_name", "t_dispatch")
+                 "valid_lens", "carry_name", "t_dispatch", "padded_b",
+                 "placed")
 
     def __init__(self, tasks, fn, spec, static_kw, shared_kw, stacked,
-                 valid_lens, carry_name) -> None:
+                 valid_lens, carry_name, padded_b: int = 0) -> None:
         self.tasks = tasks
         self.fn = fn
         self.spec = spec
@@ -456,6 +468,10 @@ class _LinkPlan:
         self.valid_lens = valid_lens
         self.carry_name = carry_name
         self.t_dispatch: Optional[float] = None
+        self.padded_b = padded_b
+        # under a mesh: one (stacked, shared) pair per place, the stacked
+        # kwargs split on the member axis and the shared ones replicated
+        self.placed: Optional[List[Tuple[dict, dict]]] = None
 
 
 def _vmap_link(fn: Callable, static_kw: dict, kw: dict, shared: dict) -> Any:
@@ -482,10 +498,185 @@ def _composed_segment(plans: Sequence[_LinkPlan], carry: Any) -> List[Any]:
 
 
 def _lease_device(devices: Sequence[Any]) -> torch.device:
-    """The device a carrier's batch is stacked on: its first leased one."""
+    """The device a carrier's batch is stacked on: its first leased one
+    (a lane's physical device)."""
     if not devices:
         raise Incongruent("carrier holds no device lease")
-    return torch.device(devices[0])
+    return place_device(devices[0])
+
+
+# --------------------------------------------------------------------------- #
+# The member-axis mesh (sharded tier)
+# --------------------------------------------------------------------------- #
+
+class Mesh:
+    """A 1-D member-axis mesh over distinct places: CUDA devices, or lanes
+    (:class:`~repro_torch.device.VirtualDevice`) of one physical device.
+    The first place is the leader: a sharded reduction combines its
+    partials there. Work for place ``i`` runs inside :meth:`on`, under the
+    place's device and its stream (a lane's own stream, a card's current
+    one), so the places' launches overlap on the card."""
+
+    __slots__ = ("places", "devices")
+
+    def __init__(self, places: Sequence[Any]) -> None:
+        self.places = list(places)
+        self.devices = [place_device(p) for p in self.places]
+
+    @property
+    def size(self) -> int:
+        return len(self.places)
+
+    def stream(self, i: int):
+        dev = self.devices[i]
+        if dev.type != "cuda":
+            return None
+        place = self.places[i]
+        if isinstance(place, VirtualDevice):
+            return place.stream
+        return torch.cuda.current_stream(dev)
+
+    @contextlib.contextmanager
+    def on(self, i: int):
+        """Device and stream context of place ``i`` (nothing on the CPU)."""
+        stream = self.stream(i)
+        if stream is None:
+            yield
+            return
+        with torch.cuda.device(self.devices[i]), torch.cuda.stream(stream):
+            yield
+
+    def follow_leader(self) -> None:
+        """Order every place's stream after the work already enqueued on
+        its device's current stream (the stacking and uploads of
+        :meth:`ChainExecution._place_plans`)."""
+        for i in range(self.size):
+            stream = self.stream(i)
+            if stream is not None:
+                stream.wait_stream(torch.cuda.current_stream(self.devices[i]))
+
+    def events(self) -> Optional[List[Optional["torch.cuda.Event"]]]:
+        """One completion event per place, recorded on its stream now; the
+        carrier's completion is the join of them. None on the CPU."""
+        if self.devices[0].type != "cuda":
+            return None
+        out = []
+        for i in range(self.size):
+            event = torch.cuda.Event()
+            event.record(self.stream(i))
+            out.append(event)
+        return out
+
+    def put(self, value: Any, i: int) -> Any:
+        """``value`` (a tensor on another stream or device) made usable on
+        place ``i``: copied to its device when that differs, and marked in
+        use by its stream so the caching allocator cannot hand the block
+        to another stream while the place still reads it."""
+        if not isinstance(value, torch.Tensor):
+            return value
+        dev = self.devices[i]
+        if value.device != dev:
+            value = value.to(dev)
+        stream = self.stream(i)
+        if stream is not None:
+            value.record_stream(stream)
+        return value
+
+    def merge(self, outs: Sequence[Any]) -> Any:
+        """Per-place outputs (one pytree each, in place order) as one
+        pytree of :class:`~repro_torch.fusion.handles.ShardedValue` leaves.
+        Each tensor is marked in use by its device's current stream too:
+        the fan-out and the members' consumers read it there."""
+        flat = [pytree.tree_flatten(o) for o in outs]
+        treedef = flat[0][1]
+        leaves = []
+        for idx in range(len(flat[0][0])):
+            shards, start = [], 0
+            for i, (ls, _) in enumerate(flat):
+                t = ls[idx]
+                if not isinstance(t, torch.Tensor):
+                    t = torch.as_tensor(t, device=self.devices[i])
+                if t.is_cuda:
+                    t.record_stream(torch.cuda.current_stream(t.device))
+                shards.append((start, t))
+                start += int(t.shape[0])
+            leaves.append(ShardedValue(shards))
+        return pytree.tree_unflatten(leaves, treedef)
+
+
+def build_mesh(devices: Optional[Sequence[Any]]) -> Optional[Mesh]:
+    """A 1-D member-axis :class:`Mesh` over ``devices``, or None when the
+    lease is not meshable: empty, placeholder device names, duplicate
+    entries (logical-slot oversubscription), fewer than two places, or a
+    mix of lanes and cards. Two or more distinct CUDA devices mesh, and so
+    do two or more lanes of one physical device."""
+    if not devices:
+        return None
+    uniq = list(dict.fromkeys(devices))
+    if len(uniq) != len(devices) or len(uniq) < 2:
+        return None
+    if all(isinstance(d, VirtualDevice) for d in uniq):
+        if len({d.device for d in uniq}) != 1:
+            return None
+        return Mesh(uniq)
+    if all(isinstance(d, torch.device) and d.type == "cuda"
+           and d.index is not None for d in uniq):
+        return Mesh(uniq)
+    return None
+
+
+def shard_pad(n_members: int, n_shards: int) -> int:
+    """Padded batch axis for a sharded dispatch: ``n_shards`` equal shards,
+    each bucketed to a power of two — the compile-shape bucketing rule of
+    the micro-batch path, applied per shard. Past 512 members per shard
+    the bucket quantum flattens to 256: pow2 bucketing there would pad a
+    wide dispatch by up to ~2x in dead compute to save at most a handful
+    of cached compiles."""
+    per = max(1, math.ceil(n_members / max(1, n_shards)))
+    if per > 512:
+        return n_shards * (256 * math.ceil(per / 256))
+    return n_shards * (1 << max(0, per - 1).bit_length())
+
+
+def _local(tree: Any, i: int) -> Any:
+    """Place ``i``'s part of a sharded pytree (other leaves as they are)."""
+    return pytree.tree_map(
+        lambda x: x.local(i) if isinstance(x, ShardedValue) else x, tree)
+
+
+def _place_statics(static_kw: dict, device: torch.device) -> dict:
+    """A link's static kwargs for one place: a ``device`` static (the port's
+    kernels name where their data lives by it) becomes the place's device,
+    so on two cards each shard computes on its own card."""
+    if "device" not in static_kw:
+        return static_kw
+    out = dict(static_kw)
+    out["device"] = str(device)
+    return out
+
+
+def _sharded_segment(mesh: Mesh, plans: Sequence[_LinkPlan],
+                     carry: Any) -> List[Any]:
+    """:func:`_composed_segment` on every place, each on its own shard of
+    the member axis: the carried intermediates stay on their place between
+    links. Returns each link's output as a sharded pytree."""
+    per_place = []
+    for i in range(mesh.size):
+        c = _local(carry, i)
+        outs = []
+        with mesh.on(i):
+            for p in plans:
+                stacked, shared = p.placed[i]
+                kw = dict(stacked)
+                if p.carry_name is not None:
+                    kw[p.carry_name] = c
+                c = _vmap_link(p.fn, _place_statics(p.static_kw,
+                                                    mesh.devices[i]),
+                               kw, shared)
+                outs.append(c)
+        per_place.append(outs)
+    return [mesh.merge([outs[k] for outs in per_place])
+            for k in range(len(plans))]
 
 
 def _completion_event(out: Any) -> Optional["torch.cuda.Event"]:
@@ -500,8 +691,13 @@ def _completion_event(out: Any) -> Optional["torch.cuda.Event"]:
     return None
 
 
-def _wait(event: Optional["torch.cuda.Event"]) -> None:
-    if event is not None:
+def _wait(event: Any) -> None:
+    """Wait for one dispatch's event, or for every place's of a sharded
+    dispatch (a list: the join)."""
+    if isinstance(event, list):
+        for e in event:
+            _wait(e)
+    elif event is not None:
         event.synchronize()
 
 
@@ -518,15 +714,35 @@ class _FanOut:
     (:class:`~repro_torch.fusion.handles.LazySlice`). The finite mask is
     likewise one reduction per leaf, a single device→host copy for the
     whole batch instead of one per member.
+
+    A sharded output (:class:`~repro_torch.fusion.handles.ShardedValue`
+    leaves, one completion event per place in ``events``) resolves shard
+    by shard: asking for member ``i`` waits only on the event of the
+    place that owns row ``i``, then copies that shard's mask and scalars.
     """
 
     def __init__(self, out: Any, n_live: int, check_finite: bool,
-                 valid_lens: Optional[List[int]]) -> None:
+                 valid_lens: Optional[List[int]],
+                 events: Optional[List[Any]] = None) -> None:
         self.leaves, self.treedef = pytree.tree_flatten(out)
         self.valid_lens = valid_lens
         self.padded_len = max(valid_lens) if valid_lens else None
+        self.check_finite = check_finite
+        self.n_live = n_live
         self.ok = np.ones(n_live, bool)
         self.host: Dict[int, np.ndarray] = {}
+        sharded = next((leaf for leaf in self.leaves
+                        if isinstance(leaf, ShardedValue)), None)
+        self._bounds: List[Tuple[int, int]] = []
+        if sharded is not None:
+            self._bounds = [(start, int(t.shape[0]))
+                            for start, t in sharded.shards]
+            self._events = events or [None] * len(self._bounds)
+            self._ready = [False] * len(self._bounds)
+            for idx, leaf in enumerate(self.leaves):
+                if leaf.ndim == 1:
+                    self.host[idx] = np.empty(leaf.shape[0], dtype=object)
+            return
         for idx, leaf in enumerate(self.leaves):
             arr = (leaf if isinstance(leaf, torch.Tensor)
                    else torch.as_tensor(np.asarray(leaf)))
@@ -537,7 +753,35 @@ class _FanOut:
                 fin = torch.isfinite(arr.reshape(arr.shape[0], -1)).all(dim=1)
                 self.ok &= fin.cpu().numpy()[:n_live]
 
+    def _ensure(self, i: int) -> None:
+        """Resolve the shard that owns row ``i`` (sharded outputs only)."""
+        if not self._bounds:
+            return
+        s = next(k for k, (start, rows) in enumerate(self._bounds)
+                 if start <= i < start + rows)
+        if self._ready[s]:
+            return
+        _wait(self._events[s])
+        start, rows = self._bounds[s]
+        live = max(0, min(rows, self.n_live - start))
+        for idx, leaf in enumerate(self.leaves):
+            t = leaf.local(s)
+            if t.ndim == 1:
+                self.host[idx][start:start + rows] = list(
+                    t.detach().cpu().numpy())
+            if self.check_finite and t.is_floating_point():
+                fin = torch.isfinite(t.reshape(rows, -1)).all(dim=1)
+                self.ok[start:start + live] &= fin.cpu().numpy()[:live]
+        self._ready[s] = True
+
+    def is_ok(self, i: int) -> bool:
+        """Member ``i``'s outputs are finite (or not checked)."""
+        self._ensure(i)
+        return bool(self.ok[i])
+
     def member(self, i: int) -> Any:
+        self._ensure(i)
+
         def pick(idx: int) -> Any:
             if idx in self.host:
                 return self.host[idx][i].item()
@@ -706,6 +950,16 @@ class ChainExecution:
     own upstream values — never the store, which mid-chain may not have
     been routed yet), and a failed per-stage dispatch falls back to
     per-member scalar execution (inside :func:`execute_fused`).
+
+    Sharded tier: with ``mesh_devices`` that :func:`build_mesh` accepts,
+    the stacked member kwargs split on the member axis, one shard per
+    place (shared kwargs replicate), and every dispatch runs on each
+    place's own shard under that place's device and stream — a composed
+    segment's intermediates stay on their place between links. Each place
+    records its own completion event; a member's fan-out waits only on the
+    place that owns its row. Any failure of a sharded dispatch degrades
+    through the same ladder, per-stage fused on one device, counted in
+    ``degraded``.
     """
 
     def __init__(self, links: Sequence[Sequence[Task]],
@@ -715,7 +969,8 @@ class ChainExecution:
                  *,
                  canceled: Optional[set] = None,
                  fault_injector: Optional[Callable[[Task], bool]] = None,
-                 compose: bool = True) -> None:
+                 compose: bool = True,
+                 mesh_devices: Optional[Sequence[Any]] = None) -> None:
         self.links: List[List[Task]] = [list(link) for link in links]
         self.compose = compose
         self.devices = devices
@@ -724,7 +979,9 @@ class ChainExecution:
         self.canceled = canceled if canceled is not None else set()
         self.fault_injector = fault_injector
         self.started = time.time()
-        self.tier = "chain" if len(self.links) > 1 else "fused"
+        self._mesh = build_mesh(mesh_devices)
+        self.tier = ("shard" if self._mesh is not None
+                     else "chain" if len(self.links) > 1 else "fused")
         self.stats = {"fused": 0, "scalar_fallback": 0, "failed": 0,
                       "dispatches": 0, "chain_links": 0,
                       "sharded_dispatches": 0, "degraded": 0}
@@ -753,8 +1010,13 @@ class ChainExecution:
 
     def _emit(self, outs: Sequence[Tuple[int, Any]]) -> None:
         """Stream one dispatch's link outputs to the drainer, each with the
-        CUDA event recorded right after that dispatch's last enqueue."""
-        event = _completion_event([out for _, out in outs])
+        CUDA event recorded right after that dispatch's last enqueue (under
+        a mesh: one event per place, and the dispatch counts as sharded)."""
+        if self._mesh is not None:
+            event = self._mesh.events()
+            self.stats["sharded_dispatches"] += 1
+        else:
+            event = _completion_event([out for _, out in outs])
         t_dispatch = time.perf_counter()
         self.stats["dispatches"] += 1
         for k, out in outs:
@@ -831,12 +1093,18 @@ class ChainExecution:
             self._push(("degrade", 0, None))
             return
         self._fail_link = 0
-        device = _lease_device(self.devices)
+        mesh = self._mesh
+        device = (_lease_device(self.devices) if mesh is None
+                  else mesh.devices[0])
         entry_calls = [member_call(t) for t in self.links[0]]
+        # a sharded batch pads to equal pow2 shards, one per place
+        entry_pad = None if mesh is None \
+            else shard_pad(len(entry_calls), mesh.size)
         fn, spec, static_kw, shared_kw, stacked, valid_lens, padded_b = \
-            _prepare(entry_calls, device)
+            _prepare(entry_calls, device, pad_to=entry_pad)
         self._plans[0] = _LinkPlan(self.links[0], fn, spec, static_kw,
-                                   shared_kw, stacked, valid_lens, None)
+                                   shared_kw, stacked, valid_lens, None,
+                                   padded_b)
         prev = self.links[0]
         inherited = valid_lens
         for j, tasks in enumerate(self.links[1:], start=1):
@@ -852,22 +1120,28 @@ class ChainExecution:
             else:
                 inherited = vl
             self._plans[j] = _LinkPlan(tasks, fnj, specj, st_kw, sh_kw, stk,
-                                       vl, carry_name)
+                                       vl, carry_name, padded_b)
             prev = tasks
+        if mesh is not None:
+            self._place_plans()
         # dispatch: maximal runs of vmap-able links compose into ONE
         # segment; a hand-written batched impl executes eagerly between
-        # segments (its ops still enqueue asynchronously on the device)
+        # segments (its ops still enqueue asynchronously on the device).
+        # Under a mesh every dispatch runs on each place's shard.
         idx = 0
         carry = None
         while idx < len(self._plans):
             self._fail_link = idx
             plan = self._plans[idx]
             if plan.spec.batched is not None:
-                kw = dict(plan.stacked)
-                if plan.carry_name is not None:
-                    kw[plan.carry_name] = carry
-                carry = plan.spec.batched(**kw, **plan.static_kw,
-                                          **plan.shared_kw)
+                if mesh is not None:
+                    carry = self._sharded_batched(plan, carry)
+                else:
+                    kw = dict(plan.stacked)
+                    if plan.carry_name is not None:
+                        kw[plan.carry_name] = carry
+                    carry = plan.spec.batched(**kw, **plan.static_kw,
+                                              **plan.shared_kw)
                 self._emit([(idx, carry)])
                 idx += 1
                 continue
@@ -875,10 +1149,57 @@ class ChainExecution:
             while (j < len(self._plans)
                    and self._plans[j].spec.batched is None):
                 j += 1
-            outs = _composed_segment(self._plans[idx:j], carry)
+            if mesh is not None:
+                outs = _sharded_segment(mesh, self._plans[idx:j], carry)
+            else:
+                outs = _composed_segment(self._plans[idx:j], carry)
             self._emit(list(enumerate(outs, start=idx)))
             carry = outs[-1]
             idx = j
+
+    def _place_plans(self) -> None:
+        """Split every link's stacked kwargs on the member axis, one equal
+        shard per place, and replicate its shared kwargs to every place.
+        Raises on an unplaceable plan — caught by :meth:`dispatch`, which
+        degrades to the micro-batch ladder."""
+        mesh = self._mesh
+        for plan in self._plans:
+            if plan is None:             # a reduce node has no plan
+                continue
+            if plan.padded_b % mesh.size:
+                raise Incongruent(f"{plan.padded_b} rows do not split over "
+                                  f"{mesh.size} places")
+            per = plan.padded_b // mesh.size
+            plan.placed = [
+                ({k: mesh.put(v.narrow(0, i * per, per), i)
+                  for k, v in plan.stacked.items()},
+                 pytree.tree_map(lambda v, i=i: mesh.put(v, i),
+                                 plan.shared_kw))
+                for i in range(mesh.size)]
+        mesh.follow_leader()
+
+    def _sharded_batched(self, plan: _LinkPlan, carry: Any,
+                         bcast_name: Optional[str] = None,
+                         bcasts: Optional[List[Any]] = None) -> Any:
+        """Run a hand-batched kernel on each place's member shard, inside
+        the place's device and stream context and with the place's device
+        as its ``device`` static (the kernel's own tiling applies per
+        shard); a DAG broadcast arrives as one copy per place."""
+        mesh = self._mesh
+        outs = []
+        for i in range(mesh.size):
+            stacked, shared = plan.placed[i]
+            kw = dict(stacked)
+            if plan.carry_name is not None:
+                kw[plan.carry_name] = _local(carry, i)
+            if bcast_name is not None:
+                shared = dict(shared)
+                shared[bcast_name] = bcasts[i]
+            with mesh.on(i):
+                outs.append(plan.spec.batched(
+                    **kw, **_place_statics(plan.static_kw, mesh.devices[i]),
+                    **shared))
+        return mesh.merge(outs)
 
     # -- drainer side ----------------------------------------------------- #
 
@@ -947,14 +1268,16 @@ class ChainExecution:
         """Wait for link ``k``'s dispatch and build its fan-out; None ⇒ an
         asynchronous device error surfaced, the caller degrades."""
         plan = self._plans[k]
+        sharded = isinstance(event, list)
         try:
-            _wait(event)
+            if not sharded:              # a sharded fan-out waits by shard
+                _wait(event)
             if plan.t_dispatch is not None:
                 tel.observe_dispatch(_kernel_label(plan.fn), self.tier,
                                      time.perf_counter() - plan.t_dispatch)
             return _FanOut(out, len(self.links[k]), plan.spec.check_finite,
                            plan.valid_lens if plan.spec.trim_outputs
-                           else None)
+                           else None, events=event if sharded else None)
         except Exception:  # noqa: BLE001 - degrade this link and the rest
             return None
 
@@ -973,26 +1296,32 @@ class ChainExecution:
             return False
         if len(self.links) > 1:
             self.stats["chain_links"] += 1
-        for i, task in enumerate(tasks):
-            if self.cancel_event.is_set():
-                self._finish(task, -2)
-                continue
-            if not ok[i]:
-                self._finish(task, 1, exception=fail_reason.get(
-                    i, "upstream chain member failed"), n_live=n,
-                    pilot_lost=self._fail_retryable.get(i, False))
-                continue
-            if self._injected.get(i) == k:
-                self._fail(ok, fail_reason, i, task, k, "injected fault", n)
-                continue
-            if not fan.ok[i]:
-                self._fail(ok, fail_reason, i, task, k, "non-finite output",
-                           n)
-                continue
-            value = fan.member(i)
-            overrides[task.name] = value
-            self._finish(task, 0, result=value, n_live=n)
-            self.stats["fused"] += 1
+        try:
+            for i, task in enumerate(tasks):
+                if self.cancel_event.is_set():
+                    self._finish(task, -2)
+                    continue
+                if not ok[i]:
+                    self._finish(task, 1, exception=fail_reason.get(
+                        i, "upstream chain member failed"), n_live=n,
+                        pilot_lost=self._fail_retryable.get(i, False))
+                    continue
+                if self._injected.get(i) == k:
+                    self._fail(ok, fail_reason, i, task, k, "injected fault",
+                               n)
+                    continue
+                if not fan.is_ok(i):
+                    self._fail(ok, fail_reason, i, task, k,
+                               "non-finite output", n)
+                    continue
+                value = fan.member(i)
+                overrides[task.name] = value
+                self._finish(task, 0, result=value, n_live=n)
+                self.stats["fused"] += 1
+        except Exception:  # noqa: BLE001 - a shard's wait failed: degrade
+            self.stats["degraded"] += 1
+            self._degrade(k, ok, fail_reason, overrides)
+            return False
         return True
 
     def _fail(self, ok: np.ndarray, fail_reason: Dict[int, str], col: int,
@@ -1077,8 +1406,20 @@ def _apply_reduction(stacked: Any, mask: np.ndarray, kind: Optional[str],
     Kinds reduce over EVERY axis of the valid members' values — the
     list-of-values semantics of ``np.sum([...])`` / ``np.max([...])`` —
     and an empty valid set yields NaN so the reduce task fails rather
-    than fabricating an identity element.
+    than fabricating an identity element. It is the sharded tier's
+    reduction over a single place: the rows' partials
+    (:func:`_reduction_partials`), combined (:func:`_combine_partials`).
     """
+    valid = _valid_rows(stacked, mask)
+    if combine is not None:
+        return combine(stacked, valid)
+    return _combine_partials([_reduction_partials(stacked, valid, kind)],
+                             kind, _per_member(stacked))
+
+
+def _valid_rows(stacked: Any, mask: np.ndarray) -> torch.Tensor:
+    """The host mask folded with every floating leaf's per-member
+    finiteness (on the leaves' device)."""
     leaves = pytree.tree_leaves(stacked)
     device = leaves[0].device if leaves else torch.device("cpu")
     valid = torch.as_tensor(mask, dtype=torch.bool, device=device)
@@ -1086,30 +1427,62 @@ def _apply_reduction(stacked: Any, mask: np.ndarray, kind: Optional[str],
         if leaf.is_floating_point():
             valid = valid & torch.isfinite(
                 leaf.reshape(leaf.shape[0], -1)).all(dim=1)
-    if combine is not None:
-        return combine(stacked, valid)
-    nvalid = valid.sum()
+    return valid
 
-    def red(leaf: torch.Tensor) -> torch.Tensor:
+
+def _per_member(stacked: Any) -> List[int]:
+    """Each leaf's element count per member (the ``mean`` divisor)."""
+    return [int(np.prod(leaf.shape[1:])) if leaf.ndim > 1 else 1
+            for leaf in pytree.tree_leaves(stacked)]
+
+
+def _reduction_partials(stacked: Any, valid: torch.Tensor,
+                        kind: str) -> Tuple[torch.Tensor, Any]:
+    """One place's part of a reduction over its rows: the count of valid
+    members and, per leaf, the masked sum (``sum``/``mean``), min or max,
+    on the rows' device."""
+    def part(leaf: torch.Tensor) -> torch.Tensor:
         m = valid.reshape((-1,) + (1,) * (leaf.ndim - 1))
-        per_member = int(np.prod(leaf.shape[1:])) if leaf.ndim > 1 else 1
         if kind in ("sum", "mean"):
-            val = torch.where(m, leaf, 0).sum()
-            if kind == "mean":
-                val = val / (nvalid * per_member)
+            return torch.where(m, leaf, 0).sum()
+        if leaf.is_floating_point():
+            neutral = float("inf") if kind == "min" else float("-inf")
         else:
-            if leaf.is_floating_point():
-                neutral = float("inf") if kind == "min" else float("-inf")
+            info = torch.iinfo(leaf.dtype)
+            neutral = info.max if kind == "min" else info.min
+        masked = torch.where(m, leaf, neutral)
+        return masked.min() if kind == "min" else masked.max()
+
+    return valid.sum(), pytree.tree_map(part, stacked)
+
+
+def _combine_partials(partials: Sequence[Tuple[torch.Tensor, Any]],
+                      kind: str, per_member: Sequence[int]) -> Any:
+    """The places' partials combined in place order (so the result is the
+    same on every run): counts and sums add, minima and maxima take the
+    extreme; ``mean`` divides by the valid members' element count, and an
+    empty valid set gives NaN."""
+    nvalid = partials[0][0]
+    for count, _ in partials[1:]:
+        nvalid = nvalid + count
+    flat = [pytree.tree_flatten(p)[0] for _, p in partials]
+    treedef = pytree.tree_flatten(partials[0][1])[1]
+    out = []
+    for idx, size in enumerate(per_member):
+        val = flat[0][idx]
+        for leaves in flat[1:]:
+            if kind in ("sum", "mean"):
+                val = val + leaves[idx]
+            elif kind == "min":
+                val = torch.minimum(val, leaves[idx])
             else:
-                info = torch.iinfo(leaf.dtype)
-                neutral = info.max if kind == "min" else info.min
-            masked = torch.where(m, leaf, neutral)
-            val = masked.min() if kind == "min" else masked.max()
+                val = torch.maximum(val, leaves[idx])
+        if kind == "mean":
+            val = val / (nvalid * size)
         if val.is_floating_point():
             val = torch.where(nvalid > 0, val, float("nan"))
-        return val
-
-    return pytree.tree_map(red, stacked)
+        out.append(val)
+    return pytree.tree_unflatten(out, treedef)
 
 
 def _reduce_host(leaf: Any) -> Any:
@@ -1198,7 +1571,13 @@ class DagExecution(ChainExecution):
     device, so a poisoned member fails alone at its node while the
     reduction succeeds over the survivors; a reduction with NO live
     members (or a genuinely non-finite result) FAILS, and every downstream
-    broadcast consumer fails with an upstream marker.
+    broadcast consumer fails with an upstream marker. On the sharded tier
+    the same nodes run on every place's member shard: ensemble nodes stay
+    split on the member axis, and a reduction gathers each place's partials
+    (count, and the masked sum, min or max) to the leader, which combines
+    them in place order and copies the result back to every place for the
+    broadcast into the next ensemble node. A custom combine sees only its
+    own shard, so it refuses the mesh.
 
     Degrade ladder: any preparation or dispatch failure falls back to
     sequential per-node execution INSIDE the carrier — per-stage fused
@@ -1215,11 +1594,12 @@ class DagExecution(ChainExecution):
                  *,
                  canceled: Optional[set] = None,
                  fault_injector: Optional[Callable[[Task], bool]] = None,
-                 compose: bool = True) -> None:
+                 compose: bool = True,
+                 mesh_devices: Optional[Sequence[Any]] = None) -> None:
         super().__init__(links, devices, cancel_event, deliver,
                          canceled=canceled, fault_injector=fault_injector,
-                         compose=compose)
-        self.tier = "dag"
+                         compose=compose, mesh_devices=mesh_devices)
+        self.tier = "dag-shard" if self._mesh is not None else "dag"
         self.stats["dag_links"] = 0
         self._meta: List[_DagNodeMeta] = []
         self._cols: List[List[int]] = []
@@ -1277,22 +1657,30 @@ class DagExecution(ChainExecution):
             self._push(("degrade", 0, None))
             return
         self._prepare_nodes()
+        mesh = self._mesh
+        if mesh is not None:
+            self._place_plans()
         idx = 0
         carry = None
-        bcast = None
+        bcast = None        # under a mesh: one copy per place
         n = len(self.links)
         while idx < n:
             self._fail_link = idx
             meta = self._meta[idx]
             plan = self._plans[idx]
             if meta.role == "e" and plan.spec.batched is not None:
-                kw = dict(plan.stacked)
-                if meta.carry_name is not None:
-                    kw[meta.carry_name] = carry
-                shared = dict(plan.shared_kw)
-                if meta.bcast_name is not None:
-                    shared[meta.bcast_name] = bcast
-                carry = plan.spec.batched(**kw, **plan.static_kw, **shared)
+                if mesh is not None:
+                    carry = self._sharded_batched(plan, carry,
+                                                  meta.bcast_name, bcast)
+                else:
+                    kw = dict(plan.stacked)
+                    if meta.carry_name is not None:
+                        kw[meta.carry_name] = carry
+                    shared = dict(plan.shared_kw)
+                    if meta.bcast_name is not None:
+                        shared[meta.bcast_name] = bcast
+                    carry = plan.spec.batched(**kw, **plan.static_kw,
+                                              **shared)
                 self._emit([(idx, carry)])
                 idx += 1
                 continue
@@ -1301,13 +1689,19 @@ class DagExecution(ChainExecution):
                                  and self._plans[j].spec.batched
                                  is not None):
                 j += 1
-            outs = self._dag_segment(idx, j, carry, bcast)
+            if mesh is not None:
+                outs, bcasts = self._sharded_dag_segment(idx, j, carry,
+                                                         bcast)
+            else:
+                outs = self._dag_segment(idx, j, carry, bcast)
             self._emit(list(enumerate(outs, start=idx)))
             for k, out in enumerate(outs, start=idx):
                 if self._meta[k].role == "e":
                     carry = out
                 else:
                     bcast = out
+            if mesh is not None and bcasts is not None:
+                bcast = bcasts
             idx = j
 
     def _prepare_nodes(self) -> None:
@@ -1317,12 +1711,22 @@ class DagExecution(ChainExecution):
         per-node execution (prep happens before any dispatch)."""
         if self._meta[0].role != "e":
             raise Incongruent("DAG does not start at an ensemble node")
-        device = _lease_device(self.devices)
+        mesh = self._mesh
+        if mesh is not None:
+            widths = {len(t) for t, mt in zip(self.links, self._meta)
+                      if mt.role == "e"}
+            if len(widths) != 1:
+                raise Incongruent("sharded DAG requires equal node widths")
+        device = (_lease_device(self.devices) if mesh is None
+                  else mesh.devices[0])
         entry_calls = [member_call(t) for t in self.links[0]]
+        entry_pad = None if mesh is None else shard_pad(
+            len(entry_calls), mesh.size)
         fn, spec, static_kw, shared_kw, stacked, valid_lens, padded_b = \
-            _prepare(entry_calls, device)
+            _prepare(entry_calls, device, pad_to=entry_pad)
         self._plans[0] = _LinkPlan(self.links[0], fn, spec, static_kw,
-                                   shared_kw, stacked, valid_lens, None)
+                                   shared_kw, stacked, valid_lens, None,
+                                   padded_b)
         pad_of = {0: padded_b}       # e-node index -> padded batch axis
         lens_of = {0: valid_lens}    # e-node index -> row-pad lengths
         last_e = 0
@@ -1334,6 +1738,9 @@ class DagExecution(ChainExecution):
                 if len(tasks) != 1:
                     raise Incongruent("reduction node must have one task")
                 meta.combine = self._reduce_combine(k)
+                if meta.combine is not None and mesh is not None:
+                    raise Incongruent(
+                        "custom combine cannot run on the sharded tier")
                 if meta.combine is None and meta.kind is None:
                     raise Incongruent("reduction node lost its kind")
                 if lens_of.get(last_e) is not None and (
@@ -1356,13 +1763,17 @@ class DagExecution(ChainExecution):
             if (meta.carry_name is not None
                     and len(tasks) != len(self.links[last_e])):
                 raise Incongruent("carry nodes disagree on member count")
-            pad_to = pad_of[last_e] if meta.carry_name is not None else None
+            if meta.carry_name is not None:
+                pad_to: Optional[int] = pad_of[last_e]
+            else:
+                pad_to = None if mesh is None else shard_pad(
+                    len(tasks), mesh.size)
             fnk, speck, st_kw, sh_kw, stk, vl, pb = _prepare(
                 calls, device, pad_to=pad_to)
             if vl is None and meta.carry_name is not None:
                 vl = lens_of[last_e]   # padded rows ride the carry through
             self._plans[k] = _LinkPlan(tasks, fnk, speck, st_kw, sh_kw,
-                                       stk, vl, meta.carry_name)
+                                       stk, vl, meta.carry_name, pb)
             last_e = k
             pad_of[k] = pb
             lens_of[k] = vl
@@ -1412,6 +1823,77 @@ class DagExecution(ChainExecution):
             outs.append(carry)
         return outs
 
+    def _sharded_dag_segment(self, start: int, stop: int, carry: Any,
+                             bcasts: Optional[List[Any]]
+                             ) -> Tuple[List[Any], Optional[List[Any]]]:
+        """:meth:`_dag_segment` on every place's member shard, node by node
+        (a reduction is a barrier across places). Returns the nodes'
+        outputs — ensemble nodes sharded, reductions the leader's value —
+        and the last reduction's copy on every place."""
+        mesh = self._mesh
+        carries = [_local(carry, i) for i in range(mesh.size)]
+        outs = []
+        for k in range(start, stop):
+            meta = self._meta[k]
+            if meta.role == "r":
+                result, bcasts = self._sharded_reduction(k, carries)
+                outs.append(result)
+                continue
+            plan = self._plans[k]
+            for i in range(mesh.size):
+                stacked, shared = plan.placed[i]
+                kw = dict(stacked)
+                if meta.carry_name is not None:
+                    kw[meta.carry_name] = carries[i]
+                shared = dict(shared)
+                if meta.bcast_name is not None:
+                    shared[meta.bcast_name] = bcasts[i]
+                with mesh.on(i):
+                    carries[i] = _vmap_link(
+                        plan.fn, _place_statics(plan.static_kw,
+                                                mesh.devices[i]),
+                        kw, shared)
+            outs.append(mesh.merge(carries))
+        return outs, bcasts
+
+    def _sharded_reduction(self, k: int, carries: List[Any]
+                           ) -> Tuple[Any, List[Any]]:
+        """Node ``k``'s reduction across the mesh: every place reduces its
+        rows (its slice of the host mask) to partials on its own stream,
+        the leader's stream waits for them and combines in place order, and
+        every place's stream waits for the leader before taking its copy of
+        the result."""
+        mesh = self._mesh
+        meta = self._meta[k]
+        mask = self._masks[k]
+        partials = []
+        start = 0
+        for i in range(mesh.size):
+            rows = int(pytree.tree_leaves(carries[i])[0].shape[0])
+            with mesh.on(i):
+                valid = _valid_rows(carries[i], mask[start:start + rows])
+                partials.append(_reduction_partials(carries[i], valid,
+                                                    meta.kind))
+            start += rows
+        done = mesh.events()
+        with mesh.on(0):
+            if done is not None:
+                for event in done[1:]:
+                    mesh.stream(0).wait_event(event)
+            moved = [pytree.tree_map(lambda t: mesh.put(t, 0), p)
+                     for p in partials]
+            result = _combine_partials(moved, meta.kind,
+                                       _per_member(carries[0]))
+        combined = mesh.events()
+        bcasts = []
+        for i in range(mesh.size):
+            with mesh.on(i):
+                if combined is not None and i:
+                    mesh.stream(i).wait_event(combined[0])
+                bcasts.append(pytree.tree_map(lambda t: mesh.put(t, i),
+                                              result))
+        return result, bcasts
+
     # -- drainer side ----------------------------------------------------- #
 
     def _fan_link(self, k: int, out: Any,
@@ -1432,26 +1914,34 @@ class DagExecution(ChainExecution):
         self.stats["dag_links"] += 1
         bcast_bad = meta.bcast_name is not None and not self._bcast_ok
         has_carry = meta.carry_name is not None
-        for i, task in enumerate(tasks):
-            col = self._cols[k][i]
-            if self._skip_member(task, col, n, bcast_bad, has_carry, ok,
-                                 fail_reason):
-                continue
-            if self._injected.get(col) == k:
-                self._fail(ok, fail_reason, col, task, k, "injected fault",
-                           n, where="DAG member failed at node")
-                continue
-            if not fan.ok[i]:
-                self._fail(ok, fail_reason, col, task, k, "non-finite output",
-                           n, where="DAG member failed at node")
-                continue
-            # explicit True: a node WITHOUT a carry starts a fresh member
-            # lineage — an earlier failure in a dead lineage must not leak
-            ok[col] = True
-            value = fan.member(i)
-            overrides[task.name] = value
-            self._finish(task, 0, result=value, n_live=n)
-            self.stats["fused"] += 1
+        try:
+            for i, task in enumerate(tasks):
+                col = self._cols[k][i]
+                if self._skip_member(task, col, n, bcast_bad, has_carry, ok,
+                                     fail_reason):
+                    continue
+                if self._injected.get(col) == k:
+                    self._fail(ok, fail_reason, col, task, k,
+                               "injected fault", n,
+                               where="DAG member failed at node")
+                    continue
+                if not fan.is_ok(i):
+                    self._fail(ok, fail_reason, col, task, k,
+                               "non-finite output", n,
+                               where="DAG member failed at node")
+                    continue
+                # explicit True: a node WITHOUT a carry starts a fresh
+                # member lineage — an earlier failure in a dead lineage
+                # must not leak
+                ok[col] = True
+                value = fan.member(i)
+                overrides[task.name] = value
+                self._finish(task, 0, result=value, n_live=n)
+                self.stats["fused"] += 1
+        except Exception:  # noqa: BLE001 - a shard's wait failed: degrade
+            self.stats["degraded"] += 1
+            self._degrade(k, ok, fail_reason, overrides)
+            return False
         return True
 
     def _skip_member(self, task: Task, col: int, n: int, bcast_bad: bool,

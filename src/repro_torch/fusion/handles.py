@@ -16,19 +16,23 @@ values. Replay decodes the record back into an :class:`ArrayResult` over a
 host array (verifying the hash); a missing or corrupted spill raises, which
 the resume path answers by re-running the producer.
 
-Sharded spills: the JAX package journals an output split across devices
-per shard, ``{"__codec__": "sharded_array", "shards": [{"sha256", "path",
-"rows"}, ...], "shape", "dtype"}``. The port reads such records back (a
-journal the JAX package wrote resumes here) into one host array, every
-shard verified; writing them waits for the sharded tier (``ROADMAP.md``
-A10b).
+Sharded outputs (the sharded tier): a carrier over a mesh of places
+produces each output as a :class:`ShardedValue` — its rows split over the
+places, an ordered list of ``(start_row, tensor)`` with each tensor on its
+own place. The handles stay shard-aware: a per-member read slices ONE
+place's shard (never gathering the stacked batch), and the journal spill
+serializes per shard as ``{"__codec__": "sharded_array", "shards":
+[{"sha256", "path", "rows"}, ...], "shape", "dtype"}``, each shard
+content-addressed exactly like a fused spill. The records are the JAX
+package's: either package reads what the other wrote, every shard
+verified.
 """
 
 from __future__ import annotations
 
 import hashlib
 import os
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,10 +44,73 @@ CODEC = "fused_array"
 SHARDED_CODEC = "sharded_array"
 
 
+class ShardedValue:
+    """A value split on its rows over the places of a mesh: an ordered list
+    of ``(start_row, tensor)``, each tensor on its own place, the rows
+    tiling ``[0, shape[0])`` in order. The sharded tier carries link
+    outputs in this form, so an intermediate never leaves its place."""
+
+    __slots__ = ("shards",)
+
+    def __init__(self, shards: List[Tuple[int, torch.Tensor]]) -> None:
+        self.shards = sorted(((int(s), t) for s, t in shards),
+                             key=lambda p: p[0])
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        rows = sum(int(t.shape[0]) for _, t in self.shards)
+        return (rows,) + tuple(self.shards[0][1].shape[1:])
+
+    @property
+    def dtype(self):
+        return self.shards[0][1].dtype
+
+    @property
+    def ndim(self) -> int:
+        return self.shards[0][1].dim()
+
+    def local(self, i: int) -> torch.Tensor:
+        """The tensor of place ``i``."""
+        return self.shards[i][1]
+
+    def owner(self, row: int) -> int:
+        """Index of the shard that holds ``row``."""
+        for i, (start, t) in enumerate(self.shards):
+            if start <= row < start + int(t.shape[0]):
+                return i
+        raise IndexError(f"row {row} outside {self.shape[0]} rows")
+
+    def __getitem__(self, row: int) -> torch.Tensor:
+        start, t = self.shards[self.owner(row)]
+        return t[row - start]
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return (f"<ShardedValue shape={self.shape} dtype={self.dtype} "
+                f"shards={len(self.shards)}>")
+
+
+def _axis0_shards(value: Any) -> Optional[List[Tuple[int, torch.Tensor]]]:
+    """``[(start_row, tensor), ...]`` when ``value`` is split over two or
+    more places on its leading axis with rows that tile it in order, else
+    None: per-shard reads and spills never fall back to a full gather on a
+    layout they don't understand, so anything else takes the dense path."""
+    if not isinstance(value, ShardedValue) or len(value.shards) < 2:
+        return None
+    rows = 0
+    for start, t in value.shards:
+        if start != rows or t.dim() == 0:
+            return None
+        rows += int(t.shape[0])
+    return list(value.shards)
+
+
 def to_host(value: Any) -> np.ndarray:
-    """Host numpy view of a tensor (any device), handle or array-like."""
+    """Host numpy view of a tensor (any device), sharded value, handle or
+    array-like; a sharded value is copied shard by shard."""
     if isinstance(value, torch.Tensor):
         return value.detach().cpu().numpy()
+    if isinstance(value, ShardedValue):
+        return np.concatenate([to_host(t) for _, t in value.shards], axis=0)
     return np.asarray(value)
 
 
@@ -108,10 +175,26 @@ class ArrayResult:
     def to_journal(self, spill_dir: Optional[str]) -> Optional[Dict[str, Any]]:
         """Spill the bytes and return the journalable record (or ``None``
         when no sidecar directory exists — the caller then journals the
-        plain ``result_omitted`` flag and the producer re-runs on resume)."""
+        plain ``result_omitted`` flag and the producer re-runs on resume).
+
+        A sharded value spills per shard: each place's block is copied,
+        hashed and written on its own (no gather of the stacked batch), and
+        the record carries the ordered shard list so replay can verify each
+        block's sha256 before concatenating."""
         if not spill_dir:
             return None
         os.makedirs(spill_dir, exist_ok=True)
+        shards = _axis0_shards(self.value)
+        if shards is not None:
+            records = []
+            for _, data in shards:
+                block = np.ascontiguousarray(to_host(data))
+                digest, path = _write_spill(block, spill_dir)
+                records.append({"sha256": digest, "path": path,
+                                "rows": int(block.shape[0])})
+            return {"__codec__": SHARDED_CODEC, "shards": records,
+                    "shape": list(self.value.shape),
+                    "dtype": str(block.dtype)}
         host = np.ascontiguousarray(self.__array__())
         digest, path = _write_spill(host, spill_dir)
         return {"__codec__": CODEC, "sha256": digest, "path": path,
@@ -125,6 +208,9 @@ class LazySlice(ArrayResult):
     the row (trimmed to the member's unpadded length) is taken the first
     time a consumer asks for it. The parent tensor stays alive for as long
     as an unread member handle does; a read handle pins only its own row.
+    When the parent is a :class:`ShardedValue`, a read slices only the one
+    shard that owns the member's row; the other places' blocks are never
+    touched.
     """
 
     __slots__ = ("_parent", "_index", "_trim")
@@ -139,7 +225,12 @@ class LazySlice(ArrayResult):
     @property
     def value(self) -> Any:
         if self._value is None:
-            piece = self._parent[self._index]
+            shards = _axis0_shards(self._parent)
+            if shards is not None:
+                start, data = shards[self._parent.owner(self._index)]
+                piece = data[self._index - start]
+            else:
+                piece = self._parent[self._index]
             if self._trim is not None:
                 piece = piece[:self._trim]
             self._value = piece

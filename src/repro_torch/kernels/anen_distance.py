@@ -13,6 +13,11 @@ columns, whose loads are all independent (16 bytes each where N % 4 == 0).
 :func:`anen_distance_plain` only for CPU tensors. Both accumulate in the
 Pallas body's order with no fused multiply-add, so on the card the kernel
 and the plain version agree bit for bit.
+
+:func:`anen_distance_sharded` replaces ``anen_distance_sharded`` of the
+JAX package: H split over a 1-D mesh of places (cards, or lanes of one
+card), the same kernel launched once per place on its own rows. It needs
+no source of its own.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import threading
+from typing import Any, Optional, Sequence
 
 import torch
 
@@ -121,3 +127,66 @@ def anen_distance(f_hist: torch.Tensor, f_now: torch.Tensor) -> torch.Tensor:
 
 anen_distance.launches = 0
 anen_distance.shapes = collections.Counter()
+
+
+def anen_distance_sharded(f_hist: torch.Tensor, f_now: torch.Tensor,
+                          devices: Optional[Sequence[Any]] = None
+                          ) -> torch.Tensor:
+    """:func:`anen_distance` with the H axis split over ``devices``.
+
+    ``devices`` are places — CUDA devices, or lanes of one device
+    (:class:`~repro_torch.device.VirtualDevice`) — deduplicated in order;
+    below two it is :func:`anen_distance`. ``f_hist`` (H, V, N) is padded
+    by edge rows so the places divide it, each place gets its H/D rows and
+    its own copy of ``f_now``, and the kernel runs once per place inside
+    that place's device and stream context (lanes of one card overlap).
+    The results come back to the first place in place order, the padding
+    sliced off. Rows are independent, so the answer is
+    :func:`anen_distance_plain` over the whole H, bit for bit. Each call
+    counts one launch a place in ``anen_distance_sharded.launches`` and its
+    per-place (H/D, V, N) in ``.shapes``. CPU tensors on CPU places take
+    the plain version per shard; tensors on another kind of device than
+    the places raise."""
+    from ..device import place_device
+    from ..fusion.engine import Mesh
+
+    places = list(dict.fromkeys(devices or []))
+    if len(places) < 2:
+        return anen_distance(f_hist, f_now)
+    _check(f_hist, f_now)
+    mesh = Mesh(places)
+    kinds = {d.type for d in mesh.devices}
+    if kinds != {f_hist.device.type}:
+        raise ValueError(f"anen_distance_sharded: tensors on "
+                         f"{f_hist.device} but places on "
+                         f"{sorted(kinds)}")
+    h, v, n = f_hist.shape
+    d = mesh.size
+    pad = (-h) % d
+    fh = f_hist if pad == 0 else torch.cat(
+        [f_hist, f_hist[-1:].expand(pad, v, n)])
+    per = (h + pad) // d
+    outs = []
+    mesh.follow_leader()
+    for i in range(d):
+        rows = mesh.put(fh.narrow(0, i * per, per), i)
+        with mesh.on(i):
+            now = f_now.to(mesh.devices[i], copy=True)
+            outs.append(anen_distance(rows, now))
+    leader = place_device(places[0])
+    if leader.type == "cuda":
+        current = torch.cuda.current_stream(leader)
+        for i in range(d):
+            stream = mesh.stream(i)
+            if stream is not None and stream != current:
+                current.wait_stream(stream)
+            outs[i].record_stream(current)
+    out = torch.cat([o.to(leader) for o in outs])[:h]
+    with _count_lock:
+        anen_distance_sharded.launches += d
+        anen_distance_sharded.shapes[(per, v, n)] += d
+    return out
+
+
+anen_distance_sharded.launches = 0
+anen_distance_sharded.shapes = collections.Counter()

@@ -9,8 +9,9 @@ mean, and the quantization error is fed back into the next step's gradient
 blocks and the same scale bits as JAX for the same input.
 
 Gradients and error states are the port's nested dicts of tensors. The
-mean over a data axis (JAX's ``pmean`` under ``shard_map``) waits for the
-sharded execution (``ROADMAP.md`` A10b): :func:`ef_compressed_mean` with an
+mean over a data axis (JAX's ``pmean`` under ``shard_map``) needs a
+``torch.distributed`` process group, one rank a card, which the port does
+not take yet (``ROADMAP.md`` A12f): :func:`ef_compressed_mean` with an
 ``axis_name`` raises.
 """
 
@@ -67,12 +68,12 @@ def ef_compressed_mean(grads: Any, error: Any,
 
     Returns (decompressed grads in each gradient's dtype, new f32 error
     state). ``axis_name`` names the data axis whose mean the int8 payload
-    would cross: that needs the sharded execution, which is not ported."""
+    would cross: that needs a ``torch.distributed`` group, not taken yet."""
     if axis_name is not None:
         raise NotImplementedError(
             f"ef_compressed_mean(axis_name={axis_name!r}): the mean over a "
-            f"data axis needs the sharded execution, not ported yet "
-            f"(ROADMAP.md A10b)")
+            f"data axis needs a torch.distributed process group (one rank "
+            f"a card), which the port does not take yet (ROADMAP.md A12f)")
 
     def one(g, e):
         target = g.float() + e

@@ -56,15 +56,27 @@ tenant mix, and the per-tenant ``members``, ``shared_dispatches`` and
 ``completions`` are counted (:attr:`TorchRTS.tenant_stats`). Chain and DAG
 tasks are never held: they go to their assemblers as before.
 
-The sharded tier of the JAX package (one carrier across a device mesh) is
-not ported (``ROADMAP.md`` A10b): a carrier runs on one device, and a wide
-group micro-batches on any inventory, two or more cards included.
+Sharded tier: a fusion group (or chain cohort, or complete DAG round) wide
+enough to clear ``shard_min_members`` on an inventory of two or more
+distinct places — CUDA devices, or lanes of one device
+(:func:`~repro_torch.device.virtual_devices`, which tests and the card
+check build; ``TorchRTS()`` lists real cards only) — is planned as a
+**mesh** (:func:`~repro_torch.fusion.plans.plan_mesh`) instead of
+micro-batch lanes: each sharded carrier takes ONE all-or-nothing lease of
+``places x member_slots`` slots and the engine runs the batch split on its
+member axis, one shard per place. Wide groups whose members arrive in
+pieces are held (``shard_hold_s``, an idle timeout) until a full-mesh
+batch accumulates. ``shard=False`` (or a ``_no_shard`` member tag) opts
+out; a lease that collapses short (an oversubscribed pool) runs on one
+device. The plan is stamped on every member completion, and
+:meth:`TorchRTS.planned_group_slots` charges the whole mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import inspect
+import math
 import queue
 import threading
 import time
@@ -76,12 +88,13 @@ import torch
 from .. import telemetry as tel
 from ..core.policies import BreakerBoard
 from ..core.pst import Task, resolve_executable
-from ..device import DeviceLike, resolve_device
+from ..device import DeviceLike, VirtualDevice, resolve_device
 from ..fusion import engine as fusion_engine
 from ..fusion.groups import (GROUP_TAG, FusionSpec, fusion_spec,
                              parse_chain_tag, parse_dag_tag)
-from ..fusion.plans import (DEFAULT_MAX_BATCH, DEFAULT_MIN_CHAIN, plan_chain,
-                            plan_dag, plan_group)
+from ..fusion.plans import (DEFAULT_MAX_BATCH, DEFAULT_MIN_CHAIN,
+                            DEFAULT_SHARD_MIN_MEMBERS, MeshPlan, plan_chain,
+                            plan_dag, plan_group, plan_mesh)
 from ..telemetry import MetricsRegistry
 from .base import Pilot, RequeueTask, ResourceDescription, TaskCompletion
 from .local import LocalRTS
@@ -109,19 +122,23 @@ class _FusedBatch:
     DAG *node* instead, with reduction nodes holding a single reduce task;
     ``members`` — every member task across links; ``pending`` — member
     uids still owing a completion; ``compose`` — whether the links run as
-    composed segments; ``plan`` — the JSON-able plan record stamped onto
-    member completions.
+    composed segments; ``mesh_shards`` — place count of a planned mesh (0 =
+    plain micro-batch carrier); ``plan`` — the JSON-able plan record
+    stamped onto member completions.
     """
 
-    __slots__ = ("links", "members", "pending", "compose", "plan", "dag")
+    __slots__ = ("links", "members", "pending", "compose", "mesh_shards",
+                 "plan", "dag")
 
     def __init__(self, links: List[List[Task]], compose: bool = True,
+                 mesh_shards: int = 0,
                  plan: Optional[Dict[str, Any]] = None,
                  dag: bool = False) -> None:
         self.links = links
         self.members = [t for link in links for t in link]
         self.pending: Set[str] = {m.uid for m in self.members}
         self.compose = compose
+        self.mesh_shards = mesh_shards
         self.plan = plan
         self.dag = dag
 
@@ -144,12 +161,15 @@ def _tenant_of(task: Task) -> Optional[str]:
 
 class TorchRTS(LocalRTS):
     def __init__(self, device: DeviceLike = None,
-                 devices: Optional[Sequence[torch.device]] = None,
+                 devices: Optional[Sequence[Any]] = None,
                  slot_oversubscribe: int = 1, fusion: bool = True,
                  fusion_min_batch: Optional[int] = None,
                  fusion_max_batch: int = DEFAULT_MAX_BATCH,
                  fusion_min_chain: int = DEFAULT_MIN_CHAIN,
                  dag: bool = True,
+                 shard: bool = True,
+                 shard_min_members: int = DEFAULT_SHARD_MIN_MEMBERS,
+                 shard_hold_s: float = 0.25,
                  serve_hold_s: float = 0.0,
                  breakers: Optional[BreakerBoard] = None,
                  **kwargs: Any) -> None:
@@ -171,6 +191,9 @@ class TorchRTS(LocalRTS):
         # what orders the reduce after its members), just never as one
         # composed segment
         self.dag = dag
+        self.shard = shard
+        self.shard_min_members = shard_min_members
+        self.shard_hold_s = shard_hold_s
         # serving mode: >0 opens a continuous-batching window — fusible
         # groups are parked briefly so same-kernel members from OTHER
         # workflows (the fusion key excludes the namespace) can land in the
@@ -178,8 +201,18 @@ class TorchRTS(LocalRTS):
         # timeout: under a steady multi-tenant stream an idle re-arm would
         # never fire and small tenants would starve behind it.
         self.serve_hold_s = serve_hold_s
-        # -- serve hold buffer ----------------------------------------------#
+        self._meshable: Optional[bool] = None   # lazily checked place types
+        # -- shard and serve hold buffer ------------------------------------#
+        # members of a wide group arrive as a stream of partial submissions
+        # (the Broker hands the Emgr what the WFP has enqueued so far);
+        # packing each partial slice would fragment the group into many
+        # small mesh dispatches. Groups whose compile-time width hint
+        # (``_fusion_width``) says more members are coming are held here
+        # until a full-mesh batch (places x max_batch) accumulates, the
+        # whole group has arrived, or ``shard_hold_s`` passes without
+        # progress — whichever is first. The serve hold shares the buffer.
         self._held: Dict[str, List[Task]] = {}
+        self._hold_seen: Dict[str, int] = {}
         self._hold_timers: Dict[str, threading.Timer] = {}
         self._hold_arrived: Dict[str, float] = {}   # member uid -> hold t0
         self._hold_lock = threading.Lock()
@@ -212,7 +245,7 @@ class TorchRTS(LocalRTS):
     @property
     def fusion_stats(self) -> Dict[str, int]:
         """Point-in-time snapshot of the fusion counters (plain dict, the
-        JAX package's keys; the sharded tier's stay 0)."""
+        JAX package's keys)."""
         out = {k: 0 for k in _FUSION_STAT_KEYS}
         for labels, c in self.metrics.collect("counter", FUSION_EVENTS):
             out[labels["kind"]] = c.value
@@ -269,6 +302,7 @@ class TorchRTS(LocalRTS):
                 timer.cancel()
             self._hold_timers.clear()
             self._held.clear()
+            self._hold_seen.clear()
         for _ in self._drainers:
             self._drain_q.put(None)
         for t in self._drainers:
@@ -292,6 +326,18 @@ class TorchRTS(LocalRTS):
 
     def supports_fusion(self) -> bool:
         return self.fusion
+
+    def planned_group_slots(self, n_members: int, member_slots: int) -> int:
+        """Slots the Emgr should charge for one fusible group right now:
+        a group wide enough to shard occupies the WHOLE mesh for its
+        dispatch, so the Emgr must not pack other work into those slots
+        (the micro-batch case keeps the one-member charge — lanes backfill
+        into genuinely free capacity)."""
+        mesh = self._plan_mesh(n_members, self.free_slots(), member_slots,
+                               None)
+        if mesh is not None:
+            return mesh.n_shards * member_slots
+        return member_slots
 
     def supports_chain_fusion(self) -> bool:
         """True when this RTS composes ``_fusion_chain``-tagged stages into
@@ -386,14 +432,14 @@ class TorchRTS(LocalRTS):
             if isinstance(entry, Task):
                 out.append(entry)
             elif entry[0] == "dag":
-                self._assemble_dag(dags[entry[1]], out)
+                self._assemble_dag(dags[entry[1]], out, free)
             elif entry[0] == "chain":
                 self._assemble_chain(chains[entry[1]], out, free)
             elif (self.serve_hold_s > 0
                   and self._kernel_spec(groups[entry[1]][0]) is not None):
                 self._serve_hold(entry[1], groups[entry[1]], out, free)
             else:
-                self._pack_group(groups[entry[1]], out, free)
+                self._pack_or_hold(entry[1], groups[entry[1]], out, free)
         return out
 
     def _serve_hold(self, key: str, members: List[Task], out: List[Task],
@@ -416,12 +462,14 @@ class TorchRTS(LocalRTS):
             held.extend(members)
             for m in members:
                 self._hold_arrived[m.uid] = now
+            self._hold_seen[key] = self._hold_seen.get(key, 0) + len(members)
             batches: List[List[Task]] = []
             while len(held) >= capacity:
                 batches.append(held[:capacity])
                 del held[:capacity]
             if not held:
                 self._held.pop(key, None)
+                self._hold_seen.pop(key, None)
                 timer = self._hold_timers.pop(key, None)
                 if timer is not None:
                     timer.cancel()
@@ -453,6 +501,7 @@ class TorchRTS(LocalRTS):
             return
         with self._hold_lock:
             members = self._held.pop(key, None)
+            self._hold_seen.pop(key, None)
             self._hold_timers.pop(key, None)
         if not members:
             return
@@ -504,6 +553,146 @@ class TorchRTS(LocalRTS):
                 mixed.append(q.pop())
         return mixed
 
+    def _n_places(self) -> int:
+        """Distinct places in the inventory: oversubscribed logical slots
+        and a device listed twice widen lanes, never meshes."""
+        return len(set(self._devices))
+
+    def _pack_or_hold(self, key: str, members: List[Task], out: List[Task],
+                      free: Optional[int]) -> None:
+        """Pack a fused group now, or hold a partially-arrived wide one.
+
+        Holding applies only when the mesh planner could fire for the full
+        group (shard on, two or more places, no ``_no_shard``) and the
+        compile-time width hint says members beyond this submission are
+        still in flight. Full-mesh batches are emitted as they fill; the
+        remainder waits for the rest of the group or the ``shard_hold_s``
+        idle timeout."""
+        tags = members[0].tags
+        width = int(tags.get("_fusion_width") or 0)
+        if (not self.shard or self._n_places() < 2
+                or not self._mesh_capable() or tags.get("_no_shard")
+                or width < self.shard_min_members
+                or self._kernel_spec(members[0]) is None):
+            self._pack_group(members, out, free)
+            return
+        # emit in equal quanta sized so the whole group needs exactly
+        # ceil(width / (places x max_batch)) dispatches — the planner's
+        # dispatch bound — while early quanta still overlap the stream
+        capacity = self._n_places() * self.fusion_max_batch
+        target = math.ceil(width / max(1, math.ceil(width / capacity)))
+        arm_key = None
+        with self._hold_lock:
+            held = self._held.setdefault(key, [])
+            held.extend(members)
+            seen = self._hold_seen.get(key, 0) + len(members)
+            self._hold_seen[key] = seen
+            batches: List[List[Task]] = []
+            while len(held) >= target:
+                batches.append(held[:target])
+                del held[:target]
+            if held and seen >= width:
+                batches.append(held[:])   # the whole group has arrived
+                del held[:]
+            if not held:
+                self._held.pop(key, None)
+                self._hold_seen.pop(key, None)
+                timer = self._hold_timers.pop(key, None)
+                if timer is not None:
+                    timer.cancel()
+            elif key not in self._hold_timers:
+                arm_key = key    # idle timer runs from the FIRST hold
+        for batch in batches:
+            self._pack_group(batch, out, free)
+        if arm_key is not None:
+            self._arm_hold_timer(arm_key)
+
+    def _arm_hold_timer(self, key: str) -> None:
+        """Arm (or re-arm) the inactivity timer for a held group; the seen
+        count at arm time lets the flush tell a stalled stream from one
+        that is still making progress."""
+        with self._hold_lock:
+            if key not in self._held or key in self._hold_timers:
+                return
+            timer = threading.Timer(self.shard_hold_s, self._flush_held,
+                                    args=(key, self._hold_seen.get(key, 0)))
+            timer.daemon = True
+            self._hold_timers[key] = timer
+        timer.start()
+
+    def _flush_held(self, key: Optional[str] = None,
+                    seen_at_arm: Optional[int] = None) -> None:
+        """Inactivity flush: pack whatever a held group accumulated.
+
+        ``shard_hold_s`` is an idle timeout, not an absolute deadline:
+        while the Emgr is still streaming group members in, or carriers
+        are queued or running (the stream only looks stalled because the
+        scheduler waits out this group's own earlier quanta), the timer
+        re-arms instead of fragmenting the hold into undersized packs. A
+        partial hold flushes only once the RTS is otherwise idle AND the
+        stream made no progress for a full period."""
+        busy = False
+        if key is not None and seen_at_arm is not None:
+            with self._lock:
+                busy = bool(self._running) or bool(self._queue)
+        with self._hold_lock:
+            rearm = False
+            if key is not None and seen_at_arm is not None:
+                self._hold_timers.pop(key, None)
+                rearm = key in self._held and (
+                    busy or self._hold_seen.get(key, 0) > seen_at_arm)
+            keys = [] if rearm else (
+                [key] if key is not None else list(self._held))
+            flushed: List[List[Task]] = []
+            for k in keys:
+                members = self._held.pop(k, None)
+                self._hold_seen.pop(k, None)
+                timer = self._hold_timers.pop(k, None)
+                if timer is not None:
+                    timer.cancel()
+                if members:
+                    flushed.append(members)
+        if rearm:
+            self._arm_hold_timer(key)
+            return
+        out: List[Task] = []
+        for members in flushed:
+            self._pack_group(members, out, self.free_slots())
+        if out:
+            super().submit(out)
+
+    def _mesh_capable(self) -> bool:
+        """True when every place of the inventory can join a mesh: all
+        lanes (:class:`~repro_torch.device.VirtualDevice`) or all CUDA
+        devices. Reads the inventory's types only: planning never touches
+        CUDA."""
+        if self._meshable is None:
+            devs = self._devices
+            self._meshable = bool(devs) and (
+                all(isinstance(d, VirtualDevice) for d in devs)
+                or all(isinstance(d, torch.device) and d.type == "cuda"
+                       for d in devs))
+        return self._meshable
+
+    def _plan_mesh(self, n_members: int, free: Optional[int],
+                   member_slots: int,
+                   tags: Optional[Dict[str, Any]]) -> Optional[MeshPlan]:
+        """Mesh plan for a wide group, or None → micro-batch lanes.
+
+        The free count is clamped to the scheduler's slot total so a mesh
+        carrier can never be planned wider than the pilot will ever admit,
+        and the mesh is capped at the distinct place count."""
+        if not self.shard or not self._mesh_capable():
+            return None
+        if tags is not None and tags.get("_no_shard"):
+            return None
+        if free is not None:
+            free = min(free, self._slots_total)
+        return plan_mesh(n_members, free, member_slots,
+                         max_batch=self.fusion_max_batch,
+                         shard_min_members=self.shard_min_members,
+                         max_devices=self._n_places())
+
     def _pack_group(self, members: List[Task], out: List[Task],
                     free: Optional[int]) -> None:
         spec = self._kernel_spec(members[0])
@@ -513,6 +702,19 @@ class TorchRTS(LocalRTS):
         label = self._kernel_label_of(members[0])
         if not self.breakers.allow(label, "fused"):
             out.extend(members)   # breaker open: run the ladder's floor
+            return
+        mesh = self._plan_mesh(len(members), free, members[0].slots,
+                               members[0].tags)
+        if mesh is not None and not self.breakers.allow(label, "shard"):
+            mesh = None           # breaker open: micro-batch lanes instead
+        if mesh is not None:
+            record = mesh.record()
+            idx = 0
+            for size in mesh.batches:
+                out.append(self._make_carrier(
+                    [members[idx:idx + size]], mesh_shards=mesh.n_shards,
+                    plan=record))
+                idx += size
             return
         min_batch = (spec.min_batch if spec.min_batch is not None
                      else self.fusion_min_batch)
@@ -559,23 +761,33 @@ class TorchRTS(LocalRTS):
                     self._pack_group(members, out, free)
                 continue
             entry = per_member[member_idxs[0]][links[0]]
+            label = self._kernel_label_of(entry)
             compose = (len(links) >= self.fusion_min_chain
-                       and self.breakers.allow(self._kernel_label_of(entry),
-                                               "chain"))
-            sizes = plan_chain(len(member_idxs), free, entry.slots,
-                               max_batch=self.fusion_max_batch)
-            record = {"kind": "fused", "lanes": len(sizes), "scalar": 0}
+                       and self.breakers.allow(label, "chain"))
+            mesh = self._plan_mesh(len(member_idxs), free, entry.slots,
+                                   entry.tags) if compose else None
+            if mesh is not None and not self.breakers.allow(label, "shard"):
+                mesh = None
+            if mesh is not None:
+                sizes, mesh_shards, record = \
+                    mesh.batches, mesh.n_shards, mesh.record()
+            else:
+                sizes = plan_chain(len(member_idxs), free, entry.slots,
+                                   max_batch=self.fusion_max_batch)
+                mesh_shards, record = 0, {"kind": "fused",
+                                          "lanes": len(sizes), "scalar": 0}
             idx = 0
             for size in sizes:
                 cohort = member_idxs[idx:idx + size]
                 link_lists = [[per_member[m][k] for m in cohort]
                               for k in links]
                 out.append(self._make_carrier(link_lists, compose=compose,
+                                              mesh_shards=mesh_shards,
                                               plan=record))
                 idx += size
 
     def _assemble_dag(self, per_node: Dict[int, Dict[int, Task]],
-                      out: List[Task]) -> None:
+                      out: List[Task], free: Optional[int] = None) -> None:
         """Build ONE carrier from whatever nodes of a DAG round arrived.
 
         Unlike chains, a DAG is never split into lanes or scattered into
@@ -587,7 +799,9 @@ class TorchRTS(LocalRTS):
         is complete (all ``n`` nodes present at their tagged width) and
         within the batch bound; otherwise it runs its nodes sequentially
         in-carrier, which preserves ordering and per-member semantics for
-        fragments re-entering mid-round.
+        fragments re-entering mid-round. A composed round whose ensemble
+        nodes share one width, with only kind-tagged reductions (a custom
+        combine would see one shard only), may shard across the mesh.
         """
         node_ids = sorted(per_node)
         links = [[per_node[k][m] for m in sorted(per_node[k])]
@@ -596,19 +810,32 @@ class TorchRTS(LocalRTS):
         n_total = int((parse_dag_tag(first.tags) or {}).get("n")
                       or len(node_ids))
         complete = node_ids == list(range(n_total))
+        tags = [parse_dag_tag(node[0].tags) or {} for node in links]
         if complete:
-            complete = all(
-                len(node) == int((parse_dag_tag(node[0].tags) or {})
-                                 .get("w") or 1)
-                for node in links)
+            complete = all(len(node) == int(t.get("w") or 1)
+                           for node, t in zip(links, tags))
+        e_widths = {len(node) for node, t in zip(links, tags)
+                    if t.get("r") != "r"}
         width = max(len(node) for node in links)
         plan = plan_dag(n_total, width, dag=self.dag,
                         max_batch=self.fusion_max_batch)
+        label = self._kernel_label_of(first)
         composed = (plan.composed and complete
-                    and self.breakers.allow(self._kernel_label_of(first),
-                                            "dag"))
-        out.append(self._make_carrier(links, compose=composed,
-                                      plan=plan.record(), dag=True))
+                    and self.breakers.allow(label, "dag"))
+        mesh = None
+        if (composed and len(e_widths) == 1
+                and all(t.get("rk") for t in tags if t.get("r") == "r")):
+            mesh = self._plan_mesh(width, free, first.slots, first.tags)
+        if mesh is not None and not self.breakers.allow(label, "shard"):
+            mesh = None
+        if mesh is not None:
+            plan = plan_dag(n_total, width, dag=self.dag,
+                            max_batch=self.fusion_max_batch,
+                            n_shards=mesh.n_shards)
+        out.append(self._make_carrier(
+            links, compose=composed,
+            mesh_shards=mesh.n_shards if mesh is not None else 0,
+            plan=plan.record(), dag=True))
 
     @staticmethod
     def _kernel_spec(task: Task) -> Optional[FusionSpec]:
@@ -648,6 +875,7 @@ class TorchRTS(LocalRTS):
         return label
 
     def _make_carrier(self, links: List[List[Task]], compose: bool = True,
+                      mesh_shards: int = 0,
                       plan: Optional[Dict[str, Any]] = None,
                       dag: bool = False) -> Task:
         # tenant accounting: the planners REUSE one plan record dict across
@@ -658,20 +886,27 @@ class TorchRTS(LocalRTS):
         if plan is not None:
             plan = dict(plan)
             plan["tenants"] = max(1, len(tenants))
-        batch = _FusedBatch(links, compose=compose, plan=plan, dag=dag)
+        batch = _FusedBatch(links, compose=compose, mesh_shards=mesh_shards,
+                            plan=plan, dag=dag)
         hints = [m.duration_hint for m in batch.members
                  if m.duration_hint is not None]
         n = len(links)
         width = max(len(node) for node in links) if dag else len(links[0])
-        if dag:
+        if dag and mesh_shards:
+            name = f"dag-shard[{mesh_shards}x{n}x{width}]:{links[0][0].name}"
+        elif dag:
             name = f"dag[{n}x{width}]:{links[0][0].name}"
+        elif mesh_shards:
+            name = f"shard[{mesh_shards}x{n}x{width}]:{links[0][0].name}"
         elif n == 1:
             name = f"fused[{width}]:{links[0][0].name}"
         else:
             name = f"chain[{n}x{width}]:{links[0][0].name}"
         carrier = Task(
             name=name, executable=f"fused://{n}x{width}",
-            slots=links[0][0].slots,
+            # a sharded carrier leases the WHOLE mesh all-or-nothing: one
+            # member-width of slots per place
+            slots=links[0][0].slots * max(1, mesh_shards),
             duration_hint=max(hints) if hints else None)
         with self._fusion_lock:
             self._fused[carrier.uid] = batch
@@ -690,6 +925,8 @@ class TorchRTS(LocalRTS):
             self._fusion_count("dag_carriers")
         elif n > 1:
             self._fusion_count("chain_carriers")
+        if mesh_shards:
+            self._fusion_count("shard_carriers")
         return carrier
 
     # -- cancellation / introspection over carriers ---------------------------#
@@ -698,14 +935,15 @@ class TorchRTS(LocalRTS):
         """Translate member uids to their carriers: a canceled member is
         skipped at fan-out time; a carrier whose every member is canceled
         is canceled itself (dequeued, or its dispatch interrupted). Members
-        still parked in the serve hold are simply dropped, and a hold they
-        empty stops its timer."""
+        still parked in the shard or serve hold are simply dropped, and a
+        hold they empty stops its timer."""
         wanted = set(uids)
         with self._hold_lock:
             for k in list(self._held):
                 kept = [t for t in self._held[k] if t.uid not in wanted]
                 if not kept:
                     self._held.pop(k)
+                    self._hold_seen.pop(k, None)
                     timer = self._hold_timers.pop(k, None)
                     if timer is not None:
                         timer.cancel()
@@ -747,8 +985,8 @@ class TorchRTS(LocalRTS):
     def in_flight(self) -> List[str]:
         """Member uids, never carrier uids: EnTK's custody, failover and
         resubmission logic reasons about the tasks it submitted. Members
-        parked in the serve hold are in flight too — they have been
-        accepted and will run at the latest when the hold deadline fires."""
+        parked in the shard or serve hold are in flight too — they have
+        been accepted and will run at the latest when the hold flushes."""
         base = super().in_flight()
         with self._fusion_lock:
             out: List[str] = []
@@ -852,11 +1090,22 @@ class TorchRTS(LocalRTS):
                 counter.inc()
             self._deliver(c)
 
+        mesh_devices = None
+        if batch.mesh_shards:
+            # an oversubscribed pool can lease the same place twice; a mesh
+            # needs distinct places — when the lease collapses short, run
+            # the carrier on the single-device path
+            uniq = list(dict.fromkeys(devices))
+            if len(uniq) >= batch.mesh_shards:
+                mesh_devices = uniq[:batch.mesh_shards]
         cls = (fusion_engine.DagExecution if batch.dag
                else fusion_engine.ChainExecution)
         exe = cls(batch.links, devices, cancel_event, deliver,
                   canceled=self._fused_canceled,
-                  fault_injector=self.fault_injector, compose=batch.compose)
+                  fault_injector=self.fault_injector, compose=batch.compose,
+                  mesh_devices=mesh_devices)
+        # exe.tier is what will ACTUALLY run ("shard" only when the lease
+        # made a real mesh), unlike the plan's mesh_shards hint
         self.metrics.counter(CARRIERS_TOTAL, tier=exe.tier).inc()
         # registered BEFORE the dispatches run so the drainer can fan out
         # early links of a chain while a later link is still dispatching
@@ -867,6 +1116,7 @@ class TorchRTS(LocalRTS):
                       links=len(batch.links),
                       width=max(len(link) for link in batch.links),
                       members=len(batch.members),
+                      mesh_shards=batch.mesh_shards,
                       tenants=",".join(sorted(
                           str(t) for t in set(tenant_of.values())
                           if t is not None))):
@@ -874,12 +1124,14 @@ class TorchRTS(LocalRTS):
 
     def _record_breaker(self, batch: _FusedBatch, exe: Any, ok: bool) -> None:
         """Feed one carrier outcome to the breaker board under the tier it
-        ran. Never raises: breaker accounting must not disturb the
-        drainer's unconditional lease release."""
+        ran ("dag-shard" records as "dag": the composition is what the
+        consult gated). Never raises: breaker accounting must not disturb
+        the drainer's unconditional lease release."""
         try:
             tier = getattr(exe, "tier", None)
             if tier is None or not batch.members:
                 return
+            tier = {"dag-shard": "dag"}.get(tier, tier)
             self.breakers.record(
                 self._kernel_label_of(batch.members[0]), tier, ok)
         except Exception:  # noqa: BLE001 - accounting only

@@ -7,7 +7,9 @@ service's AnEn sweeps, the seismic misfit sweeps (chain and DAG tiers),
 the zamba2, rwkv6, dense and MoE serving paths and the qwen2-vl prefill on
 embeddings on the card against the same runs on the CPU; int8 gradient
 compression (the CPU's bits, a smoke ``TrainSession``) and the one-device
-dry-run against a real step's peak memory, launches and matmul FLOPs.
+dry-run against a real step's peak memory, launches and matmul FLOPs; the
+sharded tier over lanes of the card (B2 against B1, AnEn and the seismic
+DAG against their unsharded runs), and over two cards where there are.
 They skip where ``torch.cuda.is_available()`` is False. This file
 imports nothing of JAX, so it also runs where JAX is not installed:
 
@@ -991,3 +993,103 @@ def test_one_device_dryrun_predicts_a_real_step(cuda):
                    "flash_attention_bwd": rec["launches"]["flash_bwd"]}
     flops = matmul_flops_of(fn, state, batch)
     assert abs(rec["per_device"]["matmul_flops"] - flops) <= 1e-6 * flops
+
+
+# --------------------------------------------------------------------------- #
+# The sharded tier over lanes of one card (and over two cards, where there
+# are two)
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("shape", [(365, 3, 1024), (365, 3, 510),
+                                   (37, 3, 20)])
+def test_sharded_distance_on_lanes_bit_equal_to_b1(cuda, shape):
+    """B2 on 4 lanes of the card: B1's kernel once per lane on its own
+    stream, the gathered result bit-equal to B1 over the whole H (365 %
+    4 != 0: edge rows padded)."""
+    from repro_torch.device import virtual_devices
+    from repro_torch.kernels.anen_distance import (anen_distance,
+                                                   anen_distance_sharded)
+    h, v, n = shape
+    rng = np.random.default_rng(9)
+    fh = torch.from_numpy(rng.standard_normal((h, v, n)).astype(
+        np.float32)).to(cuda)
+    fn = torch.from_numpy(rng.standard_normal((v, n)).astype(
+        np.float32)).to(cuda)
+    lanes = virtual_devices("cuda", 4)
+    b1 = anen_distance.launches
+    b2 = anen_distance_sharded.launches
+    got = anen_distance_sharded(fh, fn, lanes)
+    torch.cuda.synchronize()
+    assert anen_distance.launches == b1 + 4
+    assert anen_distance_sharded.launches == b2 + 4
+    assert torch.equal(got, anen_distance(fh, fn))
+
+
+def test_anen_sharded_on_lanes_equals_unsharded(cuda):
+    """AnEn at smoke size, 16 members over 4 lanes of the card: one
+    shard carrier a round, one distance launch a lane, the values of the
+    same description run with ``shard=False`` on the card."""
+    from repro_torch.apps.anen.workflow import run_random
+    from repro_torch.device import virtual_devices
+    from repro_torch.kernels.anen_distance import anen_distance
+    kw = dict(device="cuda", seed=3, ny=20, nx=20, n_hist=30, per_iter=128,
+              max_iters=2, n_tasks=16, slots=4,
+              places=virtual_devices("cuda", 4))
+    before = anen_distance.launches
+    got = run_random(shard_min_members=16, **kw)
+    launched = anen_distance.launches - before
+    ref = run_random(shard=False, **kw)
+    assert got["all_done"] and ref["all_done"]
+    stats = got["fusion_stats"]
+    assert stats["shard_carriers"] == 2 and stats["degraded"] == 0
+    assert launched == 4 * 2
+    assert ref["fusion_stats"]["shard_carriers"] == 0
+    assert got["values"] == ref["values"]
+    assert got["errors"] == ref["errors"]
+
+
+def test_seismic_sharded_dag_on_lanes_matches_unsharded(cuda):
+    """8 sources over 4 lanes, 2 a lane: misfits within 1e-6 relative of
+    the unsharded run's, not bit-equal — the vmapped misfit sum's
+    reduction order on the card follows the batch width (2 members
+    against 8). At the card check's 16 a lane they are bit-equal
+    (``chip_smoke.py``)."""
+    from repro_torch.apps.seismic.workflow import run_misfit_chain
+    from repro_torch.device import virtual_devices
+    kw = dict(nx=32, nt=60, seed=0, dv=25.0, device="cuda",
+              places=virtual_devices("cuda", 4), shard_min_members=8)
+    got = run_misfit_chain(8, 4, **kw)
+    ref = run_misfit_chain(8, 4, shard=False, **kw)
+    assert got["all_done"] and ref["all_done"]
+    assert got["fusion_stats"]["shard_carriers"] == 1
+    assert ref["fusion_stats"]["shard_carriers"] == 0
+    assert max(abs(a - b) / abs(b)
+               for a, b in zip(got["misfits"], ref["misfits"])) <= 1e-6
+    assert abs(got["total_misfit"] - ref["total_misfit"]) <= \
+        1e-4 * abs(ref["total_misfit"])
+
+
+def test_sharded_distinct_cards(cuda):
+    """The sharded tier over two real cards: peer copies of the shards
+    and a launch context per card. Skips below two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: peer copies and per-card "
+                    "launch contexts are unverified on one card")
+    from repro_torch.apps.anen.workflow import run_random
+    from repro_torch.kernels.anen_distance import (anen_distance,
+                                                   anen_distance_sharded)
+    cards = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    rng = np.random.default_rng(10)
+    fh = torch.from_numpy(rng.standard_normal((365, 3, 510)).astype(
+        np.float32)).to(cards[0])
+    fn = torch.from_numpy(rng.standard_normal((3, 510)).astype(
+        np.float32)).to(cards[0])
+    got = anen_distance_sharded(fh, fn, cards)
+    assert got.device == cards[0]
+    assert torch.equal(got, anen_distance(fh, fn))
+    kw = dict(device="cuda:0", seed=3, ny=20, nx=20, n_hist=30,
+              per_iter=128, max_iters=2, n_tasks=16, slots=2, places=cards)
+    sharded = run_random(shard_min_members=16, **kw)
+    plain = run_random(shard=False, **kw)
+    assert sharded["fusion_stats"]["shard_carriers"] == 2
+    assert sharded["values"] == plain["values"]

@@ -3,8 +3,8 @@ mesh planning rule (a verbatim copy in the port) and the read side of the
 ``sharded_array`` journal codec. Spill records the JAX package writes with
 8 host devices (in a subprocess, as ``tests/test_shard.py`` does) read
 back equal in the port, and each kind of corruption raises
-``MissingError``. The port executes no mesh: a wide group micro-batches on
-any inventory."""
+``MissingError``. A wide group shards over two or more distinct places
+and micro-batches on any other inventory."""
 
 import copy
 import json
@@ -21,6 +21,7 @@ from repro.fusion import plans as jplans
 from repro_torch.core.exceptions import MissingError
 from repro_torch.core.pst import Task
 from repro_torch.core.results import decode_journal_value
+from repro_torch.device import virtual_devices
 from repro_torch.fusion import fusable
 from repro_torch.fusion import plans as tplans
 from repro_torch.fusion.handles import SHARDED_CODEC, ArrayResult
@@ -59,18 +60,29 @@ def k_sq(x):
     return torch.as_tensor(x, dtype=torch.float32) ** 2
 
 
-@pytest.mark.parametrize("devices", [
-    [torch.device("cpu")],
-    [torch.device("cuda", 0)],
-    ["dev0", "dev1", "dev2", "dev3"],
-    [torch.device("cuda", 0), torch.device("cuda", 0)],
-    [torch.device("cuda", 0), torch.device("cuda", 1)]],
-    ids=["cpu", "one-cuda", "placeholders", "one-cuda-twice", "two-cuda"])
-def test_wide_group_micro_batches_on_any_inventory(devices):
-    """A group far past the JAX package's sharding threshold packs into
-    micro-batch carriers on every inventory, two distinct CUDA devices
-    included (placed in the inventory; nothing runs on them), and every
-    member lands in exactly one carrier."""
+@pytest.mark.parametrize("devices,shards", [
+    ([torch.device("cpu")], 0),
+    ([torch.device("cuda", 0)], 0),
+    (["dev0", "dev1", "dev2", "dev3"], 0),
+    ([torch.device("cuda", 0), torch.device("cuda", 0)], 0),
+    ([torch.device("cuda", 0), torch.device("cuda", 1)], 2),
+    (virtual_devices("cpu", 4), 4)],
+    ids=["cpu", "one-cuda", "placeholders", "one-cuda-twice", "two-cuda",
+         "virtual-cpu"])
+def test_wide_group_micro_batches_on_any_inventory(devices, shards,
+                                                   monkeypatch):
+    """A group far past the sharding threshold packs, under the JAX
+    package's rule, into shard carriers over two or more distinct places
+    (two CUDA devices, or lanes of one device) and into micro-batch
+    carriers on every other inventory (one device, placeholder names, a
+    device listed twice). Planning reads the inventory's types only: with
+    every CUDA call made to raise, it still plans. Every member lands in
+    exactly one carrier."""
+    def no_cuda(*args, **kwargs):
+        raise AssertionError("planning touched CUDA")
+    for name in ("is_available", "device_count", "current_stream",
+                 "Stream", "Event", "synchronize"):
+        monkeypatch.setattr(torch.cuda, name, no_cuda)
     rts = TorchRTS(devices=devices)
     rts.start(ResourceDescription(slots=len(devices)))
     try:
@@ -82,6 +94,15 @@ def test_wide_group_micro_batches_on_any_inventory(devices):
         assert out and all(t.executable.startswith("fused://") for t in out)
         carried = [m.uid for t in out for m in rts._fused[t.uid].members]
         assert sorted(carried) == sorted(m.uid for m in members)
+        assert [rts._fused[t.uid].mesh_shards for t in out] == \
+            [shards] * len(out)
+        if shards:
+            assert all(t.name.startswith(f"shard[{shards}x1x")
+                       and t.slots == shards for t in out)
+            assert rts.fusion_stats["shard_carriers"] == len(out)
+        else:
+            assert all(t.name.startswith("fused[") for t in out)
+            assert rts.fusion_stats["shard_carriers"] == 0
     finally:
         rts.stop()
 
