@@ -32,9 +32,19 @@ plain PyTorch version on the card, and drives the port's paths:
    ``dag-shard`` carrier a round, ``anen_distance`` once a lane at (365,
    3, 2048)), its values equal bit for bit to the same description with
    ``shard=False``; the seismic sweep as one ``dag-shard`` carrier on 4
-   lanes, misfits bit-equal and the sum within 1e-4 of the unsharded
-   run's. With two or more cards it runs again over the cards; with one
-   it prints that the distinct-card run was not made;
+   lanes, each lane's two links CUDA graphs: one capturing sweep, then 3
+   alternating pairs of a warm sharded sweep (every link replayed) and a
+   warm unsharded one, misfits bit-equal and the sum within 1e-4 of the
+   unsharded run's, no refused capture, and the JAX package's CI gate
+   that the sharded tier is no slower than the unsharded one (median
+   unsharded wall / median warm sharded wall >= 1.0); the single-kernel
+   sweep (``run_misfit_ensemble``) sharded and not, misfits bit-equal;
+   and ``ef_compressed_mean`` over a data axis on the card's tensors, in
+   an NCCL group of one process and a gloo group of 4 processes sharing
+   the card, held to the CPU's plain mean (error bits equal, means within
+   1e-6). With two or more cards it runs again over the cards, the
+   compressed mean in an NCCL group of a rank a card; with one it prints
+   that the distinct-card run was not made;
 3. serving zamba2-7b at its published widths with random weights drawn on
    the card (``repro_torch.launch.serve.run_managed``): 2 EnTK request
    batches of 4 prompts x 512 tokens, 16 greedy new tokens each, whose
@@ -171,6 +181,8 @@ SEISMIC_SMALL = dict(n_events=8, nx=32, nt=60, seed=0, dv=25.0, slots=4)
 # dispatches of the forward->misfit->sum DAG: one composed segment, as
 # tests/test_torch_seismic.py pins against the JAX package's RTS
 SEISMIC_DAG_DISPATCHES = 1
+# the sharded phase's warm (sharded, unsharded) seismic sweeps, in turns
+SEISMIC_WARM_PAIRS = 3
 SMALL = dict(seed=3, ny=20, nx=20, n_hist=30, per_iter=16, max_iters=2,
              n_tasks=4, slots=4, timeout=120.0)
 # N % 4 != 0 (scalar loads), fewer than 4 columns, and the timed shapes
@@ -1257,57 +1269,171 @@ def run_sharded_anen(places: list) -> dict:
             "launches": launches, "shapes": shapes, "fusion_stats": stats}
 
 
-def run_sharded_seismic(places: list) -> dict:
-    """The seismic sweep (SEISMIC) as a sharded DAG on ``places``: one
-    dag-shard carrier; per-member misfits bit-equal to the ``shard=False``
-    run's, the sum within 1e-4 relative (the CI bound)."""
+def seismic_sweep(run, places: list, shard: bool) -> tuple:
+    """One SEISMIC sweep through ``run`` (a seismic runner) on ``places``,
+    and its wall seconds, up to a synchronised card."""
     import torch
-    from repro_torch.apps.seismic.workflow import run_misfit_chain
     kw = {k: v for k, v in SEISMIC.items() if k not in ("n_events", "slots")}
-    n, slots = SEISMIC["n_events"], SEISMIC["slots"]
+    t0 = time.perf_counter()
+    out = run(SEISMIC["n_events"], SEISMIC["slots"], device="cuda",
+              places=places, shard=shard, **kw)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def check_graphs(stats: dict, what: str, **want) -> None:
+    """The sharded tier's link-graph counts of one run: ``want`` exactly,
+    and never a refused capture."""
+    got = {k: stats[k] for k in ("graph_captures", "graph_replays",
+                                 "graph_refusals")}
+    check(got["graph_refusals"] == 0
+          and all(got[k] == v for k, v in want.items()),
+          f"{what}: link graphs {got}, want {want} and no refusal")
+
+
+def run_sharded_seismic(places: list) -> dict:
+    """The seismic sweep (SEISMIC) as a sharded DAG on ``places``, each
+    place's links CUDA graphs: one capturing sweep from an empty graph
+    store (each link eager, then captured), then ``SEISMIC_WARM_PAIRS``
+    alternating pairs of a warm sharded sweep (every link replayed) and a
+    warm ``shard=False`` one. Gates: one dag-shard carrier; misfits
+    bit-equal across every run, the sum within 1e-4 relative (the CI
+    bound); no refused capture, every link replayed once a place a warm
+    sweep; and the reference's own CI gate, sharded no slower than
+    unsharded: median unsharded wall / median warm sharded wall >= 1.0."""
+    from repro_torch.apps.seismic.workflow import run_misfit_chain
+    from repro_torch.fusion import engine
+    d = len(places)
+    engine.release_graphs()
     reset_counts()
-    t0 = time.perf_counter()
-    res = run_misfit_chain(n, slots, device="cuda", places=places, **kw)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    ref = run_misfit_chain(n, slots, device="cuda", places=places,
-                           shard=False, **kw)
-    torch.cuda.synchronize()
-    ref_wall = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    again = run_misfit_chain(n, slots, device="cuda", places=places, **kw)
-    torch.cuda.synchronize()
-    again_wall = time.perf_counter() - t0
-    stats = res["fusion_stats"]
-    total, want = res["total_misfit"], ref["total_misfit"]
+    first, capture_wall = seismic_sweep(run_misfit_chain, places, True)
+    warm, plain = [], []
+    for _ in range(SEISMIC_WARM_PAIRS):
+        warm.append(seismic_sweep(run_misfit_chain, places, True))
+        plain.append(seismic_sweep(run_misfit_chain, places, False))
+    warm_walls = [w for _, w in warm]
+    plain_walls = [w for _, w in plain]
+    speedup = _median(plain_walls) / _median(warm_walls)
+    stats = first["fusion_stats"]
+    ref = plain[0][0]
+    total, want = first["total_misfit"], ref["total_misfit"]
     rel = abs(total - want) / abs(want)
-    print(f"sharded seismic DAG on {len(places)} places: wall_s={wall} "
-          f"total={total} unsharded wall_s={ref_wall} total={want} "
-          f"relative diff={rel} sharded again wall_s={again_wall} "
-          f"fusion_stats={stats}")
-    check(res["all_done"] and ref["all_done"], "sharded seismic: all DONE")
-    check(stats["dag_carriers"] == 1 and stats["shard_carriers"] == 1,
-          "sharded seismic: one dag-shard carrier")
-    check(stats["sharded_dispatches"] == SEISMIC_DAG_DISPATCHES,
-          "sharded seismic: one sharded dispatch")
-    check(stats["scalar_fallback"] == 0 and stats["degraded"] == 0,
-          "sharded seismic: scalar_fallback == degraded == 0")
-    check(ref["fusion_stats"]["shard_carriers"] == 0,
-          "shard=False: no shard carrier")
-    check(res["misfits"] == ref["misfits"],
-          "sharded seismic: per-member misfits bit-equal")
+    print(f"sharded seismic DAG on {d} places: capturing sweep "
+          f"wall_s={capture_wall} total={total} fusion_stats={stats}")
+    print(f"  warm sharded wall_s={warm_walls} unsharded wall_s="
+          f"{plain_walls} (alternating pairs); median unsharded / median "
+          f"sharded = {speedup}; unsharded total={want} relative diff={rel}")
+    print(f"  warm sharded fusion_stats={warm[-1][0]['fusion_stats']}")
+    for run, _ in [(first, 0)] + warm + plain:
+        check(run["all_done"], "sharded seismic: all DONE")
+        check(run["fusion_stats"]["scalar_fallback"] == 0
+              and run["fusion_stats"]["degraded"] == 0,
+              "sharded seismic: scalar_fallback == degraded == 0")
+        check(run["misfits"] == first["misfits"],
+              "sharded seismic: per-member misfits bit-equal across the "
+              "capturing, warm and unsharded sweeps")
+    for run, _ in [(first, 0)] + warm:
+        rs = run["fusion_stats"]
+        check(rs["dag_carriers"] == 1 and rs["shard_carriers"] == 1,
+              "sharded seismic: one dag-shard carrier")
+        check(rs["sharded_dispatches"] == SEISMIC_DAG_DISPATCHES,
+              "sharded seismic: one sharded dispatch")
+    for run, _ in plain:
+        check(run["fusion_stats"]["shard_carriers"] == 0,
+              "shard=False: no shard carrier")
+    # two ensemble nodes a place: forward and misfit
+    check_graphs(stats, "capturing sharded seismic sweep",
+                 graph_captures=2 * d, graph_replays=0)
+    for run, _ in warm:
+        check_graphs(run["fusion_stats"], "warm sharded seismic sweep",
+                     graph_captures=0, graph_replays=2 * d)
     check(math.isfinite(total) and rel <= 1e-4,
           f"sharded seismic: sum within 1e-4 relative ({rel})")
-    check(again["misfits"] == res["misfits"],
-          "sharded seismic: second run equal")
-    return {"wall_s": wall, "unsharded_wall_s": ref_wall,
-            "again_wall_s": again_wall, "rel": rel}
+    check(speedup >= 1.0,
+          f"sharded seismic no slower than unsharded: median unsharded "
+          f"{_median(plain_walls)} s / median warm sharded "
+          f"{_median(warm_walls)} s = {speedup} >= 1.0")
+    return {"capture_wall_s": capture_wall, "warm_wall_s": warm_walls,
+            "unsharded_wall_s": plain_walls, "speedup": speedup,
+            "rel": rel, "fusion_stats": stats,
+            "warm_fusion_stats": warm[-1][0]["fusion_stats"]}
+
+
+def run_sharded_ensemble(places: list) -> dict:
+    """The single-kernel seismic sweep with its sum gather
+    (``run_misfit_ensemble``) on ``places``, ``shard=True`` and
+    ``shard=False``: one dag-shard carrier, misfits bit-equal, the sum
+    within 1e-4 relative, no refused capture."""
+    from repro_torch.apps.seismic.workflow import run_misfit_ensemble
+    res, wall = seismic_sweep(run_misfit_ensemble, places, True)
+    ref, ref_wall = seismic_sweep(run_misfit_ensemble, places, False)
+    stats = res["fusion_stats"]
+    rel = abs(res["total_misfit"] - ref["total_misfit"]) / abs(
+        ref["total_misfit"])
+    print(f"run_misfit_ensemble on {len(places)} places: sharded wall_s="
+          f"{wall} fusion_stats={stats}; unsharded wall_s={ref_wall} "
+          f"fusion_stats={ref['fusion_stats']}; sum relative diff={rel}")
+    check(res["all_done"] and ref["all_done"],
+          "run_misfit_ensemble: all DONE")
+    check(stats["dag_carriers"] == 1 and stats["shard_carriers"] == 1,
+          "run_misfit_ensemble shard=True: one dag-shard carrier")
+    check(ref["fusion_stats"]["shard_carriers"] == 0,
+          "run_misfit_ensemble shard=False: no shard carrier")
+    check(stats["degraded"] == 0 and stats["scalar_fallback"] == 0,
+          "run_misfit_ensemble: scalar_fallback == degraded == 0")
+    check_graphs(stats, "run_misfit_ensemble sharded")
+    check(res["misfits"] == ref["misfits"],
+          "run_misfit_ensemble: sharded misfits bit-equal to unsharded")
+    check(rel <= 1e-4, f"run_misfit_ensemble: sum within 1e-4 ({rel})")
+    return {"wall_s": wall, "unsharded_wall_s": ref_wall, "rel": rel}
+
+
+def compressed_mean(world: int, backend: str, device: str,
+                    cases=None) -> dict:
+    """``ef_compressed_mean(axis_name=)`` on CUDA tensors in a group of
+    ``world`` processes (``tests/_torch_ranks.py``: seeded f32 and bf16
+    leaves, two steps of error feedback) against the CPU's plain version
+    of the group's mean: error states equal bits, means within 1e-6 of
+    the leaf's largest."""
+    import tempfile
+    import numpy as np
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import _torch_ranks as ranks
+    cases = tuple(ranks.CASES) if cases is None else cases
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as work:
+        got = ranks.spawn(world, backend, device, work, cases=cases)
+    wall = time.perf_counter() - t0
+    worst = 0.0
+    for case in cases:
+        want = ranks.expected(world, case)
+        for r in range(world):
+            for key, v in want[r].items():
+                g = got[r][key]
+                if "/error/" in key:
+                    check(np.array_equal(g.view(np.uint32),
+                                         v.view(np.uint32)),
+                          f"compressed mean {backend} x{world} {key} rank "
+                          f"{r}: error bits equal the CPU's")
+                else:
+                    err = float(np.abs(g - v).max()) / float(
+                        np.abs(v).max())
+                    worst = max(worst, err)
+                    check(err <= 1e-6, f"compressed mean {backend} "
+                          f"x{world} {key} rank {r}: within 1e-6 ({err})")
+    row = {"backend": backend, "world": world, "device": device,
+           "cases": list(cases), "max_rel_err": worst, "wall_s": wall}
+    print(f"ef_compressed_mean over a {backend} group of {world} on "
+          f"{device}: {row}")
+    return row
 
 
 def sharded_phase(kind: str = "lanes") -> dict:
-    """B2, AnEn and the seismic sweep on the sharded tier over lanes of
-    the card (``kind="lanes"``) or over the first cards."""
+    """B2, AnEn and the seismic sweeps on the sharded tier over lanes of
+    the card (``kind="lanes"``) or over the first cards; then the
+    compressed mean over a process group: on lanes an NCCL group of one
+    and a gloo group of 4 processes sharing the card, over cards an NCCL
+    group of a rank a card."""
     import torch
     if kind == "cards":
         widths = (min(4, torch.cuda.device_count()),)
@@ -1322,8 +1448,21 @@ def sharded_phase(kind: str = "lanes") -> dict:
         print(f"anen_distance_sharded on {kind} {row}")
     reset_counts()
     anen = run_sharded_anen(places)
+    graphs = {k: anen["fusion_stats"][k] for k in ("graph_captures",
+                                                    "graph_replays",
+                                                    "graph_refusals")}
+    print(f"sharded AnEn link graphs (first run): {graphs}")
     seismic = run_sharded_seismic(places)
+    ensemble = run_sharded_ensemble(places)
+    if kind == "lanes":
+        mean = [compressed_mean(1, "nccl", "cuda:0", cases=("world",)),
+                compressed_mean(4, "gloo", "cuda:0")]
+    else:
+        mean = [compressed_mean(len(places), "nccl", "cuda:{rank}",
+                                cases=("world",) if len(places) != 4
+                                else None)]
     return {"rows": rows, "anen": anen, "seismic": seismic,
+            "ensemble": ensemble, "compressed_mean": mean,
             "places": len(places)}
 
 
@@ -2363,13 +2502,15 @@ def moe_phase() -> dict:
 # --------------------------------------------------------------------------- #
 
 def release_all() -> None:
-    """Drop the served models and the AnEn datasets, so that the training
-    phase's peak memory is its own."""
+    """Drop the served models, the AnEn datasets and the sharded tier's
+    link graphs, so that the training phase's peak memory is its own."""
     import gc
     import torch
     from repro_torch.apps.anen import workflow as wf
+    from repro_torch.fusion import engine
     release_sessions()
     wf._DATASETS.clear()
+    engine.release_graphs()
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2860,7 +3001,8 @@ def main() -> None:
     if torch.cuda.device_count() >= 2:
         sharded["cards"] = sharded_phase("cards")
     else:
-        print(f"sharded tier on distinct cards: not run "
+        print(f"sharded tier on distinct cards (and the compressed mean "
+              f"over an NCCL group of a rank a card): not run "
               f"({torch.cuda.device_count()} device)")
     check_grad_routes()
 

@@ -41,7 +41,8 @@ Ported (the modules that touch arrays or devices):
 * :mod:`repro_torch.fusion.engine` — the scalar, per-stage fused, chain
   (composed ``vmap`` links), DAG (masked device reductions in the
   composed segment) and sharded tiers (the member axis split over a mesh
-  of cards or lanes, one launch a place on its own stream, reductions
+  of cards or lanes, one launch a place on its own stream, each place's
+  link a CUDA graph captured once a shape and replayed, reductions
   combined from the places' partials);
 * :mod:`repro_torch.rts.torch_rts` — :class:`TorchRTS`, the device RTS,
   with the chain, DAG and shard carriers' assembly, the shard hold
@@ -70,6 +71,7 @@ Ported (the modules that touch arrays or devices):
 * :mod:`repro_torch.optim`, :mod:`repro_torch.checkpoint` and
   :mod:`repro_torch.launch.train` — AdamW (in place), the checkpoint
   store in the JAX package's layout, and the EnTK-managed, checkpointed
-  trainer over :class:`TorchRTS` (int8 gradient compression on one
-  device; its mean over a data axis needs a process group, not taken).
+  trainer over :class:`TorchRTS` (int8 gradient compression, with its
+  mean over a data axis as an ``all_reduce`` over a ``torch.distributed``
+  group named by a ``DeviceMesh`` dimension).
 """

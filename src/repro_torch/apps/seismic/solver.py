@@ -19,7 +19,8 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Tuple
+import threading
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -86,15 +87,33 @@ def receiver_x(cfg: SeismicConfig, device: DeviceLike = "cpu"
                           dtype=torch.float32).to(torch.int64).to(device)
 
 
+_HOST_BUILT: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+_host_built_lock = threading.Lock()
+
+
+def _host_built(cfg: SeismicConfig, dev: torch.device
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The damping field and the receiver columns on ``dev``, copied from
+    the host once per (config, device): a time loop then makes no host
+    copy, so a CUDA graph can capture it."""
+    key = (cfg, str(dev))
+    with _host_built_lock:
+        hit = _HOST_BUILT.get(key)
+    if hit is not None:
+        return hit
+    built = (_damping(cfg, dev), receiver_x(cfg, dev))
+    with _host_built_lock:
+        return _HOST_BUILT.setdefault(key, built)
+
+
 def forward_simulation(velocity: torch.Tensor, source_x,
                        cfg: SeismicConfig) -> torch.Tensor:
     """One 'earthquake': source at (src_z=2, source_x). Returns the
     seismogram (nt, n_receivers) recorded at depth 2."""
     dev = velocity.device
     src = _ricker(cfg, dev)
-    damp = _damping(cfg, dev)
+    damp, rec_x = _host_built(cfg, dev)
     c2dt2 = (velocity * cfg.dt) ** 2 / (cfg.dx ** 2)
-    rec_x = receiver_x(cfg, dev)
     # the source position as a one-hot field: adding s_t * inject adds s_t
     # at (2, source_x) and exactly 0 elsewhere, out of place, so a batched
     # source_x under vmap needs no in-place indexed write

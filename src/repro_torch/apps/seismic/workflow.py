@@ -244,16 +244,26 @@ def run_misfit_chain(n_events: int, slots: int = 4, *, nx: int = 64,
 def run_misfit_ensemble(n_events: int, slots: int = 4, *, nx: int = 64,
                         nt: int = 120, seed: int = 0, dv: float = 0.0,
                         fuse: bool = True, timeout: float = 600.0,
-                        device: DeviceLike = None) -> Dict:
+                        device: DeviceLike = None,
+                        places: Optional[Sequence[Any]] = None,
+                        shard: bool = True,
+                        shard_min_members: int = DEFAULT_SHARD_MIN_MEMBERS
+                        ) -> Dict:
     """Evaluate the source-ensemble misfit on the fused TorchRTS path.
 
     ``fuse=False`` runs the identical description member-per-task — the
-    scalar baseline the parity tests compare against."""
+    scalar baseline the parity tests compare against. ``places`` and
+    ``shard_min_members`` are :func:`run_misfit_chain`'s; ``shard=False``
+    keeps per-device micro-batches on a multi-place inventory (a single
+    place is unaffected)."""
     dev = device_name(device)
     ens = build_misfit_ensemble(n_events, nx=nx, nz=nx, nt=nt, seed=seed,
                                 dv=dv, fuse=fuse, device=dev)
     objective = api.gather(ens, total_misfit, name=f"total-misfit-{seed}")
-    out = _run_gathered(ens, objective, slots, dev, timeout)
+    out = _run_gathered(ens, objective, slots, dev, timeout, places=places,
+                        rts_kw={"shard": shard,
+                                "shard_min_members": shard_min_members},
+                        shard=shard)
     out.update(n_events=n_events, fused=fuse)
     return out
 

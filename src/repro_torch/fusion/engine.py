@@ -62,6 +62,7 @@ from the last journaled link.
 from __future__ import annotations
 
 import contextlib
+import logging
 import math
 import threading
 import time
@@ -509,6 +510,10 @@ def _lease_device(devices: Sequence[Any]) -> torch.device:
 # The member-axis mesh (sharded tier)
 # --------------------------------------------------------------------------- #
 
+#: the sharded tier's link-graph counters (``fusion_stats`` keys)
+GRAPH_STATS = ("graph_captures", "graph_replays", "graph_refusals")
+
+
 class Mesh:
     """A 1-D member-axis mesh over distinct places: CUDA devices, or lanes
     (:class:`~repro_torch.device.VirtualDevice`) of one physical device.
@@ -517,11 +522,13 @@ class Mesh:
     place's device and its stream (a lane's own stream, a card's current
     one), so the places' launches overlap on the card."""
 
-    __slots__ = ("places", "devices")
+    __slots__ = ("places", "devices", "graph_stats")
 
     def __init__(self, places: Sequence[Any]) -> None:
         self.places = list(places)
         self.devices = [place_device(p) for p in self.places]
+        # the link graphs' captures, replays and refusals on this mesh
+        self.graph_stats = dict.fromkeys(GRAPH_STATS, 0)
 
     @property
     def size(self) -> int:
@@ -655,11 +662,214 @@ def _place_statics(static_kw: dict, device: torch.device) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- #
+# CUDA graphs of the sharded tier's links
+# --------------------------------------------------------------------------- #
+
+_log = logging.getLogger(__name__)
+
+#: graphs a place keeps (an LRU); ``shard_pad`` already buckets the shapes
+GRAPHS_PER_PLACE = 8
+
+
+class _LinkGraph:
+    """One captured link call: the graph, the static input buffers it reads
+    (the tensor leaves of its kwargs, in flattening order) and the static
+    outputs it writes, all on its place's graph stream."""
+
+    __slots__ = ("graph", "static_in", "static_out")
+
+    def __init__(self, graph, static_in: List[torch.Tensor],
+                 static_out: Any) -> None:
+        self.graph = graph
+        self.static_in = static_in
+        self.static_out = static_out
+
+    def replay(self, leaves: Sequence[torch.Tensor], ps, cs) -> Any:
+        """Copy ``leaves`` into the static inputs on the graph stream
+        ``cs``, replay, and return clones of the static outputs made on the
+        place's stream ``ps``: the next replay overwrites the static
+        outputs while the fan-out may still read this call's."""
+        if cs != ps:
+            cs.wait_stream(ps)
+        with torch.cuda.stream(cs):
+            for dst, src in zip(self.static_in, leaves):
+                dst.copy_(src)
+                if cs != ps:
+                    src.record_stream(cs)
+            self.graph.replay()
+        if cs != ps:
+            ps.wait_stream(cs)
+        return pytree.tree_map(torch.clone, self.static_out)
+
+
+class _PlaceGraphs:
+    """One place's link graphs: an LRU of at most :data:`GRAPHS_PER_PLACE`
+    keys, each a :class:`_LinkGraph` or the reason its capture was refused
+    (so a refused link is not captured again). The graphs share a private
+    memory pool and run on one stream: a lane's own, or for a card a side
+    stream ordered both ways with its current stream (the legacy default
+    stream, which cannot capture)."""
+
+    def __init__(self, device: torch.device, stream) -> None:
+        self.device = device
+        self.lock = threading.Lock()
+        self.pool = torch.cuda.graph_pool_handle()
+        self.stream = (torch.cuda.Stream(device=device)
+                       if stream == torch.cuda.default_stream(device)
+                       else stream)
+        self.entries: "OrderedDict[Tuple, Any]" = OrderedDict()
+
+    def get(self, key: Tuple) -> Any:
+        entry = self.entries.get(key)
+        if entry is not None:
+            self.entries.move_to_end(key)
+        return entry
+
+    def put(self, key: Tuple, entry: Any) -> None:
+        self.entries[key] = entry
+        while len(self.entries) > GRAPHS_PER_PLACE:
+            self.entries.popitem(last=False)
+
+
+_graph_stores: Dict[Any, _PlaceGraphs] = {}
+_graph_stores_lock = threading.Lock()
+_unkeyed_logged: set = set()
+
+
+def release_graphs() -> None:
+    """Drop every place's captured link graphs and their memory pools."""
+    with _graph_stores_lock:
+        _graph_stores.clear()
+
+
+def _place_graphs(mesh: Mesh, i: int) -> _PlaceGraphs:
+    place = mesh.places[i]
+    with _graph_stores_lock:
+        store = _graph_stores.get(place)
+        if store is None:
+            store = _graph_stores[place] = _PlaceGraphs(mesh.devices[i],
+                                                        mesh.stream(i))
+        return store
+
+
+def _graph_key(fn: Callable, static_kw: dict, kw: dict, shared: dict
+               ) -> Optional[Tuple]:
+    """A link call's graph key: the kernel, its statics, and the structure,
+    shapes, dtypes and devices of its kwargs (a non-tensor leaf by value,
+    since the graph bakes it in); None when a part is unhashable."""
+    skey = _statics_key(static_kw)
+    if skey is None:
+        return None
+    leaves, spec = pytree.tree_flatten((kw, shared))
+    sig = tuple((tuple(x.shape), x.dtype, x.device)
+                if isinstance(x, torch.Tensor) else ("value", x)
+                for x in leaves)
+    key = (fn, skey, str(spec), sig)
+    try:
+        hash(key)
+    except TypeError:
+        return None
+    return key
+
+
+def _capture_link(store: _PlaceGraphs, ps, fn: Callable, static_kw: dict,
+                  kw: dict, shared: dict) -> _LinkGraph:
+    """Capture ``_vmap_link`` on static copies of the kwargs, on the
+    place's graph stream, into its pool. Raises when the capture fails (a
+    host sync, a pageable copy, a non-tensor output)."""
+    cs = store.stream
+    if cs != ps:
+        cs.wait_stream(ps)
+    with torch.cuda.stream(cs):
+        s_kw, s_shared = pytree.tree_map(
+            lambda x: x.clone() if isinstance(x, torch.Tensor) else x,
+            (kw, shared))
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: the drainers and other carriers keep syncing
+        graph.capture_begin(pool=store.pool,
+                            capture_error_mode="thread_local")
+        try:
+            out = _vmap_link(fn, static_kw, s_kw, s_shared)
+        finally:
+            try:
+                graph.capture_end()
+            except Exception:
+                # an invalidated capture may leave the pool taking this
+                # stream's allocations: end that, and use a fresh pool
+                with contextlib.suppress(Exception):
+                    torch._C._cuda_endAllocateToPool(store.device.index,
+                                                     store.pool)
+                store.pool = torch.cuda.graph_pool_handle()
+                raise
+    if cs != ps:
+        ps.wait_stream(cs)
+    if not all(isinstance(x, torch.Tensor)
+               for x in pytree.tree_leaves(out)):
+        raise TypeError("the link returns a non-tensor leaf")
+    static_in = [x for x in pytree.tree_leaves((s_kw, s_shared))
+                 if isinstance(x, torch.Tensor)]
+    return _LinkGraph(graph, static_in, out)
+
+
+def _placed_link(mesh: Mesh, i: int, fn: Callable, static_kw: dict,
+                 kw: dict, shared: dict) -> Any:
+    """``_vmap_link`` of place ``i``'s shard, called inside ``mesh.on(i)``.
+
+    On a CUDA place the call is a CUDA graph: the first call with a new
+    key (:func:`_graph_key`) runs eagerly, which also warms up the kernel
+    (its caches, its workspaces), and is then captured; later calls copy
+    their inputs into the graph's static buffers and replay it, which runs
+    the same kernels in the same order as eager, so values stay bit for
+    bit. A link whose capture fails runs eagerly, now and on every later
+    call of its key: counted in ``graph_refusals`` and logged once a key.
+    The counts go to ``mesh.graph_stats``. CPU places are never graphed."""
+    if mesh.devices[i].type != "cuda":
+        return _vmap_link(fn, static_kw, kw, shared)
+    stats = mesh.graph_stats
+    key = _graph_key(fn, static_kw, kw, shared)
+    if key is None:
+        label = _kernel_label(fn)
+        if label not in _unkeyed_logged:
+            _unkeyed_logged.add(label)
+            _log.warning("sharded link %s runs eagerly: its statics or "
+                         "kwargs are unhashable, so no graph key", label)
+        stats["graph_refusals"] += 1
+        return _vmap_link(fn, static_kw, kw, shared)
+    store = _place_graphs(mesh, i)
+    ps = mesh.stream(i)
+    with store.lock:
+        entry = store.get(key)
+        if isinstance(entry, _LinkGraph):
+            stats["graph_replays"] += 1
+            return entry.replay(
+                [x for x in pytree.tree_leaves((kw, shared))
+                 if isinstance(x, torch.Tensor)], ps, store.stream)
+        out = _vmap_link(fn, static_kw, kw, shared)
+        if entry is not None:            # refused before
+            stats["graph_refusals"] += 1
+            return out
+        try:
+            graph = _capture_link(store, ps, fn, static_kw, kw, shared)
+        except Exception as exc:  # noqa: BLE001 - counted, logged, eager
+            reason = f"{type(exc).__name__}: {exc}".splitlines()[0]
+            store.put(key, reason)
+            stats["graph_refusals"] += 1
+            _log.warning("sharded link %s on %s runs eagerly: its CUDA "
+                         "graph capture was refused (%s)",
+                         _kernel_label(fn), mesh.places[i], reason)
+            return out
+        store.put(key, graph)
+        stats["graph_captures"] += 1
+        return out
+
+
 def _sharded_segment(mesh: Mesh, plans: Sequence[_LinkPlan],
                      carry: Any) -> List[Any]:
     """:func:`_composed_segment` on every place, each on its own shard of
-    the member axis: the carried intermediates stay on their place between
-    links. Returns each link's output as a sharded pytree."""
+    the member axis, each link a graph on a CUDA place
+    (:func:`_placed_link`): the carried intermediates stay on their place
+    between links. Returns each link's output as a sharded pytree."""
     per_place = []
     for i in range(mesh.size):
         c = _local(carry, i)
@@ -670,9 +880,10 @@ def _sharded_segment(mesh: Mesh, plans: Sequence[_LinkPlan],
                 kw = dict(stacked)
                 if p.carry_name is not None:
                     kw[p.carry_name] = c
-                c = _vmap_link(p.fn, _place_statics(p.static_kw,
-                                                    mesh.devices[i]),
-                               kw, shared)
+                c = _placed_link(mesh, i, p.fn,
+                                 _place_statics(p.static_kw,
+                                                mesh.devices[i]),
+                                 kw, shared)
                 outs.append(c)
         per_place.append(outs)
     return [mesh.merge([outs[k] for outs in per_place])
@@ -984,7 +1195,8 @@ class ChainExecution:
                      else "chain" if len(self.links) > 1 else "fused")
         self.stats = {"fused": 0, "scalar_fallback": 0, "failed": 0,
                       "dispatches": 0, "chain_links": 0,
-                      "sharded_dispatches": 0, "degraded": 0}
+                      "sharded_dispatches": 0, "degraded": 0,
+                      **dict.fromkeys(GRAPH_STATS, 0)}
         self._plans: List[Optional[_LinkPlan]] = [None] * len(self.links)
         self._injected: Dict[int, int] = {}   # member col -> first bad link
         self._fail_retryable: Dict[int, bool] = {}
@@ -1015,6 +1227,7 @@ class ChainExecution:
         if self._mesh is not None:
             event = self._mesh.events()
             self.stats["sharded_dispatches"] += 1
+            self.stats.update(self._mesh.graph_stats)
         else:
             event = _completion_event([out for _, out in outs])
         t_dispatch = time.perf_counter()
@@ -1849,9 +2062,9 @@ class DagExecution(ChainExecution):
                 if meta.bcast_name is not None:
                     shared[meta.bcast_name] = bcasts[i]
                 with mesh.on(i):
-                    carries[i] = _vmap_link(
-                        plan.fn, _place_statics(plan.static_kw,
-                                                mesh.devices[i]),
+                    carries[i] = _placed_link(
+                        mesh, i, plan.fn,
+                        _place_statics(plan.static_kw, mesh.devices[i]),
                         kw, shared)
             outs.append(mesh.merge(carries))
         return outs, bcasts

@@ -163,6 +163,11 @@ def moe_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig
     Tg = T // G
     C = capacity(Tg, cfg)
     x2d = x.reshape(T, D)
+    cut = G > 1 and B % G != 0 and pspec_ctx.is_dtensor(x2d)
+    if cut:
+        # the groups cut batch rows: the (T, D) view's gradient, sharded
+        # by group, must come back whole for the (B, S, D) view's backward
+        x2d = constrain(x2d, None, None)
 
     with record_function("moe_route"):
         gates, experts, aux = _route(x2d, params["router"], cfg)
@@ -201,7 +206,7 @@ def moe_apply(params: Dict, x: torch.Tensor, cfg: ModelConfig
     if cfg.moe_shared_expert:
         with record_function("moe_shared"):
             out = out + gated_mlp(params["shared"], x2d, cfg)
-    if G > 1 and B % G and pspec_ctx.is_dtensor(out):
-        # the groups cut batch rows: the (B, S, D) view needs them whole
+    if cut:
+        # the (B, S, D) view needs the batch rows whole
         out = constrain(out, None, None)
     return out.reshape(B, S, D), aux

@@ -9,10 +9,11 @@ mean, and the quantization error is fed back into the next step's gradient
 blocks and the same scale bits as JAX for the same input.
 
 Gradients and error states are the port's nested dicts of tensors. The
-mean over a data axis (JAX's ``pmean`` under ``shard_map``) needs a
-``torch.distributed`` process group, one rank a card, which the port does
-not take yet (``ROADMAP.md`` A12f): :func:`ef_compressed_mean` with an
-``axis_name`` raises.
+mean over a data axis (JAX's ``pmean`` under ``shard_map``) is an
+``all_reduce`` over a ``torch.distributed`` group, one rank a replica:
+``axis_name`` names a dimension of the ``DeviceMesh`` the caller passes
+(or of a :class:`~repro_torch.launch.mesh.Mesh`'s ``device_mesh``), and
+with no mesh the default group.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 from typing import Any, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 BLOCK = 2048
@@ -62,24 +64,43 @@ def _map2(fn, a: Any, b: Any):
     return fn(a, b)
 
 
+def _axis_group(axis_name: str, mesh: Any):
+    """The process group of ``axis_name``: a dimension of ``mesh`` (a
+    ``DeviceMesh``, or a port ``Mesh`` carrying one), or the default group
+    when no mesh is given."""
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"ef_compressed_mean(axis_name={axis_name!r}) needs an "
+            f"initialised torch.distributed process group")
+    if mesh is None:
+        return None
+    device_mesh = getattr(mesh, "device_mesh", mesh)
+    if device_mesh is None:
+        raise ValueError(f"mesh {mesh!r} carries no DeviceMesh")
+    return device_mesh.get_group(axis_name)
+
+
 def ef_compressed_mean(grads: Any, error: Any,
-                       axis_name: Optional[str] = None) -> Tuple[Any, Any]:
+                       axis_name: Optional[str] = None, *,
+                       mesh: Any = None) -> Tuple[Any, Any]:
     """Error-feedback int8 compression of a gradient dict.
 
     Returns (decompressed grads in each gradient's dtype, new f32 error
-    state). ``axis_name`` names the data axis whose mean the int8 payload
-    would cross: that needs a ``torch.distributed`` group, not taken yet."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            f"ef_compressed_mean(axis_name={axis_name!r}): the mean over a "
-            f"data axis needs a torch.distributed process group (one rank "
-            f"a card), which the port does not take yet (ROADMAP.md A12f)")
+    state). With ``axis_name`` the dequantized int8 payload is averaged
+    over that axis's group (JAX's ``pmean``): the error stays rank-local,
+    the f32 payload is summed by ``all_reduce`` and divided by the group's
+    size, and only then cast to the gradient's dtype."""
+    group = None if axis_name is None else _axis_group(axis_name, mesh)
 
     def one(g, e):
         target = g.float() + e
         q, s = compress_int8(target)
         deq = decompress_int8(q, s, g.shape)
-        return deq.to(g.dtype), target - deq
+        new_e = target - deq
+        if axis_name is not None:
+            dist.all_reduce(deq, op=dist.ReduceOp.SUM, group=group)
+            deq = deq / deq.new_full((), dist.get_world_size(group))
+        return deq.to(g.dtype), new_e
 
     return _map2(one, grads, error)
 

@@ -110,7 +110,9 @@ CARRIERS_TOTAL = "rts_carriers_total"
 _FUSION_STAT_KEYS = ("fused", "scalar_fallback", "failed", "dispatches",
                      "chain_links", "chain_carriers", "sharded_dispatches",
                      "shard_carriers", "dag_carriers", "dag_links",
-                     "cross_tenant_carriers", "degraded")
+                     "cross_tenant_carriers", "degraded",
+                     # the sharded tier's link graphs (CUDA places only)
+                     *fusion_engine.GRAPH_STATS)
 _TENANT_FIELDS = ("members", "shared_dispatches", "completions")
 
 
@@ -245,7 +247,7 @@ class TorchRTS(LocalRTS):
     @property
     def fusion_stats(self) -> Dict[str, int]:
         """Point-in-time snapshot of the fusion counters (plain dict, the
-        JAX package's keys)."""
+        JAX package's keys and the sharded tier's graph counts)."""
         out = {k: 0 for k in _FUSION_STAT_KEYS}
         for labels, c in self.metrics.collect("counter", FUSION_EVENTS):
             out[labels["kind"]] = c.value

@@ -1,7 +1,7 @@
 """Shared pieces of the sharded-tier tests (``test_torch_sharded_*.py``).
 
 :func:`run_jax` runs a script of the JAX package in a subprocess on 8
-forced host devices — the way ``tests/test_shard.py`` runs its
+(or ``devices``) forced host devices — the way ``tests/test_shard.py`` runs its
 multi-device cases — and returns the JSON object its last line prints.
 The hold-buffer scenarios below take the RTS class, ``Task`` and a fusable
 kernel as arguments, so the same code drives ``JaxRTS`` in that subprocess
@@ -19,11 +19,13 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def run_jax(source: str, timeout: float = 240.0) -> dict:
+def run_jax(source: str, timeout: float = 240.0, devices: int = 8,
+            xla_flags: str = "") -> dict:
     env = dict(os.environ)
     env["PYTHONPATH"] = os.pathsep.join(
         [os.path.join(ROOT, "src"), os.path.join(ROOT, "tests")])
-    env["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
+    env["XLA_FLAGS"] = " ".join(
+        [f"--xla_force_host_platform_device_count={devices}", xla_flags])
     env["JAX_PLATFORMS"] = "cpu"
     proc = subprocess.run([sys.executable, "-c", textwrap.dedent(source)],
                           capture_output=True, text=True, timeout=timeout,

@@ -101,7 +101,12 @@ def test_nested_dicts_keep_structure_and_dtype():
     assert err["a"]["w"].dtype == torch.float32 and err["b"].shape == (7,)
 
 
-def test_a_data_axis_waits_for_the_sharded_execution():
+def test_a_data_axis_needs_a_process_group():
+    """The mean over a data axis runs on a torch.distributed group
+    (``tests/test_torch_compression_mean.py``); with none initialised it
+    raises before it computes anything."""
+    import torch.distributed as dist
+    assert not dist.is_initialized()
     g = {"w": torch.ones(4)}
-    with pytest.raises(NotImplementedError, match="torch.distributed"):
+    with pytest.raises(RuntimeError, match="process group"):
         tcomp.ef_compressed_mean(g, tcomp.init_error(g), axis_name="data")

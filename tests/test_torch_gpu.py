@@ -9,7 +9,10 @@ embeddings on the card against the same runs on the CPU; int8 gradient
 compression (the CPU's bits, a smoke ``TrainSession``) and the one-device
 dry-run against a real step's peak memory, launches and matmul FLOPs; the
 sharded tier over lanes of the card (B2 against B1, AnEn and the seismic
-DAG against their unsharded runs), and over two cards where there are.
+DAG against their unsharded runs; its link graphs: a replay bit-equal to
+eager, a second sweep replayed without a capture, a host sync refused and
+run eagerly), and over two cards where there are; the compressed mean
+over an NCCL group of one process.
 They skip where ``torch.cuda.is_available()`` is False. This file
 imports nothing of JAX, so it also runs where JAX is not installed:
 
@@ -1093,3 +1096,111 @@ def test_sharded_distinct_cards(cuda):
     plain = run_random(shard=False, **kw)
     assert sharded["fusion_stats"]["shard_carriers"] == 2
     assert sharded["values"] == plain["values"]
+
+
+# --------------------------------------------------------------------------- #
+# The sharded tier's link graphs, and the data-axis mean of int8 compression
+# --------------------------------------------------------------------------- #
+
+@pytest.fixture(scope="module")
+def graphed_sweeps():
+    """The seismic sharded DAG (16 sources over 4 lanes) three times from
+    an empty graph store: eager and captured, then replayed twice."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.apps.seismic.workflow import run_misfit_chain
+    from repro_torch.device import virtual_devices
+    from repro_torch.fusion import engine
+    engine.release_graphs()
+    kw = dict(nx=32, nt=60, seed=0, dv=25.0, device="cuda",
+              places=virtual_devices("cuda", 4), shard_min_members=8)
+    return [run_misfit_chain(16, 4, **kw) for _ in range(3)]
+
+
+def test_graphed_sharded_link_bit_equal_to_eager(graphed_sweeps):
+    """The first sweep runs each lane's links eagerly, then captures them;
+    the replays give its misfits bit for bit."""
+    first, *replayed = graphed_sweeps
+    for run in graphed_sweeps:
+        assert run["all_done"]
+        assert run["fusion_stats"]["shard_carriers"] == 1
+        assert run["fusion_stats"]["degraded"] == 0
+    for run in replayed:
+        assert run["misfits"] == first["misfits"]
+        assert run["total_misfit"] == first["total_misfit"]
+
+
+def test_a_second_sweep_replays_without_a_new_capture(graphed_sweeps):
+    stats = [{k: run["fusion_stats"][k] for k in ("graph_captures",
+                                                  "graph_replays",
+                                                  "graph_refusals")}
+             for run in graphed_sweeps]
+    # 4 lanes x 2 links (forward, misfit)
+    assert stats[0] == {"graph_captures": 8, "graph_replays": 0,
+                        "graph_refusals": 0}
+    assert stats[1] == stats[2] == {"graph_captures": 0,
+                                    "graph_replays": 8,
+                                    "graph_refusals": 0}
+
+
+def test_a_link_with_a_host_sync_is_refused_and_runs_eagerly(cuda):
+    """``.item()`` inside a link cannot be captured: the link runs eagerly
+    on every call, each call counted in ``graph_refusals``, with the
+    eager values."""
+    from repro_torch import api
+    from repro_torch.device import virtual_devices
+    from repro_torch.fusion import engine, fusable, fusable_reduction
+    from repro_torch.rts.base import ResourceDescription
+    from repro_torch.rts.torch_rts import TorchRTS
+
+    @fusable()
+    def k_host_sync(x):
+        x = torch.as_tensor(x, dtype=torch.float32)
+        scale = torch.full((), 2.0, device=x.device).item()   # a sync
+        return x * scale + 1.0
+
+    @fusable_reduction(kind="sum")
+    def r_sum(values):
+        raise RuntimeError("the scalar body must not run")
+
+    engine.release_graphs()
+    runs = []
+    for _ in range(2):
+        ens = api.ensemble(k_host_sync,
+                           over=[{"x": float(i)} for i in range(16)],
+                           name="sync")
+        obj = api.gather(ens, r_sum, name="sync-sum")
+        holder = {}
+
+        def factory():
+            holder["rts"] = TorchRTS(device="cuda",
+                                     devices=virtual_devices("cuda", 4),
+                                     shard_min_members=8)
+            return holder["rts"]
+
+        res = api.run(obj, resources=ResourceDescription(slots=4),
+                      rts_factory=factory, timeout=120)
+        assert res.all_done
+        runs.append((float(obj.out.result()),
+                     [float(s.out.result()) for s in ens.specs],
+                     holder["rts"].fusion_stats))
+        res.close()
+    for total, members, stats in runs:
+        assert stats["shard_carriers"] == 1 and stats["degraded"] == 0
+        assert stats["graph_refusals"] == 4
+        assert stats["graph_captures"] == stats["graph_replays"] == 0
+        assert members == [2.0 * i + 1.0 for i in range(16)]
+        assert total == sum(2.0 * i + 1.0 for i in range(16))
+
+
+def test_compressed_mean_over_an_nccl_group_of_one(cuda, tmp_path):
+    """``ef_compressed_mean(axis_name="data")`` over an NCCL group of world
+    size 1 on CUDA tensors (a process of its own): the CPU's error bits
+    and its mean, which for one rank is the rank's own payload."""
+    import _torch_ranks as ranks
+    got = ranks.spawn(1, "nccl", "cuda:0", str(tmp_path), cases=("world",))
+    want = ranks.expected(1, "world")
+    assert sorted(got[0]) == sorted(want[0])
+    for key, v in want[0].items():
+        np.testing.assert_array_equal(got[0][key].view(np.uint32),
+                                      v.view(np.uint32))

@@ -16,6 +16,9 @@ SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 PORT = os.path.join(SRC, "repro_torch")
 
 
+ROOT = os.path.dirname(SRC)
+
+
 def _blocked(name):
     return any(name == p or name.startswith(p + ".")
                for p in ("jax", "jaxlib", "repro"))
@@ -59,7 +62,8 @@ def test_every_port_module_imports_with_jax_and_repro_blocked():
                  "launch.serve", "apps.seismic", "apps.seismic.solver",
                  "apps.seismic.workflow", "optim", "optim.adamw", "data",
                  "data.pipeline", "checkpoint", "checkpoint.store",
-                 "launch.train"):
+                 "launch.train", "optim.compression", "fusion.engine",
+                 "launch.mesh"):
         assert "repro_torch." + name in names, name
 
 
@@ -80,6 +84,31 @@ def test_no_port_source_imports_jax_or_repro():
                 else:
                     continue
                 offenders += [(path, n) for n in names if _blocked(n)]
+    assert not offenders
+
+
+def _imports(path):
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_examples_chip_smoke_and_card_helpers_import_no_jax_or_repro():
+    """What runs on the card's machine, which has no JAX: the port's
+    examples, ``chip_smoke.py`` and the test helpers it loads."""
+    paths = [os.path.join(ROOT, "chip_smoke.py")]
+    paths += [os.path.join(ROOT, "examples", f)
+              for f in sorted(os.listdir(os.path.join(ROOT, "examples")))
+              if f.startswith("torch_") and f.endswith(".py")]
+    paths += [os.path.join(ROOT, "tests", f)
+              for f in ("_torch_ranks.py", "_torch_update.py",
+                        "test_torch_gpu.py")]
+    assert len(paths) >= 13
+    offenders = [(p, n) for p in paths for n in _imports(p) if _blocked(n)]
     assert not offenders
 
 
