@@ -119,6 +119,17 @@ WKV backward kernels at their train shapes, failing on a spill), and the
 device time of an empty kernel, the floor under every kernel time it
 prints.
 
+Flash attention's non-causal mode (``flash_attention(causal=False)``,
+bidirectional attention, the JAX kernel's ``causal=False``) is held the
+same way: its forward kernels (both routes) at the attention stack's
+shapes at S = 512, a ragged S = 300, S = 1 and hd 150, its backward
+kernels in bf16 at (4, 512, 12, 128) and (4, 512, 32, 112) and in f32 at
+small shapes, each within the causal mode's tolerances with equal bits on
+a second call, no spill in the bf16 kernels at hd 112, 128 and 160, timed
+beside ``scaled_dot_product_attention(is_causal=False)`` and its backward;
+then driven through its entry point under grad (a forward and a backward
+launch at each of two shapes, counted apart from the causal launches).
+
 Each path runs with the launch counts set to 0 just before it and read
 just after, and fails unless every kernel of the path launched. Every
 phase raises on failure, so a failed phase exits non-zero and prints no
@@ -299,6 +310,19 @@ FLASH_BWD_SHAPES = (FLASH_MAIN, FLASH_QWEN2_VL, FLASH_MANAGED_TRAIN,
                     (2, 65, 3, 150), (1, 1, 2, 32), (2, 63, 3, 32),
                     (2, 65, 3, 32), (2, 100, 3, 64))
 FLASH_BWD_TIMED = (FLASH_QWEN2_VL, FLASH_MAIN)
+# flash attention without the causal mask (causal=False): the forward at
+# the attention stack's shapes, a ragged S, S = 1 and hd 150 (both
+# routes); the backward in bf16 at the train shapes and a ragged one, in
+# f32 at small shapes; the timed shapes (bf16) and the head dims whose
+# bf16 kernels must not spill
+FLASH_FULL_SHAPES = (FLASH_MAIN, FLASH_MINITRON, FLASH_STABLELM,
+                     (4, 300, 32, 112), (2, 1, 3, 32), (2, 65, 3, 150))
+FLASH_FULL_BWD_SHAPES = {"bfloat16": (FLASH_QWEN2_VL, FLASH_MAIN,
+                                      (2, 100, 3, 64), (1, 300, 2, 160)),
+                         "float32": ((2, 100, 3, 64), (2, 65, 3, 160))}
+FLASH_FULL_TIMED = (FLASH_MAIN, FLASH_MINITRON, FLASH_STABLELM)
+FLASH_FULL_BWD_TIMED = (FLASH_QWEN2_VL, FLASH_MAIN)
+FLASH_FULL_INFO_HDS = (112, 128, 160)
 # f32: the JAX gradient tolerance (tests/test_kernels.py:56). bf16: both
 # sides sum in f32 and round dq, dk, dv once to bf16; sums in another
 # order can round to neighbouring bf16 values, 2^-8 of |ref| apart, so
@@ -544,6 +568,8 @@ def reset_counts() -> None:
     for fn in (anen_distance, anen_distance_sharded, *KERNELS.values()):
         fn.launches = 0
         fn.shapes.clear()
+        if hasattr(fn, "noncausal_launches"):
+            fn.noncausal_launches = 0
 
 
 def run_main_path() -> dict:
@@ -1624,89 +1650,107 @@ def held_close(got, ref, tol: float, what: str) -> float:
     return float(err.max())
 
 
-def compare_flash(shape, dtype: str) -> float:
+def compare_flash(shape, dtype: str, causal: bool = True) -> float:
+    """The forward kernel against its plain version; without the causal
+    mask a second call must also give equal bits."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     q, k, v = attention_inputs(shape, dtype)
-    out, lse = flash_attention(q, k, v)
-    ref_out, ref_lse = flash_attention_plain(q, k, v)
+    out, lse = flash_attention(q, k, v, causal=causal)
+    ref_out, ref_lse = flash_attention_plain(q, k, v, causal=causal)
     torch.cuda.synchronize()
     tol = TOLERANCE["flash_attention"][dtype]
-    err = held_close(out, ref_out, tol, f"flash_attention {shape} {dtype}")
+    mode = "" if causal else " causal=False"
+    err = held_close(out, ref_out, tol,
+                     f"flash_attention{mode} {shape} {dtype}")
     lse_err = held_close(lse, ref_lse, 2e-5,
-                         f"flash_attention lse {shape} {dtype}")
-    print(f"flash_attention {shape} {dtype}: max abs err out {err} "
-          f"lse {lse_err} (tolerance {tol})")
+                         f"flash_attention{mode} lse {shape} {dtype}")
+    if not causal:
+        again = flash_attention(q, k, v, causal=False)
+        torch.cuda.synchronize()
+        check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+              f"flash_attention causal=False {shape} {dtype}: equal bits on "
+              f"a second call")
+    print(f"flash_attention{mode} {shape} {dtype}: max abs err out {err} "
+          f"lse {lse_err} (tolerance {tol})"
+          + ("" if causal else "; a second call gives equal bits"))
     return err
 
 
-def compare_flash_bwd(shape, dtype: str) -> float:
+def compare_flash_bwd(shape, dtype: str, causal: bool = True) -> float:
     """The backward kernel against its plain version on the same q, k, v,
     out, lse (from the forward kernel) and dout: dq, dk, dv. The bf16
-    route (tensor cores, no atomics) must give equal bits on a second
-    call; the f32 route (CUDA cores) must stay within
-    ``BWD_F32_UNCHANGED`` of the plain version, as the first port did."""
+    route (tensor cores, no atomics), and without the causal mask either
+    route, must give equal bits on a second call; the causal f32 route
+    (CUDA cores) must stay within ``BWD_F32_UNCHANGED`` of the plain
+    version, as the first port did."""
     import torch
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
     q, k, v = attention_inputs(shape, dtype)
     dout = attention_inputs(shape, dtype, seed=12)[0]
-    out, lse = flash_attention(q, k, v)
-    got = flash_attention_bwd(q, k, v, out, lse, dout)
-    want = flash_attention_bwd_plain(q, k, v, out, lse, dout)
+    out, lse = flash_attention(q, k, v, causal=causal)
+    got = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=causal)
     torch.cuda.synchronize()
     tol = BWD_TOLERANCE[dtype]
-    errs = [held_close(a, b, tol, f"flash_attention_bwd {name} {shape} "
-                                  f"{dtype}")
+    mode = "" if causal else " causal=False"
+    errs = [held_close(a, b, tol, f"flash_attention_bwd{mode} {name} "
+                                  f"{shape} {dtype}")
             for name, a, b in zip(("dq", "dk", "dv"), got, want)]
-    if dtype == "bfloat16":
-        again = flash_attention_bwd(q, k, v, out, lse, dout)
+    if dtype == "bfloat16" or not causal:
+        again = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
         torch.cuda.synchronize()
         check(all(torch.equal(a, b) for a, b in zip(got, again)),
-              f"flash_attention_bwd {shape} bf16: equal bits on a second "
-              f"call")
+              f"flash_attention_bwd{mode} {shape} {dtype}: equal bits on a "
+              f"second call")
     else:
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
             held_close(a, b, BWD_F32_UNCHANGED,
                        f"flash_attention_bwd {name} {shape} f32 route "
                        f"unchanged")
-    print(f"flash_attention_bwd {shape} {dtype}: max abs err dq, dk, dv "
-          f"{errs} (tolerance {tol})"
-          + ("; a second call gives equal bits" if dtype == "bfloat16"
+    print(f"flash_attention_bwd{mode} {shape} {dtype}: max abs err dq, dk, "
+          f"dv {errs} (tolerance {tol})"
+          + ("; a second call gives equal bits"
+             if dtype == "bfloat16" or not causal
              else f"; within {BWD_F32_UNCHANGED} (f32 route unchanged)"))
     return max(errs)
 
 
 
-def time_flash_bwd(shape) -> dict:
+def time_flash_bwd(shape, causal: bool = True) -> dict:
     """The backward kernel (device time, busy time), its plain version
     (busy time) and, as the library yardstick, the backward of
-    ``scaled_dot_product_attention`` on the same inputs (busy time of
-    ``autograd.grad`` through a retained SDPA graph), in bf16."""
+    ``scaled_dot_product_attention`` on the same inputs (``autograd.grad``
+    through a retained SDPA graph: device time by CUDA events, and busy
+    time), in bf16."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
         flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
     q, k, v = attention_inputs(shape, "bfloat16")
     dout = attention_inputs(shape, "bfloat16", seed=12)[0]
-    out, lse = flash_attention(q, k, v)
+    out, lse = flash_attention(q, k, v, causal=causal)
     qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_(True)
                   for a in (q, k, v))
-    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     dout_t = dout.transpose(1, 2).contiguous()
-    kernel = lambda: flash_attention_bwd(q, k, v, out, lse, dout)  # noqa
+    kernel = lambda: flash_attention_bwd(                          # noqa
+        q, k, v, out, lse, dout, causal=causal)
     plain = lambda: flash_attention_bwd_plain(                     # noqa
-        q, k, v, out, lse, dout)
+        q, k, v, out, lse, dout, causal=causal)
     library = lambda: torch.autograd.grad(                         # noqa
         sdpa, (qt, kt, vt), dout_t, retain_graph=True)
-    row = {"shape": list(shape), "dtype": "bfloat16",
+    row = {"shape": list(shape), "dtype": "bfloat16", "causal": causal,
            "ms": device_ms(kernel), "busy_ms": busy_ms(kernel),
            "parts_busy_ms": bwd_parts_ms(kernel),
-           "plain_ms": busy_ms(plain), "library_ms": busy_ms(library),
-           "call_ms": call_ms(kernel)}
-    row.update(flash_bwd_bound(shape, 2))
-    print(f"flash_attention_bwd {tuple(shape)} bf16: {row['ms']} ms a call "
+           "plain_ms": busy_ms(plain), "library_ms": device_ms(library),
+           "library_busy_ms": busy_ms(library), "call_ms": call_ms(kernel)}
+    row.update(flash_bwd_bound(shape, 2, causal))
+    mode = "" if causal else " causal=False"
+    print(f"flash_attention_bwd{mode} {tuple(shape)} bf16: {row['ms']} ms a "
+          f"call "
           f"({row['busy_ms']} busy; by kernel {row['parts_busy_ms']}), "
           f"SDPA's backward {row['library_ms']} busy, bound "
           f"{row['bound_ms']} ({row['bound_by']})")
@@ -1943,7 +1987,10 @@ def compiled_kernels(anen_n: int) -> dict:
     return info
 
 
-def time_flash(shape) -> dict:
+def time_flash(shape, causal: bool = True) -> dict:
+    """The forward kernel (device time, busy time), its plain version
+    (busy time) and ``scaled_dot_product_attention`` on the same inputs
+    (device time by CUDA events, and busy time), in bf16."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
@@ -1951,16 +1998,86 @@ def time_flash(shape) -> dict:
     q, k, v = attention_inputs(shape, "bfloat16")
     # the library yardstick takes (B, H, S, hd); it is timed here only
     qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
-    kernel = lambda: flash_attention(q, k, v)                 # noqa: E731
-    plain = lambda: flash_attention_plain(q, k, v)            # noqa: E731
+    kernel = lambda: flash_attention(q, k, v, causal=causal)  # noqa: E731
+    plain = lambda: flash_attention_plain(                    # noqa: E731
+        q, k, v, causal=causal)
     library = lambda: F.scaled_dot_product_attention(         # noqa: E731
-        qt, kt, vt, is_causal=True)
-    row = {"shape": list(shape), "dtype": "bfloat16",
+        qt, kt, vt, is_causal=causal)
+    row = {"shape": list(shape), "dtype": "bfloat16", "causal": causal,
            "ms": device_ms(kernel), "busy_ms": busy_ms(kernel),
-           "plain_ms": busy_ms(plain), "library_ms": busy_ms(library),
-           "call_ms": call_ms(kernel)}
-    row.update(flash_bound(shape, 2))
+           "plain_ms": busy_ms(plain), "library_ms": device_ms(library),
+           "library_busy_ms": busy_ms(library), "call_ms": call_ms(kernel)}
+    row.update(flash_bound(shape, 2, causal))
     return row
+
+
+def compiled_full_kernels() -> dict:
+    """Registers, shared memory and blocks an SM of the bf16 flash
+    kernels without the causal mask (forward, dk/dv, dq) at
+    ``FLASH_FULL_INFO_HDS``; a spill fails."""
+    import torch
+    from repro_torch.kernels import flash_attention
+    info = {}
+    for hd in FLASH_FULL_INFO_HDS:
+        info[f"forward hd {hd}"] = flash_attention.kernel_info(
+            hd, torch.bfloat16, causal=False)
+        for which in ("dkdv", "dq"):
+            info[f"{which} hd {hd}"] = flash_attention.bwd_kernel_info(
+                hd, torch.bfloat16, which, causal=False)
+    for key, row in info.items():
+        print(f"compiled flash_attention bf16 causal=False {key}: {row}")
+        check(row["spill_bytes"] == 0,
+              f"flash bf16 causal=False {key} spills nothing (got "
+              f"{row['spill_bytes']} bytes)")
+    return info
+
+
+def run_noncausal_path() -> dict:
+    """``flash_attention(causal=False)`` through its entry point under
+    grad, as bidirectional attention in a train step takes it: at
+    (4, 512, 12, 128) and (4, 512, 32, 112) in bf16, one forward and one
+    backward launch each, counted from 0, with no causal launch among
+    them; each gradient within the bf16 gate of autograd through the
+    plain forward."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd,
+                                                     flash_attention_plain)
+    shapes = FLASH_FULL_BWD_TIMED
+    inputs = []
+    for shape in shapes:
+        q, k, v = (a.requires_grad_(True)
+                   for a in attention_inputs(shape, "bfloat16", seed=21))
+        inputs.append((q, k, v, attention_inputs(shape, "bfloat16",
+                                                  seed=22)[0]))
+    torch.cuda.synchronize()
+    reset_counts()
+    grads = []
+    for q, k, v, dout in inputs:
+        out, _ = flash_attention(q, k, v, causal=False)
+        grads.append(torch.autograd.grad(out, (q, k, v), dout))
+    torch.cuda.synchronize()
+    counts = {"flash_attention_noncausal": flash_attention.noncausal_launches,
+              "flash_attention_bwd_noncausal":
+                  flash_attention_bwd.noncausal_launches}
+    check(counts == {"flash_attention_noncausal": len(shapes),
+                     "flash_attention_bwd_noncausal": len(shapes)}
+          and flash_attention.launches == len(shapes)
+          and flash_attention_bwd.launches == len(shapes),
+          f"the non-causal path: one forward and one backward launch a "
+          f"shape, none causal (got {counts}, all "
+          f"{flash_attention.launches}, {flash_attention_bwd.launches})")
+    for shape, (q, k, v, dout), got in zip(shapes, inputs, grads):
+        ref, _ = flash_attention_plain(q, k, v, causal=False)
+        want = torch.autograd.grad(ref, (q, k, v), dout)
+        errs = [held_close(a, b, BWD_TOLERANCE["bfloat16"],
+                           f"flash causal=False autograd {name} {shape}")
+                for name, a, b in zip(("dq", "dk", "dv"), got, want)]
+        print(f"flash causal=False autograd.grad {shape} bf16: max abs err "
+              f"dq, dk, dv {errs} against autograd through the plain "
+              f"forward")
+    print(f"non-causal path launches: {counts}")
+    return counts
 
 
 def time_ssd(shape) -> dict:
@@ -3011,6 +3128,8 @@ def main() -> None:
     errors = {"flash_attention": [], "flash_attention_bwd": [],
               "mamba2_ssd": [], "mamba2_ssd_bwd": [], "rwkv6_wkv": [],
               "rwkv6_wkv_bwd": []}
+    full_errors = {"flash_attention_noncausal": [],
+                   "flash_attention_bwd_noncausal": []}
     for dtype in ("float32", "bfloat16"):
         for shape in FLASH_SHAPES:
             errors["flash_attention"].append(compare_flash(shape, dtype))
@@ -3030,7 +3149,14 @@ def main() -> None:
         for shape in WKV_BWD_CLAMPED:
             errors["rwkv6_wkv_bwd"].append(
                 compare_scan_bwd("rwkv6_wkv", shape, dtype, clamped=True))
+        for shape in FLASH_FULL_SHAPES:
+            full_errors["flash_attention_noncausal"].append(
+                compare_flash(shape, dtype, causal=False))
+        for shape in FLASH_FULL_BWD_SHAPES[dtype]:
+            full_errors["flash_attention_bwd_noncausal"].append(
+                compare_flash_bwd(shape, dtype, causal=False))
     compiled = compiled_kernels(main_shape[2])
+    full_compiled = compiled_full_kernels()
     timed = {"flash_attention": time_flash(FLASH_MAIN),
              "flash_attention_bwd": time_flash_bwd(FLASH_BWD_TIMED[0]),
              "mamba2_ssd": time_ssd(SSD_MAIN),
@@ -3047,6 +3173,16 @@ def main() -> None:
         print(f"flash_attention at {tuple(row['shape'])} {row}")
     for row in bwd_more:
         print(f"flash_attention_bwd at {tuple(row['shape'])} {row}")
+    full_timed = {"flash_attention_noncausal":
+                  [time_flash(shape, causal=False)
+                   for shape in FLASH_FULL_TIMED],
+                  "flash_attention_bwd_noncausal":
+                  [time_flash_bwd(shape, causal=False)
+                   for shape in FLASH_FULL_BWD_TIMED]}
+    for name, rows in full_timed.items():
+        for row in rows:
+            print(f"{name} at {tuple(row['shape'])} {row}")
+    full_launches = run_noncausal_path()
 
     # every serve path with its counts at 0 just before it and read after
     by_path = {}
@@ -3132,13 +3268,15 @@ def main() -> None:
             "call_ms": row["call_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": row["shape"], "dtype": row["dtype"]})
+        if "library_busy_ms" in row:
+            record["kernels"][-1]["library_busy_ms"] = row["library_busy_ms"]
     flash_entry = next(e for e in record["kernels"]
                        if e["name"] == "flash_attention")
     hd160 = compiled[("flash_attention", "bfloat16", 160)]
     flash_entry["other_shapes"] = [
         {k: row[k] for k in ("shape", "ms", "busy_ms", "plain_ms",
-                             "library_ms", "call_ms", "bound_ms",
-                             "bound_by")} for row in flash_more]
+                             "library_ms", "library_busy_ms", "call_ms",
+                             "bound_ms", "bound_by")} for row in flash_more]
     flash_entry["hd160_compiled"] = {
         "registers": hd160["registers"], "spill_bytes": hd160["spill_bytes"],
         "smem_bytes": hd160["static_smem_bytes"]
@@ -3157,8 +3295,9 @@ def main() -> None:
         "parts_busy_ms"]
     bwd_entry["other_shapes"] = [
         {k: row[k] for k in ("shape", "ms", "busy_ms", "parts_busy_ms",
-                             "plain_ms", "library_ms", "call_ms", "bound_ms",
-                             "bound_by")} for row in bwd_more]
+                             "plain_ms", "library_ms", "library_busy_ms",
+                             "call_ms", "bound_ms", "bound_by")}
+        for row in bwd_more]
     bwd_entry["compiled"] = {
         key[2]: {k: row[k] for k in ("registers", "spill_bytes",
                                      "blocks_per_sm")}
@@ -3178,6 +3317,35 @@ def main() -> None:
     wkv_entry.update(
         f32_ms=wkv_f32["ms"], f32_busy_ms=wkv_f32["busy_ms"],
         f32_plain_ms=wkv_f32["plain_ms"], f32_bound_ms=wkv_f32["bound_ms"])
+    # the non-causal mode (causal=False) of the flash kernels, apart:
+    # launches from its own path, times at its first timed shape
+    for name, rows in full_timed.items():
+        base = name[:-len("_noncausal")]
+        row = rows[0]
+        record["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{base}.cu",
+            "replaces": replaces[base], "causal": False,
+            "launches": full_launches[name],
+            "max_abs_err": max(full_errors[name]),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "call_ms": row["call_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "library_busy_ms": row["library_busy_ms"],
+            "shape": row["shape"], "dtype": row["dtype"],
+            "other_shapes": [
+                {k: r[k] for k in ("shape", "ms", "busy_ms", "plain_ms",
+                                   "library_ms", "library_busy_ms",
+                                   "call_ms", "bound_ms", "bound_by")}
+                for r in rows[1:]],
+            "compiled": {key: {k: info[k] for k in ("registers",
+                                                   "spill_bytes",
+                                                   "blocks_per_sm")}
+                         for key, info in full_compiled.items()
+                         if (key.startswith("forward")
+                             == (base == "flash_attention"))}})
+        if base == "flash_attention_bwd":
+            record["kernels"][-1]["parts_busy_ms"] = row["parts_busy_ms"]
     for entry in record["kernels"]:
         info = compiled.get((entry["name"], entry.get("dtype", "float32")))
         if info is not None:

@@ -64,13 +64,18 @@ Ported (the modules that touch arrays or devices):
   :mod:`repro_torch.kernels.mamba2_ssd`,
   :mod:`repro_torch.kernels.rwkv6_wkv` — the model kernels as
   hand-written CUDA with their plain PyTorch versions; each also has its
-  backward as a CUDA kernel behind an ``autograd.Function``; oracles in
+  backward as a CUDA kernel behind an ``autograd.Function``; flash
+  attention in both of the JAX kernel's modes, causal and full
+  (``causal=False``), forward and backward; oracles in
   :mod:`repro_torch.kernels.ref`;
 * :mod:`repro_torch.launch.serve` — batched prefill + greedy decode as
   EnTK tasks over :class:`TorchRTS`;
 * :mod:`repro_torch.optim`, :mod:`repro_torch.checkpoint` and
   :mod:`repro_torch.launch.train` — AdamW (in place), the checkpoint
-  store in the JAX package's layout, and the EnTK-managed, checkpointed
+  store in the JAX package's layout with its sharded form (DTensor
+  leaves saved as their global arrays, ``shard_filter`` for the leaves a
+  host owns, ``shardings`` to restore onto a ``DeviceMesh`` of any
+  size), and the EnTK-managed, checkpointed
   trainer over :class:`TorchRTS` (int8 gradient compression, with its
   mean over a data axis as an ``all_reduce`` over a ``torch.distributed``
   group named by a ``DeviceMesh`` dimension).

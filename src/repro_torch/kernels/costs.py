@@ -54,24 +54,30 @@ def distance_bound(shape) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def flash_bound(shape, elem: int) -> dict:
+def attention_pairs(S: int, causal: bool = True) -> float:
+    """The (q, k) pairs one (b, h) of attention computes: S(S+1)/2 under
+    the causal mask, S^2 without it."""
+    return S * (S + 1) / 2 if causal else float(S * S)
+
+
+def flash_bound(shape, elem: int, causal: bool = True) -> dict:
     """q, k, v read once and out written once in the input type, lse in
-    f32; 2 products of 2 hd flops for each of the S(S+1)/2 causal (q, k)
-    pairs of each (b, h), at the tensor-core rate of bf16 inputs."""
+    f32; 2 products of 2 hd flops for each (q, k) pair of each (b, h)
+    (:func:`attention_pairs`), at the tensor-core rate of bf16 inputs."""
     B, S, H, hd = shape
     bytes_ = 4 * B * S * H * hd * elem + 4 * B * S * H
-    flops = 4.0 * B * H * hd * S * (S + 1) / 2
+    flops = 4.0 * B * H * hd * attention_pairs(S, causal)
     return _bound(bytes_, flops, BF16_FLOPS_PER_S)
 
 
-def flash_bwd_bound(shape, elem: int) -> dict:
+def flash_bwd_bound(shape, elem: int, causal: bool = True) -> dict:
     """q, k, v, out, dout read and dq, dk, dv written once in the input
     type, lse read in f32; five products (S, dP, dq, dk, dv) of 2 hd flops
-    for each of the S(S+1)/2 causal (q, k) pairs of each (b, h), at the
+    for each (q, k) pair of each (b, h) (:func:`attention_pairs`), at the
     tensor-core rate of bf16 inputs."""
     B, S, H, hd = shape
     bytes_ = 8 * B * S * H * hd * elem + 4 * B * S * H
-    flops = 10.0 * B * H * hd * S * (S + 1) / 2
+    flops = 10.0 * B * H * hd * attention_pairs(S, causal)
     return _bound(bytes_, flops, BF16_FLOPS_PER_S)
 
 
@@ -170,10 +176,12 @@ def op_cost(op: str, args: Sequence) -> Dict[str, float]:
     elem = args[0].dtype.itemsize
     bf16 = elem == 2
     work = 0
-    if op == "flash_fwd":
-        b = flash_bound(tuple(args[0].shape), elem)
-    elif op == "flash_bwd":
-        b = flash_bwd_bound(tuple(args[0].shape), elem)
+    if op == "flash_fwd":        # (q, k, v, causal); causal if left out
+        b = flash_bound(tuple(args[0].shape), elem,
+                        bool(args[3]) if len(args) > 3 else True)
+    elif op == "flash_bwd":      # (q, k, v, out, lse, dout, causal)
+        b = flash_bwd_bound(tuple(args[0].shape), elem,
+                            bool(args[6]) if len(args) > 6 else True)
         work = 4 * args[4].numel()                      # delta (B, S, H)
     elif op == "ssd_fwd":
         b = ssd_bound(_ssd_shape(args[0], args[3]), elem, args[6])

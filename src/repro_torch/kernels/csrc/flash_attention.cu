@@ -1,10 +1,14 @@
-// Causal flash attention forward for Hopper (sm_90a).
+// Flash attention forward for Hopper (sm_90a), causal or full.
 //
-//   out[b,s,h,:] = sum_{t<=s} softmax_t(q[b,s,h,:] . k[b,t,h,:] / sqrt(hd)) v[b,t,h,:]
-//   lse[b,s,h]   = log sum_{t<=s} exp(q . k / sqrt(hd))
+//   out[b,s,h,:] = sum_{t in T(s)} softmax_t(q[b,s,h,:] . k[b,t,h,:] / sqrt(hd)) v[b,t,h,:]
+//   lse[b,s,h]   = log sum_{t in T(s)} exp(q . k / sqrt(hd))
+//
+// with T(s) = {t <= s} when causal (the models' attention) and every t < S
+// when not (bidirectional attention).
 //
 // Replaces the Pallas TPU kernel kernels/flash_attention.py::flash_attention
-// of the JAX package (forward body _flash_fwd_kernel, pallas_call at :103).
+// of the JAX package (forward body _flash_fwd_kernel, pallas_call at :103),
+// for both values of its `causal`.
 // The TPU grid walks kv blocks in order with (acc, m, l) in VMEM scratch;
 // here one block owns one (b, h, q tile) and walks the kv tiles in a loop
 // with (acc, m, l) in registers. One call is one CUDA launch.
@@ -60,6 +64,14 @@
 // tx + 16 j, for O += P V 4 rows x 8 head columns tx + 16 c (columns past
 // hd masked). Q, then K and V of each tile, are staged in shared memory as
 // f32 with an odd row pitch; P goes through shared memory too.
+//
+// Causal or not is a template parameter of both routes' kernels (kCausal),
+// so the causal instantiation is the code it was before the full mode came,
+// with the same registers; a runtime branch could push the bf16 kernel at
+// hdp 160 (170 registers) into spills. Without the causal mask every q
+// tile reads every kv tile (the work is the same for every q tile, so the
+// bf16 grid keeps plain order), the diagonal mask goes, and only the
+// ragged last kv tile is masked, on kpos < S.
 //
 // Both routes: the causal skip comes from token positions: a q tile whose
 // last row is s_last reads kv tiles up to s_last only, and a score is
@@ -133,8 +145,9 @@ __device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
 }
 
 // kCols: output columns a thread, kMaxHeadDim / 16 at most (8 up to hd
-// 128, 10 above)
-template <typename T, int kCols>
+// 128, 10 above); kCausal: the causal mask, else every kv tile, unmasked
+// but for positions past S
+template <typename T, int kCols, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
@@ -164,7 +177,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < kCols; ++c) o[i][c] = 0.0f;
   }
 
-  const int kv_end = min(S, q0 + kBlockQ);  // past the tile's last q row
+  // causal: past the tile's last q row
+  const int kv_end = kCausal ? min(S, q0 + kBlockQ) : S;
   for (int k0 = 0; k0 < kv_end; k0 += kBlockK) {
     __syncthreads();  // the previous tile's V and P reads are done
     stage<T, kBlockK>(kv, k, base, row_stride, k0, S, hd, pitch);
@@ -195,7 +209,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int kpos = k0 + tx + 16 * j;
-        ok[j] = kpos < S && kpos <= qpos;
+        ok[j] = kpos < S && (!kCausal || kpos <= qpos);
         s[i][j] = ok[j] ? s[i][j] * scale : kNegInf;
         tile_max = fmaxf(tile_max, s[i][j]);
       }
@@ -264,17 +278,17 @@ int with_cols(int hd, Fn&& fn) {
   return fn(std::integral_constant<int, 10>{});
 }
 
-template <typename T, int kCols>
+template <typename T, int kCols, bool kCausal>
 int launch(const void* q, const void* k, const void* v, void* out,
            float* lse, int B, int S, int H, int hd, cudaStream_t stream) {
   const int pitch = hd | 1;  // odd: conflict-free strided K reads
   const size_t smem = f32_smem_bytes(pitch);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, kCols>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_fwd_kernel<T, kCols, kCausal>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, B * H);
-  flash_fwd_kernel<T, kCols><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<T, kCols, kCausal><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), lse, S, H, hd, pitch,
       1.0f / sqrtf(static_cast<float>(hd)));
@@ -292,12 +306,20 @@ constexpr float kLn2 = 0.6931471805599453f;
 
 // 16-row q tiles a warp, and warps a block: 2 x 4 up to hdp 128; above
 // it, where 2 tiles' O accumulators alone would take 2 * kHdp / 2 = 160
-// registers a thread at hdp 160, 1 x 8 (the same 128-row q tile)
-template <int kHdp>
-__host__ __device__ constexpr int tc_mt() { return kHdp > 128 ? 1 : 2; }
-template <int kHdp>
+// registers a thread at hdp 160, 1 x 8 (the same 128-row q tile). The
+// full (non-causal) kernel takes 1 x 8 at every hdp, and spills nothing
+// (129 registers at hdp 112, 128 at 128, 178 at 160); at 2 x 4 it took
+// 255 and spilled 16 bytes at hdp 112 and 32 at 128, as the causal one
+// spills 24 and 8 (tools/time_kernels.py on an H100 80GB HBM3, 700 W:
+// 2 x 4 took 0.0805 ms against 1 x 8's 0.1008 at (4, 512, 32, 112),
+// 0.0693 against 0.0710 at (4, 512, 24, 128)).
+template <int kHdp, bool kCausal>
+__host__ __device__ constexpr int tc_mt() {
+  return kHdp > 128 || !kCausal ? 1 : 2;
+}
+template <int kHdp, bool kCausal>
 __host__ __device__ constexpr int tc_threads() {
-  return 32 * kTcBlockQ / (16 * tc_mt<kHdp>());
+  return 32 * kTcBlockQ / (16 * tc_mt<kHdp, kCausal>());
 }
 
 using bf16 = __nv_bfloat16;
@@ -312,15 +334,15 @@ constexpr size_t tc_smem_bytes() {
   return sizeof(bf16) * (kTcBlockQ + 4 * kTcBlockK) * tc_pitch<kHdp>();
 }
 
-// kHdp: the head dim padded to a multiple of 16.
-template <int kHdp>
-__global__ void __launch_bounds__(tc_threads<kHdp>())
+// kHdp: the head dim padded to a multiple of 16; kCausal as above.
+template <int kHdp, bool kCausal>
+__global__ void __launch_bounds__(tc_threads<kHdp, kCausal>())
 flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, bf16* __restrict__ out,
                     float* __restrict__ lse, int S, int H, int hd,
                     float scale_log2, bool vec) {
-  constexpr int kTcMt = tc_mt<kHdp>();
-  constexpr int kTcThreads = tc_threads<kHdp>();
+  constexpr int kTcMt = tc_mt<kHdp, kCausal>();
+  constexpr int kTcThreads = tc_threads<kHdp, kCausal>();
   constexpr int kPitch = tc_pitch<kHdp>();
   constexpr int kTile = kTcBlockK * kPitch;
   constexpr int kSteps = kHdp / 16;      // k steps of Q K^T
@@ -337,7 +359,9 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int t = lane & 3;
   const int b = blockIdx.x / H;
   const int h = blockIdx.x - b * H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kTcBlockQ;  // heaviest first
+  // causal: heaviest first; full: every tile does the same work
+  const int q0 = (kCausal ? gridDim.y - 1 - blockIdx.y : blockIdx.y) *
+                 kTcBlockQ;
   const size_t row_stride = static_cast<size_t>(H) * hd;
   const size_t base = (static_cast<size_t>(b) * S * H + h) * hd;
   const bf16* kb = k + base;
@@ -374,7 +398,8 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int v_off = (((lane >> 3) & 1) * 8 + (lane & 7)) * kPitch +
                     (lane >> 4) * 8;
 
-  const int n_kv = (min(S, q0 + kTcBlockQ) + kTcBlockK - 1) / kTcBlockK;
+  const int kv_end = kCausal ? min(S, q0 + kTcBlockQ) : S;
+  const int n_kv = (kv_end + kTcBlockK - 1) / kTcBlockK;
   for (int j = 0; j < n_kv; ++j) {
     const int st = j & 1;
     if (j + 1 < n_kv) {
@@ -421,9 +446,10 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
 
     // scale to the log2 domain; mask only tiles that cross the diagonal
-    // or the end of the sequence
+    // (causal) or the end of the sequence
     const int k0 = j * kTcBlockK;
-    const bool edge = k0 + kTcBlockK - 1 > q0 || k0 + kTcBlockK > S;
+    const bool edge =
+        (kCausal && k0 + kTcBlockK - 1 > q0) || k0 + kTcBlockK > S;
 #pragma unroll
     for (int mt = 0; mt < kTcMt; ++mt) {
 #pragma unroll
@@ -434,7 +460,7 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           if (edge) {
             const int kpos = k0 + nb * 8 + 2 * t + (e & 1);
             const int qpos = qrow + mt * 16 + (e >> 1) * 8;
-            if (kpos > qpos || kpos >= S) val = kNegInf;
+            if ((kCausal && kpos > qpos) || kpos >= S) val = kNegInf;
           }
           s[mt][nb][e] = val;
         }
@@ -530,33 +556,41 @@ flash_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int kHdp>
+template <int kHdp, bool kCausal>
 int launch_tc(const void* q, const void* k, const void* v, void* out,
               float* lse, int B, int S, int H, int hd, cudaStream_t stream) {
   const size_t smem = tc_smem_bytes<kHdp>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tc_kernel<kHdp>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_fwd_tc_kernel<kHdp, kCausal>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const bool vec = hd % 8 == 0 && tc::aligned16(q) && tc::aligned16(k) &&
                    tc::aligned16(v);
   const dim3 grid(B * H, (S + kTcBlockQ - 1) / kTcBlockQ);
-  flash_fwd_tc_kernel<kHdp><<<grid, tc_threads<kHdp>(), smem, stream>>>(
+  flash_fwd_tc_kernel<kHdp, kCausal>
+      <<<grid, tc_threads<kHdp, kCausal>(), smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, S, H, hd,
       1.4426950408889634f / sqrtf(static_cast<float>(hd)), vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kHdp>
+template <int kHdp, bool kCausal>
 int info_tc(int* info) {
   const size_t smem = tc_smem_bytes<kHdp>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_tc_kernel<kHdp>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      flash_fwd_tc_kernel<kHdp, kCausal>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  return tc::kernel_info(flash_fwd_tc_kernel<kHdp>, tc_threads<kHdp>(), smem,
-                         info);
+  return tc::kernel_info(flash_fwd_tc_kernel<kHdp, kCausal>,
+                         tc_threads<kHdp, kCausal>(), smem, info);
+}
+
+// Dispatch on causal (a template parameter of every kernel).
+template <typename Fn>
+int with_causal(int causal, Fn&& fn) {
+  if (causal) return fn(std::true_type{});
+  return fn(std::false_type{});
 }
 
 // Dispatch on the head dim padded to a multiple of 16 (1..160 -> 16..160).
@@ -580,12 +614,13 @@ int with_hdp(int hd, Fn&& fn) {
 }  // namespace
 
 // q, k, v, out: (B, S, H, hd) contiguous, f32 (dtype 0) or bf16 (dtype 1);
-// lse: (B, S, H) f32. Launches on `stream` and returns cudaGetLastError()
-// (0 on success). The caller checks shapes, types and contiguity.
+// lse: (B, S, H) f32; causal: 1 for the causal mask, 0 for none. Launches
+// on `stream` and returns cudaGetLastError() (0 on success). The caller
+// checks shapes, types and contiguity.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* out, float* lse,
                                       int B, int S, int H, int hd, int dtype,
-                                      void* stream) {
+                                      int causal, void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   if (hd < 1 || hd > kMaxHeadDim) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -594,8 +629,10 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
   if (dtype == 0) {
     if (B * H > 65535) return static_cast<int>(cudaErrorInvalidValue);
     return with_cols(hd, [&](auto cols) {
-      return launch<float, decltype(cols)::value>(q, k, v, out, lse, B, S, H,
-                                                  hd, st);
+      return with_causal(causal, [&](auto c) {
+        return launch<float, decltype(cols)::value, decltype(c)::value>(
+            q, k, v, out, lse, B, S, H, hd, st);
+      });
     });
   }
   if (dtype == 1) {
@@ -603,35 +640,43 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
       return static_cast<int>(cudaErrorInvalidValue);
     }
     return with_hdp(hd, [&](auto hdp) {
-      return launch_tc<decltype(hdp)::value>(q, k, v, out, lse, B, S, H, hd,
-                                             st);
+      return with_causal(causal, [&](auto c) {
+        return launch_tc<decltype(hdp)::value, decltype(c)::value>(
+            q, k, v, out, lse, B, S, H, hd, st);
+      });
     });
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The compiled kernel of the route that `dtype` takes at head dim `hd`:
-// info[0..5] as tc::kernel_info gives them (registers, static and dynamic
-// shared memory, spill bytes, blocks an SM, threads a block). Returns a
-// CUDA error code (0 on success).
-extern "C" int flash_attention_info(int hd, int dtype, int* info) {
+// The compiled kernel of the route that `dtype` and `causal` take at head
+// dim `hd`: info[0..5] as tc::kernel_info gives them (registers, static and
+// dynamic shared memory, spill bytes, blocks an SM, threads a block).
+// Returns a CUDA error code (0 on success).
+extern "C" int flash_attention_info(int hd, int dtype, int causal,
+                                    int* info) {
   if (hd < 1 || hd > kMaxHeadDim) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == 0) {
     const size_t smem = f32_smem_bytes(hd | 1);
     return with_cols(hd, [&](auto cols) {
-      auto* kernel = flash_fwd_kernel<float, decltype(cols)::value>;
-      cudaError_t err = cudaFuncSetAttribute(
-          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          static_cast<int>(smem));
-      if (err != cudaSuccess) return static_cast<int>(err);
-      return tc::kernel_info(kernel, kThreads, smem, info);
+      return with_causal(causal, [&](auto c) {
+        auto* kernel =
+            flash_fwd_kernel<float, decltype(cols)::value, decltype(c)::value>;
+        cudaError_t err = cudaFuncSetAttribute(
+            kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
+        if (err != cudaSuccess) return static_cast<int>(err);
+        return tc::kernel_info(kernel, kThreads, smem, info);
+      });
     });
   }
   if (dtype == 1) {
     return with_hdp(hd, [&](auto hdp) {
-      return info_tc<decltype(hdp)::value>(info);
+      return with_causal(causal, [&](auto c) {
+        return info_tc<decltype(hdp)::value, decltype(c)::value>(info);
+      });
     });
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -1,17 +1,21 @@
-// Causal flash attention backward for Hopper (sm_90a).
+// Flash attention backward for Hopper (sm_90a), causal or full.
 //
 // Given q, k, v, out, dout (B, S, H, hd) and the forward's lse (B, S, H):
 //
 //   delta[b,s,h] = sum_d dout[b,s,h,d] * out[b,s,h,d]
-//   P[s,t]       = exp(q[s] . k[t] / sqrt(hd) - lse[s])      (t <= s)
+//   P[s,t]       = exp(q[s] . k[t] / sqrt(hd) - lse[s])
+//                  (t <= s when causal, every t < S when not)
 //   dS[s,t]      = P[s,t] * (dout[s] . v[t] - delta[s]) / sqrt(hd)
 //   dq = dS k,   dk = dS^T q,   dv = P^T dout
 //
 // Replaces the backward of the JAX package's flash attention: the
 // custom_vjp of kernels/flash_attention.py::flash_attention (_bwd_rule at
 // :153) runs models/attention.py::_flash_bwd_impl, the FlashAttention-2
-// pairs scan that recomputes P from the saved lse. Sums are f32; dq, dk
-// and dv are written in the input dtype, rounded once.
+// pairs scan that recomputes P from the saved lse. That backward always
+// applies the causal mask, so its gradient of causal=False is wrong
+// (ROADMAP.md C15); this one is the gradient of the forward it follows for
+// both values. Sums are f32; dq, dk and dv are written in the input dtype,
+// rounded once.
 //
 // Bound on an H100 SXM: at qwen2-vl-2b's training shape (B, S, H, hd) =
 // (4, 512, 12, 128) in bf16 the function reads q, k, v, out, dout and
@@ -82,6 +86,13 @@
 // never from tile indices: the Pallas forward's j <= i skip is exact only
 // for equal q and kv blocks. The last tile of a ragged S is short: rows
 // past S load as zeros, are masked, and are never stored, so any S works.
+//
+// Causal or not is a template parameter (kCausal) of the dk/dv and dq
+// kernels of both routes, so the causal instantiations are the code they
+// were before the full mode came. Without the causal mask the dk/dv
+// kernel walks the q tiles from tile 0 rather than from the one holding
+// its first kv row, the dq kernel walks every kv tile, and only positions
+// past S are masked. The delta kernels do not depend on it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -190,7 +201,8 @@ __device__ __forceinline__ void two_products(const float* a, const float* b,
 
 // From the raw scores qk and dp = dO . v of a 4 x 4 patch (q rows q0 +
 // ty*4 + i, kv rows k0 + tx + 16j): P and dS, masked to 0 off the causal
-// triangle and past S.
+// triangle (kCausal) and past S.
+template <bool kCausal>
 __device__ __forceinline__ void p_and_ds(float (&qk)[4][4], float (&dp)[4][4],
                                          const float* lse_s,
                                          const float* delta_s, int q0, int k0,
@@ -202,7 +214,7 @@ __device__ __forceinline__ void p_and_ds(float (&qk)[4][4], float (&dp)[4][4],
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int kpos = k0 + tx + 16 * j;
-      const bool ok = qpos < S && kpos <= qpos;
+      const bool ok = qpos < S && (kCausal ? kpos <= qpos : kpos < S);
       const float p = ok ? expf(qk[i][j] * scale - lse_s[r]) : 0.0f;
       qk[i][j] = p;
       dp[i][j] = p * (dp[i][j] - delta_s[r]) * scale;
@@ -270,8 +282,8 @@ size_t dkdv_smem_bytes(int pitch) { return tiles_smem_bytes(pitch, 2); }
 size_t dq_smem_bytes(int pitch) { return tiles_smem_bytes(pitch, 1); }
 
 // kCols: output columns a thread, kMaxHeadDim / 16 at most (8 up to hd
-// 128, 10 above)
-template <typename T, int kCols>
+// 128, 10 above); kCausal: the causal mask, else every (q, kv) pair
+template <typename T, int kCols, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, const T* __restrict__ dout,
@@ -302,8 +314,9 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   zero(dk_acc);
   zero(dv_acc);
 
-  // the q tiles whose rows reach this kv tile: from the one holding row k0
-  for (int q0 = k0; q0 < S; q0 += kBlock) {
+  // the q tiles whose rows reach this kv tile: causal, from the one
+  // holding row k0; full, all of them
+  for (int q0 = kCausal ? k0 : 0; q0 < S; q0 += kBlock) {
     __syncthreads();   // the previous tile's reads of Q, dO, P, dS are done
     stage(q_s, q, base, row_stride, q0, S, hd, pitch);
     stage(do_s, dout, base, row_stride, q0, S, hd, pitch);
@@ -312,7 +325,7 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     float qk[4][4], dp[4][4];
     two_products(q_s, k_s, do_s, v_s, hd, pitch, ty, tx, qk, dp);
-    p_and_ds(qk, dp, lse_s, delta_s, q0, k0, ty, tx, S, scale);
+    p_and_ds<kCausal>(qk, dp, lse_s, delta_s, q0, k0, ty, tx, S, scale);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -330,7 +343,7 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   store(dv, dv_acc, base, row_stride, k0, S, hd, ty, tx);
 }
 
-template <typename T, int kCols>
+template <typename T, int kCols, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           const T* __restrict__ v, const T* __restrict__ dout,
@@ -360,7 +373,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float dq_acc[4][kCols];
   zero(dq_acc);
 
-  const int kv_end = min(S, q0 + kBlock);   // past the tile's last q row
+  // causal: past the tile's last q row
+  const int kv_end = kCausal ? min(S, q0 + kBlock) : S;
   for (int k0 = 0; k0 < kv_end; k0 += kBlock) {
     __syncthreads();   // the previous tile's reads of K, V, dS are done
     stage(k_s, k, base, row_stride, k0, S, hd, pitch);
@@ -369,7 +383,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
     float qk[4][4], dp[4][4];
     two_products(q_s, k_s, do_s, v_s, hd, pitch, ty, tx, qk, dp);
-    p_and_ds(qk, dp, lse_s, delta_s, q0, k0, ty, tx, S, scale);
+    p_and_ds<kCausal>(qk, dp, lse_s, delta_s, q0, k0, ty, tx, S, scale);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -390,24 +404,25 @@ int with_cols(int hd, Fn&& fn) {
   return fn(std::integral_constant<int, 10>{});
 }
 
-template <typename T, int kCols>
+template <typename T, int kCols, bool kCausal>
 int set_smem(int pitch) {
   cudaError_t err = cudaFuncSetAttribute(
-      dkdv_kernel<T, kCols>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dkdv_kernel<T, kCols, kCausal>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(dkdv_smem_bytes(pitch)));
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(dq_kernel<T, kCols>,
+  err = cudaFuncSetAttribute(dq_kernel<T, kCols, kCausal>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(dq_smem_bytes(pitch)));
   return static_cast<int>(err);
 }
 
-template <typename T, int kCols>
+template <typename T, int kCols, bool kCausal>
 int launch(const void* q, const void* k, const void* v, const void* out,
            const float* lse, const void* dout, void* dq, void* dk, void* dv,
            float* delta, int B, int S, int H, int hd, cudaStream_t stream) {
   const int pitch = hd | 1;  // odd: conflict-free strided column reads
-  int err = set_smem<T, kCols>(pitch);
+  int err = set_smem<T, kCols, kCausal>(pitch);
   if (err != 0) return err;
   const float scale = 1.0f / sqrtf(static_cast<float>(hd));
   const T* qt = static_cast<const T*>(q);
@@ -424,13 +439,14 @@ int launch(const void* q, const void* k, const void* v, const void* out,
   if (err != 0) return err;
 
   const dim3 grid((S + kBlock - 1) / kBlock, B * H);
-  dkdv_kernel<T, kCols>
+  dkdv_kernel<T, kCols, kCausal>
       <<<grid, kThreads, dkdv_smem_bytes(pitch), stream>>>(
       qt, kt, vt, dot, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
       S, H, hd, pitch, scale);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  dq_kernel<T, kCols><<<grid, kThreads, dq_smem_bytes(pitch), stream>>>(
+  dq_kernel<T, kCols, kCausal>
+      <<<grid, kThreads, dq_smem_bytes(pitch), stream>>>(
       qt, kt, vt, dot, lse, delta, static_cast<T*>(dq), S, H, hd, pitch,
       scale);
   return static_cast<int>(cudaGetLastError());
@@ -551,8 +567,8 @@ __device__ __forceinline__ void c_to_a(uint32_t (&a)[4], const float (&c0)[4],
   a[3] = tc::pack_bf16(c1[2], c1[3]);
 }
 
-// kHdp: the head dim padded to a multiple of 16.
-template <int kHdp>
+// kHdp: the head dim padded to a multiple of 16; kCausal as above.
+template <int kHdp, bool kCausal>
 __global__ void __launch_bounds__(kTcThreads)
 dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -604,7 +620,10 @@ dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                                    k0, S, hd, vec);
   tc::load_rows<kTcRows, kHdp, kPitch, kTcThreads>(v_s, v + base, row_stride,
                                                    k0, S, hd, vec);
-  load_q_tile(0, k0);
+  // the q tiles whose rows reach this kv tile: causal, from the one
+  // holding row k0; full, all of them
+  const int q_first = kCausal ? k0 : 0;
+  load_q_tile(0, q_first);
   tc::cp_async_commit();
 
   float dk_acc[kHdp / 8][4], dv_acc[kHdp / 8][4];
@@ -623,11 +642,10 @@ dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int bt_off = (((lane >> 3) & 1) * 8 + (lane & 7)) * kPitch +
                      (lane >> 4) * 8;
 
-  // the q tiles whose rows reach this kv tile: from the one holding row k0
-  const int n_q = (S - k0 + kWalk - 1) / kWalk;
+  const int n_q = (S - q_first + kWalk - 1) / kWalk;
   for (int i = 0; i < n_q; ++i) {
     const int st = i & 1;
-    const int q0 = k0 + i * kWalk;
+    const int q0 = q_first + i * kWalk;
     if (i + 1 < n_q) {
       load_q_tile(st ^ 1, q0 + kWalk);
       tc::cp_async_commit();
@@ -645,8 +663,11 @@ dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int sub = 0; sub < kWalk / kSub; ++sub) {
       const int c0 = sub * kSub;          // first q column, in the tile
       const int qa = q0 + c0;             // its position
-      // every row of the warp above every column, or every column past S
-      if (wrow > qa + kSub - 1 || qa >= S) continue;
+      // causal: every row of the warp above every column; either: every
+      // column past S, or (full) every row of the warp past S
+      if (kCausal ? wrow > qa + kSub - 1 || qa >= S : qa >= S || wrow >= S) {
+        continue;
+      }
 
       // S^T = K Q^T and dP^T = V dO^T: 16 kv rows x kSub q columns
       float s[kN][4], dp[kN][4];
@@ -674,8 +695,8 @@ dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
       // P^T and dS^T in place: row (kv) wrow + g + 8 (e >> 1), column (q)
       // qa + nb * 8 + 2t + (e & 1); masked only where the sub-step
-      // crosses the diagonal or the end of S
-      const bool edge = qa < wrow + 15 || qa + kSub > S;
+      // crosses the diagonal (causal) or the end of S
+      const bool edge = (kCausal && qa < wrow + 15) || qa + kSub > S;
 #pragma unroll
       for (int nb = 0; nb < kN; ++nb) {
         const int col = c0 + nb * 8 + 2 * t;
@@ -689,7 +710,7 @@ dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           if (edge) {
             const int qpos = q0 + col + (e & 1);
             const int kpos = wrow + g + (e >> 1) * 8;
-            if (kpos > qpos || qpos >= S) p = 0.0f;
+            if ((kCausal && kpos > qpos) || qpos >= S) p = 0.0f;
           }
           s[nb][e] = p;
           dp[nb][e] = p * (dp[nb][e] - dl) * scale;
@@ -722,7 +743,7 @@ dkdv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_tc<kHdp>(dv, dv_acc, base, row_stride, wrow, S, hd, g, t);
 }
 
-template <int kHdp>
+template <int kHdp, bool kCausal>
 __global__ void __launch_bounds__(kTcThreads)
 dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
              const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -791,7 +812,9 @@ dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int bt_off = (((lane >> 3) & 1) * 8 + (lane & 7)) * kPitch +
                      (lane >> 4) * 8;
 
-  const int n_kv = (min(S, q0 + kTcRows) + kWalk - 1) / kWalk;
+  // causal: the kv tiles up to the q tile's last row; full: all of them
+  const int kv_end = kCausal ? min(S, q0 + kTcRows) : S;
+  const int n_kv = (kv_end + kWalk - 1) / kWalk;
   for (int j = 0; j < n_kv; ++j) {
     const int st = j & 1;
     const int k0 = j * kWalk;
@@ -806,9 +829,9 @@ dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       tc::cp_async_wait<0>();
     }
     __syncthreads();
-    // every row of the warp below the tile's first column, or past S:
-    // nothing to add
-    if (wrow + 15 >= k0 && wrow < S) {
+    // every row of the warp before the tile's first column (causal), or
+    // past S: nothing to add
+    if ((!kCausal || wrow + 15 >= k0) && wrow < S) {
       const bf16* ks = k_buf(st);
       const bf16* vs = v_buf(st);
 
@@ -838,8 +861,8 @@ dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
       // dS in place of dP: row (q) wrow + g + 8 (e >> 1), column (kv) k0 +
       // nb * 8 + 2t + (e & 1); masked only where the tile crosses the
-      // diagonal or the end of S
-      const bool edge = k0 + kWalk - 1 > wrow || k0 + kWalk > S;
+      // diagonal (causal) or the end of S
+      const bool edge = (kCausal && k0 + kWalk - 1 > wrow) || k0 + kWalk > S;
 #pragma unroll
       for (int nb = 0; nb < kN; ++nb) {
 #pragma unroll
@@ -848,7 +871,7 @@ dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           float p = exp2f(s[nb][e] * scale_log2 - lse2[r]);
           if (edge) {
             const int kpos = k0 + nb * 8 + 2 * t + (e & 1);
-            if (kpos > wrow + g + r * 8 || kpos >= S) p = 0.0f;
+            if ((kCausal && kpos > wrow + g + r * 8) || kpos >= S) p = 0.0f;
           }
           dp[nb][e] = p * (dp[nb][e] - dl[r]) * scale;
         }
@@ -873,24 +896,25 @@ dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   store_tc<kHdp>(dq, dq_acc, base, row_stride, wrow, S, hd, g, t);
 }
 
-template <int kHdp>
+template <int kHdp, bool kCausal>
 int set_smem_tc() {
   cudaError_t err = cudaFuncSetAttribute(
-      dkdv_tc_kernel<kHdp>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dkdv_tc_kernel<kHdp, kCausal>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(dkdv_tc_smem_bytes<kHdp>()));
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(dq_tc_kernel<kHdp>,
+  err = cudaFuncSetAttribute(dq_tc_kernel<kHdp, kCausal>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(dq_tc_smem_bytes<kHdp>()));
   return static_cast<int>(err);
 }
 
-template <int kHdp>
+template <int kHdp, bool kCausal>
 int launch_tc(const void* q, const void* k, const void* v, const void* out,
               const float* lse, const void* dout, void* dq, void* dk,
               void* dv, float* delta, int B, int S, int H, int hd,
               cudaStream_t stream) {
-  int err = set_smem_tc<kHdp>();
+  int err = set_smem_tc<kHdp, kCausal>();
   if (err != 0) return err;
   const float scale = 1.0f / sqrtf(static_cast<float>(hd));
   const bf16* qt = static_cast<const bf16*>(q);
@@ -919,28 +943,28 @@ int launch_tc(const void* q, const void* k, const void* v, const void* out,
   if (err != 0) return err;
 
   const dim3 grid(B * H, (S + kTcRows - 1) / kTcRows);
-  dkdv_tc_kernel<kHdp><<<grid, kTcThreads, dkdv_tc_smem_bytes<kHdp>(),
-                         stream>>>(qt, kt, vt, dot, lse, delta,
-                                   static_cast<bf16*>(dk),
-                                   static_cast<bf16*>(dv), S, H, hd, scale,
-                                   vec);
+  dkdv_tc_kernel<kHdp, kCausal>
+      <<<grid, kTcThreads, dkdv_tc_smem_bytes<kHdp>(), stream>>>(
+          qt, kt, vt, dot, lse, delta, static_cast<bf16*>(dk),
+          static_cast<bf16*>(dv), S, H, hd, scale, vec);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  dq_tc_kernel<kHdp><<<grid, kTcThreads, dq_tc_smem_bytes<kHdp>(), stream>>>(
-      qt, kt, vt, dot, lse, delta, static_cast<bf16*>(dq), S, H, hd, scale,
-      vec);
+  dq_tc_kernel<kHdp, kCausal>
+      <<<grid, kTcThreads, dq_tc_smem_bytes<kHdp>(), stream>>>(
+          qt, kt, vt, dot, lse, delta, static_cast<bf16*>(dq), S, H, hd,
+          scale, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kHdp>
+template <int kHdp, bool kCausal>
 int info_tc(int which, int* info) {
-  int err = set_smem_tc<kHdp>();
+  int err = set_smem_tc<kHdp, kCausal>();
   if (err != 0) return err;
   if (which == 0) {
-    return tc::kernel_info(dkdv_tc_kernel<kHdp>, kTcThreads,
+    return tc::kernel_info(dkdv_tc_kernel<kHdp, kCausal>, kTcThreads,
                            dkdv_tc_smem_bytes<kHdp>(), info);
   }
-  return tc::kernel_info(dq_tc_kernel<kHdp>, kTcThreads,
+  return tc::kernel_info(dq_tc_kernel<kHdp, kCausal>, kTcThreads,
                          dq_tc_smem_bytes<kHdp>(), info);
 }
 
@@ -962,17 +986,25 @@ int with_hdp(int hd, Fn&& fn) {
   }
 }
 
+// Dispatch on causal (a template parameter of the dk/dv and dq kernels).
+template <typename Fn>
+int with_causal(int causal, Fn&& fn) {
+  if (causal) return fn(std::true_type{});
+  return fn(std::false_type{});
+}
+
 }  // namespace
 
 // q, k, v, out, dout, dq, dk, dv: (B, S, H, hd) contiguous, f32 (dtype 0)
-// or bf16 (dtype 1); lse and the scratch delta: (B, S, H) f32. Three
-// launches on `stream` (delta, dk/dv, dq); returns the first non-zero
-// cudaGetLastError() (0 on success). The caller checks shapes, types and
-// contiguity.
+// or bf16 (dtype 1); lse and the scratch delta: (B, S, H) f32; causal: 1
+// for the causal mask, 0 for none. Three launches on `stream` (delta,
+// dk/dv, dq); returns the first non-zero cudaGetLastError() (0 on
+// success). The caller checks shapes, types and contiguity.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out,
     const float* lse, const void* dout, void* dq, void* dk, void* dv,
-    float* delta, int B, int S, int H, int hd, int dtype, void* stream) {
+    float* delta, int B, int S, int H, int hd, int dtype, int causal,
+    void* stream) {
   if (B <= 0 || S <= 0 || H <= 0) return 0;
   if (hd < 1 || hd > kMaxHeadDim) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -981,8 +1013,10 @@ extern "C" int flash_attention_bwd_launch(
   if (dtype == 0) {
     if (B * H > 65535) return static_cast<int>(cudaErrorInvalidValue);
     return with_cols(hd, [&](auto cols) {
-      return launch<float, decltype(cols)::value>(
-          q, k, v, out, lse, dout, dq, dk, dv, delta, B, S, H, hd, st);
+      return with_causal(causal, [&](auto c) {
+        return launch<float, decltype(cols)::value, decltype(c)::value>(
+            q, k, v, out, lse, dout, dq, dk, dv, delta, B, S, H, hd, st);
+      });
     });
   }
   if (dtype == 1) {
@@ -990,36 +1024,44 @@ extern "C" int flash_attention_bwd_launch(
       return static_cast<int>(cudaErrorInvalidValue);
     }
     return with_hdp(hd, [&](auto hdp) {
-      return launch_tc<decltype(hdp)::value>(
-          q, k, v, out, lse, dout, dq, dk, dv, delta, B, S, H, hd, st);
+      return with_causal(causal, [&](auto c) {
+        return launch_tc<decltype(hdp)::value, decltype(c)::value>(
+            q, k, v, out, lse, dout, dq, dk, dv, delta, B, S, H, hd, st);
+      });
     });
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The compiled dk/dv kernel (which = 0) or dq kernel (which = 1) of the
-// route that `dtype` takes at head dim `hd`: info[0..5] as tc::kernel_info
-// gives them. Returns a CUDA error code (0 on success).
+// route that `dtype` and `causal` take at head dim `hd`: info[0..5] as
+// tc::kernel_info gives them. Returns a CUDA error code (0 on success).
 extern "C" int flash_attention_bwd_info(int hd, int dtype, int which,
-                                        int* info) {
+                                        int causal, int* info) {
   if (hd < 1 || hd > kMaxHeadDim || dtype < 0 || dtype > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == 1) {
     return with_hdp(hd, [&](auto hdp) {
-      return info_tc<decltype(hdp)::value>(which, info);
+      return with_causal(causal, [&](auto c) {
+        return info_tc<decltype(hdp)::value, decltype(c)::value>(which,
+                                                                 info);
+      });
     });
   }
   const int pitch = hd | 1;
   return with_cols(hd, [&](auto cols) {
-    constexpr int kCols = decltype(cols)::value;
-    int err = set_smem<float, kCols>(pitch);
-    if (err != 0) return err;
-    if (which == 0) {
-      return tc::kernel_info(dkdv_kernel<float, kCols>, kThreads,
-                             dkdv_smem_bytes(pitch), info);
-    }
-    return tc::kernel_info(dq_kernel<float, kCols>, kThreads,
-                           dq_smem_bytes(pitch), info);
+    return with_causal(causal, [&](auto c) {
+      constexpr int kCols = decltype(cols)::value;
+      constexpr bool kCausal = decltype(c)::value;
+      int err = set_smem<float, kCols, kCausal>(pitch);
+      if (err != 0) return err;
+      if (which == 0) {
+        return tc::kernel_info(dkdv_kernel<float, kCols, kCausal>, kThreads,
+                               dkdv_smem_bytes(pitch), info);
+      }
+      return tc::kernel_info(dq_kernel<float, kCols, kCausal>, kThreads,
+                             dq_smem_bytes(pitch), info);
+    });
   });
 }

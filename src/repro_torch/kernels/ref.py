@@ -12,15 +12,16 @@ from typing import Tuple
 import torch
 
 
-def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
-                  ) -> torch.Tensor:
-    """Causal attention. q,k,v: (B, S, H, hd) → (B, S, H, hd). fp32
-    softmax."""
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool = True) -> torch.Tensor:
+    """Attention, causal or full (every query sees every key). q,k,v:
+    (B, S, H, hd) → (B, S, H, hd). fp32 softmax."""
     S, hd = q.shape[1], q.shape[3]
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (
         1.0 / math.sqrt(hd))
-    mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
-    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    if causal:
+        mask = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+        s = torch.where(mask, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", p, v.float())
     return out.to(q.dtype)

@@ -12,7 +12,9 @@ sharded tier over lanes of the card (B2 against B1, AnEn and the seismic
 DAG against their unsharded runs; its link graphs: a replay bit-equal to
 eager, a second sweep replayed without a capture, a host sync refused and
 run eagerly), and over two cards where there are; the compressed mean
-over an NCCL group of one process.
+over an NCCL group of one process; flash attention's non-causal kernels
+(forward and backward, both routes) against their plain versions; a
+checkpoint restored onto an NCCL mesh of one rank with shardings.
 They skip where ``torch.cuda.is_available()`` is False. This file
 imports nothing of JAX, so it also runs where JAX is not installed:
 
@@ -427,6 +429,125 @@ def test_flash_attention_kernel_matches_plain(cuda, shape, dtype):
     torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
                                rtol=tol)
     torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=2e-5)
+
+
+# causal=False (bidirectional attention): the attention stack's head dims
+# at S = 512, a ragged S, the 64-row tile's edges and S = 1
+FLASH_FULL_SHAPES = [(4, 512, 32, 112), (4, 512, 24, 128), (4, 512, 32, 160),
+                     (4, 300, 32, 112), (2, 1, 3, 32), (2, 63, 3, 64),
+                     (2, 65, 3, 150), (1, 100, 2, 160)]
+FLASH_FULL_BWD_SHAPES = [(4, 512, 12, 128), (4, 512, 32, 112),
+                         (2, 100, 3, 64), (2, 65, 3, 160), (2, 1, 3, 32),
+                         (1, 300, 2, 150)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FLASH_FULL_SHAPES)
+def test_flash_attention_noncausal_kernel_matches_plain(cuda, shape, dtype):
+    """The forward kernel without the causal mask against its plain
+    version; one launch, counted apart; a second call gives equal bits."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    q, k, v = _attention_inputs(shape, dtype, cuda)
+    before = (flash_attention.launches, flash_attention.noncausal_launches)
+    out, lse = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, flash_attention.noncausal_launches) \
+        == (before[0] + 1, before[1] + 1)
+    ref_out, ref_lse = flash_attention_plain(q, k, v, causal=False)
+    tol = TOLERANCES[dtype][0]
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=2e-5)
+    again = flash_attention(q, k, v, causal=False)
+    assert all(torch.equal(a, b) for a, b in zip((out, lse), again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", FLASH_FULL_BWD_SHAPES)
+def test_flash_attention_noncausal_backward_matches_plain(cuda, shape,
+                                                          dtype):
+    from repro_torch.kernels.flash_attention import (
+        flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
+    q, k, v = _attention_inputs(shape, dtype, cuda)
+    dout = _attention_inputs(shape, dtype, cuda, seed=1)[0]
+    out, lse = flash_attention(q, k, v, causal=False)
+    before = (flash_attention_bwd.launches,
+              flash_attention_bwd.noncausal_launches)
+    got = flash_attention_bwd(q, k, v, out, lse, dout, causal=False)
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd.launches,
+            flash_attention_bwd.noncausal_launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=False)
+    tol = BWD_TOLERANCES[dtype]
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and a.shape == q.shape
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+    again = flash_attention_bwd(q, k, v, out, lse, dout, causal=False)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("shape", [(2, 100, 3, 64), (1, 65, 2, 160)])
+def test_flash_attention_noncausal_takes_grads(cuda, shape):
+    """``autograd.grad`` through ``flash_attention(causal=False)``: one
+    non-causal forward and backward launch, against autograd through the
+    plain forward."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_bwd,
+                                                     flash_attention_plain)
+    q, k, v = (a.requires_grad_(True)
+               for a in _attention_inputs(shape, torch.float32, cuda))
+    dout = _attention_inputs(shape, torch.float32, cuda, seed=1)[0]
+    before = (flash_attention.noncausal_launches,
+              flash_attention_bwd.noncausal_launches)
+    out, _ = flash_attention(q, k, v, causal=False)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert (flash_attention.noncausal_launches,
+            flash_attention_bwd.noncausal_launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    ref, _ = flash_attention_plain(q, k, v, causal=False)
+    want = torch.autograd.grad(ref, (q, k, v), dout)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=5e-4, rtol=5e-4)
+
+
+@pytest.mark.parametrize("hd", [112, 128, 160])
+def test_flash_attention_noncausal_kernels_spill_nothing(cuda, hd):
+    """The non-causal instantiations of the bf16 kernels spill nothing
+    (the forward takes 1 x 8 warps a block at every head dim)."""
+    from repro_torch.kernels.flash_attention import (bwd_kernel_info,
+                                                     kernel_info)
+    full = kernel_info(hd, torch.bfloat16, causal=False)
+    assert full["spill_bytes"] == 0 and full["threads"] == 256
+    for which in ("dkdv", "dq"):
+        info = bwd_kernel_info(hd, torch.bfloat16, which, causal=False)
+        assert info["spill_bytes"] == 0
+
+
+def test_checkpoint_restores_onto_an_nccl_mesh(cuda, tmp_path):
+    """A checkpoint in the JAX layout (written by the port's store: f32
+    moments, bf16 parameters) restored by an NCCL group of one rank onto
+    a (1, 1) ``DeviceMesh`` with shardings: DTensors on the card, their
+    bits the saved ones."""
+    import _torch_ckpt_ranks as ranks
+    from repro_torch.checkpoint import save_checkpoint
+    from repro_torch.models.steps import unflatten
+    state = ranks.train_state("cpu")
+    state["params"] = unflatten(state["params"], [
+        t.bfloat16() for _, t in ranks.flatten(state["params"])])
+    src = str(tmp_path / "ckpt")
+    save_checkpoint(src, ranks.STEP, state)
+    got = ranks.spawn(1, "load", (1, 1), str(tmp_path), [src],
+                      backend="nccl", device="cuda:0")[0]
+    assert int(got["0:step"]) == ranks.STEP
+    names = [name for name, _ in ranks.flatten(state)]
+    assert any(name.startswith("params/") for name in names)
+    for name, leaf in ranks.flatten(state):
+        want = ranks.bits(leaf)
+        assert got[f"0:{name}"].dtype == want.dtype, name
+        np.testing.assert_array_equal(got[f"0:{name}"], want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -7,9 +7,15 @@ times each at its main path's shape with ``chip_smoke.py``'s methods
 (median device time behind a spin kernel, and CUPTI busy time): an empty
 kernel (the floor), ``anen_distance`` at (365, 3, 512) and (365, 3, 4096),
 ``rwkv6_wkv`` at (4, 512, 40, 64) in bf16 and f32, ``flash_attention`` and
-``mamba2_ssd`` at theirs in bf16, and ``flash_attention_bwd`` in bf16 at
-(4, 512, 12, 128) and (4, 512, 32, 112) (device time and CUPTI busy
-time). The inputs are ``chip_smoke.py``'s. It
+``mamba2_ssd`` at theirs in bf16 (``flash_attention`` also at
+stablelm-12b's and minitron-4b's shapes), and ``flash_attention_bwd`` in
+bf16 at (4, 512, 12, 128) and (4, 512, 32, 112) (device time and CUPTI
+busy time); then the registers and spills of the bf16 flash kernels
+(forward, dk/dv, dq) at head dims 112, 128 and 160 as the tree compiles
+them (its default, causal, kernels). Where the tree's ``flash_attention``
+takes ``causal``, the same for ``causal=False``: the forward at the three
+shapes, the backward at both, the registers and spills. The inputs are
+``chip_smoke.py``'s. It
 prints the card and one JSON line. Two trees compare on one card when
 they run in turns in one session: parent, change, change, parent.
 """
@@ -17,6 +23,7 @@ they run in turns in one session: parent, change, change, parent.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import sys
@@ -54,6 +61,10 @@ def main() -> None:
     q, k, v = cs.attention_inputs(cs.FLASH_MAIN, "bfloat16")
     rows["flash_attention bfloat16"] = cs.device_ms(
         lambda: flash_attention.flash_attention(q, k, v))
+    for shape in (cs.FLASH_STABLELM, cs.FLASH_MINITRON):
+        q, k, v = cs.attention_inputs(shape, "bfloat16")
+        rows[f"flash_attention bfloat16 {shape}"] = cs.device_ms(
+            lambda: flash_attention.flash_attention(q, k, v))
     for shape in cs.FLASH_BWD_TIMED:
         q, k, v = cs.attention_inputs(shape, "bfloat16")
         dout = cs.attention_inputs(shape, "bfloat16", seed=12)[0]
@@ -65,6 +76,34 @@ def main() -> None:
     s = cs.ssd_inputs(cs.SSD_MAIN, "bfloat16")
     rows["mamba2_ssd bfloat16"] = cs.device_ms(
         lambda: mamba2_ssd.mamba2_ssd(*s))
+    modes = {"": {}}
+    if "causal" in inspect.signature(
+            flash_attention.flash_attention).parameters:
+        modes[" causal=False"] = {"causal": False}
+    for mode, kw in modes.items():
+        if kw:
+            for shape in (cs.FLASH_MAIN, cs.FLASH_STABLELM,
+                          cs.FLASH_MINITRON):
+                q, k, v = cs.attention_inputs(shape, "bfloat16")
+                rows[f"flash_attention bfloat16{mode} {shape}"] = \
+                    cs.device_ms(lambda: flash_attention.flash_attention(
+                        q, k, v, **kw))
+            for shape in cs.FLASH_BWD_TIMED:
+                q, k, v = cs.attention_inputs(shape, "bfloat16")
+                dout = cs.attention_inputs(shape, "bfloat16", seed=12)[0]
+                out, lse = flash_attention.flash_attention(q, k, v, **kw)
+                rows[f"flash_attention_bwd bfloat16{mode} {shape}"] = \
+                    cs.device_ms(lambda: flash_attention.flash_attention_bwd(
+                        q, k, v, out, lse, dout, **kw))
+        for hd in (112, 128, 160):
+            info = flash_attention.kernel_info(hd, torch.bfloat16, **kw)
+            rows[f"flash_attention{mode} registers/spill hd {hd}"] = [
+                info["registers"], info["spill_bytes"]]
+            for which in ("dkdv", "dq"):
+                info = flash_attention.bwd_kernel_info(hd, torch.bfloat16,
+                                                       which, **kw)
+                rows[f"flash_attention_bwd {which}{mode} registers/spill "
+                     f"hd {hd}"] = [info["registers"], info["spill_bytes"]]
     print(rows["card"])
     print(json.dumps(rows))
 
