@@ -119,6 +119,15 @@ WKV backward kernels at their train shapes, failing on a spill), and the
 device time of an empty kernel, the floor under every kernel time it
 prints.
 
+The bf16 flash forward takes the wgmma kernel (TMA ring, a producer warp,
+two consumer warpgroups) at every main-path head dim: each compare names
+the route its inputs took, a second call must give equal bits in both
+modes, and the compiled forward at head dims 64, 112, 128 and 160 must be
+the 384-thread wgmma kernel with no spill; views a TMA tensor map cannot
+describe (2 bytes past a 16-byte boundary) and hd 150 must take the
+mma.sync kernel and meet the same gates; it is timed in both modes at the
+seven attention-stack shapes beside SDPA.
+
 Flash attention's non-causal mode (``flash_attention(causal=False)``,
 bidirectional attention, the JAX kernel's ``causal=False``) is held the
 same way: its forward kernels (both routes) at the attention stack's
@@ -277,9 +286,10 @@ FLASH_SHAPES = (FLASH_MAIN, (4, 100, 32, 112), (4, 300, 32, 112),
                 # the managed train run's shape (phase 8), the MoE serve
                 # shapes (phase 7)
                 FLASH_MANAGED_TRAIN, FLASH_DBRX, FLASH_LLAMA4)
-# timed beside FLASH_MAIN: the widest head dim, minitron's and the MoE
-# serve shapes
-FLASH_TIMED = (FLASH_STABLELM, FLASH_MINITRON, FLASH_DBRX, FLASH_LLAMA4)
+# timed beside FLASH_MAIN: the widest head dim, minitron's, the MoE serve
+# shapes, qwen2-vl-2b's train shape and musicgen-medium's head dim 64
+FLASH_TIMED = (FLASH_STABLELM, FLASH_MINITRON, FLASH_DBRX, FLASH_LLAMA4,
+               FLASH_QWEN2_VL, FLASH_MUSICGEN)
 SSD_SHAPES = (SSD_MAIN, (4, 100, 112, 64, 1, 64), (2, 128, 8, 64, 2, 64),
               # chunk 50 at N = 8, P = 16; G = 2 at N = 16, P = 32
               (1, 100, 3, 16, 1, 8), (2, 128, 4, 32, 2, 16))
@@ -320,9 +330,16 @@ FLASH_FULL_SHAPES = (FLASH_MAIN, FLASH_MINITRON, FLASH_STABLELM,
 FLASH_FULL_BWD_SHAPES = {"bfloat16": (FLASH_QWEN2_VL, FLASH_MAIN,
                                       (2, 100, 3, 64), (1, 300, 2, 160)),
                          "float32": ((2, 100, 3, 64), (2, 65, 3, 160))}
-FLASH_FULL_TIMED = (FLASH_MAIN, FLASH_MINITRON, FLASH_STABLELM)
+FLASH_FULL_TIMED = (FLASH_MAIN, FLASH_MINITRON, FLASH_STABLELM, FLASH_DBRX,
+                    FLASH_LLAMA4, FLASH_QWEN2_VL, FLASH_MUSICGEN)
 FLASH_FULL_BWD_TIMED = (FLASH_QWEN2_VL, FLASH_MAIN)
 FLASH_FULL_INFO_HDS = (112, 128, 160)
+# a bf16 input TMA cannot describe (its views start 2 bytes past a 16-byte
+# boundary): it must take the mma.sync kernel
+FLASH_UNALIGNED = (2, 100, 3, 112)
+# the bf16 forward's head dims on the main paths: each must take the wgmma
+# kernel (384 threads) and spill nothing, in both modes
+FLASH_FWD_INFO_HDS = (64, 112, 128, 160)
 # f32: the JAX gradient tolerance (tests/test_kernels.py:56). bf16: both
 # sides sum in f32 and round dq, dk, dv once to bf16; sums in another
 # order can round to neighbouring bf16 values, 2^-8 of |ref| apart, so
@@ -1651,11 +1668,12 @@ def held_close(got, ref, tol: float, what: str) -> float:
 
 
 def compare_flash(shape, dtype: str, causal: bool = True) -> float:
-    """The forward kernel against its plain version; without the causal
-    mask a second call must also give equal bits."""
+    """The forward kernel against its plain version; a second call must
+    also give equal bits. Prints the route the inputs took."""
     import torch
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     route)
     q, k, v = attention_inputs(shape, dtype)
     out, lse = flash_attention(q, k, v, causal=causal)
     ref_out, ref_lse = flash_attention_plain(q, k, v, causal=causal)
@@ -1666,15 +1684,47 @@ def compare_flash(shape, dtype: str, causal: bool = True) -> float:
                      f"flash_attention{mode} {shape} {dtype}")
     lse_err = held_close(lse, ref_lse, 2e-5,
                          f"flash_attention{mode} lse {shape} {dtype}")
-    if not causal:
-        again = flash_attention(q, k, v, causal=False)
-        torch.cuda.synchronize()
-        check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
-              f"flash_attention causal=False {shape} {dtype}: equal bits on "
-              f"a second call")
-    print(f"flash_attention{mode} {shape} {dtype}: max abs err out {err} "
-          f"lse {lse_err} (tolerance {tol})"
-          + ("" if causal else "; a second call gives equal bits"))
+    again = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+          f"flash_attention{mode} {shape} {dtype}: equal bits on a second "
+          f"call")
+    print(f"flash_attention{mode} {shape} {dtype} ({route(q, k, v)} route): "
+          f"max abs err out {err} lse {lse_err} (tolerance {tol}); a second "
+          f"call gives equal bits")
+    return err
+
+
+def compare_flash_unaligned(shape, causal: bool) -> float:
+    """bf16 views 2 bytes past a 16-byte boundary, which no TMA tensor
+    map can describe: they must take the mma.sync kernel (chosen by shape
+    in the C entry point) and meet the plain version as the wgmma route
+    does, with equal bits on a second call."""
+    import torch
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain,
+                                                     route)
+    flat = [a.reshape(-1) for a in attention_inputs(
+        (math.prod(shape) + 1,), "bfloat16")]
+    q, k, v = (a[1:].view(shape) for a in flat)
+    check(q.data_ptr() % 16 != 0 and route(q, k, v) == "mma.sync",
+          f"flash_attention unaligned {shape}: the mma.sync route (got "
+          f"{route(q, k, v)})")
+    out, lse = flash_attention(q, k, v, causal=causal)
+    ref_out, ref_lse = flash_attention_plain(q, k, v, causal=causal)
+    again = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    tol = TOLERANCE["flash_attention"]["bfloat16"]
+    mode = "" if causal else " causal=False"
+    err = held_close(out, ref_out, tol,
+                     f"flash_attention{mode} unaligned {shape}")
+    held_close(lse, ref_lse, 2e-5, f"flash_attention{mode} lse unaligned")
+    check(torch.equal(out, again[0]) and torch.equal(lse, again[1]),
+          f"flash_attention{mode} unaligned {shape}: equal bits on a second "
+          f"call")
+    print(f"flash_attention{mode} unaligned {shape} bfloat16 (mma.sync "
+          f"route): max abs err out {err} (tolerance {tol}); a second call "
+          f"gives equal bits")
     return err
 
 
@@ -1994,7 +2044,8 @@ def time_flash(shape, causal: bool = True) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (flash_attention,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     route)
     q, k, v = attention_inputs(shape, "bfloat16")
     # the library yardstick takes (B, H, S, hd); it is timed here only
     qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
@@ -2004,11 +2055,36 @@ def time_flash(shape, causal: bool = True) -> dict:
     library = lambda: F.scaled_dot_product_attention(         # noqa: E731
         qt, kt, vt, is_causal=causal)
     row = {"shape": list(shape), "dtype": "bfloat16", "causal": causal,
+           "route": route(q, k, v),
            "ms": device_ms(kernel), "busy_ms": busy_ms(kernel),
            "plain_ms": busy_ms(plain), "library_ms": device_ms(library),
            "library_busy_ms": busy_ms(library), "call_ms": call_ms(kernel)}
     row.update(flash_bound(shape, 2, causal))
     return row
+
+
+def compiled_forward_kernels() -> dict:
+    """Registers, shared memory, threads and blocks an SM of the bf16
+    flash forward in both modes at ``FLASH_FWD_INFO_HDS``, keyed
+    ``(causal, hd)``: each must be the wgmma kernel (384 threads) and
+    spill nothing."""
+    import torch
+    from repro_torch.kernels import flash_attention
+    info = {}
+    for causal in (True, False):
+        for hd in FLASH_FWD_INFO_HDS:
+            row = flash_attention.kernel_info(hd, torch.bfloat16, causal)
+            info[(causal, hd)] = row
+            print(f"compiled flash_attention bf16 forward causal={causal} "
+                  f"hd {hd}: {row}")
+            check(row["route"] == "wgmma" and row["threads"] == 384,
+                  f"flash bf16 forward causal={causal} hd {hd} takes the "
+                  f"wgmma kernel (got {row['route']}, {row['threads']} "
+                  f"threads)")
+            check(row["spill_bytes"] == 0,
+                  f"flash bf16 forward causal={causal} hd {hd} spills "
+                  f"nothing (got {row['spill_bytes']} bytes)")
+    return info
 
 
 def compiled_full_kernels() -> dict:
@@ -3155,8 +3231,13 @@ def main() -> None:
         for shape in FLASH_FULL_BWD_SHAPES[dtype]:
             full_errors["flash_attention_bwd_noncausal"].append(
                 compare_flash_bwd(shape, dtype, causal=False))
+    errors["flash_attention"].append(
+        compare_flash_unaligned(FLASH_UNALIGNED, causal=True))
+    full_errors["flash_attention_noncausal"].append(
+        compare_flash_unaligned(FLASH_UNALIGNED, causal=False))
     compiled = compiled_kernels(main_shape[2])
     full_compiled = compiled_full_kernels()
+    fwd_compiled = compiled_forward_kernels()
     timed = {"flash_attention": time_flash(FLASH_MAIN),
              "flash_attention_bwd": time_flash_bwd(FLASH_BWD_TIMED[0]),
              "mamba2_ssd": time_ssd(SSD_MAIN),
@@ -3273,10 +3354,15 @@ def main() -> None:
     flash_entry = next(e for e in record["kernels"]
                        if e["name"] == "flash_attention")
     hd160 = compiled[("flash_attention", "bfloat16", 160)]
+    flash_entry["route_bf16"] = timed["flash_attention"]["route"]
     flash_entry["other_shapes"] = [
-        {k: row[k] for k in ("shape", "ms", "busy_ms", "plain_ms",
+        {k: row[k] for k in ("shape", "route", "ms", "busy_ms", "plain_ms",
                              "library_ms", "library_busy_ms", "call_ms",
                              "bound_ms", "bound_by")} for row in flash_more]
+    flash_entry["compiled_bf16"] = {
+        f"hd {hd}": {k: row[k] for k in ("registers", "spill_bytes",
+                                         "blocks_per_sm", "threads")}
+        for (causal, hd), row in fwd_compiled.items() if causal}
     flash_entry["hd160_compiled"] = {
         "registers": hd160["registers"], "spill_bytes": hd160["spill_bytes"],
         "smem_bytes": hd160["static_smem_bytes"]
@@ -3334,9 +3420,10 @@ def main() -> None:
             "library_busy_ms": row["library_busy_ms"],
             "shape": row["shape"], "dtype": row["dtype"],
             "other_shapes": [
-                {k: r[k] for k in ("shape", "ms", "busy_ms", "plain_ms",
-                                   "library_ms", "library_busy_ms",
-                                   "call_ms", "bound_ms", "bound_by")}
+                {k: r[k] for k in ("shape", "route", "ms", "busy_ms",
+                                   "plain_ms", "library_ms",
+                                   "library_busy_ms", "call_ms", "bound_ms",
+                                   "bound_by") if k in r}
                 for r in rows[1:]],
             "compiled": {key: {k: info[k] for k in ("registers",
                                                    "spill_bytes",

@@ -21,39 +21,72 @@
 // (67 TFLOP/s). So the bf16 route is bound by bytes, and only a kernel on
 // the tensor cores can get near it.
 //
-// bf16 route (flash_fwd_tc_kernel, the serve path): one block of 4 warps
-// per (b, h, 128-row q tile), each warp owning 2 row blocks of 16 q rows,
-// up to a padded head dim (hdp) of 128. Above it (hdp 144 and 160:
-// stablelm-12b's head dim is 160) two row blocks' O accumulators alone
-// would take 2 * hdp / 2 = 160 f32 registers a thread, past the 255 cap
-// with the scores beside them; so the same 128-row q tile goes to 8 warps
-// of 1 row block each (80 accumulator registers). ptxas gives 170
-// registers and no spill at hdp 160; its 129,024 bytes of shared memory
-// (Q, then two stages of K and V, at a pitch of 168) allow 1 block, 8
-// warps, an SM, as many warps as 2 blocks of 4 below it.
-// S = Q K^T and O += P V run on the tensor cores as mma.sync.m16n8k16
-// (bf16 operands, f32 sums); Q, K and V fragments come from shared memory
-// through ldmatrix (V with .trans), and each K or V fragment serves both
-// row blocks of a warp. P is rounded to bf16 only as the A operand of
-// P V, while the row sum l and the lse come from the unrounded f32 P. The
-// TPU reference multiplies at the matrix unit's default precision (bf16
-// passes), so this is no looser. Loads: Q once per block, then K and V
-// tiles of 64 rows through a two-stage ring in shared memory, 16-byte
-// cp.async a thread: the copy of kv tile j + 1 is in flight while the
-// tensor cores work on tile j (two barriers a tile). The head dim is
-// padded to a multiple of 16 with zeros in shared memory only (rows of
-// hd + 8 elements: 16-byte aligned, ldmatrix conflict-free); columns past
-// hd are never stored. Where hd is not a multiple of 8 or an input is not
-// 16-byte aligned, the same tiles are filled element by element. Q tiles
-// are launched heaviest first (the q tile is blockIdx.y, reversed): tile i
-// reads 2 (i + 1) kv tiles.
-// Why mma.sync and not wgmma: its fragments live in one warp's registers,
-// so the online softmax, the causal mask and the P -> A-operand hand-off
-// are per-thread register code. A wgmma version (A from registers, K and
-// V through descriptors of unswizzled shared memory, one warpgroup a
-// block) was built and was correct on the card, but slower than this one;
-// swizzled tiles, TMA and warp-specialised warpgroups are the later work
-// that wgmma needs to pay off.
+// bf16 route, wgmma (flash_fwd_wg_kernel, the serve and train path): the
+// kernel built for Hopper, taken by every bf16 input a TMA tensor map can
+// describe (hd % 8 == 0, q, k, v and out 16-byte aligned), so by every
+// main-path head dim (64, 112, 128, 160). One block of 3 warpgroups (384
+// threads) owns one (b, h, 128-row q tile):
+//   - TMA: 4-D tensor maps over q, k, v and out as (hd, H, S, B), boxes of
+//     64 columns (128 bytes, 128-byte swizzle) by 64 q rows or one kv tile;
+//     hd 112 or 128 takes two boxes a row tile, 144 or 160 three. Columns
+//     past hd and rows past S arrive as zeros, so the loads mask nothing.
+//     The maps are encoded on the host for each call (cuTensorMapEncodeTiled
+//     through cudaGetDriverEntryPoint: no -lcuda) and passed as
+//     __grid_constant__ parameters.
+//   - Warp specialisation: one producer thread (warpgroup 2, down to 24
+//     registers by setmaxnreg) loads each consumer warpgroup's Q once and
+//     keeps a ring of K and V stages full, K and V each with a full
+//     (expect_tx) and an empty mbarrier a stage; two consumer warpgroups
+//     (up to 240 registers) own 64 q rows each.
+//   - wgmma: S = Q K^T as m64nNk16 with N the kv tile, both operands from
+//     swizzled shared memory through descriptors (K-major); O += P V with P
+//     from registers (the f32 fragment of S rounded to bf16 is the A
+//     fragment) and V as an MN-major B operand, N the head dim padded to
+//     16. The Q K^T of tile j + 1 is in flight while the softmax of tile j
+//     runs, and the two warpgroups take turns to issue (named barriers), so
+//     one's softmax runs beside the other's products.
+//   - Tiles: kv tiles of 128 rows in 2 stages up to hdp 128 (Q 32 KB +
+//     128 KB at hdp 128); at hdp 144 and 160 a row pads to 192 columns and
+//     2 stages of 128 rows with Q would take 240 KB, so 64-row tiles in 3
+//     stages (48 + 144 KB). One block an SM (168 launch registers); no spill.
+//   - Epilogue: O / l rounded to bf16 into the warpgroup's own Q tiles
+//     (swizzled as TMA wrote them), then a TMA store a box, which writes no
+//     row past S and no column past hd; lse in f32.
+//   - Block order: heads in groups (wg_group), and in a group q tile by q
+//     tile, heaviest first when causal; this spreads each head's K and V
+//     reads from device memory over the run.
+// P is rounded to bf16 only as the operand of P V; the row sum l and the lse
+// come from the unrounded f32 P (exp2 on the SFU, the 1/sqrt(hd) scale
+// folded into its argument). The TPU reference multiplies at the matrix
+// unit's default precision (bf16 passes), so this is no looser. No atomics,
+// no split of kv: a second call gives equal bits.
+// It replaces the mma.sync kernel on these inputs (Ampere's m16n8k16
+// with a two-stage cp.async ring, up to 255 registers with 24 bytes spilled
+// at hd 112). tools/time_kernels.py --only flash_fwd on an NVIDIA H100 80GB
+// HBM3 at 700.00 W, in turns with it (ms, medians of 60 launches by CUDA
+// events; PERF.md has all seven shapes): causal 0.0379 against
+// 0.0563-0.0566 at (4, 512, 32, 112), 0.0311 against 0.0484-0.0486 at
+// (4, 512, 24, 128), 0.0462 against 0.0919-0.0921 at (4, 512, 32, 160);
+// full 0.0458-0.0468 against 0.1005-0.1016, 0.0379-0.0381 against
+// 0.0709-0.0710, 0.0601-0.0606 against 0.1314-0.1315;
+// scaled_dot_product_attention 0.0367-0.0372, 0.0311-0.0314, 0.0509-0.0514
+// causal and 0.0415-0.0430, 0.0340-0.0342, 0.0596-0.0612 full on the same
+// inputs. What holds it back at S = 512: a block has 4 kv tiles and fills
+// its SM, so its prologue (Q and the first K tile) and epilogue are not
+// hidden behind another block's work (tools/trace_flash_blocks.py: about
+// 4 us of a full-mode block's 9.9 at (4, 512, 48, 128)); a
+// persistent tile scheduler is the later work that would hide them.
+//
+// bf16 route, mma.sync (flash_fwd_tc_kernel): the inputs TMA cannot
+// describe (hd % 8 != 0, or a base not 16-byte aligned), chosen by shape in
+// flash_attention_launch (route()), never as a reaction to a failed build
+// or launch. One block per (b, h, 128-row q tile), mma.sync.m16n8k16 from
+// ldmatrix fragments, K and V tiles of 64 rows through a two-stage ring
+// (the inputs are not 16-byte loadable, so its tiles fill element by
+// element). Up to
+// hdp 128 the causal kernel takes 4 warps of 2 16-row blocks; above it and
+// in full mode 8 warps of one (two blocks' O accumulators would pass the
+// 255-register cap at hdp 160).
 //
 // f32 route (flash_fwd_kernel, unchanged from the first port): one block
 // per (b, h, 64-row q tile), 256 threads as 16 x 16, f32 on the CUDA cores
@@ -65,35 +98,26 @@
 // hd masked). Q, then K and V of each tile, are staged in shared memory as
 // f32 with an odd row pitch; P goes through shared memory too.
 //
-// Causal or not is a template parameter of both routes' kernels (kCausal),
-// so the causal instantiation is the code it was before the full mode came,
-// with the same registers; a runtime branch could push the bf16 kernel at
-// hdp 160 (170 registers) into spills. Without the causal mask every q
-// tile reads every kv tile (the work is the same for every q tile, so the
-// bf16 grid keeps plain order), the diagonal mask goes, and only the
-// ragged last kv tile is masked, on kpos < S.
+// Causal or not is a template parameter of every kernel (kCausal), so each
+// mode compiles to its own registers. Without the causal mask every q tile
+// reads every kv tile, the diagonal mask goes, and only the ragged last kv
+// tile is masked, on kpos < S.
 //
-// Both routes: the causal skip comes from token positions: a q tile whose
+// Every route: the causal skip comes from token positions: a q tile whose
 // last row is s_last reads kv tiles up to s_last only, and a score is
-// masked on kpos <= qpos and kpos < S (the bf16 route masks only the kv
-// tiles that cross the diagonal or the end of S: two of a 128-row q tile). The Pallas kernel's tile-index
-// skip (j <= i) is exact only for equal q and kv blocks and is not copied.
-// The last tile of a ragged S is short: rows past S load as zeros, are
-// masked, and are never stored, so any S works. out is written in the
-// input dtype (round to nearest), lse in f32.
-//
-// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W), bf16 at
-// (4, 512, 32, 112): 0.0564 ms a launch (0.0472 ms CUPTI busy) against
-// scaled_dot_product_attention's 0.0318 ms busy on the same inputs; the
-// first design, f32 on the CUDA cores, took 0.6051 ms there. ptxas: 255
-// registers (24 bytes spilled), 92,160 bytes of shared memory, 2 blocks
-// an SM, so the 512 blocks of that shape run in about 2 waves.
+// masked on kpos <= qpos and kpos < S (the bf16 routes mask only the kv
+// tiles that cross the diagonal or the end of S). The Pallas kernel's
+// tile-index skip (j <= i) is exact only for equal q and kv blocks and is
+// not copied. The last tile of a ragged S is short: rows past S load as
+// zeros, are masked, and are never stored, so any S works. out is written
+// in the input dtype (round to nearest), lse in f32.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -586,6 +610,410 @@ int info_tc(int* info) {
                          tc_threads<kHdp, kCausal>(), smem, info);
 }
 
+// --------------------------------------------------------------------------
+// bf16 route on Hopper: TMA ring, warp-specialised wgmma warpgroups
+// --------------------------------------------------------------------------
+
+constexpr int kWgBlockQ = 128;     // q rows a block: 64 a consumer warpgroup
+constexpr int kWgThreads = 384;    // consumer warpgroups 0, 1; producer 2
+constexpr int kBoxCols = 64;       // bf16 columns a TMA box: 128 bytes
+constexpr int kRowBytes = 128;     // a box row, the swizzle span
+
+// 64-column boxes a row, kv rows a tile and kv stages in the ring, by the
+// padded head dim: up to hdp 128, tiles of 128 kv rows in 2 stages (Q
+// 32 KB + 128 KB at hdp 128); above it (hdp 144, 160: 3 boxes, a row padded
+// to 192 columns) 2 stages of 128 rows would take 240 KB with Q, so tiles
+// of 64 rows in 3 stages (48 + 144 KB).
+template <int kHdp>
+__host__ __device__ constexpr int wg_boxes() {
+  return (kHdp + kBoxCols - 1) / kBoxCols;
+}
+template <int kHdp>
+__host__ __device__ constexpr int wg_block_n() {
+  return wg_boxes<kHdp>() > 2 ? 64 : 128;
+}
+template <int kHdp>
+__host__ __device__ constexpr int wg_stages() {
+  return wg_boxes<kHdp>() > 2 ? 3 : 2;
+}
+
+// Q's boxes for both warpgroups, the K and V stages, and 1024 bytes to align
+// the swizzled tiles (the barriers are static shared memory)
+template <int kHdp>
+constexpr size_t wg_smem_bytes() {
+  return 1024 + static_cast<size_t>(wg_boxes<kHdp>()) * kRowBytes *
+                    (kWgBlockQ + 2 * wg_stages<kHdp>() * wg_block_n<kHdp>());
+}
+
+// The online softmax of one kv tile's raw scores s (this thread's part of
+// the warpgroup's 64 x kN tile: rows g and g + 8 of its warp's 16): masks
+// where `edge` (kpos > qpos when causal, kpos >= S), takes the row max of
+// the raw scores (scale_log2 = log2(e) / sqrt(hd) > 0 keeps their order),
+// updates the running max m_r (scaled, log2 domain) and sum l_r, leaves
+// P = exp2(s * scale_log2 - m) in s (one FFMA and one ex2 an element) and
+// returns each row's correction of O in corr.
+template <int kN, bool kCausal>
+__device__ __forceinline__ void wg_softmax(float (&s)[kN / 2], float (&m_r)[2],
+                                           float (&l_r)[2], float (&corr)[2],
+                                           bool edge, int k0, int qrow, int S,
+                                           float scale_log2) {
+  const int t = threadIdx.x & 3;
+  if (edge) {
+#pragma unroll
+    for (int nb = 0; nb < kN / 8; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kpos = k0 + nb * 8 + 2 * t + (e & 1);
+        const int qpos = qrow + (e >> 1) * 8;
+        if ((kCausal && kpos > qpos) || kpos >= S) s[4 * nb + e] = kNegInf;
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float raw = kNegInf;
+#pragma unroll
+    for (int nb = 0; nb < kN / 8; ++nb) {
+      raw = fmaxf(raw, fmaxf(s[4 * nb + 2 * r], s[4 * nb + 2 * r + 1]));
+    }
+    const float mx = fmaxf(m_r[r], tc::quad_max(raw) * scale_log2);
+    corr[r] = hp::exp2_approx(m_r[r] - mx);
+    float sum = 0.0f;
+#pragma unroll
+    for (int nb = 0; nb < kN / 8; ++nb) {
+      const float p0 =
+          hp::exp2_approx(fmaf(s[4 * nb + 2 * r], scale_log2, -mx));
+      const float p1 =
+          hp::exp2_approx(fmaf(s[4 * nb + 2 * r + 1], scale_log2, -mx));
+      s[4 * nb + 2 * r] = p0;
+      s[4 * nb + 2 * r + 1] = p1;
+      sum += p0 + p1;
+    }
+    l_r[r] = l_r[r] * corr[r] + tc::quad_sum(sum);
+    m_r[r] = mx;
+  }
+}
+
+// P (rounded to bf16) as the A operands of P V's k steps: k step kk is D's
+// 8-column blocks 2 kk and 2 kk + 1.
+template <int kN>
+__device__ __forceinline__ void wg_pack_p(const float (&s)[kN / 2],
+                                          uint32_t (&p)[kN / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kN / 16; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      p[kk][i] = tc::pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
+    }
+  }
+}
+
+// kHdp: the head dim padded to a multiple of 16 (O's width, Q K^T's depth);
+// kCausal as above. Maps: q, k, v, out as (hd, H, S, B) of bf16, 128-byte
+// swizzled boxes of 64 columns x 64 rows (q, out) or wg_block_n rows (k, v).
+template <int kHdp, bool kCausal>
+__global__ void __launch_bounds__(kWgThreads, 1)
+flash_fwd_wg_kernel(const __grid_constant__ CUtensorMap tm_q,
+                    const __grid_constant__ CUtensorMap tm_k,
+                    const __grid_constant__ CUtensorMap tm_v,
+                    const __grid_constant__ CUtensorMap tm_o,
+                    float* __restrict__ lse, int S, int H, float scale_log2,
+                    int group) {
+  constexpr int kBoxes = wg_boxes<kHdp>();
+  constexpr int kN = wg_block_n<kHdp>();
+  constexpr int kStages = wg_stages<kHdp>();
+  constexpr int kQBox = 64 * kRowBytes;      // a warpgroup's rows of a box
+  constexpr int kKvBox = kN * kRowBytes;     // a tile's rows of a box
+  constexpr int kQBytes = 2 * kBoxes * kQBox;
+  constexpr int kKvBytes = kBoxes * kKvBox;
+  // barriers: Q full of each warpgroup; K full, K empty, V full, V empty of
+  // each stage
+  __shared__ __align__(8) uint64_t bars[2 + 4 * kStages];
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  const uint32_t q_s = hp::smem_u32(smem);   // [warpgroup][box] 64 rows
+  const uint32_t k_s = q_s + kQBytes;        // [stage][box] kN rows
+  const uint32_t v_s = k_s + kStages * kKvBytes;
+  const uint32_t bar0 = hp::smem_u32(bars);
+  auto q_full = [&](int w) { return bar0 + 8 * w; };
+  auto k_full = [&](int st) { return bar0 + 8 * (2 + st); };
+  auto k_empty = [&](int st) { return bar0 + 8 * (2 + kStages + st); };
+  auto v_full = [&](int st) { return bar0 + 8 * (2 + 2 * kStages + st); };
+  auto v_empty = [&](int st) { return bar0 + 8 * (2 + 3 * kStages + st); };
+
+  // block order: (b, h) in groups of `group`; in a group, q tile by q tile
+  // (heaviest first when causal), then (b, h)
+  const int nq = (S + kWgBlockQ - 1) / kWgBlockQ;
+  const int n_bh = gridDim.x / nq;
+  const int first = blockIdx.x / (group * nq) * group;
+  const int in_group = min(group, n_bh - first);
+  const int rank = blockIdx.x - first * nq;
+  const int bh = first + rank % in_group;
+  const int tile = rank / in_group;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = (kCausal ? nq - 1 - tile : tile) * kWgBlockQ;
+  const int kv_end = kCausal ? min(S, q0 + kWgBlockQ) : S;
+  const int n_kv = (kv_end + kN - 1) / kN;
+
+  if (threadIdx.x == 256) {
+    hp::prefetch_tensormap(&tm_q);
+    hp::prefetch_tensormap(&tm_k);
+    hp::prefetch_tensormap(&tm_v);
+    hp::prefetch_tensormap(&tm_o);
+  }
+  if (threadIdx.x == 0) {
+    hp::mbar_init(q_full(0), 1);
+    hp::mbar_init(q_full(1), 1);
+    for (int st = 0; st < kStages; ++st) {
+      hp::mbar_init(k_full(st), 1);
+      hp::mbar_init(v_full(st), 1);
+      hp::mbar_init(k_empty(st), 8);   // one arrival a consumer warp
+      hp::mbar_init(v_empty(st), 8);
+    }
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer: one thread keeps the ring full
+    hp::setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      // warpgroup w's Q rows; warpgroup 0 starts first (its turn), so its
+      // Q and the first K tile go ahead of warpgroup 1's Q
+      auto load_q = [&](int w) {
+        hp::mbar_expect_tx(q_full(w), kQBytes / 2);
+        for (int c = 0; c < kBoxes; ++c) {
+          hp::tma_load_4d(q_s + (w * kBoxes + c) * kQBox, &tm_q, q_full(w),
+                          c * kBoxCols, h, q0 + 64 * w, b);
+        }
+      };
+      load_q(0);
+      for (int j = 0; j < n_kv; ++j) {
+        const int st = j % kStages;
+        const int reuse = j / kStages - 1;   // the stage's last release
+        if (reuse >= 0) hp::mbar_wait(k_empty(st), reuse & 1);
+        hp::mbar_expect_tx(k_full(st), kKvBytes);
+        for (int c = 0; c < kBoxes; ++c) {
+          hp::tma_load_4d(k_s + (st * kBoxes + c) * kKvBox, &tm_k, k_full(st),
+                          c * kBoxCols, h, j * kN, b);
+        }
+        if (j == 0) load_q(1);
+        if (reuse >= 0) hp::mbar_wait(v_empty(st), reuse & 1);
+        hp::mbar_expect_tx(v_full(st), kKvBytes);
+        for (int c = 0; c < kBoxes; ++c) {
+          hp::tma_load_4d(v_s + (st * kBoxes + c) * kKvBox, &tm_v, v_full(st),
+                          c * kBoxCols, h, j * kN, b);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns q rows q0 + 64 wg ..; S = Q K^T and
+    // O += P V on wgmma, the softmax of tile j overlapping Q K^T of j + 1
+    hp::setmaxnreg_inc<240>();
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int lane = threadIdx.x & 31;
+    const bool signals = lane == 0;          // a warp's release arrival
+    const int r0 = 16 * warp + (lane >> 2);  // rows r0, r0 + 8 of the 64
+    const int qmin = q0 + 64 * wg;
+    const int qrow = qmin + r0;
+    // causal: a trailing tile wholly after this warpgroup's rows is skipped
+    // (at most one, the block's last, when kN = 64); nobody waits on its
+    // release
+    const int n_mine =
+        kCausal ? min(n_kv, (min(S, qmin + 64) + kN - 1) / kN) : n_kv;
+    const uint32_t q_mine = q_s + wg * kBoxes * kQBox;
+
+    float o[kHdp / 2];
+#pragma unroll
+    for (int i = 0; i < kHdp / 2; ++i) o[i] = 0.0f;
+    float m_r[2] = {kNegInf, kNegInf};
+    float l_r[2] = {0.0f, 0.0f};
+    float corr[2];
+    float s[kN / 2];
+    uint32_t p[kN / 16][4];
+
+    auto issue_qk = [&](int j) {
+      const uint32_t kt = k_s + (j % kStages) * kKvBytes;
+#pragma unroll
+      for (int kk = 0; kk < kHdp / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        hp::mma_ss(s,
+                   hp::desc_sw128(q_mine + (kk / 4) * kQBox + off, 16, 1024),
+                   hp::desc_sw128(kt + (kk / 4) * kKvBox + off, 16, 1024),
+                   kk > 0);
+      }
+    };
+    auto issue_pv = [&](int j) {
+      const uint32_t vt = v_s + (j % kStages) * kKvBytes;
+#pragma unroll
+      for (int kk = 0; kk < kN / 16; ++kk) {
+        hp::mma_rs(o, p[kk],
+                   hp::desc_sw128(vt + kk * 16 * kRowBytes, kKvBox, 1024), 1);
+      }
+    };
+    auto edge = [&](int k0) {
+      return (kCausal && k0 + kN - 1 > qmin) || k0 + kN > S;
+    };
+    // the warpgroups take turns to issue their wgmma (named barriers 3 and
+    // 4), so one's softmax runs beside the other's products; warpgroup 0
+    // goes first
+    auto turn = [&]() { hp::bar_sync(3 + wg, 256); };
+    auto pass = [&]() { hp::bar_arrive(4 - wg, 256); };
+    if (wg == 1) hp::bar_arrive(3, 256);
+
+    hp::mbar_wait(q_full(wg), 0);
+    hp::mbar_wait(k_full(0), 0);
+    turn();
+    hp::wgmma_fence();
+    issue_qk(0);
+    hp::wgmma_commit();
+    pass();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(s);
+    if (signals) hp::mbar_arrive(k_empty(0));
+    wg_softmax<kN, kCausal>(s, m_r, l_r, corr, edge(0), 0, qrow, S,
+                            scale_log2);
+    wg_pack_p<kN>(s, p);
+
+    for (int j = 1; j < n_mine; ++j) {
+      const int st = j % kStages;
+      const int prev = (j - 1) % kStages;
+      hp::mbar_wait(k_full(st), (j / kStages) & 1);
+      turn();
+      hp::fence_regs(o);
+      hp::fence_regs(p);
+      hp::wgmma_fence();
+      issue_qk(j);
+      hp::wgmma_commit();
+      hp::mbar_wait(v_full(prev), ((j - 1) / kStages) & 1);
+      issue_pv(j - 1);
+      hp::wgmma_commit();
+      pass();
+      hp::wgmma_wait<1>();                   // S of tile j
+      hp::fence_regs(s);
+      if (signals) hp::mbar_arrive(k_empty(st));
+      wg_softmax<kN, kCausal>(s, m_r, l_r, corr, edge(j * kN), j * kN, qrow,
+                              S, scale_log2);
+      hp::wgmma_wait<0>();                   // O += P V of tile j - 1
+      hp::fence_regs(o);
+      if (signals) hp::mbar_arrive(v_empty(prev));
+#pragma unroll
+      for (int nd = 0; nd < kHdp / 8; ++nd) {
+        o[4 * nd] *= corr[0];
+        o[4 * nd + 1] *= corr[0];
+        o[4 * nd + 2] *= corr[1];
+        o[4 * nd + 3] *= corr[1];
+      }
+      wg_pack_p<kN>(s, p);
+    }
+    const int last = n_mine - 1;
+    hp::mbar_wait(v_full(last % kStages), (last / kStages) & 1);
+    turn();
+    hp::fence_regs(o);
+    hp::fence_regs(p);
+    hp::wgmma_fence();
+    issue_pv(last);
+    hp::wgmma_commit();
+    if (wg == 0) pass();
+    // turns of the tiles warpgroup 0 skipped, so both take n_kv + 1
+    for (int j = n_mine; j < n_kv; ++j) {
+      turn();
+      pass();
+    }
+    hp::wgmma_wait<0>();
+    hp::fence_regs(o);
+    if (signals) hp::mbar_arrive(v_empty(last % kStages));
+
+    // epilogue: O / l in bf16 into this warpgroup's Q boxes, swizzled as
+    // TMA wrote them (no wgmma reads them any more), then one TMA store a
+    // box, which leaves out rows past S and columns past hd; lse in f32
+    hp::bar_sync(1 + wg, 128);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = r0 + 8 * r;
+      const float l_safe = fmaxf(l_r[r], 1e-30f);
+      const float inv = 1.0f / l_safe;
+      unsigned char* dst = smem + (q_mine - q_s) + row * kRowBytes +
+                           4 * (lane & 3);
+#pragma unroll
+      for (int nd = 0; nd < kHdp / 8; ++nd) {
+        const int chunk = (nd % 8) ^ (row & 7);
+        *reinterpret_cast<uint32_t*>(dst + (nd / 8) * kQBox + chunk * 16) =
+            tc::pack_bf16(o[4 * nd + 2 * r] * inv,
+                          o[4 * nd + 2 * r + 1] * inv);
+      }
+      if ((lane & 3) == 0 && qrow + 8 * r < S) {
+        lse[(static_cast<size_t>(b) * S + qrow + 8 * r) * H + h] =
+            m_r[r] * kLn2 + logf(l_safe);
+      }
+    }
+    hp::fence_proxy_async();
+    hp::bar_sync(1 + wg, 128);
+    if ((threadIdx.x & 127) == 0 && qmin < S) {
+      for (int c = 0; c < kBoxes; ++c) {
+        hp::tma_store_4d(&tm_o, q_mine + c * kQBox, c * kBoxCols, h, qmin, b);
+      }
+      hp::tma_store_commit();
+      hp::tma_store_wait_read();
+    }
+  }
+}
+
+// Heads a group of the block order (blocks run group by group, and in a
+// group q tile by q tile, heaviest first when causal): few heads a group
+// spread each head's K and V reads from device memory over the run, one
+// group of all heads orders every causal tile heaviest first. Measured on
+// an H100 (PERF.md): full mode, 4 heads; causal, 16 heads once the grid
+// passes 3 waves of blocks, else all.
+int wg_group(bool causal, int n_bh, int blocks, int sms) {
+  if (!causal) return min(4, n_bh);
+  return blocks > 3 * sms ? min(16, n_bh) : n_bh;
+}
+
+template <int kHdp, bool kCausal>
+int launch_wg(const void* q, const void* k, const void* v, void* out,
+              float* lse, int B, int S, int H, int hd, cudaStream_t stream) {
+  constexpr size_t smem = wg_smem_bytes<kHdp>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wg_kernel<kHdp, kCausal>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  CUtensorMap tm_q, tm_k, tm_v, tm_o;
+  if (!hp::encode_bshd(&tm_q, q, B, S, H, hd, 64) ||
+      !hp::encode_bshd(&tm_k, k, B, S, H, hd, wg_block_n<kHdp>()) ||
+      !hp::encode_bshd(&tm_v, v, B, S, H, hd, wg_block_n<kHdp>()) ||
+      !hp::encode_bshd(&tm_o, out, B, S, H, hd, 64)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int grid = B * H * ((S + kWgBlockQ - 1) / kWgBlockQ);
+  int device = 0;
+  int sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int group = wg_group(kCausal, B * H, grid, sms);
+  flash_fwd_wg_kernel<kHdp, kCausal><<<grid, kWgThreads, smem, stream>>>(
+      tm_q, tm_k, tm_v, tm_o, lse, S, H,
+      1.4426950408889634f / sqrtf(static_cast<float>(hd)), group);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int kHdp, bool kCausal>
+int info_wg(int* info) {
+  constexpr size_t smem = wg_smem_bytes<kHdp>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wg_kernel<kHdp, kCausal>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return tc::kernel_info(flash_fwd_wg_kernel<kHdp, kCausal>, kWgThreads, smem,
+                         info);
+}
+
 // Dispatch on causal (a template parameter of every kernel).
 template <typename Fn>
 int with_causal(int causal, Fn&& fn) {
@@ -609,6 +1037,20 @@ int with_hdp(int hd, Fn&& fn) {
     case 10: return fn(std::integral_constant<int, 160>{});
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+constexpr int kRouteCudaCores = 0;
+constexpr int kRouteMmaSync = 1;
+constexpr int kRouteWgmma = 2;
+
+// The route, by dtype and shape alone: bf16 inputs a TMA tensor map can
+// describe take the wgmma kernel, other bf16 inputs the mma.sync one.
+int route(const void* q, const void* k, const void* v, const void* out,
+          int hd, int dtype) {
+  if (dtype == 0) return kRouteCudaCores;
+  const bool tma = hd % 8 == 0 && tc::aligned16(q) && tc::aligned16(k) &&
+                   tc::aligned16(v) && tc::aligned16(out);
+  return tma ? kRouteWgmma : kRouteMmaSync;
 }
 
 }  // namespace
@@ -639,10 +1081,15 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     if ((S + kTcBlockQ - 1) / kTcBlockQ > 65535) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
+    const bool wgmma = route(q, k, v, out, hd, dtype) == kRouteWgmma;
     return with_hdp(hd, [&](auto hdp) {
       return with_causal(causal, [&](auto c) {
-        return launch_tc<decltype(hdp)::value, decltype(c)::value>(
-            q, k, v, out, lse, B, S, H, hd, st);
+        constexpr int kHdp = decltype(hdp)::value;
+        constexpr bool kCausal = decltype(c)::value;
+        return wgmma ? launch_wg<kHdp, kCausal>(q, k, v, out, lse, B, S, H,
+                                                hd, st)
+                     : launch_tc<kHdp, kCausal>(q, k, v, out, lse, B, S, H,
+                                                hd, st);
       });
     });
   }
@@ -673,11 +1120,26 @@ extern "C" int flash_attention_info(int hd, int dtype, int causal,
     });
   }
   if (dtype == 1) {
+    const bool wgmma = route(nullptr, nullptr, nullptr, nullptr, hd, dtype) ==
+                       kRouteWgmma;
     return with_hdp(hd, [&](auto hdp) {
       return with_causal(causal, [&](auto c) {
-        return info_tc<decltype(hdp)::value, decltype(c)::value>(info);
+        constexpr int kHdp = decltype(hdp)::value;
+        constexpr bool kCausal = decltype(c)::value;
+        return wgmma ? info_wg<kHdp, kCausal>(info)
+                     : info_tc<kHdp, kCausal>(info);
       });
     });
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The route flash_attention_launch takes for these pointers, head dim and
+// dtype: 0 the f32 CUDA-core kernel, 1 the bf16 mma.sync kernel, 2 the bf16
+// wgmma kernel (hd % 8 == 0 and every pointer 16-byte aligned: what a TMA
+// tensor map can describe).
+extern "C" int flash_attention_route(const void* q, const void* k,
+                                     const void* v, const void* out, int hd,
+                                     int dtype) {
+  return route(q, k, v, out, hd, dtype);
 }

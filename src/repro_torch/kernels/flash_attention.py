@@ -13,7 +13,10 @@ JAX package (forward ``_flash_fwd_kernel``, both values of its
 ``causal``); the CUDA source, with its bound and design, is
 ``csrc/flash_attention.cu``, where ``causal`` is a template parameter.
 bf16 inputs (the serve path) run on the tensor cores, with P rounded to
-bf16 as the operand of P·V; f32 inputs keep an f32 CUDA-core kernel.
+bf16 as the operand of P·V: those a TMA tensor map can describe (hd % 8
+== 0, 16-byte aligned bases; every main-path shape) on Hopper's wgmma
+kernel, the rest on the mma.sync one (:func:`route` names the kernel an
+input takes); f32 inputs keep an f32 CUDA-core kernel.
 
 The backward replaces that kernel's ``custom_vjp`` backward, which runs
 ``models/attention.py::_flash_bwd_impl`` (FlashAttention-2: P recomputed
@@ -146,12 +149,39 @@ def build() -> None:
     _load_bwd()
 
 
+ROUTES = ("cuda-cores", "mma.sync", "wgmma")   # flash_attention_route's codes
+
+
+def _route(q_ptr: int, k_ptr: int, v_ptr: int, hd: int,
+           dtype: torch.dtype) -> str:
+    from ._build import load
+    fn = load("flash_attention").flash_attention_route
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
+    # out: the wrapper allocates it, so it is aligned; a null pointer is too
+    return ROUTES[fn(q_ptr, k_ptr, v_ptr, 0, hd, _DTYPES[dtype])]
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The forward kernel that CUDA inputs q, k, v take, as the C entry
+    point picks it by dtype and shape: ``"wgmma"`` (bf16, hd % 8 == 0,
+    every base 16-byte aligned: what a TMA tensor map can describe),
+    ``"mma.sync"`` (other bf16 inputs) or ``"cuda-cores"`` (f32). Needs
+    the card's build."""
+    _check(q, k, v)
+    return _route(q.data_ptr(), k.data_ptr(), v.data_ptr(), q.shape[3],
+                  q.dtype)
+
+
 def kernel_info(hd: int, dtype: torch.dtype, causal: bool = True) -> dict:
     """Registers, shared memory and blocks an SM of the compiled kernel
-    that ``dtype`` and ``causal`` take at head dim ``hd``
-    (``_build.kernel_info``; needs the card)."""
+    that ``dtype`` and ``causal`` take at head dim ``hd`` for 16-byte
+    aligned inputs, and that kernel's ``route`` (``_build.kernel_info``;
+    needs the card)."""
     from ._build import kernel_info as info
-    return info("flash_attention", hd, _DTYPES[dtype], int(causal))
+    row = info("flash_attention", hd, _DTYPES[dtype], int(causal))
+    row["route"] = _route(0, 0, 0, hd, dtype)
+    return row
 
 
 def _count(fn, shape: tuple, causal: bool) -> None:

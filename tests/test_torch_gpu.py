@@ -13,7 +13,10 @@ DAG against their unsharded runs; its link graphs: a replay bit-equal to
 eager, a second sweep replayed without a capture, a host sync refused and
 run eagerly), and over two cards where there are; the compressed mean
 over an NCCL group of one process; flash attention's non-causal kernels
-(forward and backward, both routes) against their plain versions; a
+(forward and backward, both routes) against their plain versions; the
+bf16 forward's wgmma kernel at every padded head dim, S around its tiles
+and both modes (equal bits on a second call), the inputs that take the
+mma.sync kernel instead, and each forward's compiled threads and spills; a
 checkpoint restored onto an NCCL mesh of one rank with shardings.
 They skip where ``torch.cuda.is_available()`` is False. This file
 imports nothing of JAX, so it also runs where JAX is not installed:
@@ -516,14 +519,94 @@ def test_flash_attention_noncausal_takes_grads(cuda, shape):
 @pytest.mark.parametrize("hd", [112, 128, 160])
 def test_flash_attention_noncausal_kernels_spill_nothing(cuda, hd):
     """The non-causal instantiations of the bf16 kernels spill nothing
-    (the forward takes 1 x 8 warps a block at every head dim)."""
+    (the forward is the wgmma kernel: 3 warpgroups a block)."""
     from repro_torch.kernels.flash_attention import (bwd_kernel_info,
                                                      kernel_info)
     full = kernel_info(hd, torch.bfloat16, causal=False)
-    assert full["spill_bytes"] == 0 and full["threads"] == 256
+    assert full["spill_bytes"] == 0 and full["threads"] == 384
     for which in ("dkdv", "dq"):
         info = bwd_kernel_info(hd, torch.bfloat16, which, causal=False)
         assert info["spill_bytes"] == 0
+
+
+# the bf16 forward's wgmma kernel: every padded head dim it tiles apart
+# (16 and 32 pad to one 64-column box, 112 and 128 take two, 160 three with
+# 64-row kv tiles), S straddling the 128-row q tile and the 64- and 128-row
+# kv tiles, and B * H below and above the card's 132 SMs
+WGMMA_SHAPES = [(B, S, H, hd) for hd in (16, 32, 64, 112, 128, 160)
+                for S in (1, 63, 64, 65, 127, 128, 129, 200, 512)
+                for B, H in ((1, 3), (4, 40))]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", WGMMA_SHAPES)
+def test_flash_attention_wgmma_matches_plain(cuda, shape, causal):
+    """The wgmma kernel (TMA ring, producer warp, two consumer warpgroups)
+    against the plain version in both modes; a second call gives equal
+    bits."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain,
+                                                     route)
+    q, k, v = _attention_inputs(shape, torch.bfloat16, cuda)
+    assert route(q, k, v) == "wgmma"
+    out, lse = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = flash_attention_plain(q, k, v, causal=causal)
+    tol = TOLERANCES[torch.bfloat16][0]
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=2e-5)
+    again = flash_attention(q, k, v, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip((out, lse), again))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("what", ["unaligned", "hd 150"])
+def test_flash_attention_mma_sync_route_by_shape(cuda, what, causal):
+    """Inputs a TMA tensor map cannot describe (a base 2 bytes past a
+    16-byte boundary, hd % 8 != 0) take the mma.sync kernel, held to the
+    plain version; the same shape aligned at hd 112 takes wgmma; f32 takes
+    the CUDA cores."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain,
+                                                     route)
+    if what == "unaligned":
+        shape = (2, 100, 3, 112)
+        rng = np.random.default_rng(5)
+        flat = [torch.from_numpy(rng.standard_normal(int(np.prod(shape)) + 1)
+                                 .astype(np.float32)).to(cuda)
+                .to(torch.bfloat16) for _ in range(3)]
+        q, k, v = (f[1:].view(shape) for f in flat)
+        assert q.data_ptr() % 16 != 0
+        assert route(*(a.clone() for a in (q, k, v))) == "wgmma"
+    else:
+        shape = (2, 100, 3, 150)
+        q, k, v = _attention_inputs(shape, torch.bfloat16, cuda)
+    assert route(q, k, v) == "mma.sync"
+    assert route(*(a.float() for a in (q, k, v))) == "cuda-cores"
+    out, lse = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    ref_out, ref_lse = flash_attention_plain(q, k, v, causal=causal)
+    tol = TOLERANCES[torch.bfloat16][0]
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [64, 112, 128, 150, 160])
+def test_flash_attention_forward_kernel_info(cuda, hd, causal):
+    """At every main-path head dim the bf16 forward is the wgmma kernel:
+    384 threads (a producer and two consumer warpgroups), one block an
+    SM, no spill; hd 150 reports the mma.sync kernel."""
+    from repro_torch.kernels.flash_attention import kernel_info
+    info = kernel_info(hd, torch.bfloat16, causal)
+    assert info["spill_bytes"] == 0
+    if hd % 8:
+        assert info["route"] == "mma.sync" and info["threads"] == 256
+    else:
+        assert info["route"] == "wgmma" and info["threads"] == 384
+        assert info["blocks_per_sm"] == 1
 
 
 def test_checkpoint_restores_onto_an_nccl_mesh(cuda, tmp_path):

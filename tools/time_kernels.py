@@ -15,9 +15,17 @@ busy time); then the registers and spills of the bf16 flash kernels
 them (its default, causal, kernels). Where the tree's ``flash_attention``
 takes ``causal``, the same for ``causal=False``: the forward at the three
 shapes, the backward at both, the registers and spills. The inputs are
-``chip_smoke.py``'s. It
-prints the card and one JSON line. Two trees compare on one card when
-they run in turns in one session: parent, change, change, parent.
+``chip_smoke.py``'s.
+
+    python3 tools/time_kernels.py --src PATH/src --only flash_fwd
+
+times the bf16 flash forward alone, in both modes, at the seven shapes of
+``chip_smoke.FLASH_TIMED`` and ``FLASH_MAIN`` (device time, the host's
+``call_ms``, and ``scaled_dot_product_attention`` on the same inputs as
+the yardstick), with the tree's route at each shape where it reports one,
+and the registers and spills at head dims 64, 112, 128 and 160. It prints
+the card and one JSON line. Two trees compare on one card when they run
+in turns in one session: parent, change, change, parent.
 """
 
 from __future__ import annotations
@@ -35,6 +43,9 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--src", required=True,
                         help="the tree's src directory (holds repro_torch)")
+    parser.add_argument("--only", choices=("all", "flash_fwd"),
+                        default="all", help="time every kernel, or the bf16 "
+                        "flash forward alone")
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     sys.path.insert(1, HERE)
@@ -44,11 +55,20 @@ def main() -> None:
         raise SystemExit("needs a CUDA device")
     from repro_torch.kernels import (anen_distance, flash_attention,
                                      mamba2_ssd, rwkv6_wkv)
-    for kmod in (anen_distance, flash_attention, mamba2_ssd, rwkv6_wkv):
-        kmod.build()
+    if args.only == "flash_fwd":
+        from repro_torch.kernels._build import load
+        load("flash_attention")
+    else:
+        for kmod in (anen_distance, flash_attention, mamba2_ssd, rwkv6_wkv):
+            kmod.build()
 
     rows = {"src": os.path.abspath(args.src), "card": cs.card_line(),
             "empty_kernel_ms": cs.empty_ms()}
+    if args.only == "flash_fwd":
+        rows.update(flash_forward(cs, flash_attention))
+        print(rows["card"])
+        print(json.dumps(rows))
+        return
     for shape in ((365, 3, 512), (365, 3, 4096)):
         fh, fn = cs.distance_inputs(shape)
         rows[f"anen_distance {shape}"] = cs.device_ms(
@@ -106,6 +126,36 @@ def main() -> None:
                      f"hd {hd}"] = [info["registers"], info["spill_bytes"]]
     print(rows["card"])
     print(json.dumps(rows))
+
+
+def flash_forward(cs, flash_attention) -> dict:
+    """The bf16 forward at ``FLASH_MAIN`` and ``FLASH_TIMED`` in both
+    modes: device ms, call ms, SDPA's device ms and the route; then the
+    registers and spills of the compiled forward at head dims 64, 112,
+    128 and 160 (and the threads a block)."""
+    import torch
+    import torch.nn.functional as F
+    rows = {}
+    route = getattr(flash_attention, "route", None)
+    for shape in (cs.FLASH_MAIN, *cs.FLASH_TIMED):
+        q, k, v = cs.attention_inputs(shape, "bfloat16")
+        qt, kt, vt = (a.transpose(1, 2).contiguous() for a in (q, k, v))
+        for causal in (True, False):
+            fn = lambda: flash_attention.flash_attention(  # noqa: E731
+                q, k, v, causal=causal)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, kt, vt, is_causal=causal)
+            rows[f"flash_attention bfloat16 causal={causal} {shape}"] = {
+                "ms": cs.device_ms(fn), "call_ms": cs.call_ms(fn),
+                "library_ms": cs.device_ms(lib),
+                "route": route(q, k, v) if route else "mma.sync"}
+    for causal in (True, False):
+        for hd in (64, 112, 128, 160):
+            info = flash_attention.kernel_info(hd, torch.bfloat16, causal)
+            rows[f"flash_attention causal={causal} registers/spill/threads "
+                 f"hd {hd}"] = [info["registers"], info["spill_bytes"],
+                                info["threads"]]
+    return rows
 
 
 if __name__ == "__main__":
