@@ -126,7 +126,14 @@ modes, and the compiled forward at head dims 64, 112, 128 and 160 must be
 the 384-thread wgmma kernel with no spill; views a TMA tensor map cannot
 describe (2 bytes past a 16-byte boundary) and hd 150 must take the
 mma.sync kernel and meet the same gates; it is timed in both modes at the
-seven attention-stack shapes beside SDPA.
+seven attention-stack shapes beside SDPA. The bf16 flash backward takes
+its wgmma kernels (dk/dv and dq: TMA ring, a producer warp, two consumer
+warpgroups) wherever the inputs are aligned bf16 with hd % 8 == 0 at the
+padded head dims 32, 64, 112 and 128: each backward compare names its
+route and must take the one its shape calls for, the compiled dk/dv and
+dq kernels at head dims 32, 64, 112 and 128 in both modes must be the
+384-thread wgmma kernels with no spill, and the unaligned views, hd 150
+and hd 160 must take the mma.sync kernels and meet the same gates.
 
 Flash attention's non-causal mode (``flash_attention(causal=False)``,
 bidirectional attention, the JAX kernel's ``causal=False``) is held the
@@ -340,6 +347,11 @@ FLASH_UNALIGNED = (2, 100, 3, 112)
 # the bf16 forward's head dims on the main paths: each must take the wgmma
 # kernel (384 threads) and spill nothing, in both modes
 FLASH_FWD_INFO_HDS = (64, 112, 128, 160)
+# the bf16 backward's head dims on the train paths (128 qwen2-vl-2b, 112
+# zamba2-7b-45l, 32 the managed minitron-4b smoke) and 64: its dk/dv and
+# dq kernels must be the wgmma ones (384 threads) and spill nothing, in
+# both modes
+FLASH_BWD_WGMMA_HDS = (32, 64, 112, 128)
 # f32: the JAX gradient tolerance (tests/test_kernels.py:56). bf16: both
 # sides sum in f32 and round dq, dk, dv once to bf16; sums in another
 # order can round to neighbouring bf16 values, 2^-8 of |ref| apart, so
@@ -1728,19 +1740,35 @@ def compare_flash_unaligned(shape, causal: bool) -> float:
     return err
 
 
+def bwd_route_of(shape, dtype: str) -> str:
+    """The backward route the C entry point must pick for aligned inputs
+    of this shape and dtype."""
+    if dtype == "float32":
+        return "cuda-cores"
+    hdp = -(-shape[3] // 16) * 16
+    return ("wgmma" if shape[3] % 8 == 0 and hdp in FLASH_BWD_WGMMA_HDS
+            else "mma.sync")
+
+
 def compare_flash_bwd(shape, dtype: str, causal: bool = True) -> float:
     """The backward kernel against its plain version on the same q, k, v,
-    out, lse (from the forward kernel) and dout: dq, dk, dv. The bf16
-    route (tensor cores, no atomics), and without the causal mask either
-    route, must give equal bits on a second call; the causal f32 route
-    (CUDA cores) must stay within ``BWD_F32_UNCHANGED`` of the plain
-    version, as the first port did."""
+    out, lse (from the forward kernel) and dout: dq, dk, dv. The inputs
+    must take the route their shape calls for (``bwd_route_of``), which
+    it prints. The bf16 routes (tensor cores, no atomics), and without
+    the causal mask every route, must give equal bits on a second call;
+    the causal f32 route (CUDA cores) must stay within
+    ``BWD_F32_UNCHANGED`` of the plain version, as the first port did."""
     import torch
     from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
+        bwd_route, flash_attention, flash_attention_bwd,
+        flash_attention_bwd_plain)
     q, k, v = attention_inputs(shape, dtype)
     dout = attention_inputs(shape, dtype, seed=12)[0]
     out, lse = flash_attention(q, k, v, causal=causal)
+    taken = bwd_route(q, k, v, out, dout)
+    check(taken == bwd_route_of(shape, dtype),
+          f"flash_attention_bwd {shape} {dtype}: the "
+          f"{bwd_route_of(shape, dtype)} route (got {taken})")
     got = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
     want = flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=causal)
     torch.cuda.synchronize()
@@ -1760,13 +1788,53 @@ def compare_flash_bwd(shape, dtype: str, causal: bool = True) -> float:
             held_close(a, b, BWD_F32_UNCHANGED,
                        f"flash_attention_bwd {name} {shape} f32 route "
                        f"unchanged")
-    print(f"flash_attention_bwd{mode} {shape} {dtype}: max abs err dq, dk, "
-          f"dv {errs} (tolerance {tol})"
+    print(f"flash_attention_bwd{mode} {shape} {dtype} ({taken} route): max "
+          f"abs err dq, dk, dv {errs} (tolerance {tol})"
           + ("; a second call gives equal bits"
              if dtype == "bfloat16" or not causal
              else f"; within {BWD_F32_UNCHANGED} (f32 route unchanged)"))
     return max(errs)
 
+
+
+def compare_flash_bwd_unaligned(shape, causal: bool) -> float:
+    """The backward on bf16 views 2 bytes past a 16-byte boundary, which
+    no TMA tensor map can describe: they must take the mma.sync kernels
+    (chosen by shape in the C entry point) and meet the plain version
+    with equal bits on a second call, as the wgmma route does."""
+    import torch
+    from repro_torch.kernels.flash_attention import (
+        bwd_route, flash_attention, flash_attention_bwd,
+        flash_attention_bwd_plain)
+    q, k, v = attention_inputs(shape, "bfloat16")
+    dout = attention_inputs(shape, "bfloat16", seed=12)[0]
+    out, lse = flash_attention(q, k, v, causal=causal)
+    views = []
+    for a in (q, k, v, out, dout):
+        flat = torch.empty(a.numel() + 8, dtype=a.dtype, device=a.device)
+        views.append(flat[1:1 + a.numel()].view(a.shape))
+        views[-1].copy_(a)
+    q, k, v, out, dout = views
+    taken = bwd_route(q, k, v, out, dout)
+    check(q.data_ptr() % 16 != 0 and taken == "mma.sync",
+          f"flash_attention_bwd unaligned {shape}: the mma.sync route (got "
+          f"{taken})")
+    got = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=causal)
+    again = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    torch.cuda.synchronize()
+    tol = BWD_TOLERANCE["bfloat16"]
+    mode = "" if causal else " causal=False"
+    errs = [held_close(a, b, tol, f"flash_attention_bwd{mode} unaligned "
+                                  f"{name} {shape}")
+            for name, a, b in zip(("dq", "dk", "dv"), got, want)]
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"flash_attention_bwd{mode} unaligned {shape}: equal bits on a "
+          f"second call")
+    print(f"flash_attention_bwd{mode} unaligned {shape} bfloat16 (mma.sync "
+          f"route): max abs err dq, dk, dv {errs} (tolerance {tol}); a "
+          f"second call gives equal bits")
+    return max(errs)
 
 
 def time_flash_bwd(shape, causal: bool = True) -> dict:
@@ -1778,7 +1846,8 @@ def time_flash_bwd(shape, causal: bool = True) -> dict:
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import (
-        flash_attention, flash_attention_bwd, flash_attention_bwd_plain)
+        bwd_route, flash_attention, flash_attention_bwd,
+        flash_attention_bwd_plain)
     q, k, v = attention_inputs(shape, "bfloat16")
     dout = attention_inputs(shape, "bfloat16", seed=12)[0]
     out, lse = flash_attention(q, k, v, causal=causal)
@@ -1793,23 +1862,24 @@ def time_flash_bwd(shape, causal: bool = True) -> dict:
     library = lambda: torch.autograd.grad(                         # noqa
         sdpa, (qt, kt, vt), dout_t, retain_graph=True)
     row = {"shape": list(shape), "dtype": "bfloat16", "causal": causal,
+           "route": bwd_route(q, k, v, out, dout),
            "ms": device_ms(kernel), "busy_ms": busy_ms(kernel),
            "parts_busy_ms": bwd_parts_ms(kernel),
            "plain_ms": busy_ms(plain), "library_ms": device_ms(library),
            "library_busy_ms": busy_ms(library), "call_ms": call_ms(kernel)}
     row.update(flash_bwd_bound(shape, 2, causal))
     mode = "" if causal else " causal=False"
-    print(f"flash_attention_bwd{mode} {tuple(shape)} bf16: {row['ms']} ms a "
-          f"call "
+    print(f"flash_attention_bwd{mode} {tuple(shape)} bf16 ({row['route']} "
+          f"route): {row['ms']} ms a call "
           f"({row['busy_ms']} busy; by kernel {row['parts_busy_ms']}), "
           f"SDPA's backward {row['library_ms']} busy, bound "
           f"{row['bound_ms']} ({row['bound_by']})")
     return row
 
 
-# the backward's three kernels, either route (names as the profiler gives
-# them, e.g. "void (anonymous namespace)::dkdv_tc_kernel<128>(...)")
-BWD_KERNEL = re.compile(r"::(delta|dkdv|dq)_(?:tc_)?kernel<")
+# the backward's three kernels, any route (names as the profiler gives
+# them, e.g. "void (anonymous namespace)::dkdv_wg_kernel<128, true>(...)")
+BWD_KERNEL = re.compile(r"::(delta|dkdv|dq)_(?:tc_|wg_)?kernel<")
 
 
 def bwd_part(name: str):
@@ -2084,6 +2154,37 @@ def compiled_forward_kernels() -> dict:
             check(row["spill_bytes"] == 0,
                   f"flash bf16 forward causal={causal} hd {hd} spills "
                   f"nothing (got {row['spill_bytes']} bytes)")
+    return info
+
+
+def compiled_backward_kernels() -> dict:
+    """Registers, shared memory, threads and blocks an SM of the bf16
+    flash backward's dk/dv and dq kernels in both modes at
+    ``FLASH_BWD_WGMMA_HDS``, keyed ``(causal, which, hd)``: each must be
+    the wgmma kernel (384 threads) and spill nothing; hd 150 and 160
+    report the mma.sync kernels."""
+    import torch
+    from repro_torch.kernels import flash_attention
+    info = {}
+    for causal in (True, False):
+        for hd in (*FLASH_BWD_WGMMA_HDS, 150, 160):
+            for which in ("dkdv", "dq"):
+                row = flash_attention.bwd_kernel_info(hd, torch.bfloat16,
+                                                      which, causal)
+                info[(causal, which, hd)] = row
+                print(f"compiled flash_attention_bwd bf16 {which} "
+                      f"causal={causal} hd {hd}: {row}")
+                want = ("wgmma" if hd in FLASH_BWD_WGMMA_HDS
+                        else "mma.sync")
+                check(row["route"] == want
+                      and (row["threads"] == 384) == (want == "wgmma"),
+                      f"flash bf16 backward {which} causal={causal} hd "
+                      f"{hd} takes the {want} kernel (got {row['route']}, "
+                      f"{row['threads']} threads)")
+                check(row["spill_bytes"] == 0,
+                      f"flash bf16 backward {which} causal={causal} hd "
+                      f"{hd} spills nothing (got {row['spill_bytes']} "
+                      f"bytes)")
     return info
 
 
@@ -3235,9 +3336,14 @@ def main() -> None:
         compare_flash_unaligned(FLASH_UNALIGNED, causal=True))
     full_errors["flash_attention_noncausal"].append(
         compare_flash_unaligned(FLASH_UNALIGNED, causal=False))
+    errors["flash_attention_bwd"].append(
+        compare_flash_bwd_unaligned(FLASH_UNALIGNED, causal=True))
+    full_errors["flash_attention_bwd_noncausal"].append(
+        compare_flash_bwd_unaligned(FLASH_UNALIGNED, causal=False))
     compiled = compiled_kernels(main_shape[2])
     full_compiled = compiled_full_kernels()
     fwd_compiled = compiled_forward_kernels()
+    bwd_compiled = compiled_backward_kernels()
     timed = {"flash_attention": time_flash(FLASH_MAIN),
              "flash_attention_bwd": time_flash_bwd(FLASH_BWD_TIMED[0]),
              "mamba2_ssd": time_ssd(SSD_MAIN),
@@ -3379,11 +3485,18 @@ def main() -> None:
                 if entry["name"] in by_kernel}
     bwd_entry["parts_busy_ms"] = timed["flash_attention_bwd"][
         "parts_busy_ms"]
+    bwd_entry["route_bf16"] = timed["flash_attention_bwd"]["route"]
     bwd_entry["other_shapes"] = [
-        {k: row[k] for k in ("shape", "ms", "busy_ms", "parts_busy_ms",
-                             "plain_ms", "library_ms", "library_busy_ms",
-                             "call_ms", "bound_ms", "bound_by")}
+        {k: row[k] for k in ("shape", "route", "ms", "busy_ms",
+                             "parts_busy_ms", "plain_ms", "library_ms",
+                             "library_busy_ms", "call_ms", "bound_ms",
+                             "bound_by")}
         for row in bwd_more]
+    bwd_entry["compiled_bf16"] = {
+        f"{which} hd {hd}": {k: row[k] for k in ("route", "registers",
+                                                 "spill_bytes",
+                                                 "blocks_per_sm", "threads")}
+        for (causal, which, hd), row in bwd_compiled.items() if causal}
     bwd_entry["compiled"] = {
         key[2]: {k: row[k] for k in ("registers", "spill_bytes",
                                      "blocks_per_sm")}
@@ -3432,7 +3545,8 @@ def main() -> None:
                          if (key.startswith("forward")
                              == (base == "flash_attention"))}})
         if base == "flash_attention_bwd":
-            record["kernels"][-1]["parts_busy_ms"] = row["parts_busy_ms"]
+            record["kernels"][-1].update(parts_busy_ms=row["parts_busy_ms"],
+                                         route_bf16=row["route"])
     for entry in record["kernels"]:
         info = compiled.get((entry["name"], entry.get("dtype", "float32")))
         if info is not None:

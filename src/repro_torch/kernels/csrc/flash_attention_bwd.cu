@@ -25,14 +25,59 @@
 // twice) about 11 us. On the CUDA cores in f32 the same products take
 // about 170 us at the f32 peak.
 //
-// Both routes take three launches and no atomics, so every run gives the
-// same bits: delta; dk/dv (one block per (b, h, 64-row kv tile), walking
-// the q tiles at or after it); dq (one block per (b, h, q tile), walking
-// the kv tiles up to its last row, heaviest q tiles first). S and dP are
-// computed in both of the last two. The dtype alone picks the route.
+// Every route takes three launches and no atomics, so every run gives the
+// same bits: delta; dk/dv (one block per (b, h, kv tile), walking the q
+// tiles at or after it); dq (one block per (b, h, q tile), walking the kv
+// tiles up to its last row, heaviest q tiles first). S and dP are
+// computed in both of the last two. The dtype and shape alone pick the
+// route (route()): f32 the CUDA cores; bf16 that a TMA tensor map can
+// describe (hd % 8 == 0, 16-byte aligned q, k, v, out, dout) at the padded
+// head dims 32, 64, 112 and 128 wgmma; other bf16 inputs (hd 150, 160,
+// unaligned views) mma.sync.
 //
-// bf16 route (the train path; delta_tc_kernel, dkdv_tc_kernel,
-// dq_tc_kernel): every product on the tensor cores as mma.sync.m16n8k16
+// bf16 wgmma route (the train paths: hd 128, 112, 32; delta_tc_kernel,
+// dkdv_wg_kernel, dq_wg_kernel): Hopper's TMA, mbarrier rings, warp
+// specialisation and wgmma, as the forward's flash_fwd_wg_kernel.
+//  - A block is 384 threads: a producer warp whose one thread issues
+//    every TMA copy (setmaxnreg 24) and two consumer warpgroups (240
+//    registers), each owning 64 of the block's 128 rows as wgmma's M; one
+//    block an SM. Grids are (b, h) x 128-row tiles, tile by tile.
+//  - dk/dv: K and V of the block come in once by TMA; a ring of 3 stages
+//    brings each 64-row q tile's Q and dO (128-byte swizzled boxes) and,
+//    by one bulk copy, its lse log2(e) and delta, which the delta kernel
+//    writes in a chunked layout (rows_at) since a TMA box cannot gather
+//    (B, S, H)'s H-strided rows. S^T = K Q^T and dP^T = V dO^T are
+//    mma_ss (M 64 kv, N 64 q, both K-major); P^T and dS^T are formed in
+//    the D fragments, rounded to bf16 and packed straight into the A
+//    fragments of dV += P^T dO and dK += dS^T Q, mma_rs with Q and dO
+//    read MN-major (N = hdp). A consumer thread holds dK and dV (hdp f32
+//    each) and S^T and dP^T (32 each): 192 at hdp 128.
+//    A tile's products are waited for before the next step; in full mode
+//    the two warpgroups take turns to issue them (named barriers).
+//  - dq: Q and dO of the block's 128 rows come in once; the ring brings
+//    64-row K and V tiles; S = Q K^T and dP = dO V^T (mma_ss), P formed
+//    while dP runs, dS packed into A fragments, dQ += dS K (mma_rs, K
+//    MN-major) left in flight into the next tile. lse and delta sit in
+//    registers, two rows a thread.
+//  - dk/dv and dq are programmatic dependent launches: dk/dv's blocks
+//    wait for the delta kernel (griddepcontrol.wait) and then let dq
+//    start, so dq's blocks fill the SMs dk/dv's last wave leaves idle; dq
+//    reads only delta's rows and waits for dk/dv before it ends, so work
+//    behind it in the stream sees dK and dV.
+//  - dK, dV and dQ are rounded once to bf16, staged in the block's own
+//    swizzled boxes and written by TMA stores, which leave out rows past
+//    S and columns past hd. Causal: a warpgroup skips a walked tile whose
+//    pairs all lie above the diagonal and releases its stage all the
+//    same; the mask comes from token positions where a tile crosses the
+//    diagonal or S. Shared memory at hdp 128: 166,400 (dk/dv) and 164,864
+//    bytes (dq).
+//  - hdp 144 and 160 stay on mma.sync: dK + dV + S^T + dP^T would take 224
+//    and 256 registers a consumer thread with 64-row q tiles, and no
+//    train path runs them; so do hdp 16, 48, 80 and 96, which no
+//    configuration of the repository takes.
+//
+// bf16 mma.sync route (delta_tc_kernel, dkdv_tc_kernel, dq_tc_kernel):
+// every product on the tensor cores as mma.sync.m16n8k16
 // (bf16 operands, f32 sums), 4 warps a block, each warp owning 16 rows of
 // the block's own tile.
 //  - delta: kTpr threads a row (16 up to hd 128, 32 above), 16-byte loads
@@ -99,6 +144,7 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -465,6 +511,18 @@ constexpr int kTcSub = 16;          // q columns of S^T a dk/dv warp holds
 constexpr int kDeltaThreads = 256;
 constexpr float kLog2e = 1.4426950408889634f;
 
+// The wgmma route's lse log2(e) and delta: for each (b, h) and 64-row
+// tile of S, 64 of the first, then 64 of the second (S padded to 64 rows,
+// 2 B H ceil(S / 64) 64 floats), so a tile's rows are one 512-byte bulk
+// copy. rows_at(bh, pos, S) is the offset of position pos's lse; its delta
+// is kRowsTile further.
+constexpr int kRowsTile = 64;
+__host__ __device__ __forceinline__ size_t rows_at(int bh, int pos, int S) {
+  const int tiles = (S + kRowsTile - 1) / kRowsTile;
+  return (static_cast<size_t>(bh) * tiles + pos / kRowsTile) * 2 *
+             kRowsTile + pos % kRowsTile;
+}
+
 template <int kHdp>
 __host__ __device__ constexpr int tc_pitch() { return kHdp + 8; }
 // rows of each tile a block walks: q rows (dk/dv), kv rows (dq)
@@ -487,11 +545,13 @@ constexpr size_t dq_tc_smem_bytes() { return tc_tiles_bytes<kHdp>(); }
 
 // delta = rowsum(dout * out): kTpr threads a row, with `vec` (hd a
 // multiple of 8, both inputs 16-byte aligned) 16 bytes of each a load.
-template <int kTpr>
+// kChunked (the wgmma route): delta and lse log2(e) go to the chunked
+// layout that route's kernels fetch (rows_at), not to (B, S, H).
+template <int kTpr, bool kChunked>
 __global__ void __launch_bounds__(kDeltaThreads)
 delta_tc_kernel(const bf16* __restrict__ out, const bf16* __restrict__ dout,
                 float* __restrict__ delta, long long rows, int hd,
-                bool vec) {
+                bool vec, const float* __restrict__ lse, int S, int H) {
   const long long row =
       static_cast<long long>(blockIdx.x) * (kDeltaThreads / kTpr) +
       threadIdx.x / kTpr;
@@ -524,7 +584,19 @@ delta_tc_kernel(const bf16* __restrict__ out, const bf16* __restrict__ dout,
   for (int off = kTpr / 2; off > 0; off >>= 1) {
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
   }
-  if (lane == 0 && row < rows) delta[row] = acc;
+  if (lane == 0 && row < rows) {
+    if constexpr (kChunked) {
+      const long long bs = row / H;
+      const int b = static_cast<int>(bs / S);
+      const int pos = static_cast<int>(bs - static_cast<long long>(b) * S);
+      const int bh = b * H + static_cast<int>(row - bs * H);
+      float* at = delta + rows_at(bh, pos, S);
+      at[0] = lse[row] * kLog2e;
+      at[kRowsTile] = acc;
+    } else {
+      delta[row] = acc;
+    }
+  }
 }
 
 // Rows of a warp's C fragments (16 x hdp, f32) to bf16 rows row0 + g and
@@ -930,14 +1002,14 @@ int launch_tc(const void* q, const void* k, const void* v, const void* out,
                          tc::aligned16(dout);
   if (hd <= 128) {
     constexpr int kRows = kDeltaThreads / 16;
-    delta_tc_kernel<16><<<static_cast<unsigned>((rows + kRows - 1) / kRows),
-                          kDeltaThreads, 0, stream>>>(ot, dot, delta, rows,
-                                                      hd, delta_vec);
+    delta_tc_kernel<16, false>
+        <<<static_cast<unsigned>((rows + kRows - 1) / kRows), kDeltaThreads,
+           0, stream>>>(ot, dot, delta, rows, hd, delta_vec, nullptr, S, H);
   } else {
     constexpr int kRows = kDeltaThreads / 32;
-    delta_tc_kernel<32><<<static_cast<unsigned>((rows + kRows - 1) / kRows),
-                          kDeltaThreads, 0, stream>>>(ot, dot, delta, rows,
-                                                      hd, delta_vec);
+    delta_tc_kernel<32, false>
+        <<<static_cast<unsigned>((rows + kRows - 1) / kRows), kDeltaThreads,
+           0, stream>>>(ot, dot, delta, rows, hd, delta_vec, nullptr, S, H);
   }
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
@@ -968,6 +1040,664 @@ int info_tc(int which, int* info) {
                          dq_tc_smem_bytes<kHdp>(), info);
 }
 
+// --------------------------------------------------------------------------
+// bf16 route on Hopper: TMA ring, warp-specialised wgmma warpgroups
+// --------------------------------------------------------------------------
+
+constexpr int kWgThreads = 384;    // consumer warpgroups 0, 1; producer 2
+constexpr int kWgRows = 128;       // a block's own rows: 64 a consumer
+constexpr int kWgTile = 64;        // rows of a walked tile (q or kv)
+constexpr int kWgStages = 3;       // walked tiles in the ring
+constexpr int kBoxCols = 64;       // bf16 columns a TMA box: 128 bytes
+constexpr int kRowBytes = 128;     // a box row, the swizzle span
+constexpr int kBox = 64 * kRowBytes;            // one 64-row box
+constexpr int kRowsBytes = 2 * kRowsTile * 4;   // a tile's lse and delta
+
+// 64-column boxes a 64-row tile holds: 1 up to hdp 64, 2 up to 128
+template <int kHdp>
+__host__ __device__ constexpr int wg_boxes() {
+  return (kHdp + kBoxCols - 1) / kBoxCols;
+}
+
+// The block's own two 64-row tiles of two tensors (K, V or Q, dO), the
+// ring's stages of two walked tiles each, the dk/dv ring's lse and delta
+// rows, and 1024 bytes to align the swizzled tiles (the barriers are
+// static shared memory). At hdp 128: 166,400 (dk/dv) and 164,864 (dq).
+template <int kHdp>
+constexpr size_t dq_wg_smem_bytes() {
+  return 1024 + static_cast<size_t>(wg_boxes<kHdp>()) * kBox *
+                    (4 + 2 * kWgStages);
+}
+template <int kHdp>
+constexpr size_t dkdv_wg_smem_bytes() {
+  return dq_wg_smem_bytes<kHdp>() + kWgStages * kRowsBytes;
+}
+
+// d (64 x 64) = a . b^T over depth kHdp: a warpgroup's 64 rows of A and a
+// walked tile's 64 rows of B, both K-major in swizzled boxes.
+template <int kHdp>
+__device__ __forceinline__ void wg_scores(float (&d)[32], uint32_t a,
+                                          uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < kHdp / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+    hp::mma_ss(d, hp::desc_sw128(a + off, 16, 1024),
+               hp::desc_sw128(b + off, 16, 1024), kk > 0);
+  }
+}
+
+// acc (64 x kHdp) += a . b: a (64 x 64) as the A fragments of its four k
+// steps, b a 64-row tile read MN-major (its leading byte offset steps one
+// 64-column box).
+template <int kHdp>
+__device__ __forceinline__ void wg_accumulate(float (&acc)[kHdp / 2],
+                                              const uint32_t (&a)[4][4],
+                                              uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    hp::mma_rs(acc, a[kk],
+               hp::desc_sw128(b + kk * 16 * kRowBytes, kBox, 1024), 1);
+  }
+}
+
+// A 64 x 64 D fragment rounded to bf16 as the A operands of four k steps:
+// k step kk is D's 8-column blocks 2 kk and 2 kk + 1.
+__device__ __forceinline__ void wg_pack(const float (&d)[32],
+                                        uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      a[kk][i] = tc::pack_bf16(d[8 * kk + 2 * i], d[8 * kk + 2 * i + 1]);
+    }
+  }
+}
+
+// A warpgroup's 64 x kHdp sums, rounded to bf16, into its 64-row boxes at
+// dst, swizzled as TMA reads them for a store.
+template <int kHdp>
+__device__ __forceinline__ void wg_stage_out(unsigned char* dst,
+                                             const float (&acc)[kHdp / 2]) {
+  const int lane = threadIdx.x & 31;
+  const int r0 = 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    unsigned char* p = dst + row * kRowBytes + 4 * (lane & 3);
+#pragma unroll
+    for (int nd = 0; nd < kHdp / 8; ++nd) {
+      const int chunk = (nd % 8) ^ (row & 7);
+      *reinterpret_cast<uint32_t*>(p + (nd / 8) * kBox + chunk * 16) =
+          tc::pack_bf16(acc[4 * nd + 2 * r], acc[4 * nd + 2 * r + 1]);
+    }
+  }
+}
+
+// One TMA store a box of a warpgroup's 64 rows at row0 (rows past S and
+// columns past hd are left out), by the warpgroup's first thread.
+template <int kHdp>
+__device__ __forceinline__ void wg_store(const CUtensorMap* map,
+                                         uint32_t src, int h, int row0,
+                                         int b) {
+#pragma unroll
+  for (int c = 0; c < wg_boxes<kHdp>(); ++c) {
+    hp::tma_store_4d(map, src + c * kBox, c * kBoxCols, h, row0, b);
+  }
+}
+
+// The block's (b, h) and 128-row tile: blocks run tile by tile (kv tile 0
+// of dk/dv, the last q tile of dq: the heaviest when causal, first), and
+// in a tile (b, h) by (b, h).
+struct WgBlock {
+  int b, h, bh, tile, n_tiles;
+};
+
+__device__ __forceinline__ WgBlock wg_block(int S, int H) {
+  WgBlock w;
+  w.n_tiles = (S + kWgRows - 1) / kWgRows;
+  const int n_bh = gridDim.x / w.n_tiles;
+  w.tile = blockIdx.x / n_bh;
+  w.bh = blockIdx.x - w.tile * n_bh;
+  w.b = w.bh / H;
+  w.h = w.bh - w.b * H;
+  return w;
+}
+
+// dk/dv: a block owns 128 kv rows of one (b, h), 64 a consumer
+// warpgroup, and walks the 64-row q tiles (causal: from the one holding
+// its first kv row). Maps: q, k, v, dout, dk, dv as (hd, H, S, B) of bf16,
+// 128-byte swizzled boxes of 64 columns x 64 rows. rows: lse log2(e) and
+// delta as rows_at lays them out.
+template <int kHdp, bool kCausal>
+__global__ void __launch_bounds__(kWgThreads, 1)
+dkdv_wg_kernel(const __grid_constant__ CUtensorMap tm_q,
+               const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v,
+               const __grid_constant__ CUtensorMap tm_do,
+               const __grid_constant__ CUtensorMap tm_dk,
+               const __grid_constant__ CUtensorMap tm_dv,
+               const float* __restrict__ rows, int S, int H,
+               float scale_log2, float scale) {
+  constexpr int kTile = wg_boxes<kHdp>() * kBox;   // a 64-row tile's bytes
+  // barriers: K and V full; each stage's full and empty
+  __shared__ __align__(8) uint64_t bars[1 + 2 * kWgStages];
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  const uint32_t k_s = hp::smem_u32(smem);           // [warpgroup] 64 rows
+  const uint32_t v_s = k_s + 2 * kTile;
+  const uint32_t q_s = v_s + 2 * kTile;              // [stage] 64 rows
+  const uint32_t do_s = q_s + kWgStages * kTile;
+  const uint32_t rows_s = do_s + kWgStages * kTile;  // [stage] lse, delta
+  const float* rows_f =
+      reinterpret_cast<const float*>(smem + (rows_s - k_s));
+  const uint32_t bar0 = hp::smem_u32(bars);
+  const uint32_t kv_full = bar0;
+  auto full = [&](int st) { return bar0 + 8 * (1 + st); };
+  auto empty = [&](int st) { return bar0 + 8 * (1 + kWgStages + st); };
+
+  const WgBlock blk = wg_block(S, H);
+  const int k0 = blk.tile * kWgRows;
+  const int q_first = kCausal ? k0 : 0;
+  const int n_q = (S - q_first + kWgTile - 1) / kWgTile;
+
+  if (threadIdx.x == 256) {
+    hp::prefetch_tensormap(&tm_q);
+    hp::prefetch_tensormap(&tm_k);
+    hp::prefetch_tensormap(&tm_v);
+    hp::prefetch_tensormap(&tm_do);
+  }
+  if (threadIdx.x == 0) {
+    hp::mbar_init(kv_full, 1);
+    for (int st = 0; st < kWgStages; ++st) {
+      hp::mbar_init(full(st), 1);
+      hp::mbar_init(empty(st), 8);   // one arrival a consumer warp
+    }
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
+  // launched early (programmatic dependent launch): the delta kernel's
+  // rows must be complete; then the dq kernel, which needs no output of
+  // this one, may take the SMs this grid leaves idle
+  hp::griddep_wait();
+  hp::griddep_launch_dependents();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // producer: one thread loads K and V once, then keeps the q ring full
+    hp::setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      hp::mbar_expect_tx(kv_full, 4 * kTile);
+      for (int w = 0; w < 2; ++w) {
+        for (int c = 0; c < wg_boxes<kHdp>(); ++c) {
+          hp::tma_load_4d(k_s + w * kTile + c * kBox, &tm_k, kv_full,
+                          c * kBoxCols, blk.h, k0 + 64 * w, blk.b);
+          hp::tma_load_4d(v_s + w * kTile + c * kBox, &tm_v, kv_full,
+                          c * kBoxCols, blk.h, k0 + 64 * w, blk.b);
+        }
+      }
+      for (int i = 0; i < n_q; ++i) {
+        const int st = i % kWgStages;
+        const int reuse = i / kWgStages - 1;   // the stage's last release
+        const int q0 = q_first + i * kWgTile;
+        if (reuse >= 0) hp::mbar_wait(empty(st), reuse & 1);
+        hp::mbar_expect_tx(full(st), 2 * kTile + kRowsBytes);
+        for (int c = 0; c < wg_boxes<kHdp>(); ++c) {
+          hp::tma_load_4d(q_s + st * kTile + c * kBox, &tm_q, full(st),
+                          c * kBoxCols, blk.h, q0, blk.b);
+          hp::tma_load_4d(do_s + st * kTile + c * kBox, &tm_do, full(st),
+                          c * kBoxCols, blk.h, q0, blk.b);
+        }
+        hp::bulk_load(rows_s + st * kRowsBytes,
+                      rows + rows_at(blk.bh, q0, S), kRowsBytes, full(st));
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns kv rows kmin ..; per q tile S^T = K Q^T
+    // and dP^T = V dO^T, then P^T and dS^T in registers, dV += P^T dO and
+    // dK += dS^T Q
+    hp::setmaxnreg_inc<240>();
+    const int lane = threadIdx.x & 31;
+    const int t = lane & 3;
+    const bool signals = lane == 0;   // a warp's release arrival
+    const int kmin = k0 + 64 * wg;
+    const int krow = kmin + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+    const uint32_t k_mine = k_s + wg * kTile;
+    const uint32_t v_mine = v_s + wg * kTile;
+
+    float dk[kHdp / 2], dv[kHdp / 2];
+#pragma unroll
+    for (int i = 0; i < kHdp / 2; ++i) dk[i] = dv[i] = 0.0f;
+    float s[32], dp[32];
+    uint32_t pa[4][4], da[4][4];
+
+    // Per tile: S^T and dP^T, then P^T and dS^T, then dV and dK, each
+    // waited for before the next (ptxas serialises the products where
+    // they are left in flight beside this many live registers: C7515).
+    // Full mode: the two consumer warpgroups take turns to issue their
+    // products (named barriers 3 and 4), so one's P^T and dS^T run beside
+    // the other's products (2-5 % faster on an H100; causal, 4-6 %
+    // slower, so it goes without)
+    constexpr bool kTurns = !kCausal;
+    auto turn = [&]() {
+      if (kTurns) hp::bar_sync(3 + wg, 256);
+    };
+    auto pass = [&]() {
+      if (kTurns) hp::bar_arrive(4 - wg, 256);
+    };
+    if (wg == 1) pass();
+    hp::mbar_wait(kv_full, 0);
+    for (int i = 0; i < n_q; ++i) {
+      const int st = i % kWgStages;
+      const int q0 = q_first + i * kWgTile;
+      hp::mbar_wait(full(st), (i / kWgStages) & 1);
+      // nothing to add where every kv row is past S or (causal) every pair
+      // lies above the diagonal; the stage is released and the turns
+      // taken all the same
+      if (kmin >= S || (kCausal && kmin > q0 + kWgTile - 1)) {
+        turn();
+        pass();
+        turn();
+        pass();
+        if (signals) hp::mbar_arrive(empty(st));
+        continue;
+      }
+      const uint32_t qt = q_s + st * kTile;
+      const uint32_t dot = do_s + st * kTile;
+      turn();
+      hp::wgmma_fence();
+      wg_scores<kHdp>(s, k_mine, qt);
+      wg_scores<kHdp>(dp, v_mine, dot);
+      hp::wgmma_commit();
+      pass();
+      hp::wgmma_wait<0>();
+      hp::fence_regs(s);
+      hp::fence_regs(dp);
+
+      // P^T and dS^T: row (kv) krow + 8 (e >> 1), column (q) q0 + 8 j + 2
+      // t + (e & 1); masked where the tile crosses the diagonal (causal)
+      // or the end of S (lse and delta there are not set)
+      const float* lse2 = rows_f + st * 2 * kRowsTile;
+      const float* dl = lse2 + kRowsTile;
+      const bool edge = (kCausal && q0 < kmin + 63) || q0 + kWgTile > S;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int col = 8 * j + 2 * t;
+        const float2 l2 = *reinterpret_cast<const float2*>(lse2 + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(dl + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = 4 * j + e;
+          float p = hp::exp2_approx(
+              fmaf(s[x], scale_log2, -((e & 1) ? l2.y : l2.x)));
+          float ds = p * (dp[x] - ((e & 1) ? d2.y : d2.x)) * scale;
+          if (edge) {
+            const int qpos = q0 + col + (e & 1);
+            const int kpos = krow + 8 * (e >> 1);
+            if ((kCausal && kpos > qpos) || qpos >= S) p = ds = 0.0f;
+          }
+          s[x] = p;
+          dp[x] = ds;
+        }
+      }
+      wg_pack(s, pa);
+      wg_pack(dp, da);
+      hp::fence_regs(pa);
+      hp::fence_regs(da);
+      hp::fence_regs(dk);
+      hp::fence_regs(dv);
+      turn();
+      hp::wgmma_fence();
+      wg_accumulate<kHdp>(dv, pa, dot);
+      wg_accumulate<kHdp>(dk, da, qt);
+      hp::wgmma_commit();
+      pass();
+      hp::wgmma_wait<0>();
+      hp::fence_regs(dk);
+      hp::fence_regs(dv);
+      if (signals) hp::mbar_arrive(empty(st));
+    }
+    // warpgroup 1's first pass is one more than warpgroup 0's turns:
+    // drain it
+    if (wg == 0) turn();
+
+    // epilogue: dK and dV in bf16 into this warpgroup's K and V boxes (no
+    // wgmma reads them any more), then TMA stores
+    hp::bar_sync(1 + wg, 128);
+    wg_stage_out<kHdp>(smem + (k_mine - k_s), dk);
+    wg_stage_out<kHdp>(smem + (v_mine - k_s), dv);
+    hp::fence_proxy_async();
+    hp::bar_sync(1 + wg, 128);
+    if ((threadIdx.x & 127) == 0 && kmin < S) {
+      wg_store<kHdp>(&tm_dk, k_mine, blk.h, kmin, blk.b);
+      wg_store<kHdp>(&tm_dv, v_mine, blk.h, kmin, blk.b);
+      hp::tma_store_commit();
+      hp::tma_store_wait_read();
+    }
+  }
+}
+
+// dq: a block owns 128 q rows of one (b, h), 64 a consumer warpgroup,
+// and walks the 64-row kv tiles (causal: up to its last row). Maps as for
+// dk/dv, with dq for dk and dv.
+template <int kHdp, bool kCausal>
+__global__ void __launch_bounds__(kWgThreads, 1)
+dq_wg_kernel(const __grid_constant__ CUtensorMap tm_q,
+             const __grid_constant__ CUtensorMap tm_k,
+             const __grid_constant__ CUtensorMap tm_v,
+             const __grid_constant__ CUtensorMap tm_do,
+             const __grid_constant__ CUtensorMap tm_dq,
+             const float* __restrict__ rows, int S, int H, float scale_log2,
+             float scale) {
+  constexpr int kTile = wg_boxes<kHdp>() * kBox;
+  // barriers: Q and dO full of each warpgroup; each stage's full, empty
+  __shared__ __align__(8) uint64_t bars[2 + 2 * kWgStages];
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  const uint32_t q_s = hp::smem_u32(smem);          // [warpgroup] 64 rows
+  const uint32_t do_s = q_s + 2 * kTile;
+  const uint32_t k_s = do_s + 2 * kTile;            // [stage] 64 rows
+  const uint32_t v_s = k_s + kWgStages * kTile;
+  const uint32_t bar0 = hp::smem_u32(bars);
+  auto qd_full = [&](int w) { return bar0 + 8 * w; };
+  auto full = [&](int st) { return bar0 + 8 * (2 + st); };
+  auto empty = [&](int st) { return bar0 + 8 * (2 + kWgStages + st); };
+
+  const WgBlock blk = wg_block(S, H);
+  const int q0 = (kCausal ? blk.n_tiles - 1 - blk.tile : blk.tile) * kWgRows;
+  const int kv_end = kCausal ? min(S, q0 + kWgRows) : S;
+  const int n_kv = (kv_end + kWgTile - 1) / kWgTile;
+
+  if (threadIdx.x == 256) {
+    hp::prefetch_tensormap(&tm_q);
+    hp::prefetch_tensormap(&tm_k);
+    hp::prefetch_tensormap(&tm_v);
+    hp::prefetch_tensormap(&tm_do);
+  }
+  if (threadIdx.x == 0) {
+    hp::mbar_init(qd_full(0), 1);
+    hp::mbar_init(qd_full(1), 1);
+    for (int st = 0; st < kWgStages; ++st) {
+      hp::mbar_init(full(st), 1);
+      hp::mbar_init(empty(st), 8);
+    }
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    hp::setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      // warpgroup w's Q and dO; warpgroup 0's and the first kv tile go
+      // ahead of warpgroup 1's
+      auto load_qd = [&](int w) {
+        hp::mbar_expect_tx(qd_full(w), 2 * kTile);
+        for (int c = 0; c < wg_boxes<kHdp>(); ++c) {
+          hp::tma_load_4d(q_s + w * kTile + c * kBox, &tm_q, qd_full(w),
+                          c * kBoxCols, blk.h, q0 + 64 * w, blk.b);
+          hp::tma_load_4d(do_s + w * kTile + c * kBox, &tm_do, qd_full(w),
+                          c * kBoxCols, blk.h, q0 + 64 * w, blk.b);
+        }
+      };
+      load_qd(0);
+      for (int j = 0; j < n_kv; ++j) {
+        const int st = j % kWgStages;
+        const int reuse = j / kWgStages - 1;
+        if (reuse >= 0) hp::mbar_wait(empty(st), reuse & 1);
+        hp::mbar_expect_tx(full(st), 2 * kTile);
+        for (int c = 0; c < wg_boxes<kHdp>(); ++c) {
+          hp::tma_load_4d(k_s + st * kTile + c * kBox, &tm_k, full(st),
+                          c * kBoxCols, blk.h, j * kWgTile, blk.b);
+          hp::tma_load_4d(v_s + st * kTile + c * kBox, &tm_v, full(st),
+                          c * kBoxCols, blk.h, j * kWgTile, blk.b);
+        }
+        if (j == 0) load_qd(1);
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns q rows qmin ..; per kv tile S = Q K^T
+    // and dP = dO V^T, dS in registers, dQ += dS K
+    hp::setmaxnreg_inc<240>();
+    const int lane = threadIdx.x & 31;
+    const int t = lane & 3;
+    const bool signals = lane == 0;
+    const int qmin = q0 + 64 * wg;
+    const int qrow = qmin + 16 * ((threadIdx.x >> 5) & 3) + (lane >> 2);
+    const uint32_t q_mine = q_s + wg * kTile;
+    const uint32_t do_mine = do_s + wg * kTile;
+    // this thread's rows qrow and qrow + 8: lse log2(e) and delta (0 past
+    // S)
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = qrow + 8 * r;
+      const size_t at = row < S ? rows_at(blk.bh, row, S) : 0;
+      lse2[r] = row < S ? __ldcg(rows + at) : 0.0f;
+      dl[r] = row < S ? __ldcg(rows + at + kRowsTile) : 0.0f;
+    }
+    // the kv tiles with a pair for these rows: none when they all lie
+    // past S; causal, up to the warpgroup's last row (warpgroup 0 skips
+    // the block's last tile)
+    const int n_mine =
+        qmin >= S ? 0
+                  : (kCausal ? (min(S, qmin + 64) + kWgTile - 1) / kWgTile
+                             : n_kv);
+
+    float dq[kHdp / 2];
+#pragma unroll
+    for (int i = 0; i < kHdp / 2; ++i) dq[i] = 0.0f;
+    float s[32], dp[32];
+    uint32_t da[4][4];
+
+    // Per tile: S and dP issued together; P formed while dP runs; dS
+    // formed and dQ's product issued, left in flight until the next
+    // tile's S is done (its stage, `prev`, released then)
+    int prev = -1;
+    auto release_prev = [&]() {
+      if (prev >= 0 && signals) hp::mbar_arrive(empty(prev));
+      prev = -1;
+    };
+    hp::mbar_wait(qd_full(wg), 0);
+    for (int j = 0; j < n_kv; ++j) {
+      const int st = j % kWgStages;
+      hp::mbar_wait(full(st), (j / kWgStages) & 1);
+      if (j >= n_mine) {
+        hp::wgmma_wait<0>();
+        hp::fence_regs(dq);
+        release_prev();
+        if (signals) hp::mbar_arrive(empty(st));
+        continue;
+      }
+      const uint32_t kt = k_s + st * kTile;
+      const uint32_t vt = v_s + st * kTile;
+      hp::wgmma_fence();
+      wg_scores<kHdp>(s, q_mine, kt);
+      hp::wgmma_commit();
+      wg_scores<kHdp>(dp, do_mine, vt);
+      hp::wgmma_commit();
+      hp::wgmma_wait<1>();   // S, and the previous tile's dQ
+      hp::fence_regs(s);
+      release_prev();
+
+      // P: row (q) qrow + 8 (e >> 1), column (kv) k0 + 8 n + 2 t + (e &
+      // 1); masked where the tile crosses the diagonal (causal) or S
+      const int k0 = j * kWgTile;
+      const bool edge = (kCausal && k0 + 63 > qmin) || k0 + kWgTile > S;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = 4 * n + e;
+          float p = hp::exp2_approx(fmaf(s[x], scale_log2, -lse2[e >> 1]));
+          if (edge) {
+            const int kpos = k0 + 8 * n + 2 * t + (e & 1);
+            if ((kCausal && kpos > qrow + 8 * (e >> 1)) || kpos >= S) {
+              p = 0.0f;
+            }
+          }
+          s[x] = p;
+        }
+      }
+      hp::wgmma_wait<0>();   // dP
+      hp::fence_regs(dp);
+      // dS = P (dP - delta) scale, packed straight into A fragments
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int x = 8 * kk + 2 * i;   // row qrow + 8 (i & 1)
+          da[kk][i] =
+              tc::pack_bf16(s[x] * (dp[x] - dl[i & 1]) * scale,
+                            s[x + 1] * (dp[x + 1] - dl[i & 1]) * scale);
+        }
+      }
+      hp::fence_regs(da);
+      hp::fence_regs(dq);
+      hp::wgmma_fence();
+      wg_accumulate<kHdp>(dq, da, kt);
+      hp::wgmma_commit();
+      prev = st;
+    }
+    hp::wgmma_wait<0>();
+    hp::fence_regs(dq);
+    release_prev();
+
+    // epilogue: dQ in bf16 into this warpgroup's Q boxes, then TMA stores
+    hp::bar_sync(1 + wg, 128);
+    wg_stage_out<kHdp>(smem + (q_mine - q_s), dq);
+    hp::fence_proxy_async();
+    hp::bar_sync(1 + wg, 128);
+    if ((threadIdx.x & 127) == 0 && qmin < S) {
+      wg_store<kHdp>(&tm_dq, q_mine, blk.h, qmin, blk.b);
+      hp::tma_store_commit();
+      hp::tma_store_wait_read();
+    }
+  }
+  // launched beside the dk/dv kernel (it reads only the delta kernel's
+  // rows, complete before any dk/dv block let it start): it ends only
+  // after that kernel, so work behind it in the stream sees dk and dv
+  hp::griddep_wait();
+}
+
+template <int kHdp, bool kCausal>
+int set_smem_wg() {
+  cudaError_t err = cudaFuncSetAttribute(
+      dkdv_wg_kernel<kHdp, kCausal>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(dkdv_wg_smem_bytes<kHdp>()));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(dq_wg_kernel<kHdp, kCausal>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(dq_wg_smem_bytes<kHdp>()));
+  return static_cast<int>(err);
+}
+
+template <int kHdp, bool kCausal>
+int launch_wg(const void* q, const void* k, const void* v, const void* out,
+              const float* lse, const void* dout, void* dq, void* dk,
+              void* dv, float* delta, int B, int S, int H, int hd,
+              cudaStream_t stream) {
+  int err = set_smem_wg<kHdp, kCausal>();
+  if (err != 0) return err;
+  CUtensorMap tm_q, tm_k, tm_v, tm_do, tm_dq, tm_dk, tm_dv;
+  if (!hp::encode_bshd(&tm_q, q, B, S, H, hd, 64) ||
+      !hp::encode_bshd(&tm_k, k, B, S, H, hd, 64) ||
+      !hp::encode_bshd(&tm_v, v, B, S, H, hd, 64) ||
+      !hp::encode_bshd(&tm_do, dout, B, S, H, hd, 64) ||
+      !hp::encode_bshd(&tm_dq, dq, B, S, H, hd, 64) ||
+      !hp::encode_bshd(&tm_dk, dk, B, S, H, hd, 64) ||
+      !hp::encode_bshd(&tm_dv, dv, B, S, H, hd, 64)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const float scale = 1.0f / sqrtf(static_cast<float>(hd));
+  const long long rows = static_cast<long long>(B) * S * H;
+  constexpr int kRows = kDeltaThreads / 16;
+  delta_tc_kernel<16, true>
+      <<<static_cast<unsigned>((rows + kRows - 1) / kRows), kDeltaThreads, 0,
+         stream>>>(static_cast<const bf16*>(out),
+                   static_cast<const bf16*>(dout), delta, rows, hd, true, lse,
+                   S, H);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+
+  // dk/dv and dq as programmatic dependent launches: dk/dv's blocks start
+  // as the delta kernel drains and wait for it; dq's start once every
+  // dk/dv block has, filling the SMs of dk/dv's last wave
+  cudaLaunchAttribute early[1];
+  early[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  early[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * H * ((S + kWgRows - 1) / kWgRows));
+  cfg.blockDim = dim3(kWgThreads);
+  cfg.stream = stream;
+  cfg.attrs = early;
+  cfg.numAttrs = 1;
+  const float* chunked = delta;
+  const float scale_log2 = scale * kLog2e;
+  cfg.dynamicSmemBytes = dkdv_wg_smem_bytes<kHdp>();
+  err = static_cast<int>(cudaLaunchKernelEx(
+      &cfg, dkdv_wg_kernel<kHdp, kCausal>, tm_q, tm_k, tm_v, tm_do, tm_dk,
+      tm_dv, chunked, S, H, scale_log2, scale));
+  if (err != 0) return err;
+  cfg.dynamicSmemBytes = dq_wg_smem_bytes<kHdp>();
+  return static_cast<int>(cudaLaunchKernelEx(
+      &cfg, dq_wg_kernel<kHdp, kCausal>, tm_q, tm_k, tm_v, tm_do, tm_dq,
+      chunked, S, H, scale_log2, scale));
+}
+
+template <int kHdp, bool kCausal>
+int info_wg(int which, int* info) {
+  int err = set_smem_wg<kHdp, kCausal>();
+  if (err != 0) return err;
+  if (which == 0) {
+    return tc::kernel_info(dkdv_wg_kernel<kHdp, kCausal>, kWgThreads,
+                           dkdv_wg_smem_bytes<kHdp>(), info);
+  }
+  return tc::kernel_info(dq_wg_kernel<kHdp, kCausal>, kWgThreads,
+                         dq_wg_smem_bytes<kHdp>(), info);
+}
+
+// Dispatch on the wgmma route's padded head dim: 32, 64, 112 and 128,
+// every one a configuration of the repository pads its head dim to (hd
+// 24 and 32 of the smoke configurations, 64, 112, 128). The others stay
+// on mma.sync (route()): their instantiations would add to the build and
+// serve no path.
+template <typename Fn>
+int with_wg_hdp(int hd, Fn&& fn) {
+  switch ((hd + 15) / 16) {
+    case 2: return fn(std::integral_constant<int, 32>{});
+    case 4: return fn(std::integral_constant<int, 64>{});
+    case 7: return fn(std::integral_constant<int, 112>{});
+    case 8: return fn(std::integral_constant<int, 128>{});
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Whether the wgmma route has kernels at hd's padded head dim.
+bool wg_hdp(int hd) {
+  return with_wg_hdp(hd, [](auto) { return 0; }) == 0;
+}
+
+constexpr int kRouteCudaCores = 0;
+constexpr int kRouteMmaSync = 1;
+constexpr int kRouteWgmma = 2;
+
+// The route, by dtype and shape alone: bf16 inputs a TMA tensor map can
+// describe (hd % 8 == 0, every base 16-byte aligned: the forward's rule,
+// applied to q, k, v, out and dout) take the wgmma kernels where they are
+// built (wg_hdp: hd 24, 32, 56, 64, 104, 112, 120, 128); other bf16
+// inputs, hd 150 and 160 among them, the mma.sync ones.
+int route(const void* q, const void* k, const void* v, const void* out,
+          const void* dout, int hd, int dtype) {
+  if (dtype == 0) return kRouteCudaCores;
+  const bool tma = hd % 8 == 0 && wg_hdp(hd) && tc::aligned16(q) &&
+                   tc::aligned16(k) && tc::aligned16(v) &&
+                   tc::aligned16(out) && tc::aligned16(dout);
+  return tma ? kRouteWgmma : kRouteMmaSync;
+}
+
 // Dispatch on the head dim padded to a multiple of 16 (1..160 -> 16..160).
 template <typename Fn>
 int with_hdp(int hd, Fn&& fn) {
@@ -996,8 +1726,10 @@ int with_causal(int causal, Fn&& fn) {
 }  // namespace
 
 // q, k, v, out, dout, dq, dk, dv: (B, S, H, hd) contiguous, f32 (dtype 0)
-// or bf16 (dtype 1); lse and the scratch delta: (B, S, H) f32; causal: 1
-// for the causal mask, 0 for none. Three launches on `stream` (delta,
+// or bf16 (dtype 1); lse: (B, S, H) f32; delta: f32 scratch of 2 B H
+// ceil(S / 64) 64 floats (the f32 and mma.sync routes use its first B S H
+// as (B, S, H), the wgmma route all of it as rows_at lays it out); causal:
+// 1 for the causal mask, 0 for none. Three launches on `stream` (delta,
 // dk/dv, dq); returns the first non-zero cudaGetLastError() (0 on
 // success). The caller checks shapes, types and contiguity.
 extern "C" int flash_attention_bwd_launch(
@@ -1020,6 +1752,14 @@ extern "C" int flash_attention_bwd_launch(
     });
   }
   if (dtype == 1) {
+    if (route(q, k, v, out, dout, hd, dtype) == kRouteWgmma) {
+      return with_wg_hdp(hd, [&](auto hdp) {
+        return with_causal(causal, [&](auto c) {
+          return launch_wg<decltype(hdp)::value, decltype(c)::value>(
+              q, k, v, out, lse, dout, dq, dk, dv, delta, B, S, H, hd, st);
+        });
+      });
+    }
     if ((S + kTcRows - 1) / kTcRows > 65535) {
       return static_cast<int>(cudaErrorInvalidValue);
     }
@@ -1033,15 +1773,25 @@ extern "C" int flash_attention_bwd_launch(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The compiled dk/dv kernel (which = 0) or dq kernel (which = 1) of the
-// route that `dtype` and `causal` take at head dim `hd`: info[0..5] as
-// tc::kernel_info gives them. Returns a CUDA error code (0 on success).
+// The compiled dk/dv kernel (which = 0) or dq kernel (which = 1) that
+// `dtype` and `causal` take at head dim `hd` for 16-byte aligned inputs:
+// info[0..5] as tc::kernel_info gives them. Returns a CUDA error code (0
+// on success).
 extern "C" int flash_attention_bwd_info(int hd, int dtype, int which,
                                         int causal, int* info) {
   if (hd < 1 || hd > kMaxHeadDim || dtype < 0 || dtype > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (dtype == 1) {
+    if (route(nullptr, nullptr, nullptr, nullptr, nullptr, hd, dtype) ==
+        kRouteWgmma) {
+      return with_wg_hdp(hd, [&](auto hdp) {
+        return with_causal(causal, [&](auto c) {
+          return info_wg<decltype(hdp)::value, decltype(c)::value>(which,
+                                                                   info);
+        });
+      });
+    }
     return with_hdp(hd, [&](auto hdp) {
       return with_causal(causal, [&](auto c) {
         return info_tc<decltype(hdp)::value, decltype(c)::value>(which,
@@ -1064,4 +1814,15 @@ extern "C" int flash_attention_bwd_info(int hd, int dtype, int which,
                              dq_smem_bytes(pitch), info);
     });
   });
+}
+
+// The route flash_attention_bwd_launch takes for these pointers, head dim
+// and dtype: 0 the f32 CUDA-core kernels, 1 the bf16 mma.sync kernels, 2
+// the bf16 wgmma kernels (hd % 8 == 0 at a padded head dim wg_hdp takes,
+// every pointer 16-byte aligned).
+extern "C" int flash_attention_bwd_route(const void* q, const void* k,
+                                         const void* v, const void* out,
+                                         const void* dout, int hd,
+                                         int dtype) {
+  return route(q, k, v, out, dout, hd, dtype);
 }

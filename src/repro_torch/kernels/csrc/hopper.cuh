@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks as inline PTX: mbarriers, TMA tensor
 // copies, warpgroup register rebalancing and wgmma, plus the host-side
 // encoding of TMA tensor maps. Used by the bf16 flash attention forward
-// (csrc/flash_attention.cu); tensor_core.cuh holds the Ampere-style
-// mma.sync helpers the other kernels use.
+// (csrc/flash_attention.cu) and backward (csrc/flash_attention_bwd.cu);
+// tensor_core.cuh holds the Ampere-style mma.sync helpers the other
+// kernels use.
 //
 // wgmma.mma_async.m64nNk16 (bf16 operands, f32 sums) is issued by the 128
 // threads of a warpgroup together. Its D fragment (N / 2 f32 registers a
@@ -86,6 +87,19 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       : "memory");
 }
 
+// `bytes` (a multiple of 16) from global memory at src into shared memory
+// at dst, both 16-byte aligned, as one bulk copy; its bytes complete on
+// `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes),
+         "r"(bar)
+      : "memory");
+}
+
 // Fetches a tensor map into the cache ahead of its first copy.
 __device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n"
@@ -130,6 +144,19 @@ __device__ __forceinline__ void bar_sync(int id, int threads) {
 // Arrive at named barrier `id` without waiting.
 __device__ __forceinline__ void bar_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(threads) : "memory");
+}
+
+// Programmatic dependent launch: wait until the grids this one depends on
+// have completed and their writes are visible (a no-op for a grid
+// launched without the attribute) ...
+__device__ __forceinline__ void griddep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// ... and let the next grid, launched with the attribute, start once every
+// block of this one has passed this point or exited.
+__device__ __forceinline__ void griddep_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
 }
 
 template <int kRegs>

@@ -27,6 +27,11 @@ train path) runs on the tensor cores, with P and dS rounded to bf16 as
 operands; f32 keeps an f32 CUDA-core route. :func:`flash_attention`
 goes through an ``autograd.Function`` when grad mode is on and an input
 requires grad, so a train step's gradients flow through both kernels.
+The backward's bf16 inputs a TMA tensor map can describe (hd % 8 == 0,
+16-byte aligned q, k, v, out and dout) at the padded head dims 32, 64,
+112 and 128 (every train path's) take Hopper's wgmma kernels, the rest
+(hd 150 and 160, unaligned views) the mma.sync ones: :func:`bwd_route`
+names them.
 The function carries ``causal`` to the backward, which is the gradient of
 the function the forward computed for either value. (The JAX kernel's
 ``custom_vjp`` backward always applies the causal mask, so its gradient
@@ -57,6 +62,7 @@ from ._library import kernel_op, strategies
 
 BLOCK = 64             # the plain version's q and kv tile (rows)
 MAX_HEAD_DIM = 160     # the kernels' largest head dim (stablelm-12b's)
+BWD_ROWS_TILE = 64     # the backward's scratch rows a tile (rows_at)
 NEG_INF = -1e30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -344,14 +350,37 @@ def _load_bwd():
     return _bwd_launcher
 
 
+def _bwd_route(ptrs: tuple, hd: int, dtype: torch.dtype) -> str:
+    from ._build import load
+    fn = load("flash_attention_bwd").flash_attention_bwd_route
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+    fn.restype = ctypes.c_int
+    return ROUTES[fn(*ptrs, hd, _DTYPES[dtype])]
+
+
+def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              out: torch.Tensor, dout: torch.Tensor) -> str:
+    """The backward kernels that CUDA inputs take, as the C entry point
+    picks them by dtype and shape: ``"wgmma"`` (bf16, hd % 8 == 0 padding
+    to 32, 64, 112 or 128, every base 16-byte aligned), ``"mma.sync"``
+    (other bf16 inputs) or ``"cuda-cores"`` (f32). Needs the card's
+    build."""
+    _check(q, k, v)
+    return _bwd_route(tuple(t.data_ptr() for t in (q, k, v, out, dout)),
+                      q.shape[3], q.dtype)
+
+
 def bwd_kernel_info(hd: int, dtype: torch.dtype, which: str,
                     causal: bool = True) -> dict:
     """Registers, shared memory and blocks an SM of the backward's
-    ``which`` kernel (``"dkdv"`` or ``"dq"``) for ``dtype`` and ``causal``
-    at head dim ``hd`` (``_build.kernel_info``; needs the card)."""
+    ``which`` kernel (``"dkdv"`` or ``"dq"``) that ``dtype`` and
+    ``causal`` take at head dim ``hd`` for 16-byte aligned inputs, and
+    that kernel's ``route`` (``_build.kernel_info``; needs the card)."""
     from ._build import kernel_info as info
-    return info("flash_attention_bwd", hd, _DTYPES[dtype],
-                {"dkdv": 0, "dq": 1}[which], int(causal))
+    row = info("flash_attention_bwd", hd, _DTYPES[dtype],
+               {"dkdv": 0, "dq": 1}[which], int(causal))
+    row["route"] = _bwd_route((0,) * 5, hd, dtype)
+    return row
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -394,7 +423,11 @@ def _backward(q, k, v, out, lse, dout, causal):
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     if q.numel() == 0:
         return dq, dk, dv
-    delta = torch.empty(B, S, H, dtype=torch.float32, device=q.device)
+    # scratch: delta (B, S, H), or on the wgmma route delta and lse log2(e)
+    # by (b, h) and 64-row tile of S (the C source's rows_at)
+    tiles = -(-S // BWD_ROWS_TILE)
+    delta = torch.empty(2 * B * H * tiles * BWD_ROWS_TILE,
+                        dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),

@@ -16,8 +16,10 @@ over an NCCL group of one process; flash attention's non-causal kernels
 (forward and backward, both routes) against their plain versions; the
 bf16 forward's wgmma kernel at every padded head dim, S around its tiles
 and both modes (equal bits on a second call), the inputs that take the
-mma.sync kernel instead, and each forward's compiled threads and spills; a
-checkpoint restored onto an NCCL mesh of one rank with shardings.
+mma.sync kernel instead, and each forward's compiled threads and spills;
+the bf16 backward's wgmma kernels likewise at the train paths' head dims,
+its route by shape and its compiled kernels; a checkpoint restored onto
+an NCCL mesh of one rank with shardings.
 They skip where ``torch.cuda.is_available()`` is False. This file
 imports nothing of JAX, so it also runs where JAX is not installed:
 
@@ -248,14 +250,90 @@ def test_flash_attention_backward_f32_route_unchanged(cuda, shape):
         torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
 
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("hd", [32, 64, 112, 128])
 @pytest.mark.parametrize("which", ["dkdv", "dq"])
-def test_flash_attention_backward_bf16_kernels_fit_at_hd_128(cuda, which):
-    """At the train shape's head dim the bf16 kernels spill nothing and
-    keep 2 blocks of 4 warps an SM."""
+def test_flash_attention_backward_bf16_kernels_fit_at_hd_128(cuda, which, hd,
+                                                             causal):
+    """At the train paths' head dims (128, 112, 32) and 64, in both
+    modes, the bf16 kernels are the wgmma ones (a producer warp and two
+    consumer warpgroups, one block an SM) and spill nothing."""
     from repro_torch.kernels.flash_attention import bwd_kernel_info
-    info = bwd_kernel_info(128, torch.bfloat16, which)
-    assert info["spill_bytes"] == 0
-    assert info["blocks_per_sm"] >= 2 and info["threads"] == 128
+    info = bwd_kernel_info(hd, torch.bfloat16, which, causal)
+    assert info["route"] == "wgmma" and info["threads"] == 384
+    assert info["spill_bytes"] == 0 and info["blocks_per_sm"] == 1
+
+
+# the bf16 backward's wgmma kernels: the train shapes, then S at and around
+# the 64- and 128-row tiles' edges at each head dim the train paths take
+# (and 64)
+WGMMA_BWD_SHAPES = [(4, 512, 12, 128), (4, 512, 32, 112), (8, 128, 4, 32)]
+WGMMA_BWD_SHAPES += [(2, S, 3, hd) for hd in (32, 64, 112, 128)
+                     for S in (1, 63, 65, 100, 300)]
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("shape", WGMMA_BWD_SHAPES)
+def test_flash_attention_backward_wgmma_matches_plain(cuda, shape, causal):
+    """The wgmma backward (TMA ring, producer warp, two consumer
+    warpgroups) against the plain version in both modes, one launch a
+    call; a second call gives equal bits."""
+    from repro_torch.kernels.flash_attention import (
+        bwd_route, flash_attention, flash_attention_bwd,
+        flash_attention_bwd_plain)
+    q, k, v = _attention_inputs(shape, torch.bfloat16, cuda)
+    dout = _attention_inputs(shape, torch.bfloat16, cuda, seed=1)[0]
+    out, lse = flash_attention(q, k, v, causal=causal)
+    assert bwd_route(q, k, v, out, dout) == "wgmma"
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd.launches == before + 1
+    want = flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=causal)
+    tol = BWD_TOLERANCES[torch.bfloat16]
+    for a, b in zip(got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == q.shape
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+    again = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("what", ["unaligned", "hd 150", "hd 160"])
+def test_flash_attention_backward_mma_sync_route_by_shape(cuda, what, causal):
+    """The backward's route by shape: bf16 views 2 bytes past a 16-byte
+    boundary, hd 150 (hd % 8 != 0) and hd 160 (above the wgmma kernels'
+    128) take the mma.sync kernels and meet the plain version with equal
+    bits on a second call; the same values aligned at hd 112 take wgmma,
+    f32 the CUDA cores."""
+    from repro_torch.kernels.flash_attention import (
+        bwd_route, flash_attention, flash_attention_bwd,
+        flash_attention_bwd_plain)
+    shape = {"unaligned": (2, 100, 3, 112), "hd 150": (2, 100, 3, 150),
+             "hd 160": (2, 65, 3, 160)}[what]
+    q, k, v = _attention_inputs(shape, torch.bfloat16, cuda)
+    dout = _attention_inputs(shape, torch.bfloat16, cuda, seed=1)[0]
+    out, lse = flash_attention(q, k, v, causal=causal)
+    if what == "unaligned":
+        assert bwd_route(q, k, v, out, dout) == "wgmma"
+        views = []
+        for a in (q, k, v, out, dout):
+            flat = torch.empty(a.numel() + 8, dtype=a.dtype, device=cuda)
+            view = flat[1:1 + a.numel()].view(shape)
+            view.copy_(a)
+            views.append(view)
+        q, k, v, out, dout = views
+        assert q.data_ptr() % 16 != 0
+    assert bwd_route(q, k, v, out, dout) == "mma.sync"
+    assert bwd_route(*(a.float() for a in (q, k, v, out, dout))) == \
+        "cuda-cores"
+    got = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    want = flash_attention_bwd_plain(q, k, v, out, lse, dout, causal=causal)
+    tol = BWD_TOLERANCES[torch.bfloat16]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+    again = flash_attention_bwd(q, k, v, out, lse, dout, causal=causal)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
 @pytest.mark.parametrize("shape", [(2, 100, 3, 64), (1, 65, 2, 160)])

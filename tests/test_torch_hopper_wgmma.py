@@ -4,6 +4,9 @@ The bf16 flash forward issues ``wgmma.mma_async.m64nNk16`` through one
 overload a width N: ``mma_ss`` (both operands through shared-memory
 descriptors) for Q K^T at the kv tiles' N of 64 and 128, ``mma_rs`` (A from
 registers, B transposed) for P V at every head dim padded to 16, 16..160.
+The bf16 backward's wgmma kernels (``csrc/flash_attention_bwd.cu``) issue
+``mma_ss`` for S^T, dP^T, S and dP at their 64-row walked tile and
+``mma_rs`` for dV, dK and dQ at every padded head dim they dispatch to.
 Each lists its N / 2 accumulator registers by number in the asm string and
 again as operands; a slip in either compiles only on the card, and a wrong
 number there reads or writes the wrong register. These tests hold every
@@ -15,8 +18,10 @@ import re
 
 import pytest
 
-HEADER = os.path.join(os.path.dirname(__file__), os.pardir, "src",
-                      "repro_torch", "kernels", "csrc", "hopper.cuh")
+CSRC = os.path.join(os.path.dirname(__file__), os.pardir, "src",
+                    "repro_torch", "kernels", "csrc")
+HEADER = os.path.join(CSRC, "hopper.cuh")
+BWD = os.path.join(CSRC, "flash_attention_bwd.cu")
 
 
 def _overloads(kind: str) -> dict:
@@ -67,8 +72,33 @@ def test_mma_rs_overload(regs):
                      r'"r"\(a\[3\]\), "l"\(b\), "r"\(scale_d\)\);', body)
 
 
+def _bwd_widths() -> tuple:
+    """(mma_ss registers, [mma_rs registers]) of the backward's wgmma
+    kernels, read from their source: wg_scores' D (a 64 x kWgTile tile)
+    and the padded head dims with_wg_hdp dispatches to (wg_accumulate's
+    N)."""
+    text = open(BWD).read()
+    tile = int(re.search(r"constexpr int kWgTile = (\d+);", text).group(1))
+    scores = int(re.search(r"void wg_scores\(float \(&d\)\[(\d+)\]",
+                           text).group(1))
+    assert scores == tile // 2
+    assert re.search(r"void wg_accumulate\(float \(&acc\)\[kHdp / 2\]",
+                     text)
+    body = re.search(r"int with_wg_hdp\(int hd, Fn&& fn\) \{(.*?)\n\}",
+                     text, re.S).group(1)
+    hdps = [int(x) for x in
+            re.findall(r"integral_constant<int, (\d+)>", body)]
+    return scores, [hdp // 2 for hdp in hdps]
+
+
 def test_every_width_the_kernel_takes_has_an_overload():
-    """The kernel's kv tiles (64 and 128 rows) and padded head dims (16 to
-    160 in steps of 16) each have their overload, and no other exists."""
+    """The forward's kv tiles (64 and 128 rows) and padded head dims (16
+    to 160 in steps of 16) each have their overload, and no other exists;
+    so do the backward's: its 64-row walked tile (mma_ss) and every padded
+    head dim its wgmma kernels take, 32, 64, 112 and 128 (mma_rs)."""
     assert sorted(_overloads("ss")) == [32, 64]
     assert sorted(_overloads("rs")) == [hdp // 2 for hdp in range(16, 161, 16)]
+    scores, accumulators = _bwd_widths()
+    assert scores in _overloads("ss")
+    assert accumulators == [hdp // 2 for hdp in (32, 64, 112, 128)]
+    assert set(accumulators) <= set(_overloads("rs"))

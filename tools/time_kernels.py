@@ -23,9 +23,20 @@ times the bf16 flash forward alone, in both modes, at the seven shapes of
 ``chip_smoke.FLASH_TIMED`` and ``FLASH_MAIN`` (device time, the host's
 ``call_ms``, and ``scaled_dot_product_attention`` on the same inputs as
 the yardstick), with the tree's route at each shape where it reports one,
-and the registers and spills at head dims 64, 112, 128 and 160. It prints
-the card and one JSON line. Two trees compare on one card when they run
-in turns in one session: parent, change, change, parent.
+and the registers and spills at head dims 64, 112, 128 and 160.
+
+    python3 tools/time_kernels.py --src PATH/src --only flash_bwd
+
+times the bf16 flash backward alone, in both modes, at
+``chip_smoke.FLASH_BWD_TIMED``, ``FLASH_MANAGED_TRAIN``, (4, 512, 24, 128)
+and (4, 512, 48, 128): device time by CUDA events, CUPTI busy time by
+kernel (delta, dk/dv, dq), the backward of
+``scaled_dot_product_attention`` on the same inputs as the yardstick
+(``chip_smoke.time_flash_bwd``'s), the bound and the tree's route; then
+the route, registers, spills and threads of the dk/dv and dq kernels at
+head dims 32, 64, 112, 128 and 160. Each mode prints the card and one
+JSON line. Two trees compare on one card when they run in turns in one
+session: parent, change, change, parent.
 """
 
 from __future__ import annotations
@@ -43,9 +54,9 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--src", required=True,
                         help="the tree's src directory (holds repro_torch)")
-    parser.add_argument("--only", choices=("all", "flash_fwd"),
+    parser.add_argument("--only", choices=("all", "flash_fwd", "flash_bwd"),
                         default="all", help="time every kernel, or the bf16 "
-                        "flash forward alone")
+                        "flash forward or backward alone")
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     sys.path.insert(1, HERE)
@@ -58,14 +69,17 @@ def main() -> None:
     if args.only == "flash_fwd":
         from repro_torch.kernels._build import load
         load("flash_attention")
+    elif args.only == "flash_bwd":
+        build_both(args.src)
     else:
         for kmod in (anen_distance, flash_attention, mamba2_ssd, rwkv6_wkv):
             kmod.build()
 
     rows = {"src": os.path.abspath(args.src), "card": cs.card_line(),
             "empty_kernel_ms": cs.empty_ms()}
-    if args.only == "flash_fwd":
-        rows.update(flash_forward(cs, flash_attention))
+    if args.only != "all":
+        part = flash_forward if args.only == "flash_fwd" else flash_backward
+        rows.update(part(cs, flash_attention))
         print(rows["card"])
         print(json.dumps(rows))
         return
@@ -155,6 +169,69 @@ def flash_forward(cs, flash_attention) -> dict:
             rows[f"flash_attention causal={causal} registers/spill/threads "
                  f"hd {hd}"] = [info["registers"], info["spill_bytes"],
                                 info["threads"]]
+    return rows
+
+
+def build_both(src: str) -> None:
+    """The forward's and the backward's libraries of the tree, one nvcc
+    each, started together."""
+    import subprocess
+    env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
+    procs = [subprocess.Popen([sys.executable, "-m",
+                               "repro_torch.kernels._build", name], env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for name in ("flash_attention", "flash_attention_bwd")]
+    for proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            raise SystemExit(f"build failed:\n{err}")
+
+
+def flash_backward(cs, flash_attention) -> dict:
+    """The bf16 backward at the timed shapes in both modes: device ms,
+    busy ms by kernel, SDPA's backward (device ms), the bound and the
+    route; then the dk/dv and dq kernels' route, registers, spills and
+    threads at head dims 32, 64, 112, 128 and 160."""
+    import torch
+    import torch.nn.functional as F
+    rows = {}
+    route = getattr(flash_attention, "bwd_route", None)
+    shapes = (*cs.FLASH_BWD_TIMED, cs.FLASH_MANAGED_TRAIN, cs.FLASH_MINITRON,
+              cs.FLASH_DBRX)
+    for shape in shapes:
+        q, k, v = cs.attention_inputs(shape, "bfloat16")
+        dout = cs.attention_inputs(shape, "bfloat16", seed=12)[0]
+        qt, kt, vt = (a.transpose(1, 2).contiguous().requires_grad_(True)
+                      for a in (q, k, v))
+        dout_t = dout.transpose(1, 2).contiguous()
+        for causal in (True, False):
+            out, lse = flash_attention.flash_attention(q, k, v,
+                                                       causal=causal)
+            fn = lambda: flash_attention.flash_attention_bwd(  # noqa: E731
+                q, k, v, out, lse, dout, causal=causal)
+            sdpa = F.scaled_dot_product_attention(qt, kt, vt,
+                                                  is_causal=causal)
+            lib = lambda: torch.autograd.grad(  # noqa: E731
+                sdpa, (qt, kt, vt), dout_t, retain_graph=True)
+            row = {"ms": cs.device_ms(fn),
+                   "parts_busy_ms": cs.bwd_parts_ms(fn),
+                   "library_ms": cs.device_ms(lib),
+                   "route": (route(q, k, v, out, dout) if route
+                             else "mma.sync")}
+            row.update(cs.flash_bwd_bound(shape, 2, causal))
+            rows[f"flash_attention_bwd bfloat16 causal={causal} {shape}"] = \
+                row
+            del sdpa
+    for causal in (True, False):
+        for hd in (32, 64, 112, 128, 160):
+            for which in ("dkdv", "dq"):
+                info = flash_attention.bwd_kernel_info(hd, torch.bfloat16,
+                                                       which, causal)
+                rows[f"flash_attention_bwd {which} causal={causal} "
+                     f"route/registers/spill/threads hd {hd}"] = [
+                    info.get("route", "mma.sync"), info["registers"],
+                    info["spill_bytes"], info["threads"]]
     return rows
 
 
