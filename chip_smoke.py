@@ -83,8 +83,9 @@ plain PyTorch version on the card, and drives the port's paths:
    ``rwkv6_wkv_bwd`` 32 times a step at (4, 512, 40, 64)); zamba2-7b at
    its published width with its depth cut to 45 of 81 layers (7 groups of
    6 Mamba-2 layers and the shared block, then 3: ``mamba2_ssd`` 90 and
-   ``mamba2_ssd_bwd`` 45 times a step at (4, 512, 112, 64, 1, 64), flash
-   14 and 7 at (4, 512, 32, 112)), each with a profile of one more step;
+   ``mamba2_ssd_bwd`` 45 times a step at (4, 512, 112, 64, 1, 64), each
+   on the cluster route, flash 14 and 7 at (4, 512, 32, 112)), each with
+   a profile of one more step;
    then one train step of the stablelm-12b, qwen2-vl-2b, zamba2-7b,
    rwkv6-3b, dbrx-132b and llama4-maverick smoke configurations on the
    card against the CPU; then
@@ -133,7 +134,15 @@ padded head dims 32, 64, 112 and 128: each backward compare names its
 route and must take the one its shape calls for, the compiled dk/dv and
 dq kernels at head dims 32, 64, 112 and 128 in both modes must be the
 384-thread wgmma kernels with no spill, and the unaligned views, hd 150
-and hd 160 must take the mma.sync kernels and meet the same gates.
+and hd 160 must take the mma.sync kernels and meet the same gates. The
+bf16 SSD backward takes its cluster kernel (a thread block cluster over
+the chunks, the chunk states passed through distributed shared memory,
+wgmma) at N = P = chunk = 64 with one B/C group and at most 8 chunks:
+each SSD backward compare names its route and the train shape must take
+the cluster route, the cluster kernel must spill nothing and a cluster of
+the train shape's 8 chunks must fit the card; its busy time is read by
+kernel (the cluster kernel and the sums), and the workspace traffic it
+prints is the head groups' partial dB and dC.
 
 Flash attention's non-causal mode (``flash_attention(causal=False)``,
 bidirectional attention, the JAX kernel's ``causal=False``) is held the
@@ -493,34 +502,72 @@ def device_ms(fn, reps: int = TIMED_REPS) -> float:
         cycles *= 4
 
 
-def busy_ms(fn, reps: int = 10) -> float:
+#: the profiler's misses: how many traces came back with no device time
+#: (each taken again), and which busy times were timed by CUDA events
+#: instead because every trace of them came back empty
+PROFILER_MISSES = {"empty_traces": 0, "timed_by_events": []}
+TRACE_TRIES = 6
+
+
+def busy_ms(fn, what: str = "", reps: int = 10) -> float:
     """Device busy time of one call of a function that launches many
     kernels (a plain version, a library call): the CUPTI device time of
     every kernel and copy of ``reps`` calls under ``torch.profiler``,
     over ``reps``. Gaps while the device waits for the host do not
-    count."""
-    return sum(r[2] for r in traced_rows(fn, reps)) / reps
+    count. Where every trace comes back empty, the time from CUDA events
+    around the ``reps`` calls instead (:func:`events_ms`, gaps included),
+    noted in ``PROFILER_MISSES``."""
+    rows = traced_rows(fn, reps)
+    if rows:
+        return sum(r[2] for r in rows) / reps
+    PROFILER_MISSES["timed_by_events"].append(what or repr(fn))
+    return events_ms(fn, reps)
+
+
+def events_ms(fn, reps: int = 10) -> float:
+    """Device time of one call from CUDA events around ``reps`` calls
+    queued back to back on an idle device, over ``reps``: the busy time
+    plus any gaps in which the device waited for the host."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def traced_rows(fn, reps: int = 10) -> list:
-    """``device_rows`` of one trace of ``reps`` calls of ``fn``. A trace
-    with no device time at all is taken again, up to three times: the
-    profiler now and then hands one back empty."""
+    """``device_rows`` of one trace of ``reps`` calls of ``fn``, or [] when
+    ``TRACE_TRIES`` traces all came back with no device time. The
+    profiler now and then hands a trace back empty, several in a row at
+    times: each try after the first waits a little longer first, and
+    every other one traces the host's activity too."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
-    for _ in range(3):
+    for attempt in range(TRACE_TRIES):
+        if attempt:
+            PROFILER_MISSES["empty_traces"] += 1
+            time.sleep(0.5 * attempt)
+        activities = ([ProfilerActivity.CUDA] if attempt % 2 == 0 else
+                      [ProfilerActivity.CPU, ProfilerActivity.CUDA])
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
         rows = device_rows(prof)
         if sum(r[2] for r in rows) > 0:
             return rows
-    raise RuntimeError("check failed: the profiler saw no device time in "
-                       "three traces")
+    PROFILER_MISSES["empty_traces"] += 1
+    print(f"the profiler saw no device time in {TRACE_TRIES} traces of "
+          f"{fn!r}")
+    return []
 
 
 def call_ms(fn, reps: int = TIMED_REPS) -> float:
@@ -599,6 +646,8 @@ def reset_counts() -> None:
         fn.shapes.clear()
         if hasattr(fn, "noncausal_launches"):
             fn.noncausal_launches = 0
+        if hasattr(fn, "routes"):
+            fn.routes.clear()
 
 
 def run_main_path() -> dict:
@@ -1861,12 +1910,16 @@ def time_flash_bwd(shape, causal: bool = True) -> dict:
         q, k, v, out, lse, dout, causal=causal)
     library = lambda: torch.autograd.grad(                         # noqa
         sdpa, (qt, kt, vt), dout_t, retain_graph=True)
+    tag = f"flash_attention_bwd causal={causal} {shape}"
     row = {"shape": list(shape), "dtype": "bfloat16", "causal": causal,
            "route": bwd_route(q, k, v, out, dout),
-           "ms": device_ms(kernel), "busy_ms": busy_ms(kernel),
+           "ms": device_ms(kernel),
+           "busy_ms": busy_ms(kernel, tag + " kernel"),
            "parts_busy_ms": bwd_parts_ms(kernel),
-           "plain_ms": busy_ms(plain), "library_ms": device_ms(library),
-           "library_busy_ms": busy_ms(library), "call_ms": call_ms(kernel)}
+           "plain_ms": busy_ms(plain, tag + " plain"),
+           "library_ms": device_ms(library),
+           "library_busy_ms": busy_ms(library, tag + " library"),
+           "call_ms": call_ms(kernel)}
     row.update(flash_bwd_bound(shape, 2, causal))
     mode = "" if causal else " causal=False"
     print(f"flash_attention_bwd{mode} {tuple(shape)} bf16 ({row['route']} "
@@ -1891,8 +1944,11 @@ def bwd_part(name: str):
 
 def bwd_parts_ms(fn, reps: int = 10) -> dict:
     """CUPTI busy ms a call of each of the backward's three kernels
-    (delta, dk/dv, dq), from one trace of ``reps`` calls."""
+    (delta, dk/dv, dq), from one trace of ``reps`` calls; None where
+    every trace came back empty (not measured)."""
     rows = traced_rows(fn, reps)
+    if not rows:
+        return None
     parts = {part: sum(ms for key, _, ms in rows if bwd_part(key) == part)
              / reps for part in ("delta", "dkdv", "dq")}
     check(all(ms > 0 for ms in parts.values()),
@@ -1957,6 +2013,12 @@ def compare_scan_bwd(name: str, shape, dtype: str,
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           f"{what}: equal bits on a second call")
+    if name == "mamba2_ssd":
+        route = scan_bwd_route(shape, args, dout)
+        what += f" ({route} route)"
+        if dtype == "bfloat16" and tuple(shape) == SSD_MAIN:
+            check(route == "cluster",
+                  f"{what}: the train shape takes the cluster route")
     if dtype == "float32":
         digest = scan_bwd_digest(got)
         was = SCAN_BWD_F32_DIGEST[(name, tuple(shape), clamped)]
@@ -1967,6 +2029,13 @@ def compare_scan_bwd(name: str, shape, dtype: str,
           + ("; the f32 route's bits are commit ff86033's"
              if dtype == "float32" else ""))
     return max(errs)
+
+
+def scan_bwd_route(shape, args, dout) -> str:
+    """The SSD backward's route on these inputs, as ``bwd_route`` reports
+    it ("cluster", "mma.sync" or "cuda-cores")."""
+    from repro_torch.kernels.mamba2_ssd import bwd_route
+    return bwd_route(args[0], args[3], args[4], dout)
 
 
 def scan_bwd_digest(grads) -> str:
@@ -1982,20 +2051,33 @@ def scan_bwd_digest(grads) -> str:
 
 
 # the bf16 scan backwards' kernels (names as the profiler gives them, e.g.
-# "void (anonymous namespace)::ssd_bwd_chunk_kernel<64>(...)")
-SCAN_BWD_KERNEL = re.compile(r"::(?:ssd|wkv)_bwd_(walk|chunk|reduce)_kernel")
-SCAN_BWD_PARTS = ("walk", "chunk", "reduce")
+# "void (anonymous namespace)::wkv_bwd_chunk_kernel<64>(...)"): SSD's
+# cluster route at the train shape, WKV's walk and chunk kernels; each then
+# its fixed-order sums
+SCAN_BWD_KERNEL = re.compile(
+    r"::(?:ssd|wkv)_bwd_(walk|chunk|cluster|reduce)_kernel")
+SCAN_BWD_PARTS = {"mamba2_ssd": ("cluster", "reduce"),
+                  "rwkv6_wkv": ("walk", "chunk", "reduce")}
 
 
 def scan_bwd_workspace_bytes(name: str, shape) -> int:
     """Bytes the bf16 route moves through its f32 workspaces beyond the
-    function's own (not in the bound): the chunk states and their
-    gradients, written by the walk and read by the chunk kernel; SSD also
-    the per-head dB and dC, written and summed."""
+    function's own (not in the bound), written and read back. SSD on the
+    cluster route: the head groups' partial dB and dC and dA's partials
+    (the chunk states never leave the cluster); on the mma.sync route the
+    chunk states and their gradients (walk to chunk kernel) and the
+    per-head dB and dC. WKV: the chunk states and their gradients."""
+    import torch
+    from repro_torch.kernels import mamba2_ssd
     from repro_torch.kernels.mamba2_ssd import pick_chunk
     if name == "mamba2_ssd":
         B, T, H, P, G, N = shape
-        state = B * H * (T // pick_chunk(T)) * N * P * 4
+        K = T // pick_chunk(T)
+        if mamba2_ssd._bwd_route(shape, torch.bfloat16, (0, 0, 0, 0),
+                                 64) == "cluster":
+            groups = H // mamba2_ssd.cluster_heads(H)
+            return 2 * (2 * B * T * groups * N * 4 + B * H * K * 4)
+        state = B * H * K * N * P * 4
         return 2 * 2 * state + 2 * 2 * B * T * H * N * 4
     B, T, H, N = shape
     return 2 * 2 * B * H * (T // pick_chunk(T)) * N * N * 4
@@ -2003,16 +2085,19 @@ def scan_bwd_workspace_bytes(name: str, shape) -> int:
 
 def scan_bwd_parts_ms(name: str, fn, reps: int = 10) -> dict:
     """CUPTI busy ms a call of each of the bf16 scan backward's kernels,
-    from one trace of ``reps`` calls."""
+    from one trace of ``reps`` calls; None where every trace came back
+    empty (not measured)."""
     rows = traced_rows(fn, reps)
+    if not rows:
+        return None
     parts = {}
     for key, _, ms in rows:
         found = SCAN_BWD_KERNEL.search(key)
         if found:
             parts[found.group(1)] = parts.get(found.group(1), 0.0) + ms / reps
-    check(set(parts) == set(SCAN_BWD_PARTS),
+    check(set(parts) == set(SCAN_BWD_PARTS[name]),
           f"every {name} backward kernel traced: {parts}")
-    return {part: parts[part] for part in SCAN_BWD_PARTS}
+    return {part: parts[part] for part in SCAN_BWD_PARTS[name]}
 
 
 def time_scan_bwd(name: str, shape) -> dict:
@@ -2025,27 +2110,29 @@ def time_scan_bwd(name: str, shape) -> dict:
     args, dout, _ = scan_bwd_inputs(name, shape, "bfloat16")
     kernel = lambda: bwd(*args, dout)                         # noqa: E731
     plain = lambda: bwd_plain(*args, dout)                    # noqa: E731
+    tag = f"{name}_bwd {shape}"
     row = {"shape": list(shape), "dtype": "bfloat16",
-           "ms": device_ms(kernel), "busy_ms": busy_ms(kernel),
+           "ms": device_ms(kernel),
+           "busy_ms": busy_ms(kernel, tag + " kernel"),
            "parts_busy_ms": scan_bwd_parts_ms(name, kernel),
-           "plain_ms": busy_ms(plain), "library_ms": None,
+           "plain_ms": busy_ms(plain, tag + " plain"),
+           "library_ms": None,
            "call_ms": call_ms(kernel)}
     row.update((ssd_bwd_bound if name == "mamba2_ssd" else wkv_bwd_bound)(
         shape, 2))
+    if name == "mamba2_ssd":
+        row["route"] = scan_bwd_route(shape, args, dout)
+    row["workspace_bytes"] = scan_bwd_workspace_bytes(name, shape)
     print(f"{name}_bwd {tuple(shape)} bf16: {row['ms']} ms a call "
           f"({row['busy_ms']} busy; by kernel {row['parts_busy_ms']}), "
           f"plain {row['plain_ms']} busy, bound {row['bound_ms']} "
           f"({row['bound_by']}; f32 CUDA-core floor "
           f"{row['f32_cuda_core_ops_ms']})")
-    work = scan_bwd_workspace_bytes(name, shape)
+    work = row["workspace_bytes"]
     print(f"{name}_bwd {tuple(shape)} bf16 workspace traffic (counted from "
           f"the shape, not measured): {work} bytes, "
           f"{work / HBM_BYTES_PER_S * 1e3} ms at the memory rate")
     return row
-
-
-
-
 
 
 def compiled_kernels(anen_n: int) -> dict:
@@ -2054,8 +2141,11 @@ def compiled_kernels(anen_n: int) -> dict:
     flash also at head dim 160 (keys ``("flash_attention", dtype, 160)``),
     the bf16 backward's dk/dv and dq kernels at ``BWD_INFO_HDS`` (a spill
     at the train shape's head dim fails), the SSD and WKV backward kernels
-    for each dtype at their train shapes (the bf16 route's chunk kernel,
-    and its walk over the chunk states under keys ``(name, "bfloat16",
+    for each dtype at their train shapes (SSD bf16: the cluster route's
+    kernel, which must fit a cluster of the train shape's chunks on the
+    card, and the mma.sync route's chunk kernel and walk under keys
+    ``("mamba2_ssd_bwd", "bfloat16", "chunk" | "walk")``; WKV bf16: the
+    chunk kernel, and its walk under ``("rwkv6_wkv_bwd", "bfloat16",
     "walk")``; a spill fails), and ``anen_distance`` at ``anen_n``
     columns."""
     import torch
@@ -2079,11 +2169,14 @@ def compiled_kernels(anen_n: int) -> dict:
         info[("rwkv6_wkv", name)] = rwkv6_wkv.kernel_info(
             WKV_MAIN[3], pick_chunk(WKV_MAIN[1]), dtype)
         info[("mamba2_ssd_bwd", name)] = mamba2_ssd.bwd_kernel_info(
-            N, P, pick_chunk(T), dtype)
+            N, P, pick_chunk(T), dtype,
+            "cluster" if dtype == torch.bfloat16 else "chunk")
         info[("rwkv6_wkv_bwd", name)] = rwkv6_wkv.bwd_kernel_info(
             WKV_MAIN[3], pick_chunk(WKV_MAIN[1]), dtype)
-    info[("mamba2_ssd_bwd", "bfloat16", "walk")] = mamba2_ssd.bwd_kernel_info(
-        N, P, pick_chunk(T), torch.bfloat16, "walk")
+    for part in ("chunk", "walk"):
+        info[("mamba2_ssd_bwd", "bfloat16", part)] = \
+            mamba2_ssd.bwd_kernel_info(N, P, pick_chunk(T), torch.bfloat16,
+                                       part)
     info[("rwkv6_wkv_bwd", "bfloat16", "walk")] = rwkv6_wkv.bwd_kernel_info(
         WKV_MAIN[3], pick_chunk(WKV_MAIN[1]), torch.bfloat16, "walk")
     for hd in BWD_INFO_HDS:
@@ -2102,8 +2195,15 @@ def compiled_kernels(anen_n: int) -> dict:
     for (kernel, name, *rest), row in info.items():
         if kernel in ("mamba2_ssd_bwd", "rwkv6_wkv_bwd"):
             check(row["spill_bytes"] == 0,
-                  f"{kernel} {name} kernel spills nothing at the train shape "
-                  f"(got {row['spill_bytes']} bytes)")
+                  f"{kernel} {name} {rest} kernel spills nothing at the "
+                  f"train shape (got {row['spill_bytes']} bytes)")
+    clusters = mamba2_ssd.bwd_max_clusters(T // pick_chunk(T))
+    print(f"mamba2_ssd_bwd cluster route: {clusters} clusters of "
+          f"{T // pick_chunk(T)} blocks fit the card at once "
+          f"(cudaOccupancyMaxActiveClusters)")
+    check(clusters >= 1, "a cluster of the SSD backward's train-shape chunks "
+                         "fits the card")
+    info[("mamba2_ssd_bwd", "bfloat16")]["max_active_clusters"] = clusters
     return info
 
 
@@ -2124,11 +2224,15 @@ def time_flash(shape, causal: bool = True) -> dict:
         q, k, v, causal=causal)
     library = lambda: F.scaled_dot_product_attention(         # noqa: E731
         qt, kt, vt, is_causal=causal)
+    tag = f"flash_attention causal={causal} {shape}"
     row = {"shape": list(shape), "dtype": "bfloat16", "causal": causal,
            "route": route(q, k, v),
-           "ms": device_ms(kernel), "busy_ms": busy_ms(kernel),
-           "plain_ms": busy_ms(plain), "library_ms": device_ms(library),
-           "library_busy_ms": busy_ms(library), "call_ms": call_ms(kernel)}
+           "ms": device_ms(kernel),
+           "busy_ms": busy_ms(kernel, tag + " kernel"),
+           "plain_ms": busy_ms(plain, tag + " plain"),
+           "library_ms": device_ms(library),
+           "library_busy_ms": busy_ms(library, tag + " library"),
+           "call_ms": call_ms(kernel)}
     row.update(flash_bound(shape, 2, causal))
     return row
 
@@ -2262,9 +2366,12 @@ def time_ssd(shape) -> dict:
     args = ssd_inputs(shape, "bfloat16")
     kernel = lambda: mamba2_ssd(*args)                        # noqa: E731
     plain = lambda: mamba2_ssd_plain(*args)                   # noqa: E731
+    tag = f"mamba2_ssd {shape}"
     row = {"shape": list(shape), "dtype": "bfloat16",
-           "ms": device_ms(kernel), "busy_ms": busy_ms(kernel),
-           "plain_ms": busy_ms(plain), "library_ms": None,
+           "ms": device_ms(kernel),
+           "busy_ms": busy_ms(kernel, tag + " kernel"),
+           "plain_ms": busy_ms(plain, tag + " plain"),
+           "library_ms": None,
            "call_ms": call_ms(kernel)}
     row.update(ssd_bound(shape, 2))
     return row
@@ -2277,9 +2384,12 @@ def time_wkv(shape, dtype: str = "bfloat16") -> dict:
     args = wkv_inputs(shape, dtype)
     kernel = lambda: rwkv6_wkv(*args)                         # noqa: E731
     plain = lambda: rwkv6_wkv_plain(*args)                    # noqa: E731
+    tag = f"rwkv6_wkv {dtype} {shape}"
     row = {"shape": list(shape), "dtype": dtype,
-           "ms": device_ms(kernel), "busy_ms": busy_ms(kernel),
-           "plain_ms": busy_ms(plain), "library_ms": None,
+           "ms": device_ms(kernel),
+           "busy_ms": busy_ms(kernel, tag + " kernel"),
+           "plain_ms": busy_ms(plain, tag + " plain"),
+           "library_ms": None,
            "call_ms": call_ms(kernel)}
     if dtype == "bfloat16":
         row.update(wkv_bound(shape, 2))
@@ -2934,6 +3044,12 @@ def run_train_path(run: dict) -> tuple:
               f"{arch} {name}: {want * n} launches on the train path")
     for name, shape in TRAIN_SHAPES[arch].items():
         check(set(shapes[name]) == {shape}, f"{arch} {name} ran at {shape}")
+    ssd_routes = dict(KERNELS["mamba2_ssd_bwd"].routes)
+    if launches["mamba2_ssd_bwd"]:
+        print(f"{arch} mamba2_ssd_bwd routes: {ssd_routes}")
+        check(ssd_routes == {"cluster": launches["mamba2_ssd_bwd"]},
+              f"{arch}: every SSD backward took the cluster route "
+              f"({ssd_routes})")
     warm = [rec["seconds"] for rec in sess.stats[1:]]
     print(f"train {arch} warm step seconds {warm}, tokens a second "
           f"{[tokens / w for w in warm]}, peak bytes {peak}")
@@ -3505,12 +3621,18 @@ def main() -> None:
         and "hd" in key[2]}
     for name in ("mamba2_ssd_bwd", "rwkv6_wkv_bwd"):
         entry = next(e for e in record["kernels"] if e["name"] == name)
+        parts = ("chunk", "walk") if name == "mamba2_ssd_bwd" else ("walk",)
         entry.update(
             parts_busy_ms=timed[name]["parts_busy_ms"],
+            workspace_bytes=timed[name]["workspace_bytes"],
             compiled_parts={part: {k: compiled[(name, "bfloat16", part)][k]
                                    for k in ("registers", "spill_bytes",
                                              "blocks_per_sm")}
-                            for part in ("walk",)})
+                            for part in parts})
+        if name == "mamba2_ssd_bwd":
+            entry.update(route_bf16=timed[name]["route"],
+                         max_active_clusters=compiled[
+                             (name, "bfloat16")]["max_active_clusters"])
     wkv_entry = next(e for e in record["kernels"]
                      if e["name"] == "rwkv6_wkv")
     wkv_entry.update(
@@ -3557,6 +3679,9 @@ def main() -> None:
                 + info["dynamic_smem_bytes"],
                 blocks_per_sm=info["blocks_per_sm"])
     print(f"dryrun on the card: {json.dumps(dryrun_rows)}")
+    print(f"profiler: {PROFILER_MISSES['empty_traces']} empty traces taken "
+          f"again; busy times from CUDA events instead (every trace "
+          f"empty): {PROFILER_MISSES['timed_by_events']}")
     print(f"script seconds: {time.perf_counter() - t_start}")
     print(card_line())
     print(json.dumps(record))

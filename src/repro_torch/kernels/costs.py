@@ -149,12 +149,21 @@ def _ssd_shape(x, Bm) -> tuple:
 
 
 def _ssd_workspace(shape, bf16: bool, chunk: int) -> int:
-    """The f32 workspace :func:`mamba2_ssd_bwd` allocates on the card: the
-    chunk states (twice on the bf16 route), the per-head dB and dC, dA's
-    partials. The card may pick a smaller chunk where shared memory asks
-    for it; this counts the JAX chunk."""
+    """The f32 workspace :func:`mamba2_ssd_bwd` allocates on the card: on
+    the bf16 cluster route (``mamba2_ssd.bwd_route``, tensors taken as
+    aligned) the head groups' partial dB and dC and dA's partials; on the
+    others the chunk states (twice on the mma.sync route), the per-head dB
+    and dC, dA's partials. The card may pick a smaller chunk where shared
+    memory asks for it; this counts the JAX chunk."""
+    import torch
+    from . import mamba2_ssd
     B, T, H, P, G, N = shape
     K = T // pick_chunk(T, chunk) if T else 0
+    if bf16 and K and mamba2_ssd._bwd_route(shape, torch.bfloat16,
+                                           (0, 0, 0, 0),
+                                           chunk) == "cluster":
+        groups = H // mamba2_ssd.cluster_heads(H)
+        return 4 * (2 * B * T * groups * N + B * H * K)
     return 4 * (B * H * K * N * P * (2 if bf16 else 1) + 2 * B * T * H * N
                 + B * H * (K if bf16 else 1))
 

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks as inline PTX: mbarriers, TMA tensor
-// copies, warpgroup register rebalancing and wgmma, plus the host-side
-// encoding of TMA tensor maps. Used by the bf16 flash attention forward
-// (csrc/flash_attention.cu) and backward (csrc/flash_attention_bwd.cu);
-// tensor_core.cuh holds the Ampere-style mma.sync helpers the other
-// kernels use.
+// copies, warpgroup register rebalancing, wgmma and thread block clusters
+// (distributed shared memory), plus the host-side encoding of TMA tensor
+// maps. Used by the bf16 flash attention forward (csrc/flash_attention.cu)
+// and backward (csrc/flash_attention_bwd.cu) and the SSD backward's cluster
+// route (csrc/mamba2_ssd_bwd.cu); tensor_core.cuh holds the Ampere-style
+// mma.sync helpers the other kernels use.
 //
 // wgmma.mma_async.m64nNk16 (bf16 operands, f32 sums) is issued by the 128
 // threads of a warpgroup together. Its D fragment (N / 2 f32 registers a
@@ -543,6 +544,86 @@ __device__ __forceinline__ void mma_rs(float (&d)[80],
         "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]),
         "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d (64 x 64) += a . b with a (64 x 16) and b (16 x 64) in shared memory
+// (descriptors), each K-major (0) or MN-major (1: a's M, b's N
+// contiguous, described as mma_rs's b).
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void mma_ss_t(float (&d)[32], uint64_t a,
+                                         uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+// ---- thread block clusters -------------------------------------------------
+//
+// The blocks of a cluster run at once on neighbouring SMs and reach each
+// other's shared memory (distributed shared memory) through shared::cluster
+// addresses: mapa turns a block's own shared address into the same offset
+// in block `rank`'s.
+
+// Every thread of every block of the cluster arrives (release) and then
+// waits for all of them (acquire).
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+
+// 16 bytes into shared memory at `addr` (shared::cluster: another block's),
+// completing 16 bytes of transaction on the barrier at `bar` (in the same
+// block as addr).
+__device__ __forceinline__ void st_async(uint32_t addr, float4 v,
+                                         uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.f32 "
+      "[%0], {%1, %2, %3, %4}, [%5];\n"
+      :: "r"(addr), "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w), "r"(bar)
+      : "memory");
+}
+
+// One arrival (release at cluster scope) on a barrier at a shared::cluster
+// address (another block's).
+__device__ __forceinline__ void mbar_arrive_remote(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, "
+               "[%0];\n" :: "r"(bar) : "memory");
+}
+
+// Whether the phase of parity `parity` of this block's barrier has
+// completed, waiting for it up to about `ns` nanoseconds with the thread
+// suspended (acquire at cluster scope: what other blocks wrote into this
+// one's shared memory before it is visible).
+__device__ __forceinline__ bool mbar_try_cluster(uint32_t bar, int parity,
+                                                 uint32_t ns) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
+      "%2, %3;\nselp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity), "r"(ns) : "memory");
+  return done != 0;
 }
 
 // ---- tensor maps (host) ----------------------------------------------------

@@ -41,11 +41,71 @@
 // recomputed among them): 19 us on the bf16 tensor cores, 0.28 ms in f32
 // on the CUDA cores.
 //
-// bf16 route (the train path; ssd_bwd_walk_kernel, ssd_bwd_chunk_kernel,
-// ssd_bwd_reduce_kernel): the scan is a linear recurrence in the chunk
-// state, so given a chunk's start state S and its end state's gradient
-// dS' every term above is local to the chunk, the spanned dloga sums
-// included. Three launches, one call:
+// The shape and dtype pick the route (mamba2_ssd.py::bwd_route): f32 the
+// CUDA-core scan; bf16 at N = P = chunk = 64 with one B/C group, at most
+// kClMaxChunks chunks and x, B, C, dy 16-byte aligned (zamba2's train
+// path) the cluster route; every other bf16 input the mma.sync route.
+//
+// bf16 cluster route (ssd_bwd_cluster_kernel, then ssd_bwd_reduce_kernel):
+// one thread block cluster per (batch, group of `heads` heads), a block of
+// one warpgroup per chunk (K = T / 64 <= 8 blocks, a portable cluster),
+// walking the group's heads in order. What the mma.sync route paid for,
+// and what this one does instead:
+//  (a) the walk wrote every chunk's start state S_k and end-state
+//      gradient dS'_k to f32 workspaces (58.7 MB each at the train shape)
+//      for the chunk kernel to read back. Here block k forms its chunk's
+//      increments U = (B o w)^T x and V = (C o exp(cum))^T dy (wgmma, B o w
+//      and C o exp(cum) as split A fragments from ldmatrix.trans) and the
+//      states pass from block to block through distributed shared memory:
+//      block k - 1 writes S_k into block k's chain buffer (st.async, 16 KB
+//      completing on an mbarrier there) and block k sends on S_{k+1} =
+//      exp(cum_L) S_k + U; dS' goes the other way from dstate_T (or zeros)
+//      and block 0 writes dstate0. Each block passes a state on as soon as
+//      it is in (the two walks meet in the middle), in a fixed order, so a
+//      second call gives equal bits; state0 and dstate_T come into the end
+//      blocks' chain buffers a head ahead (cp.async). No walk launch, no
+//      state workspace; a chain buffer is free again (an arrival on the
+//      sender's barrier) once the block is through the head.
+//  (b) the chunk kernel wrote per-head f32 dB and dC (58.7 MB each) for
+//      the sums to read back. Here a block adds its heads' dB and dC in
+//      f32 registers (the wgmma accumulators), in head order, and writes
+//      one partial sum a group: H / heads partials a row, summed in a
+//      fixed order by the sums kernel (no atomics).
+//  (c) every product ran as mma.sync with 2 blocks of 4 warps an SM. Here
+//      every product is a wgmma m64n64k16 of the warpgroup: C.B^T and
+//      dy.x^T from TMA tiles (128-byte swizzled boxes of x, dy, B, C);
+//      S and dS' as bf16 hi + lo tiles; M and dG, formed in f32 in
+//      registers, stored as hi + lo tiles in the chain buffers once the
+//      states are through and read K-major (dG.B) or MN-major (M^T.dy,
+//      dG^T.C: the transposed products need no second copy). Every f32
+//      operand is still split into hi + lo, two products into one
+//      accumulator (constraint C4). dt is H-strided, so no TMA box gathers
+//      it: warp 0 loads it a head ahead. Q, its spanned sums and the
+//      per-step vectors stay f32 on the CUDA cores.
+// Workspace traffic at the train shape, counted from the shape: the
+// groups' partial dB and dC written and read, 2 x 2 x 4 x 512 x 7 x 64 x
+// 4 bytes, and dA's partials: 14.7 MB (the mma.sync route: 469.8 MB).
+// Shared memory 103,184 bytes (eight 8 KB tiles, two 16 KB chain buffers,
+// the vectors): 2 blocks an SM, 30 clusters of 8 on an H100; heads = 16
+// (mamba2_ssd.py::cluster_heads) makes the train shape's 28 clusters one
+// wave. 254 registers, no spill. Measured (tools/time_kernels.py --only
+// ssd_bwd, in turns with the mma.sync route; NVIDIA H100 80GB HBM3,
+// 700.00 W) at (4, 512, 112, 64, 1, 64): 0.2758-0.2771 ms a call against
+// 0.3824-0.3832, busy 0.2666-0.2676 in the cluster kernel and 0.0054 in
+// the sums; 8.8x the byte bound. What holds it there
+// (tools/trace_ssd_chain.py): the states pass block to block in
+// lockstep, 0.70 us a hop, 7 hops each way a head, and each block waits
+// them out itself: 11,053 of a head's 24,352 cycles go to the chain, the
+// tiles and the sum of S o dS'. Two ways around it were
+// slower on the card: a hop as bulk copies, and waiting for dS' only
+// before rows s while passing it on between the steps of rows t (the dS'
+// walk then waits on those steps).
+//
+// bf16 mma.sync route (every other bf16 input; ssd_bwd_walk_kernel,
+// ssd_bwd_chunk_kernel, ssd_bwd_reduce_kernel): the scan is a linear
+// recurrence in the chunk state, so given a chunk's start state S and its
+// end state's gradient dS' every term above is local to the chunk, the
+// spanned dloga sums included. Three launches, one call:
 //   1. the walk, a block per (b, h) and direction, 4 warps holding the
 //      state in f32 registers (16 rows each): forwards it writes S_k and
 //      adds (B o w)^T . x, backwards it writes dS'_k and adds (C o
@@ -79,10 +139,10 @@
 // chunk kernel holds 96,000 bytes of shared memory and 184 registers (2
 // blocks an SM), the walk 38,400 bytes and 160 registers (3 blocks), no
 // spill. Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W), bf16 at
-// (4, 512, 112, 64, 1, 64): 0.3849 ms a call, 0.3442 CUPTI busy (by
-// kernel, from another trace: walk 0.0957, chunk kernel 0.2600, sums
-// 0.0545), 12x its byte bound; the first port's CUDA-core scan took
-// 3.1984 ms there.
+// (4, 512, 112, 64, 1, 64), when it was the train shape's route:
+// 0.3849 ms a call, 0.3442 CUPTI busy (by kernel, from another trace: walk
+// 0.0957, chunk kernel 0.2600, sums 0.0545), 12x its byte bound; the first
+// port's CUDA-core scan took 3.1984 ms there.
 //
 // f32 route (ssd_bwd_kernel, the first port's, unchanged, then
 // ssd_bwd_reduce_kernel with one dA part a batch, which sums in the first
@@ -108,6 +168,7 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "scan_bwd.cuh"
 #include "tensor_core.cuh"
 
@@ -411,17 +472,19 @@ ssd_bwd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
 // The sums over blocks, in a fixed order, four columns a thread (16-byte
 // loads where N % 4 == 0, eight heads' in flight): dBm and dCm over the
-// heads of each group, dA over batches and then over each batch's `parts`
-// (1 on the f32 route, the chunks on the bf16 route).
+// `terms` entries of each group in dBh and dCh (the heads of the group on
+// the f32 and mma.sync routes, its head groups' partial sums on the
+// cluster route), dA over batches and then over each batch's `parts` (1 on
+// the f32 route, the chunks on the bf16 routes).
 template <typename T>
 __global__ void ssd_bwd_reduce_kernel(const float* __restrict__ dBh,
                                       const float* __restrict__ dCh,
                                       const float* __restrict__ dA_part,
                                       T* __restrict__ dBm, T* __restrict__ dCm,
                                       float* __restrict__ dA, int B,
-                                      size_t rows, int H, int G, int N,
-                                      int parts) {
-  const int hpg = H / G;
+                                      size_t rows, int H, int terms, int G,
+                                      int N, int parts) {
+  const int hpg = terms / G;
   const int nq = (N + 3) / 4;
   const bool vec = N % 4 == 0;
   const size_t total = rows * G * nq;   // rows = B * T
@@ -430,7 +493,7 @@ __global__ void ssd_bwd_reduce_kernel(const float* __restrict__ dBh,
     const int n = 4 * static_cast<int>(i % nq);
     const size_t g = (i / nq) % G;
     const size_t row = i / (static_cast<size_t>(nq) * G);
-    const size_t base = (row * H + g * hpg) * N;
+    const size_t base = (row * terms + g * hpg) * N;
     float4 sb = make_float4(0.0f, 0.0f, 0.0f, 0.0f), sc = sb;
 #pragma unroll 8
     for (int j = 0; j < hpg; ++j) {
@@ -512,8 +575,8 @@ int launch(const void* x, const float* dt, const float* A, const void* Bm,
   if (blocks > 4096) blocks = 4096;
   ssd_bwd_reduce_kernel<T><<<static_cast<unsigned>(blocks), threads, 0,
                              stream>>>(dBh, dCh, dA_part, static_cast<T*>(dBm),
-                                       static_cast<T*>(dCm), dA, B, rows, H, G,
-                                       N, 1);
+                                       static_cast<T*>(dCm), dA, B, rows, H, H,
+                                       G, N, 1);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1247,7 +1310,7 @@ int launch_tc(const void* x, const float* dt, const float* A, const void* Bm,
                                                                   : 4096),
                               256, 0, stream>>>(
       dBh, dCh, dA_part, static_cast<bf16*>(dBm), static_cast<bf16*>(dCm), dA,
-      B, static_cast<size_t>(B) * T_len, H, G, N, n_chunks);
+      B, static_cast<size_t>(B) * T_len, H, H, G, N, n_chunks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1264,6 +1327,813 @@ int info_tc(int part, int* info) {
                          chunk_smem_bytes<kD>(), info);
 }
 
+// --------------------------------------------------------------------------
+// bf16 cluster route on Hopper: a thread block cluster over the chunks of
+// a (b, head group), TMA tiles and wgmma (N = P = chunk = 64, G = 1, at
+// most kClMaxChunks chunks)
+// --------------------------------------------------------------------------
+
+constexpr int kClThreads = 128;                  // one warpgroup
+constexpr int kClMaxChunks = 8;                  // a portable cluster
+constexpr int kSwTile = 64 * 128;                // 64 x 64 bf16, swizzled
+constexpr int kFragBytes = kClThreads * 32 * 4;  // a 64 x 64 f32 fragment
+
+// Shared memory from a 1024-byte aligned base: eight swizzled tiles (B and
+// C of the block's chunk, loaded once; x and dy of the head; S hi and lo,
+// dS' hi and lo), the chain buffers into which the neighbours write S and
+// dS' (f32, fragment order), then the head's vectors.
+constexpr int kTB = 0, kTC = 1, kTX = 2, kTDy = 3, kTSh = 4, kTSl = 5,
+              kTDh = 6, kTDl = 7;
+constexpr int kSIn = 8 * kSwTile;
+constexpr int kDIn = kSIn + kFragBytes;
+constexpr int kVec = kDIn + kFragBytes;
+// once a head's chain is through, the chain buffers hold its M and dG
+// (hi and lo tiles, rows t, columns s)
+constexpr int kTMh = 8, kTMl = 9, kTGh = 10, kTGl = 11;
+static_assert(kSIn == kTMh * kSwTile && kDIn == kTGh * kSwTile,
+              "the chain buffers are two tiles each");
+// a wait for a barrier suspends its thread up to this long (ns) at a time
+constexpr uint32_t kSuspendNs = 200;
+// dts, cum, exp(cum), exp(cum_L - cum), w = exp(cum_L - cum) dt, the
+// readout's exponent gradient, dW (64 each); the warps' column sums of the
+// ddt products and of Q's spanned prefix sums (4 x 64 each); the warps'
+// sums of S o dS' (4)
+constexpr int kVecFloats = 7 * 64 + 2 * 4 * 64 + 4;
+constexpr size_t kClSmem = 1024 + kVec + sizeof(float) * kVecFloats;
+
+// Byte offset of (row, col) in a 64-column bf16 tile with 128-byte swizzle
+// (16-byte chunk c of row r stored at chunk c ^ (r % 8)); col even.
+__device__ __forceinline__ uint32_t sw(int row, int col) {
+  return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2;
+}
+
+// Descriptors of k step kk of a swizzled tile: K-major (rows M or N, K
+// contiguous) and MN-major (rows K, M or N contiguous).
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  return hp::desc_sw128(tile + kk * 32, 16, 1024);
+}
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return hp::desc_sw128(tile + kk * 16 * 128, kSwTile, 1024);
+}
+
+// mma.sync's A fragment (rows m0.., k step kk) of the transpose of a
+// swizzled (k, m) tile, through ldmatrix.trans.
+__device__ __forceinline__ void lda_t_sw(uint32_t (&a)[4], uint32_t tile,
+                                         int m0, int kk) {
+  const int lane = threadIdx.x & 31;
+  const int row = 16 * kk + (lane >> 4) * 8 + (lane & 7);
+  const int col = m0 + ((lane >> 3) & 1) * 8;
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(tile + sw(row, col))
+      : "memory");
+}
+
+// Waits for phase `parity` of a barrier of the cluster kernel (acquire at
+// cluster scope), the thread suspended kSuspendNs at a time. A phase that
+// has not come after 2^22 such waits (seconds) traps: a launch error
+// rather than a card that never finishes.
+__device__ __forceinline__ void wait_phase(uint32_t bar, int parity) {
+  for (uint32_t n = 0; !hp::mbar_try_cluster(bar, parity, kSuspendNs);
+       ++n) {
+    if (n == (1u << 22)) __trap();
+  }
+}
+
+// Fragments: d[4 j + e] of a warpgroup's 64 x 64 D is row 16 w + g + 8 (e
+// / 2), column 8 j + 2 t + (e % 2).
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.0f;
+}
+
+// Fragments to a row-major 64 x 64 f32 matrix in global memory.
+__device__ __forceinline__ void frag_store(float* __restrict__ m,
+                                           const float (&r)[32]) {
+  const int lane = threadIdx.x & 31;
+  const int row = 16 * (threadIdx.x >> 5) + (lane >> 2);
+  const int col = 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      *reinterpret_cast<float2*>(m + (row + 8 * h) * 64 + 8 * j + col) =
+          make_float2(r[4 * j + 2 * h], r[4 * j + 2 * h + 1]);
+    }
+}
+
+// This thread's elements of a row-major 64 x 64 f32 matrix in global
+// memory into its slots of a fragment-ordered buffer (as the chain writes
+// it) at shared address `buf`, by cp.async (8 bytes a copy; the thread
+// waits for its own copies before it reads them).
+__device__ __forceinline__ void frag_prefetch(uint32_t buf,
+                                              const float* __restrict__ m) {
+  const int lane = threadIdx.x & 31;
+  const int row = 16 * (threadIdx.x >> 5) + (lane >> 2);
+  const int col = 2 * (lane & 3);
+#pragma unroll
+  for (int q = 0; q < 8; ++q)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t dst = buf + 16 * (q * kClThreads + threadIdx.x) + 8 * h;
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+                   :: "r"(dst), "l"(m + (row + 8 * h) * 64 + 8 * q + col)
+                   : "memory");
+    }
+  tc::cp_async_commit();
+}
+
+// One cluster per (batch b, group of `heads` heads): block k (its rank)
+// owns chunk k and walks the group's heads in order. Per head it forms the
+// chunk's increments U = (B o w)^T x and V = (C o exp(cum))^T dy, takes
+// its start state S_k from block k - 1 (state0 at k = 0) and its end
+// state's gradient dS'_k from block k + 1 (dstate_T at the last chunk),
+// hands S_{k+1} = exp(cum_L) S_k + U on to block k + 1 and dS'_{k-1} =
+// exp(cum_L) dS'_k + V to block k - 1 (dstate0 from block 0), then forms
+// the chunk's gradient. dB and dC of the group's heads add up in f32
+// registers, in head order, and are written once, as the group's partial
+// sums. Maps: x, dy as (P, H, T, B) and Bm, Cm as (N, G, T, B) of bf16,
+// 128-byte swizzled boxes of 64 columns x 64 rows.
+__global__ void __launch_bounds__(kClThreads, 2)
+ssd_bwd_cluster_kernel(const __grid_constant__ CUtensorMap tm_x,
+                       const __grid_constant__ CUtensorMap tm_dy,
+                       const __grid_constant__ CUtensorMap tm_b,
+                       const __grid_constant__ CUtensorMap tm_c,
+                       const float* __restrict__ dt,
+                       const float* __restrict__ A,
+                       const float* __restrict__ state0,
+                       const float* __restrict__ dstate_T,
+                       bf16* __restrict__ dx, float* __restrict__ ddt,
+                       float* __restrict__ dBp, float* __restrict__ dCp,
+                       float* __restrict__ dA_part,
+                       float* __restrict__ dstate0, int T_len, int H,
+                       int heads) {
+  // barriers: B and C in; x and dy in; S and dS' in (written by the
+  // neighbours); the chain buffers free again (in the neighbours, which
+  // this block may then write)
+  __shared__ __align__(8) uint64_t bars[6];
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  const uint32_t base = hp::smem_u32(smem);
+  auto tile = [&](int i) { return base + i * kSwTile; };
+  float* vec = reinterpret_cast<float*>(smem + kVec);
+  float* dts = vec;
+  float* cum = vec + 64;
+  float* ecum = vec + 128;
+  float* dec = vec + 192;
+  float* wv = vec + 256;
+  float* inter = vec + 320;
+  float* dws = vec + 384;
+  float* cole = vec + 448;   // warps x 64
+  float* span = cole + 256;  // warps x 64
+  float* part = span + 256;  // warps
+  const uint32_t bar0 = hp::smem_u32(bars);
+  const uint32_t bc_full = bar0, xy_full = bar0 + 8, s_full = bar0 + 16,
+                 d_full = bar0 + 24, s_empty = bar0 + 32,
+                 d_empty = bar0 + 40;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int r0 = 16 * warp;
+  const int k = blockIdx.x;   // the chunk, the block's rank in the cluster
+  const int K = gridDim.x;
+  const int n_groups = gridDim.y;
+  const int grp = blockIdx.y;
+  const int b = blockIdx.z;
+  const int t0 = 64 * k;
+  const int h0 = grp * heads;
+  const size_t row0 = static_cast<size_t>(b) * T_len + t0;
+  const bool first = k == 0;
+  const bool last = k + 1 == K;
+  // the block waits first for the state that reaches it first
+  const bool s_sooner = 2 * k < K - 1;
+
+  if (tid == 0) {
+    hp::prefetch_tensormap(&tm_x);
+    hp::prefetch_tensormap(&tm_dy);
+    for (int i = 0; i < 6; ++i) hp::mbar_init(bar0 + 8 * i, 1);
+    hp::fence_barrier_init();
+  }
+  // every block's barriers exist before a neighbour signals one
+  hp::cluster_sync();
+  if (tid == 0) {
+    hp::mbar_expect_tx(bc_full, 2 * kSwTile);
+    hp::tma_load_4d(tile(kTB), &tm_b, bc_full, 0, 0, t0, b);
+    hp::tma_load_4d(tile(kTC), &tm_c, bc_full, 0, 0, t0, b);
+    hp::mbar_expect_tx(xy_full, 2 * kSwTile);
+    hp::tma_load_4d(tile(kTX), &tm_x, xy_full, 0, h0, t0, b);
+    hp::tma_load_4d(tile(kTDy), &tm_dy, xy_full, 0, h0, t0, b);
+  }
+  float dBa[32], dCa[32];   // the group's dB and dC, rows s (t) of the chunk
+  zero(dBa);
+  zero(dCa);
+  // warp 0 holds the next head's dt (rows lane, lane + 32) and A, loaded a
+  // head ahead
+  float dt0 = 0.0f, dt1 = 0.0f, a_next = 0.0f;
+  if (warp == 0) {
+    dt0 = dt[(row0 + lane) * H + h0];
+    dt1 = dt[(row0 + lane + 32) * H + h0];
+    a_next = A[h0];
+  }
+  // the first chunk's start state and the last chunk's end-state gradient
+  // come from global memory: a head ahead, into the chain buffers that no
+  // neighbour writes there
+  auto prefetch_states = [&](int h) {
+    const size_t at = (static_cast<size_t>(b) * H + h) * 4096;
+    if (first) frag_prefetch(base + kSIn, state0 + at);
+    if (last && dstate_T != nullptr) frag_prefetch(base + kDIn, dstate_T + at);
+  };
+  prefetch_states(h0);
+  wait_phase(bc_full, 0);
+
+  for (int i = 0; i < heads; ++i) {
+    const int h = h0 + i;
+    const size_t bh = static_cast<size_t>(b) * H + h;
+    if (warp == 0) {
+      // the chunk's vectors: cum (an inclusive scan of dt A), exp(cum),
+      // exp(cum_L - cum), w = exp(cum_L - cum) dt
+      const float a = a_next;
+      float c0 = dt0 * a, c1 = dt1 * a;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float u0 = __shfl_up_sync(0xffffffffu, c0, off);
+        const float u1 = __shfl_up_sync(0xffffffffu, c1, off);
+        if (lane >= off) {
+          c0 += u0;
+          c1 += u1;
+        }
+      }
+      c1 += __shfl_sync(0xffffffffu, c0, 31);
+      const float cl = __shfl_sync(0xffffffffu, c1, 31);
+      const float d0 = expf(cl - c0), d1 = expf(cl - c1);
+      dts[lane] = dt0;
+      dts[lane + 32] = dt1;
+      cum[lane] = c0;
+      cum[lane + 32] = c1;
+      ecum[lane] = expf(c0);
+      ecum[lane + 32] = expf(c1);
+      dec[lane] = d0;
+      dec[lane + 32] = d1;
+      wv[lane] = d0 * dt0;
+      wv[lane + 32] = d1 * dt1;
+      if (i + 1 < heads) {
+        dt0 = dt[(row0 + lane) * H + h + 1];
+        dt1 = dt[(row0 + lane + 32) * H + h + 1];
+        a_next = A[h + 1];
+      }
+      if (lane == 0) {   // this head's S and dS' to come from the neighbours
+        if (!first) hp::mbar_expect_tx(s_full, kFragBytes);
+        if (!last) hp::mbar_expect_tx(d_full, kFragBytes);
+      }
+    }
+    __syncthreads();   // (1) the head's vectors
+    const float elast = ecum[63];
+    wait_phase(xy_full, i & 1);
+
+    // U = (B o w)^T x and V = (C o exp(cum))^T dy: rows n (this warp's
+    // 16), k steps over the chunk; B o w and C o exp(cum) split into hi
+    // and lo A fragments, x and dy MN-major
+    float U[32], V[32];
+    {
+      uint32_t uh[4][4], ul[4][4], vh[4][4], vl[4][4];
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t fb[4], fc[4];
+        lda_t_sw(fb, tile(kTB), r0, kk);
+        lda_t_sw(fc, tile(kTC), r0, kk);
+        const int s0 = 16 * kk + 2 * t;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int s = s0 + (q < 2 ? 0 : 8);
+          const float2 f = tc::unpack_bf16(fb[q]);
+          tc::split_bf16(f.x * wv[s], f.y * wv[s + 1], uh[kk][q], ul[kk][q]);
+          const float2 e = tc::unpack_bf16(fc[q]);
+          tc::split_bf16(e.x * ecum[s], e.y * ecum[s + 1], vh[kk][q],
+                         vl[kk][q]);
+        }
+      }
+      zero(U);
+      zero(V);
+      hp::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        hp::mma_rs(U, uh[kk], desc_mn(tile(kTX), kk), 1);
+        hp::mma_rs(U, ul[kk], desc_mn(tile(kTX), kk), 1);
+        hp::mma_rs(V, vh[kk], desc_mn(tile(kTDy), kk), 1);
+        hp::mma_rs(V, vl[kk], desc_mn(tile(kTDy), kk), 1);
+      }
+      hp::wgmma_commit();
+      hp::wgmma_wait<0>();
+      hp::fence_regs(U);
+      hp::fence_regs(V);
+    }
+
+    // The chain: S from block k - 1 (or state0), dS' from block k + 1 (or
+    // dstate_T); each is passed on as soon as it is in, in whichever order
+    // the two come, so both walks take K - 1 hops. Each then goes into its
+    // hi and lo tiles (rows n, columns p)
+    auto take = [&](int off, float (&r)[32]) {
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const float4 v = *reinterpret_cast<const float4*>(
+            smem + off + 16 * (q * kClThreads + tid));
+        r[4 * q] = v.x;
+        r[4 * q + 1] = v.y;
+        r[4 * q + 2] = v.z;
+        r[4 * q + 3] = v.w;
+      }
+    };
+    auto to_tiles = [&](const float (&r)[32], int hi_tile, int lo_tile) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int x = 4 * j + 2 * hh;
+          const uint32_t o = sw(r0 + g + 8 * hh, 8 * j + 2 * t);
+          uint32_t hi, lo;
+          tc::split_bf16(r[x], r[x + 1], hi, lo);
+          *reinterpret_cast<uint32_t*>(smem + hi_tile * kSwTile + o) = hi;
+          *reinterpret_cast<uint32_t*>(smem + lo_tile * kSwTile + o) = lo;
+        }
+    };
+    // S_{k+1} = exp(cum_L) S + U to block k + 1; S to its tiles
+    auto pass_s = [&]() {
+      float S[32];
+      take(kSIn, S);
+      if (!last) {
+        if (i > 0) wait_phase(s_empty, (i - 1) & 1);
+        const uint32_t dst = hp::map_rank(base + kSIn, k + 1) + 16 * tid;
+        const uint32_t bar = hp::map_rank(s_full, k + 1);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          hp::st_async(dst + q * 16 * kClThreads,
+                       make_float4(fmaf(elast, S[4 * q], U[4 * q]),
+                                   fmaf(elast, S[4 * q + 1], U[4 * q + 1]),
+                                   fmaf(elast, S[4 * q + 2], U[4 * q + 2]),
+                                   fmaf(elast, S[4 * q + 3], U[4 * q + 3])),
+                       bar);
+        }
+      }
+      to_tiles(S, kTSh, kTSl);
+    };
+    // dS'_{k-1} = exp(cum_L) dS' + V to block k - 1 (dstate0 from block
+    // 0); dS' to its tiles
+    auto pass_d = [&]() {
+      float dS[32];
+      if (!last || dstate_T != nullptr) {
+        take(kDIn, dS);
+      } else {
+        zero(dS);
+      }
+      if (first) {
+#pragma unroll
+        for (int x = 0; x < 32; ++x) V[x] = fmaf(elast, dS[x], V[x]);
+        frag_store(dstate0 + bh * 4096, V);
+      } else {
+        if (i > 0) wait_phase(d_empty, (i - 1) & 1);
+        const uint32_t dst = hp::map_rank(base + kDIn, k - 1) + 16 * tid;
+        const uint32_t bar = hp::map_rank(d_full, k - 1);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          hp::st_async(dst + q * 16 * kClThreads,
+                       make_float4(fmaf(elast, dS[4 * q], V[4 * q]),
+                                   fmaf(elast, dS[4 * q + 1], V[4 * q + 1]),
+                                   fmaf(elast, dS[4 * q + 2], V[4 * q + 2]),
+                                   fmaf(elast, dS[4 * q + 3], V[4 * q + 3])),
+                       bar);
+        }
+      }
+      to_tiles(dS, kTDh, kTDl);
+    };
+    // whether a state has come, the warp's lanes agreeing (they wait with
+    // the thread suspended, not spinning: the block beside this one on its
+    // SM keeps the issue slots)
+    auto arrived = [&](uint32_t bar) {
+      if (!__shfl_sync(0xffffffffu,
+                       hp::mbar_try_cluster(bar, i & 1, kSuspendNs), 0)) {
+        return false;
+      }
+      wait_phase(bar, i & 1);
+      return true;
+    };
+    if (first || last) tc::cp_async_wait<0>();   // the prefetched states
+    if (first) pass_s();
+    if (last) pass_d();
+    bool need_s = !first, need_d = !last;
+    for (uint32_t n = 0; need_s || need_d; ++n) {
+      if (n == (1u << 22)) __trap();
+      if (s_sooner) {
+        if (need_s && arrived(s_full)) {
+          pass_s();
+          need_s = false;
+        }
+        if (need_d && arrived(d_full)) {
+          pass_d();
+          need_d = false;
+        }
+      } else {
+        if (need_d && arrived(d_full)) {
+          pass_d();
+          need_d = false;
+        }
+        if (need_s && arrived(s_full)) {
+          pass_s();
+          need_s = false;
+        }
+      }
+    }
+    // the sum of S o dS', from the f32 copies the chain left
+    {
+      float S[32], dS[32];
+      take(kSIn, S);
+      if (!last || dstate_T != nullptr) {
+        take(kDIn, dS);
+      } else {
+        zero(dS);
+      }
+      float ssd = 0.0f;
+#pragma unroll
+      for (int x = 0; x < 32; ++x) ssd = fmaf(S[x], dS[x], ssd);
+      ssd = tc::warp_sum(ssd);
+      if (lane == 0) part[warp] = ssd;
+    }
+    hp::fence_proxy_async();
+    __syncthreads();   // (2) S and dS' in their tiles; the chain copies read
+
+    // rows t: G = C.B^T and dM = dy.x^T (exact), and S dy_t beside them;
+    // then in f32 as the mma.sync route forms them: M and dG (hi and lo
+    // tiles where the chain copies were, rows t, columns s), the ddt
+    // column sums, Q and its spanned prefix sums; dC += exp(cum_t) S dy_t
+    // + dG.B
+    {
+      float gm[32], dm[32], acc[32];
+      zero(gm);
+      zero(dm);
+      zero(acc);
+      hp::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        hp::mma_ss(gm, desc_k(tile(kTC), kk), desc_k(tile(kTB), kk), 1);
+        hp::mma_ss(dm, desc_k(tile(kTDy), kk), desc_k(tile(kTX), kk), 1);
+      }
+      hp::wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        hp::mma_ss(acc, desc_k(tile(kTDy), kk), desc_k(tile(kTSh), kk), 1);
+        hp::mma_ss(acc, desc_k(tile(kTDy), kk), desc_k(tile(kTSl), kk), 1);
+      }
+      hp::wgmma_commit();
+      hp::wgmma_wait<1>();
+      hp::fence_regs(gm);
+      hp::fence_regs(dm);
+      // D = exp(min(cum_t - cum_s, 0)) at s <= t; M = G o D o dt_s and dG
+      // = dM o D o dt_s to their tiles; the ddt products dM o G o D summed
+      // down the columns; Q = dM o M at s < t where the clamp passes the
+      // difference (in gm's place)
+      const float ct0 = cum[r0 + g], ct1 = cum[r0 + g + 8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        float col[2] = {0.0f, 0.0f};
+        float mv[4], dg[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = 4 * j + e;
+          const int tt = r0 + g + 8 * (e >> 1);
+          const int ss = 8 * j + 2 * t + (e & 1);
+          const float diff = ((e >> 1) ? ct1 : ct0) - cum[ss];
+          const float d = ss <= tt ? expf(fminf(diff, 0.0f)) : 0.0f;
+          const float gv = gm[x];
+          const float dv = dm[x];
+          mv[e] = gv * d * dts[ss];
+          dg[e] = dv * d * dts[ss];
+          col[e & 1] += dv * gv * d;
+          gm[x] = ss < tt && diff <= 0.0f ? dv * mv[e] : 0.0f;
+        }
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const uint32_t o = sw(r0 + g + 8 * hh, 8 * j + 2 * t);
+          uint32_t hi, lo;
+          tc::split_bf16(mv[2 * hh], mv[2 * hh + 1], hi, lo);
+          *reinterpret_cast<uint32_t*>(smem + kTMh * kSwTile + o) = hi;
+          *reinterpret_cast<uint32_t*>(smem + kTMl * kSwTile + o) = lo;
+          tc::split_bf16(dg[2 * hh], dg[2 * hh + 1], hi, lo);
+          *reinterpret_cast<uint32_t*>(smem + kTGh * kSwTile + o) = hi;
+          *reinterpret_cast<uint32_t*>(smem + kTGl * kSwTile + o) = lo;
+        }
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float v = tc::column_sum(col[c]);
+          if (g == 0) cole[warp * 64 + 8 * j + 2 * t + c] = v;
+        }
+      }
+      hp::fence_proxy_async();
+      // Q's rows to exclusive prefix sums U[t, j] = sum_{s<j} Q[t, s] (a
+      // scan over the quad, tile by tile), summed down the columns at t >=
+      // j: the Q[t, s] whose exponent spans a_j
+      {
+        float run[2] = {0.0f, 0.0f};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float col[2] = {0.0f, 0.0f};
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float qa = gm[4 * j + 2 * r];
+            const float qb = gm[4 * j + 2 * r + 1];
+            float inc = qa + qb;
+            float y = __shfl_up_sync(0xffffffffu, inc, 1, 4);
+            if (t >= 1) inc += y;
+            y = __shfl_up_sync(0xffffffffu, inc, 2, 4);
+            if (t >= 2) inc += y;
+            float ex = __shfl_up_sync(0xffffffffu, inc, 1, 4);
+            if (t == 0) ex = 0.0f;
+            const float ua = run[r] + ex;
+            const float ub = ua + qa;
+            const int tt = r0 + g + 8 * r;
+            const int s0 = 8 * j + 2 * t;
+            col[0] += s0 <= tt ? ua : 0.0f;
+            col[1] += s0 + 1 <= tt ? ub : 0.0f;
+            run[r] += __shfl_sync(0xffffffffu, inc, 3, 4);
+          }
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float v = tc::column_sum(col[c]);
+            if (g == 0) span[warp * 64 + 8 * j + 2 * t + c] = v;
+          }
+        }
+      }
+      hp::wgmma_wait<0>();
+      hp::fence_regs(acc);
+      // the readout's exponent gradient exp(cum_t) C_t . S dy_t
+      float ip[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float2 c2 = tc::unpack_bf16(*reinterpret_cast<const uint32_t*>(
+              smem + kTC * kSwTile + sw(r0 + g + 8 * hh, 8 * j + 2 * t)));
+          ip[hh] = fmaf(c2.x, acc[4 * j + 2 * hh],
+                        fmaf(c2.y, acc[4 * j + 2 * hh + 1], ip[hh]));
+        }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float v = tc::quad_sum(ip[hh]);
+        if (t == 0) inter[r0 + g + 8 * hh] = ecum[r0 + g + 8 * hh] * v;
+      }
+      const float e0 = ecum[r0 + g], e1 = ecum[r0 + g + 8];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        dCa[4 * j] = fmaf(acc[4 * j], e0, dCa[4 * j]);
+        dCa[4 * j + 1] = fmaf(acc[4 * j + 1], e0, dCa[4 * j + 1]);
+        dCa[4 * j + 2] = fmaf(acc[4 * j + 2], e1, dCa[4 * j + 2]);
+        dCa[4 * j + 3] = fmaf(acc[4 * j + 3], e1, dCa[4 * j + 3]);
+      }
+    }
+    __syncthreads();   // (3) the M and dG tiles are in
+    // dC += dG.B (dG K-major, B MN-major); rows s: dB += w_s dS' x_s +
+    // dG^T.C (dW_s = B_s . dS' x_s on the way) and dx = w_s dS'^T B_s +
+    // M^T.dy (M and dG read MN-major as the transposed A)
+    {
+      float acc[32], ax[32];
+      zero(acc);
+      zero(ax);
+      hp::fence_regs(dCa);
+      hp::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        hp::mma_ss_t<0, 1>(dCa, desc_k(tile(kTGh), kk),
+                           desc_mn(tile(kTB), kk), 1);
+        hp::mma_ss_t<0, 1>(dCa, desc_k(tile(kTGl), kk),
+                           desc_mn(tile(kTB), kk), 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        hp::mma_ss(acc, desc_k(tile(kTX), kk), desc_k(tile(kTDh), kk), 1);
+        hp::mma_ss(acc, desc_k(tile(kTX), kk), desc_k(tile(kTDl), kk), 1);
+        hp::mma_ss_t<0, 1>(ax, desc_k(tile(kTB), kk),
+                           desc_mn(tile(kTDh), kk), 1);
+        hp::mma_ss_t<0, 1>(ax, desc_k(tile(kTB), kk),
+                           desc_mn(tile(kTDl), kk), 1);
+      }
+      hp::wgmma_commit();
+      hp::wgmma_wait<0>();
+      hp::fence_regs(dCa);
+      hp::fence_regs(acc);
+      hp::fence_regs(ax);
+      const float w0 = wv[r0 + g], w1 = wv[r0 + g + 8];
+      float wp[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float2 b2 = tc::unpack_bf16(*reinterpret_cast<const uint32_t*>(
+              smem + kTB * kSwTile + sw(r0 + g + 8 * hh, 8 * j + 2 * t)));
+          wp[hh] = fmaf(b2.x, acc[4 * j + 2 * hh],
+                        fmaf(b2.y, acc[4 * j + 2 * hh + 1], wp[hh]));
+        }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float v = tc::quad_sum(wp[hh]);
+        if (t == 0) dws[r0 + g + 8 * hh] = v;
+      }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        dBa[4 * j] = fmaf(acc[4 * j], w0, dBa[4 * j]);
+        dBa[4 * j + 1] = fmaf(acc[4 * j + 1], w0, dBa[4 * j + 1]);
+        dBa[4 * j + 2] = fmaf(acc[4 * j + 2], w1, dBa[4 * j + 2]);
+        dBa[4 * j + 3] = fmaf(acc[4 * j + 3], w1, dBa[4 * j + 3]);
+        ax[4 * j] *= w0;
+        ax[4 * j + 1] *= w0;
+        ax[4 * j + 2] *= w1;
+        ax[4 * j + 3] *= w1;
+      }
+      hp::fence_regs(dBa);
+      hp::fence_regs(ax);
+      hp::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        hp::mma_ss_t<1, 1>(dBa, desc_mn(tile(kTGh), kk),
+                           desc_mn(tile(kTC), kk), 1);
+        hp::mma_ss_t<1, 1>(dBa, desc_mn(tile(kTGl), kk),
+                           desc_mn(tile(kTC), kk), 1);
+        hp::mma_ss_t<1, 1>(ax, desc_mn(tile(kTMh), kk),
+                           desc_mn(tile(kTDy), kk), 1);
+        hp::mma_ss_t<1, 1>(ax, desc_mn(tile(kTMl), kk),
+                           desc_mn(tile(kTDy), kk), 1);
+      }
+      hp::wgmma_commit();
+      hp::wgmma_wait<0>();
+      hp::fence_regs(dBa);
+      hp::fence_regs(ax);
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        bf16* dst = dx + ((row0 + r0 + g + 8 * hh) * H + h) * 64 + 2 * t;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          *reinterpret_cast<uint32_t*>(dst + 8 * j) =
+              tc::pack_bf16(ax[4 * j + 2 * hh], ax[4 * j + 2 * hh + 1]);
+        }
+      }
+    }
+    __syncthreads();   // (4) x, dy, M and dG are read; the vectors are in
+    if (i + 1 < heads) prefetch_states(h + 1);
+    if (tid == 32 && i + 1 < heads) {
+      // (warp 1, so that warp 0 goes on to the vectors) the chain buffers
+      // (M and dG since (2)) may take the next head's states; x and dy the
+      // next head's
+      if (!first) hp::mbar_arrive_remote(hp::map_rank(s_empty, k - 1));
+      if (!last) hp::mbar_arrive_remote(hp::map_rank(d_empty, k + 1));
+      hp::mbar_expect_tx(xy_full, 2 * kSwTile);
+      hp::tma_load_4d(tile(kTX), &tm_x, xy_full, 0, h + 1, t0, b);
+      hp::tma_load_4d(tile(kTDy), &tm_dy, xy_full, 0, h + 1, t0, b);
+    }
+    // warp 0, lane holding rows j = lane and lane + 32: dloga_j = the
+    // spanned Q + the readouts at t >= j (a suffix scan) + w_s's exponents
+    // at s < j (a prefix scan) + exp(cum_L) sum S o dS'; then ddt and dA's
+    // part, as the mma.sync route's chunk kernel. Warp 0 writes the next
+    // head's vectors only after it; the other warps read them after (1)
+    if (warp == 0) {
+      const float a = A[h];
+      const float tail = elast * (((part[0] + part[1]) + part[2]) + part[3]);
+      float i0 = dws[lane] * wv[lane];
+      float i1 = dws[lane + 32] * wv[lane + 32];
+      float s0 = inter[63 - lane];
+      float s1 = inter[31 - lane];
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const float y0 = __shfl_up_sync(0xffffffffu, i0, off);
+        const float y1 = __shfl_up_sync(0xffffffffu, i1, off);
+        const float z0 = __shfl_up_sync(0xffffffffu, s0, off);
+        const float z1 = __shfl_up_sync(0xffffffffu, s1, off);
+        if (lane >= off) {
+          i0 += y0;
+          i1 += y1;
+          s0 += z0;
+          s1 += z1;
+        }
+      }
+      const float tot = __shfl_sync(0xffffffffu, i0, 31);
+      float e0 = __shfl_up_sync(0xffffffffu, i0, 1);
+      float e1 = __shfl_up_sync(0xffffffffu, i1, 1);
+      if (lane == 0) e0 = e1 = 0.0f;
+      e1 += tot;
+      s1 += __shfl_sync(0xffffffffu, s0, 31);
+      const float suf0 = __shfl_sync(0xffffffffu, s1, 31 - lane);
+      const float suf1 = __shfl_sync(0xffffffffu, s0, 31 - lane);
+      float dA_acc = 0.0f;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int j = lane + 32 * r;
+        float sp = 0.0f, ce = 0.0f;
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          sp += span[w * 64 + j];
+          ce += cole[w * 64 + j];
+        }
+        const float dloga = sp + (r ? e1 : e0) + tail + (r ? suf1 : suf0);
+        ddt[(row0 + j) * H + h] = ce + dec[j] * dws[j] + a * dloga;
+        dA_acc = fmaf(dts[j], dloga, dA_acc);
+      }
+      dA_acc = tc::warp_sum(dA_acc);
+      if (lane == 0) dA_part[bh * K + k] = dA_acc;
+    }
+  }
+
+  // the group's dB and dC, rows of the chunk, as one partial sum
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const size_t o = ((row0 + r0 + g + 8 * hh) * n_groups + grp) * 64 + 2 * t;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      *reinterpret_cast<float2*>(dBp + o + 8 * j) =
+          make_float2(dBa[4 * j + 2 * hh], dBa[4 * j + 2 * hh + 1]);
+      *reinterpret_cast<float2*>(dCp + o + 8 * j) =
+          make_float2(dCa[4 * j + 2 * hh], dCa[4 * j + 2 * hh + 1]);
+    }
+  }
+  // no block leaves while a neighbour may still reach its shared memory
+  hp::cluster_sync();
+}
+
+int set_smem_cluster() {
+  return static_cast<int>(cudaFuncSetAttribute(
+      ssd_bwd_cluster_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kClSmem)));
+}
+
+// The cluster kernel's launch: grid (K, H / heads, B) in clusters of the
+// K chunks.
+cudaLaunchConfig_t cluster_config(int K, int n_groups, int B,
+                                  cudaStream_t stream,
+                                  cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = K;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(K, n_groups, B);
+  cfg.blockDim = dim3(kClThreads);
+  cfg.dynamicSmemBytes = kClSmem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Whether the cluster route takes the shape: N = P = chunk = 64, one B/C
+// group, at most kClMaxChunks chunks, `heads` dividing H, and every bf16
+// tensor a TMA map can describe (16-byte aligned).
+bool cluster_ok(const void* x, const void* Bm, const void* Cm,
+                const void* dy, int B, int T_len, int H, int P, int G, int N,
+                int chunk, int heads) {
+  return chunk == 64 && N == 64 && P == 64 && G == 1 && T_len % 64 == 0 &&
+         T_len / 64 >= 1 && T_len / 64 <= kClMaxChunks && heads >= 1 &&
+         H % heads == 0 && B <= 65535 && tc::aligned16(x) &&
+         tc::aligned16(Bm) && tc::aligned16(Cm) && tc::aligned16(dy);
+}
+
+int launch_cluster(const void* x, const float* dt, const float* A,
+                   const void* Bm, const void* Cm, const float* state0,
+                   const void* dy, const float* dstate_T, void* dx,
+                   float* ddt, float* dA, void* dBm, void* dCm,
+                   float* dstate0, float* dBp, float* dCp, float* dA_part,
+                   int B, int T_len, int H, int heads, cudaStream_t stream) {
+  int err = set_smem_cluster();
+  if (err != 0) return err;
+  CUtensorMap tm_x, tm_dy, tm_b, tm_c;
+  if (!hp::encode_bshd(&tm_x, x, B, T_len, H, 64, 64) ||
+      !hp::encode_bshd(&tm_dy, dy, B, T_len, H, 64, 64) ||
+      !hp::encode_bshd(&tm_b, Bm, B, T_len, 1, 64, 64) ||
+      !hp::encode_bshd(&tm_c, Cm, B, T_len, 1, 64, 64)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int K = T_len / 64;
+  const int n_groups = H / heads;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(K, n_groups, B, stream, &attr);
+  err = static_cast<int>(cudaLaunchKernelEx(
+      &cfg, ssd_bwd_cluster_kernel, tm_x, tm_dy, tm_b, tm_c, dt, A, state0,
+      dstate_T, static_cast<bf16*>(dx), ddt, dBp, dCp, dA_part, dstate0,
+      T_len, H, heads));
+  if (err != 0) return err;
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  const size_t quads = static_cast<size_t>(B) * T_len * 16;
+  const size_t blocks = (quads + 255) / 256;
+  ssd_bwd_reduce_kernel<bf16><<<static_cast<unsigned>(blocks < 4096 ? blocks
+                                                                  : 4096),
+                              256, 0, stream>>>(
+      dBp, dCp, dA_part, static_cast<bf16*>(dBm), static_cast<bf16*>(dCm), dA,
+      B, static_cast<size_t>(B) * T_len, H, n_groups, 1, 64, K);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Dispatch on max(N, P) padded to 16, 32, 64 or 128.
 template <typename Fn>
 int with_dim(int N, int P, Fn&& fn) {
@@ -1278,24 +2148,29 @@ int with_dim(int N, int P, Fn&& fn) {
 }  // namespace
 
 // The chunk the backward takes for the forward's `chunk`: for bf16
-// (dtype 1) the forward's own; for f32 the largest divisor of T_len <=
-// chunk whose shared memory fits the card; 0 if none.
+// (dtype 1 and 2) the forward's own; for f32 the largest divisor of T_len
+// <= chunk whose shared memory fits the card; 0 if none.
 extern "C" int mamba2_ssd_bwd_chunk(int T_len, int N, int P, int chunk,
                                     int dtype) {
   if (!valid(T_len, 1, P, 1, N, chunk)) return 0;
-  if (dtype == 1) return chunk;
+  if (dtype == 1 || dtype == 2) return chunk;
   return fit_chunk(T_len, N, P, chunk);
 }
 
 // x, dy, dx: (B, T, H, P); dt, ddt: (B, T, H) f32; A, dA: (H,) f32; Bm,
 // Cm, dBm, dCm: (B, T, G, N); state0, dstate_T, dstate0: (B, H, N, P) f32
-// (dstate_T may be null: zeros). Workspaces, f32: states (B * H * T/chunk
-// * N * P), dBh and dCh (B, T, H, N), dA_part (B, H; on the bf16 route
-// B, H, T/chunk), and on the bf16 route only dstates (as states; null on
-// the f32 route). x, dy, dx, Bm, Cm,
-// dBm, dCm are f32 (dtype 0: the CUDA-core scan) or bf16 (dtype 1: the
-// tensor-core route); all contiguous. `chunk` divides T and is one
-// mamba2_ssd_bwd_chunk gave. Launches the kernels on `stream`; returns
+// (dstate_T may be null: zeros). x, dy, dx, Bm, Cm, dBm, dCm are f32
+// (dtype 0: the CUDA-core scan) or bf16 (dtype 1: the mma.sync route;
+// dtype 2: the cluster route, which cluster_ok must take); all contiguous.
+// Workspaces, f32:
+//   dtype 0: states (B * H * T/chunk * N * P), dBh and dCh (B, T, H, N),
+//     dA_part (B, H); dstates null;
+//   dtype 1: the same, dA_part (B, H, T/chunk) and dstates as states;
+//   dtype 2: dBh and dCh (B, T, H / heads, N), the partial sums of each
+//     group of `heads` heads, and dA_part (B, H, T/chunk); states and
+//     dstates null.
+// `chunk` divides T and is one mamba2_ssd_bwd_chunk gave; `heads` is read
+// by dtype 2 only. Launches the kernels on `stream`; returns
 // cudaGetLastError() (0 on success).
 extern "C" int mamba2_ssd_bwd_launch(
     const void* x, const float* dt, const float* A, const void* Bm,
@@ -1303,7 +2178,7 @@ extern "C" int mamba2_ssd_bwd_launch(
     const float* dstate_T, void* dx, float* ddt, float* dA, void* dBm,
     void* dCm, float* dstate0, float* states, float* dstates, float* dBh,
     float* dCh, float* dA_part, int B, int T_len, int H, int P, int G, int N,
-    int chunk, int dtype, void* stream) {
+    int chunk, int dtype, int heads, void* stream) {
   if (B <= 0 || H <= 0) return 0;
   if (!valid(T_len, H, P, G, N, chunk) || B > 65535 || H > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1322,13 +2197,23 @@ extern "C" int mamba2_ssd_bwd_launch(
           chunk, st);
     });
   }
+  if (dtype == 2) {
+    if (!cluster_ok(x, Bm, Cm, dy, B, T_len, H, P, G, N, chunk, heads)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return launch_cluster(x, dt, A, Bm, Cm, state0, dy, dstate_T, dx, ddt,
+                          dA, dBm, dCm, dstate0, dBh, dCh, dA_part, B, T_len,
+                          H, heads, st);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The compiled kernel for `dtype` at (N, P, chunk): f32 its one scan
-// kernel; bf16 kernel `part` (0 the chunk kernel, 1 the walk). info[0..5] as tc::kernel_info gives them (registers,
-// static and dynamic shared memory, spill bytes, blocks an SM, threads a
-// block). Returns a CUDA error code.
+// kernel; bf16 (dtype 1) kernel `part` of the mma.sync route (0 the chunk
+// kernel, 1 the walk); dtype 2 the cluster kernel (N = P = chunk = 64).
+// info[0..5] as tc::kernel_info gives them (registers, static and dynamic
+// shared memory, spill bytes, blocks an SM, threads a block). Returns a
+// CUDA error code.
 extern "C" int mamba2_ssd_bwd_info(int N, int P, int chunk, int dtype,
                                    int part, int* info) {
   if (P < 1 || P > kMaxDim || N < 1 || N > kMaxDim || chunk < 1 ||
@@ -1348,5 +2233,29 @@ extern "C" int mamba2_ssd_bwd_info(int N, int P, int chunk, int dtype,
       return info_tc<decltype(d)::value>(part, info);
     });
   }
+  if (dtype == 2) {
+    if (N != 64 || P != 64 || chunk != 64) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const int err = set_smem_cluster();
+    if (err != 0) return err;
+    return tc::kernel_info(ssd_bwd_cluster_kernel, kClThreads, kClSmem, info);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// How many clusters of `n_chunks` blocks of the cluster kernel the card
+// holds at once (cudaOccupancyMaxActiveClusters; 0: it cannot place one),
+// into *clusters. Returns a CUDA error code.
+extern "C" int mamba2_ssd_bwd_clusters(int n_chunks, int* clusters) {
+  *clusters = 0;
+  if (n_chunks < 1 || n_chunks > kClMaxChunks) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int err = set_smem_cluster();
+  if (err != 0) return err;
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = cluster_config(n_chunks, 1, 1, nullptr, &attr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      clusters, ssd_bwd_cluster_kernel, &cfg));
 }

@@ -21,7 +21,11 @@ computes that gradient with ``csrc/mamba2_ssd_bwd.cu`` for CUDA tensors
 and :func:`mamba2_ssd_bwd_plain`, the same equations chunk by chunk in
 PyTorch, for CPU tensors. When grad mode is on and an input requires
 grad, :func:`mamba2_ssd` records an ``autograd.Function`` whose backward
-is :func:`mamba2_ssd_bwd`, on either device.
+is :func:`mamba2_ssd_bwd`, on either device. The shape and dtype pick the
+backward's route (:func:`bwd_route`): f32 the CUDA cores; bf16 at N = P =
+chunk = 64 with one B/C group, at most 8 chunks and 16-byte aligned
+tensors (zamba2's train path) Hopper's thread block clusters and wgmma;
+other bf16 inputs mma.sync.
 """
 
 from __future__ import annotations
@@ -379,13 +383,55 @@ def mamba2_ssd_bwd_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return (dx.to(x.dtype), ddt, dA, dBm.to(Bm.dtype), dCm.to(Cm.dtype), dS)
 
 
+# The backward's routes, as the launcher's dtype codes 0, 1, 2 name them
+BWD_ROUTES = ("cuda-cores", "mma.sync", "cluster")
+CLUSTER_DIM = 64          # the cluster route's chunk, N and P
+CLUSTER_MAX_CHUNKS = 8    # its largest cluster, the portable size
+CLUSTER_MAX_HEADS = 16    # the most heads a block of it walks
+
+
+def _bwd_route(shape, dtype: torch.dtype, ptrs, chunk: int) -> str:
+    """The route of :func:`bwd_route`, from the shape (B, T, H, P, G, N),
+    the dtype and the data pointers of x, Bm, Cm and dy."""
+    B, T, H, P, G, N = shape
+    if dtype != torch.bfloat16:
+        return "cuda-cores"
+    c = pick_chunk(T, chunk) if T else chunk
+    cluster = (c == CLUSTER_DIM and N == P == CLUSTER_DIM and G == 1
+               and 1 <= T // c <= CLUSTER_MAX_CHUNKS
+               and all(p % 16 == 0 for p in ptrs))
+    return "cluster" if cluster else "mma.sync"
+
+
+def bwd_route(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+              dy: torch.Tensor, chunk: int = MAX_CHUNK) -> str:
+    """The route :func:`mamba2_ssd_bwd` takes on CUDA tensors, by dtype and
+    shape alone: "cuda-cores" for f32 (the first port's scan); "cluster"
+    for bf16 at N = P = chunk = 64 with one B/C group, at most
+    ``CLUSTER_MAX_CHUNKS`` chunks and x, Bm, Cm, dy 16-byte aligned (a TMA
+    map describes them; zamba2's train path): a thread block cluster over
+    the chunks, wgmma; "mma.sync" for every other bf16 input (chunk 50,
+    G = 2, N or P below 64, longer T, unaligned views)."""
+    return _bwd_route((*x.shape, Bm.shape[2], Bm.shape[3]), x.dtype,
+                      [a.data_ptr() for a in (x, Bm, Cm, dy)], chunk)
+
+
+def cluster_heads(H: int) -> int:
+    """Heads a block of the cluster route walks, in order, adding their dB
+    and dC on chip: the largest divisor of H up to ``CLUSTER_MAX_HEADS``.
+    The fixed-order sums then read H / heads partial sums a row rather
+    than H."""
+    return max(d for d in range(1, min(H, CLUSTER_MAX_HEADS) + 1)
+               if H % d == 0)
+
+
 def _load_bwd():
     global _bwd_launcher
     if _bwd_launcher is None:
         from ._build import load
         lib = load("mamba2_ssd_bwd")
         fn = lib.mamba2_ssd_bwd_launch
-        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 8 + [
+        fn.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
         chunk_fn = lib.mamba2_ssd_bwd_chunk
@@ -399,12 +445,30 @@ def bwd_kernel_info(N: int, P: int, chunk: int, dtype: torch.dtype,
                     part: str = "chunk") -> dict:
     """Registers, shared memory and blocks an SM of the compiled backward
     kernel for ``dtype`` at state N, head dim P and ``chunk``: f32 its one
-    scan kernel; bf16 the ``part`` of its route ("chunk": the chunk
-    kernel, "walk": the walk over the chunk states).
+    scan kernel; bf16 the ``part`` of a route ("chunk": the mma.sync
+    route's chunk kernel, "walk": its walk over the chunk states,
+    "cluster": the cluster route's kernel, N = P = chunk = 64).
     ``_build.kernel_info``; needs the card."""
     from ._build import kernel_info as info
-    return info("mamba2_ssd_bwd", N, P, chunk, _DTYPES[dtype],
-                int(part == "walk"))
+    code = 2 if part == "cluster" else _DTYPES[dtype]
+    return info("mamba2_ssd_bwd", N, P, chunk, code, int(part == "walk"))
+
+
+def bwd_max_clusters(n_chunks: int) -> int:
+    """How many clusters of the cluster route's kernel (``n_chunks``
+    blocks each, at its shared memory) the card holds at once,
+    ``cudaOccupancyMaxActiveClusters``; 0 if it cannot place one. Needs
+    the card."""
+    from ._build import load
+    fn = load("mamba2_ssd_bwd").mamba2_ssd_bwd_clusters
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = ctypes.c_int(0)
+    err = fn(n_chunks, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"mamba2_ssd_bwd_clusters failed: CUDA error "
+                           f"{err}")
+    return out.value
 
 
 def mamba2_ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
@@ -417,13 +481,20 @@ def mamba2_ssd_bwd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     input's dtype.
 
     CUDA tensors launch the backward kernels on the current stream (one
-    call, counted in ``mamba2_ssd_bwd.launches`` and its (B, T, H, P, G, N)
-    in ``.shapes``). bf16 runs three CUDA kernels: a walk over the chunks
-    writing each chunk's start state and its end state's gradient (f32,
-    the updates on the tensor cores), every chunk's gradient on the tensor
-    cores, and the fixed-order sums over batches, chunks and the heads of
-    a group; f32 runs two: the CUDA-core scan, then the sums. CPU tensors take
-    :func:`mamba2_ssd_bwd_plain`. Anything else raises."""
+    call, counted in ``mamba2_ssd_bwd.launches``, its (B, T, H, P, G, N)
+    in ``.shapes`` and its route in ``.routes``), on the route
+    :func:`bwd_route` names. "cluster" runs
+    two CUDA kernels: one thread block cluster per (batch, group of
+    :func:`cluster_heads` heads), a block per chunk, the chunk states
+    passed from block to block through distributed shared memory and
+    every product on wgmma; then the fixed-order sums over batches,
+    chunks and the head groups' partial dB and dC. "mma.sync" runs three:
+    a walk over the chunks writing each chunk's start state and its end
+    state's gradient (f32, the updates on the tensor cores), every chunk's
+    gradient on the tensor cores, and the fixed-order sums over batches,
+    chunks and the heads of a group; f32 runs two: the CUDA-core scan,
+    then the sums. CPU tensors take :func:`mamba2_ssd_bwd_plain`. Anything
+    else raises."""
     _check(x, dt, A, Bm, Cm, state0)
     if not 1 <= chunk <= MAX_CHUNK:
         raise ValueError(f"mamba2_ssd_bwd takes chunks 1..{MAX_CHUNK}, got "
@@ -459,22 +530,34 @@ def _backward(x, dt, A, Bm, Cm, state0, dy, dstate_T, chunk):
         else:
             dstate0.copy_(dstate_T)
         return (dx, ddt, dA.zero_(), dBm, dCm, dstate0)
-    dtype = _DTYPES[x.dtype]
+    route = bwd_route(x, Bm, Cm, dy, chunk)
+    code = BWD_ROUTES.index(route)
     with torch.cuda.device(x.device):
-        c = bwd_chunk(T, N, P, pick_chunk(T, chunk), dtype)
+        c = bwd_chunk(T, N, P, pick_chunk(T, chunk), code)
         if c < 1:
             raise RuntimeError(f"mamba2_ssd_bwd: no chunk of T={T} fits "
                                f"(N={N}, P={P})")
-        K, tc = T // c, x.dtype == torch.bfloat16
+        K = T // c
         f32 = dict(dtype=torch.float32, device=x.device)
-        # the chunk-start states; on the bf16 route also the gradients of
-        # the chunks' end states; the per-head dB and dC; dA's partials, a
-        # (batch, head) each on the f32 route, a (batch, head, chunk) on
-        # the bf16 route
-        work = [torch.empty(B * H * K * N * P, **f32),
-                torch.empty(B * H * K * N * P, **f32) if tc else None,
-                torch.empty(B, T, H, N, **f32), torch.empty(B, T, H, N, **f32),
-                torch.empty(B * H * (K if tc else 1), **f32)]
+        if route == "cluster":
+            # the head groups' partial dB and dC; dA's partials, a (batch,
+            # head, chunk) each
+            heads = cluster_heads(H)
+            work = [None, None, torch.empty(B, T, H // heads, N, **f32),
+                    torch.empty(B, T, H // heads, N, **f32),
+                    torch.empty(B * H * K, **f32)]
+        else:
+            # the chunk-start states; on the mma.sync route also the
+            # gradients of the chunks' end states; the per-head dB and dC;
+            # dA's partials, a (batch, head) each on the f32 route, a
+            # (batch, head, chunk) on the mma.sync route
+            tc = route == "mma.sync"
+            heads = 1
+            work = [torch.empty(B * H * K * N * P, **f32),
+                    torch.empty(B * H * K * N * P, **f32) if tc else None,
+                    torch.empty(B, T, H, N, **f32),
+                    torch.empty(B, T, H, N, **f32),
+                    torch.empty(B * H * (K if tc else 1), **f32)]
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = launch(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                      Bm.data_ptr(), Cm.data_ptr(), state0.data_ptr(),
@@ -483,18 +566,20 @@ def _backward(x, dt, A, Bm, Cm, state0, dy, dstate_T, chunk):
                      dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
                      dBm.data_ptr(), dCm.data_ptr(), dstate0.data_ptr(),
                      *(0 if w is None else w.data_ptr() for w in work),
-                     B, T, H, P, G, N, c, dtype, stream)
+                     B, T, H, P, G, N, c, code, heads, stream)
     if err != 0:
         raise RuntimeError(f"mamba2_ssd_bwd kernel launch failed: CUDA "
                            f"error {err}")
     with _count_lock:
         mamba2_ssd_bwd.launches += 1
         mamba2_ssd_bwd.shapes[(B, T, H, P, G, N)] += 1
+        mamba2_ssd_bwd.routes[route] += 1
     return dx, ddt, dA, dBm, dCm, dstate0
 
 
 mamba2_ssd_bwd.launches = 0
 mamba2_ssd_bwd.shapes = collections.Counter()
+mamba2_ssd_bwd.routes = collections.Counter()   # calls by bwd_route's name
 
 
 def _bwd_fake(x, dt, A, Bm, Cm, state0, dy, dstate_T, chunk):

@@ -440,10 +440,11 @@ def test_scan_backward_gives_equal_bits(cuda, name, shape, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_scan_backward_kernels_spill_nothing_at_the_train_shapes(cuda,
                                                                 dtype):
-    """f32: the CUDA-core scan, 512 threads; bf16: both kernels of the
-    tensor-core route (SSD: the walk and the chunk kernel 4 warps each, the
-    chunk kernel 2 blocks an SM; WKV: the walk 8 warps, the chunk kernel
-    16)."""
+    """f32: the CUDA-core scan, 512 threads; bf16: SSD's cluster kernel
+    (the train shape's route: one warpgroup, 2 blocks an SM, a cluster of
+    the 8 chunks fits the card) and both kernels of the mma.sync route
+    (the walk and the chunk kernel 4 warps each, the chunk kernel 2 blocks
+    an SM), WKV's (the walk 8 warps, the chunk kernel 16)."""
     from repro_torch.kernels import mamba2_ssd, rwkv6_wkv
     bf16 = dtype == torch.bfloat16
     for part in ("chunk", "walk") if bf16 else ("chunk",):
@@ -457,6 +458,102 @@ def test_scan_backward_kernels_spill_nothing_at_the_train_shapes(cuda,
     if bf16:
         chunk = mamba2_ssd.bwd_kernel_info(64, 64, 64, dtype, "chunk")
         assert chunk["blocks_per_sm"] >= 2, chunk
+        cluster = mamba2_ssd.bwd_kernel_info(64, 64, 64, dtype, "cluster")
+        assert cluster["spill_bytes"] == 0, cluster
+        assert cluster["threads"] == 128, cluster
+        assert cluster["blocks_per_sm"] >= 2, cluster
+        assert mamba2_ssd.bwd_max_clusters(8) >= 1
+
+
+# the cluster route's shapes (zamba2's train shape, fewer chunks and
+# heads), beside shapes of the same widths that keep the mma.sync route
+SSD_CLUSTER_CASES = [((4, 512, 112, 64, 1, 64), "cluster"),
+                     ((4, 100, 112, 64, 1, 64), "mma.sync"),   # chunk 50
+                     ((2, 192, 6, 64, 1, 64), "cluster"),      # 3 chunks
+                     ((1, 64, 3, 64, 1, 64), "cluster"),       # 1 chunk
+                     ((1, 1024, 2, 64, 1, 64), "mma.sync")]    # 16 chunks
+
+
+@pytest.mark.parametrize("with_ds", [True, False])
+@pytest.mark.parametrize("shape,route", SSD_CLUSTER_CASES)
+def test_ssd_backward_route_matches_plain(cuda, shape, route, with_ds):
+    """The bf16 SSD backward on its route against the plain version, with
+    and without a final-state gradient, at the 1e-2 gate; a second call
+    gives equal bits (the chunk states pass from block to block in chunk
+    order and the head groups' dB and dC are summed in a fixed order)."""
+    from repro_torch.kernels import mamba2_ssd
+    args, dout, dstate = _scan_inputs("mamba2_ssd", shape, torch.bfloat16,
+                                      cuda)
+    ds = dstate if with_ds else None
+    assert mamba2_ssd.bwd_route(args[0], args[3], args[4], dout) == route
+    before = mamba2_ssd.mamba2_ssd_bwd.routes[route]
+    got = mamba2_ssd.mamba2_ssd_bwd(*args, dout, ds)
+    torch.cuda.synchronize()
+    assert mamba2_ssd.mamba2_ssd_bwd.routes[route] == before + 1
+    want = mamba2_ssd.mamba2_ssd_bwd_plain(*args, dout, ds)
+    tol = BWD_TOLERANCES[torch.bfloat16]
+    for a, b, x in zip(got, want, args):
+        assert a.dtype == x.dtype and a.shape == x.shape
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+    again = mamba2_ssd.mamba2_ssd_bwd(*args, dout, ds)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("H", [17, 6, 20, 32])
+def test_ssd_backward_cluster_head_groups(cuda, H):
+    """Blocks of 1, 6, 10 and 16 heads (``cluster_heads(H)``, the largest
+    divisor of H up to 16) give the gradient within the gate, equal bits
+    on a second call."""
+    from repro_torch.kernels import mamba2_ssd
+    shape = (1, 512, H, 64, 1, 64)
+    args, dout, dstate = _scan_inputs("mamba2_ssd", shape, torch.bfloat16,
+                                      cuda, seed=3)
+    assert mamba2_ssd.bwd_route(args[0], args[3], args[4], dout) == "cluster"
+    got = mamba2_ssd.mamba2_ssd_bwd(*args, dout, dstate)
+    assert all(torch.equal(a, b) for a, b in zip(
+        got, mamba2_ssd.mamba2_ssd_bwd(*args, dout, dstate)))
+    want = mamba2_ssd.mamba2_ssd_bwd_plain(*args, dout, dstate)
+    tol = BWD_TOLERANCES[torch.bfloat16]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+
+
+def test_ssd_backward_unaligned_view_takes_mma_sync(cuda):
+    """x that a TMA map cannot describe (its data 2 bytes past a 16-byte
+    boundary) keeps the mma.sync route, within the gate."""
+    from repro_torch.kernels import mamba2_ssd
+    shape = (1, 128, 2, 64, 1, 64)
+    args, dout, dstate = _scan_inputs("mamba2_ssd", shape, torch.bfloat16,
+                                      cuda)
+    flat = torch.empty(args[0].numel() + 1, dtype=torch.bfloat16,
+                       device=cuda)
+    x = flat[1:].view(args[0].shape).copy_(args[0])
+    args = [x, *args[1:]]
+    assert mamba2_ssd.bwd_route(x, args[3], args[4], dout) == "mma.sync"
+    got = mamba2_ssd.mamba2_ssd_bwd(*args, dout, dstate)
+    want = mamba2_ssd.mamba2_ssd_bwd_plain(*args, dout, dstate)
+    tol = BWD_TOLERANCES[torch.bfloat16]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("shape", SSD_BWD_SHAPES)
+def test_ssd_bwd_route_names_every_shape(cuda, shape):
+    """``bwd_route`` names the route of every backward shape: the cluster
+    kernel at N = P = chunk = 64 with one B/C group and at most 8 chunks,
+    mma.sync for the other bf16 shapes, the CUDA cores for f32."""
+    from repro_torch.kernels import mamba2_ssd
+    from repro_torch.kernels.costs import pick_chunk
+    B, T, H, P, G, N = shape
+    for dtype in (torch.float32, torch.bfloat16):
+        args, dout, _ = _scan_inputs("mamba2_ssd", shape, dtype, cuda)
+        route = mamba2_ssd.bwd_route(args[0], args[3], args[4], dout)
+        if dtype == torch.float32:
+            assert route == "cuda-cores"
+        else:
+            cluster = (pick_chunk(T) == 64 and N == P == 64 and G == 1
+                       and T // 64 <= 8)
+            assert route == ("cluster" if cluster else "mma.sync"), route
 
 
 def _attention_inputs(shape, dtype, cuda, seed=0):

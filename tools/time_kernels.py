@@ -34,7 +34,18 @@ kernel (delta, dk/dv, dq), the backward of
 ``scaled_dot_product_attention`` on the same inputs as the yardstick
 (``chip_smoke.time_flash_bwd``'s), the bound and the tree's route; then
 the route, registers, spills and threads of the dk/dv and dq kernels at
-head dims 32, 64, 112, 128 and 160. Each mode prints the card and one
+head dims 32, 64, 112, 128 and 160.
+
+    python3 tools/time_kernels.py --src PATH/src --only ssd_bwd
+
+times the bf16 SSD backward alone, as the train step calls it (no
+final-state gradient), at zamba2-7b's train shape (4, 512, 112, 64, 1, 64)
+and at (4, 100, 112, 64, 1, 64) and (2, 128, 8, 64, 2, 64): device time by
+CUDA events, CUPTI busy time by kernel (the cluster kernel, or the walk
+and the chunk kernel, then the sums), the bound and the tree's route
+(``mamba2_ssd.bwd_route`` where the tree has it, else "mma.sync"); then
+the registers, spills, blocks an SM and threads of the tree's compiled
+backward kernels at N = P = chunk = 64. Each mode prints the card and one
 JSON line. Two trees compare on one card when they run in turns in one
 session: parent, change, change, parent.
 """
@@ -54,9 +65,10 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--src", required=True,
                         help="the tree's src directory (holds repro_torch)")
-    parser.add_argument("--only", choices=("all", "flash_fwd", "flash_bwd"),
+    parser.add_argument("--only", choices=("all", "flash_fwd", "flash_bwd",
+                                           "ssd_bwd"),
                         default="all", help="time every kernel, or the bf16 "
-                        "flash forward or backward alone")
+                        "flash forward or backward or the SSD backward alone")
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     sys.path.insert(1, HERE)
@@ -70,7 +82,9 @@ def main() -> None:
         from repro_torch.kernels._build import load
         load("flash_attention")
     elif args.only == "flash_bwd":
-        build_both(args.src)
+        build_both(args.src, ("flash_attention", "flash_attention_bwd"))
+    elif args.only == "ssd_bwd":
+        build_both(args.src, ("mamba2_ssd", "mamba2_ssd_bwd"))
     else:
         for kmod in (anen_distance, flash_attention, mamba2_ssd, rwkv6_wkv):
             kmod.build()
@@ -78,8 +92,10 @@ def main() -> None:
     rows = {"src": os.path.abspath(args.src), "card": cs.card_line(),
             "empty_kernel_ms": cs.empty_ms()}
     if args.only != "all":
-        part = flash_forward if args.only == "flash_fwd" else flash_backward
-        rows.update(part(cs, flash_attention))
+        part = {"flash_fwd": flash_forward, "flash_bwd": flash_backward,
+                "ssd_bwd": ssd_backward}[args.only]
+        rows.update(part(cs, mamba2_ssd if args.only == "ssd_bwd"
+                         else flash_attention))
         print(rows["card"])
         print(json.dumps(rows))
         return
@@ -172,8 +188,8 @@ def flash_forward(cs, flash_attention) -> dict:
     return rows
 
 
-def build_both(src: str) -> None:
-    """The forward's and the backward's libraries of the tree, one nvcc
+def build_both(src: str, names: tuple) -> None:
+    """A forward's and its backward's libraries of the tree, one nvcc
     each, started together."""
     import subprocess
     env = dict(os.environ, PYTHONPATH=os.path.abspath(src))
@@ -181,7 +197,7 @@ def build_both(src: str) -> None:
                                "repro_torch.kernels._build", name], env=env,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                               text=True)
-             for name in ("flash_attention", "flash_attention_bwd")]
+             for name in names]
     for proc in procs:
         _, err = proc.communicate()
         if proc.returncode != 0:
@@ -232,6 +248,43 @@ def flash_backward(cs, flash_attention) -> dict:
                      f"route/registers/spill/threads hd {hd}"] = [
                     info.get("route", "mma.sync"), info["registers"],
                     info["spill_bytes"], info["threads"]]
+    return rows
+
+
+SSD_BWD_TIMED = ((4, 512, 112, 64, 1, 64), (4, 100, 112, 64, 1, 64),
+                 (2, 128, 8, 64, 2, 64))
+
+
+def ssd_backward(cs, mamba2_ssd) -> dict:
+    """The bf16 SSD backward at ``SSD_BWD_TIMED`` as the train step calls
+    it: device ms, busy ms by kernel, the bound and the route; then the
+    compiled backward kernels at N = P = chunk = 64 (the cluster kernel
+    where the tree has it, and the mma.sync route's chunk kernel and
+    walk)."""
+    import torch
+    rows = {}
+    route = getattr(mamba2_ssd, "bwd_route", None)
+    for shape in SSD_BWD_TIMED:
+        args, dout, _ = cs.scan_bwd_inputs("mamba2_ssd", shape, "bfloat16")
+        fn = lambda: mamba2_ssd.mamba2_ssd_bwd(*args, dout)  # noqa: E731
+        parts = {}
+        for key, _, ms in cs.traced_rows(fn, 10):
+            found = cs.SCAN_BWD_KERNEL.search(key)
+            if found:
+                parts[found.group(1)] = parts.get(found.group(1), 0.0) \
+                    + ms / 10
+        row = {"ms": cs.device_ms(fn), "parts_busy_ms": parts,
+               "busy_ms": sum(parts.values()),
+               "route": (route(args[0], args[3], args[4], dout) if route
+                         else "mma.sync")}
+        row.update(cs.ssd_bwd_bound(shape, 2))
+        rows[f"mamba2_ssd_bwd bfloat16 {shape}"] = row
+    parts = ("cluster", "chunk", "walk") if route else ("chunk", "walk")
+    for part in parts:
+        info = mamba2_ssd.bwd_kernel_info(64, 64, 64, torch.bfloat16, part)
+        rows[f"mamba2_ssd_bwd {part} registers/spill/blocks/threads"] = [
+            info["registers"], info["spill_bytes"], info["blocks_per_sm"],
+            info["threads"]]
     return rows
 
 
