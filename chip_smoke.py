@@ -142,7 +142,15 @@ each SSD backward compare names its route and the train shape must take
 the cluster route, the cluster kernel must spill nothing and a cluster of
 the train shape's 8 chunks must fit the card; its busy time is read by
 kernel (the cluster kernel and the sums), and the workspace traffic it
-prints is the head groups' partial dB and dC.
+prints is the head groups' partial dB and dC. The bf16 SSD forward at N
+= P = chunk = 64 (any number of B/C groups, any T) takes Hopper's TMA and
+wgmma, one warpgroup a (b, h) walking the chunks. Each forward compare
+names its route and must take the one ``SSD_FWD_ROUTES`` gives its shape,
+a second bf16 call must give equal bits, the warpgroup kernel must spill
+nothing and fit 4 blocks an SM (so that zamba2's 448 (b, h) run in one
+wave), and every SSD forward of zamba2-7b's serve path and
+zamba2-7b-45l's train step must take the warpgroup route
+(``mamba2_ssd.routes``).
 
 Flash attention's non-causal mode (``flash_attention(causal=False)``,
 bidirectional attention, the JAX kernel's ``causal=False``) is held the
@@ -306,9 +314,18 @@ FLASH_SHAPES = (FLASH_MAIN, (4, 100, 32, 112), (4, 300, 32, 112),
 # shapes, qwen2-vl-2b's train shape and musicgen-medium's head dim 64
 FLASH_TIMED = (FLASH_STABLELM, FLASH_MINITRON, FLASH_DBRX, FLASH_LLAMA4,
                FLASH_QWEN2_VL, FLASH_MUSICGEN)
-SSD_SHAPES = (SSD_MAIN, (4, 100, 112, 64, 1, 64), (2, 128, 8, 64, 2, 64),
-              # chunk 50 at N = 8, P = 16; G = 2 at N = 16, P = 32
-              (1, 100, 3, 16, 1, 8), (2, 128, 4, 32, 2, 16))
+# the SSD forward's shapes with the route each takes in bf16
+# (mamba2_ssd.fwd_route): at N = P = chunk = 64 the warpgroup kernel (the
+# serve shape; G = 2; 3 chunks; 9 chunks at G = 2); mma.sync for chunk 50
+# and for N, P below 64 (chunk 50 at N = 8, P = 16; G = 2 at N = 16, P =
+# 32)
+SSD_FWD_ROUTES = {SSD_MAIN: "warpgroup", (4, 100, 112, 64, 1, 64): "mma.sync",
+                  (2, 128, 8, 64, 2, 64): "warpgroup",
+                  (1, 100, 3, 16, 1, 8): "mma.sync",
+                  (2, 128, 4, 32, 2, 16): "mma.sync",
+                  (2, 192, 8, 64, 1, 64): "warpgroup",
+                  (1, 576, 8, 64, 2, 64): "warpgroup"}
+SSD_SHAPES = tuple(SSD_FWD_ROUTES)
 # the serve shape, a ragged T (chunk 50) and a prime T (chunk 1); then the
 # tensor-core route's padding: N = 16, 24 (element-wise tile fills), 32
 # and 5, at chunks 50 and 1
@@ -1957,18 +1974,35 @@ def bwd_parts_ms(fn, reps: int = 10) -> dict:
 
 
 def compare_ssd(shape, dtype: str) -> float:
+    """The forward kernel against its plain version, y and the final state,
+    on the route ``SSD_FWD_ROUTES`` gives the shape (f32: the CUDA cores);
+    in bf16 a second call must give equal bits."""
     import torch
-    from repro_torch.kernels.mamba2_ssd import mamba2_ssd, mamba2_ssd_plain
+    from repro_torch.kernels.mamba2_ssd import (fwd_route, mamba2_ssd,
+                                                mamba2_ssd_plain)
     args = ssd_inputs(shape, dtype)
+    route = fwd_route(args[0], args[3], args[4])
+    want = SSD_FWD_ROUTES[tuple(shape)] if dtype == "bfloat16" \
+        else "cuda-cores"
+    what = f"mamba2_ssd {shape} {dtype} ({route} route)"
+    check(route == want, f"{what}: the shape takes the {want} route")
+    before = mamba2_ssd.routes[route]
     y, state = mamba2_ssd(*args)
     ref_y, ref_state = mamba2_ssd_plain(*args)
     torch.cuda.synchronize()
+    check(mamba2_ssd.routes[route] == before + 1,
+          f"{what}: one launch on its route")
     tol = TOLERANCE["mamba2_ssd"][dtype]
-    err = held_close(y, ref_y, tol, f"mamba2_ssd y {shape} {dtype}")
-    s_err = held_close(state, ref_state, tol,
-                       f"mamba2_ssd state {shape} {dtype}")
-    print(f"mamba2_ssd {shape} {dtype}: max abs err y {err} state {s_err} "
-          f"(tolerance {tol})")
+    err = held_close(y, ref_y, tol, f"{what} y")
+    s_err = held_close(state, ref_state, tol, f"{what} state")
+    if dtype == "bfloat16":
+        y2, state2 = mamba2_ssd(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(y, y2) and torch.equal(state, state2),
+              f"{what}: equal bits on a second call")
+    print(f"{what}: max abs err y {err} state {s_err} (tolerance {tol})"
+          + ("; a second call gives equal bits" if dtype == "bfloat16"
+             else ""))
     return max(err, s_err)
 
 
@@ -2165,7 +2199,8 @@ def compiled_kernels(anen_n: int) -> dict:
         info[("flash_attention_bwd", name, "dq")] = \
             flash_attention.bwd_kernel_info(FLASH_QWEN2_VL[3], dtype, "dq")
         info[("mamba2_ssd", name)] = mamba2_ssd.kernel_info(
-            N, P, pick_chunk(T), dtype)
+            N, P, pick_chunk(T), dtype,
+            "warpgroup" if dtype == torch.bfloat16 else None)
         info[("rwkv6_wkv", name)] = rwkv6_wkv.kernel_info(
             WKV_MAIN[3], pick_chunk(WKV_MAIN[1]), dtype)
         info[("mamba2_ssd_bwd", name)] = mamba2_ssd.bwd_kernel_info(
@@ -2173,6 +2208,8 @@ def compiled_kernels(anen_n: int) -> dict:
             "cluster" if dtype == torch.bfloat16 else "chunk")
         info[("rwkv6_wkv_bwd", name)] = rwkv6_wkv.bwd_kernel_info(
             WKV_MAIN[3], pick_chunk(WKV_MAIN[1]), dtype)
+    info[("mamba2_ssd", "bfloat16", "mma.sync")] = mamba2_ssd.kernel_info(
+        N, P, pick_chunk(T), torch.bfloat16)
     for part in ("chunk", "walk"):
         info[("mamba2_ssd_bwd", "bfloat16", part)] = \
             mamba2_ssd.bwd_kernel_info(N, P, pick_chunk(T), torch.bfloat16,
@@ -2204,6 +2241,11 @@ def compiled_kernels(anen_n: int) -> dict:
     check(clusters >= 1, "a cluster of the SSD backward's train-shape chunks "
                          "fits the card")
     info[("mamba2_ssd_bwd", "bfloat16")]["max_active_clusters"] = clusters
+    wg = info[("mamba2_ssd", "bfloat16")]
+    check(wg["spill_bytes"] == 0 and wg["threads"] == 128
+          and wg["blocks_per_sm"] >= 4,
+          f"the SSD forward's warpgroup kernel: one warpgroup, no spill, 4 "
+          f"blocks an SM (zamba2's {B * H} (b, h) in one wave) ({wg})")
     return info
 
 
@@ -2362,7 +2404,8 @@ def run_noncausal_path() -> dict:
 
 
 def time_ssd(shape) -> dict:
-    from repro_torch.kernels.mamba2_ssd import mamba2_ssd, mamba2_ssd_plain
+    from repro_torch.kernels.mamba2_ssd import (fwd_route, mamba2_ssd,
+                                                mamba2_ssd_plain)
     args = ssd_inputs(shape, "bfloat16")
     kernel = lambda: mamba2_ssd(*args)                        # noqa: E731
     plain = lambda: mamba2_ssd_plain(*args)                   # noqa: E731
@@ -2372,7 +2415,8 @@ def time_ssd(shape) -> dict:
            "busy_ms": busy_ms(kernel, tag + " kernel"),
            "plain_ms": busy_ms(plain, tag + " plain"),
            "library_ms": None,
-           "call_ms": call_ms(kernel)}
+           "call_ms": call_ms(kernel),
+           "route": fwd_route(args[0], args[3], args[4])}
     row.update(ssd_bound(shape, 2))
     return row
 
@@ -2482,8 +2526,20 @@ def run_serve_path(traffic: dict) -> dict:
               f"{name}: {want * n} launches on the {arch} serve path")
     for name, shape in MAIN_SHAPES[arch].items():
         check(set(shapes[name]) == {shape}, f"{name} ran at {shape}")
+    check_ssd_fwd_routes(arch, launches)
     return {"launches": launches, "session": sess, "wall_s": wall,
             "stats": stats}
+
+
+def check_ssd_fwd_routes(arch: str, launches: dict) -> None:
+    """Every SSD forward launch of a path took the warpgroup route."""
+    from repro_torch.kernels import KERNELS
+    if launches["mamba2_ssd"]:
+        routes = dict(KERNELS["mamba2_ssd"].routes)
+        print(f"{arch} mamba2_ssd routes: {routes}")
+        check(routes == {"warpgroup": launches["mamba2_ssd"]},
+              f"{arch}: every SSD forward took the warpgroup route "
+              f"({routes})")
 
 
 def greedy(logits):
@@ -2561,8 +2617,8 @@ def profile_steps(label: str, cfg, params, prefill_step, decode_step,
         kinds = {}
         for key, count, ms in rows:
             kind = ("flash_attention" if "flash_fwd" in key else
-                    "mamba2_ssd" if "ssd_kernel" in key
-                    or "ssd_tc_kernel" in key else
+                    "mamba2_ssd" if any(f"ssd_{r}kernel" in key for r in (
+                        "", "tc_", "wg_")) else
                     "rwkv6_wkv" if "wkv_kernel" in key
                     or "wkv_tc_kernel" in key else
                     "matmul" if any(w in key.lower() for w in (
@@ -3044,6 +3100,7 @@ def run_train_path(run: dict) -> tuple:
               f"{arch} {name}: {want * n} launches on the train path")
     for name, shape in TRAIN_SHAPES[arch].items():
         check(set(shapes[name]) == {shape}, f"{arch} {name} ran at {shape}")
+    check_ssd_fwd_routes(arch, launches)
     ssd_routes = dict(KERNELS["mamba2_ssd_bwd"].routes)
     if launches["mamba2_ssd_bwd"]:
         print(f"{arch} mamba2_ssd_bwd routes: {ssd_routes}")
@@ -3633,6 +3690,14 @@ def main() -> None:
             entry.update(route_bf16=timed[name]["route"],
                          max_active_clusters=compiled[
                              (name, "bfloat16")]["max_active_clusters"])
+    ssd_entry = next(e for e in record["kernels"]
+                     if e["name"] == "mamba2_ssd")
+    ssd_entry.update(
+        route_bf16=timed["mamba2_ssd"]["route"],
+        busy_ms=timed["mamba2_ssd"]["busy_ms"],
+        compiled_mma_sync={
+            k: compiled[("mamba2_ssd", "bfloat16", "mma.sync")][k]
+            for k in ("registers", "spill_bytes", "blocks_per_sm")})
     wkv_entry = next(e for e in record["kernels"]
                      if e["name"] == "rwkv6_wkv")
     wkv_entry.update(

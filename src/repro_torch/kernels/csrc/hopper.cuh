@@ -2,9 +2,9 @@
 // copies, warpgroup register rebalancing, wgmma and thread block clusters
 // (distributed shared memory), plus the host-side encoding of TMA tensor
 // maps. Used by the bf16 flash attention forward (csrc/flash_attention.cu)
-// and backward (csrc/flash_attention_bwd.cu) and the SSD backward's cluster
-// route (csrc/mamba2_ssd_bwd.cu); tensor_core.cuh holds the Ampere-style
-// mma.sync helpers the other kernels use.
+// and backward (csrc/flash_attention_bwd.cu) and the SSD forward's and
+// backward's Hopper routes (csrc/mamba2_ssd{,_bwd}.cu); tensor_core.cuh
+// holds the Ampere-style mma.sync helpers the other kernels use.
 //
 // wgmma.mma_async.m64nNk16 (bf16 operands, f32 sums) is issued by the 128
 // threads of a warpgroup together. Its D fragment (N / 2 f32 registers a
@@ -569,6 +569,48 @@ __device__ __forceinline__ void mma_ss_t(float (&d)[32], uint64_t a,
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
+// ---- 64 x 64 bf16 tiles as TMA writes them (128-byte swizzle) ------------
+
+constexpr int kSwTile = 64 * 128;
+
+// Byte offset of (row, col) in a 64-column bf16 tile with 128-byte swizzle
+// (16-byte chunk c of row r stored at chunk c ^ (r % 8)); col even.
+__device__ __forceinline__ uint32_t sw(int row, int col) {
+  return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2;
+}
+
+// Descriptors of k step kk of a swizzled tile: K-major (rows M or N, K
+// contiguous) and MN-major (rows K, M or N contiguous).
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
+  return desc_sw128(tile + kk * 32, 16, 1024);
+}
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  return desc_sw128(tile + kk * 16 * 128, kSwTile, 1024);
+}
+
+// mma.sync's A fragment (rows m0.., k step kk) of the transpose of a
+// swizzled (k, m) tile, through ldmatrix.trans.
+__device__ __forceinline__ void lda_t_sw(uint32_t (&a)[4], uint32_t tile,
+                                         int m0, int kk) {
+  const int lane = threadIdx.x & 31;
+  const int row = 16 * kk + (lane >> 4) * 8 + (lane & 7);
+  const int col = m0 + ((lane >> 3) & 1) * 8;
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+      : "r"(tile + sw(row, col))
+      : "memory");
+}
+
+// Fragments: d[4 j + e] of a warpgroup's 64 x N D is row 16 w + g + 8 (e
+// / 2), column 8 j + 2 t + (e % 2).
+template <int N>
+__device__ __forceinline__ void zero(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) r[i] = 0.0f;
 }
 
 // ---- thread block clusters -------------------------------------------------

@@ -1333,9 +1333,15 @@ int info_tc(int part, int* info) {
 // most kClMaxChunks chunks)
 // --------------------------------------------------------------------------
 
+using hp::desc_k;
+using hp::desc_mn;
+using hp::kSwTile;
+using hp::lda_t_sw;
+using hp::sw;
+using hp::zero;
+
 constexpr int kClThreads = 128;                  // one warpgroup
 constexpr int kClMaxChunks = 8;                  // a portable cluster
-constexpr int kSwTile = 64 * 128;                // 64 x 64 bf16, swizzled
 constexpr int kFragBytes = kClThreads * 32 * 4;  // a 64 x 64 f32 fragment
 
 // Shared memory from a 1024-byte aligned base: eight swizzled tiles (B and
@@ -1361,35 +1367,6 @@ constexpr uint32_t kSuspendNs = 200;
 constexpr int kVecFloats = 7 * 64 + 2 * 4 * 64 + 4;
 constexpr size_t kClSmem = 1024 + kVec + sizeof(float) * kVecFloats;
 
-// Byte offset of (row, col) in a 64-column bf16 tile with 128-byte swizzle
-// (16-byte chunk c of row r stored at chunk c ^ (r % 8)); col even.
-__device__ __forceinline__ uint32_t sw(int row, int col) {
-  return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2;
-}
-
-// Descriptors of k step kk of a swizzled tile: K-major (rows M or N, K
-// contiguous) and MN-major (rows K, M or N contiguous).
-__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
-  return hp::desc_sw128(tile + kk * 32, 16, 1024);
-}
-__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
-  return hp::desc_sw128(tile + kk * 16 * 128, kSwTile, 1024);
-}
-
-// mma.sync's A fragment (rows m0.., k step kk) of the transpose of a
-// swizzled (k, m) tile, through ldmatrix.trans.
-__device__ __forceinline__ void lda_t_sw(uint32_t (&a)[4], uint32_t tile,
-                                         int m0, int kk) {
-  const int lane = threadIdx.x & 31;
-  const int row = 16 * kk + (lane >> 4) * 8 + (lane & 7);
-  const int col = m0 + ((lane >> 3) & 1) * 8;
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-      : "r"(tile + sw(row, col))
-      : "memory");
-}
 
 // Waits for phase `parity` of a barrier of the cluster kernel (acquire at
 // cluster scope), the thread suspended kSuspendNs at a time. A phase that
@@ -1404,11 +1381,6 @@ __device__ __forceinline__ void wait_phase(uint32_t bar, int parity) {
 
 // Fragments: d[4 j + e] of a warpgroup's 64 x 64 D is row 16 w + g + 8 (e
 // / 2), column 8 j + 2 t + (e % 2).
-template <int N>
-__device__ __forceinline__ void zero(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) r[i] = 0.0f;
-}
 
 // Fragments to a row-major 64 x 64 f32 matrix in global memory.
 __device__ __forceinline__ void frag_store(float* __restrict__ m,

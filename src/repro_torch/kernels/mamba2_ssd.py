@@ -8,7 +8,11 @@ the carried (N, P) state between chunks. Replaces the Pallas kernel
 ``kernels/mamba2_ssd.py::ssd`` of the JAX package (body ``_ssd_kernel``);
 the CUDA source, with its bound and design, is ``csrc/mamba2_ssd.cu``. bf16
 inputs (the serve path) run the four products on the tensor cores; f32
-inputs keep an f32 CUDA-core kernel. One call is one CUDA launch.
+inputs keep an f32 CUDA-core kernel. One call is one CUDA launch. The shape
+and dtype pick the forward's route (:func:`fwd_route`): f32 the CUDA cores;
+bf16 at N = P = chunk = 64 with 16-byte aligned tensors Hopper's TMA and
+wgmma, one warpgroup a (batch, head) walking the chunks (zamba2's serve and
+train paths); other bf16 inputs mma.sync.
 
 :func:`mamba2_ssd` launches the kernel for CUDA tensors and takes
 :func:`mamba2_ssd_plain` only for CPU tensors. The plain version is the
@@ -150,12 +154,56 @@ def build() -> None:
     _load_bwd()
 
 
-def kernel_info(N: int, P: int, chunk: int, dtype: torch.dtype) -> dict:
+def kernel_info(N: int, P: int, chunk: int, dtype: torch.dtype,
+                route: Optional[str] = None) -> dict:
     """Registers, shared memory and blocks an SM of the compiled kernel
-    that ``dtype`` takes at state N, head dim P and ``chunk``
-    (``_build.kernel_info``; needs the card)."""
+    that ``dtype`` takes at state N, head dim P and ``chunk``: f32 the
+    CUDA-core kernel, bf16 the mma.sync route's, or with ``route``
+    "warpgroup" that route's (N = P = chunk = 64).
+    ``_build.kernel_info``; needs the card."""
     from ._build import kernel_info as info
-    return info("mamba2_ssd", N, P, chunk, _DTYPES[dtype])
+    code = FWD_ROUTES.index(route) if route else _DTYPES[dtype]
+    return info("mamba2_ssd", N, P, chunk, code)
+
+
+# The forward's and the backward's routes, as their launchers' dtype codes
+# 0, 1, 2 name them
+FWD_ROUTES = ("cuda-cores", "mma.sync", "warpgroup")
+BWD_ROUTES = ("cuda-cores", "mma.sync", "cluster")
+CLUSTER_DIM = 64          # the Hopper routes' chunk, N and P
+CLUSTER_MAX_CHUNKS = 8    # the backward's largest cluster, the portable size
+
+
+def _hopper_shape(shape, dtype: torch.dtype, ptrs, chunk: int) -> bool:
+    """bf16 at N = P = chunk = 64 with every tensor 16-byte aligned (a TMA
+    map describes them): the shapes the Hopper routes take."""
+    B, T, H, P, G, N = shape
+    c = pick_chunk(T, chunk) if T else chunk
+    return (dtype == torch.bfloat16 and c == CLUSTER_DIM
+            and N == P == CLUSTER_DIM and T >= c
+            and all(p % 16 == 0 for p in ptrs))
+
+
+def _fwd_route(shape, dtype: torch.dtype, ptrs, chunk: int) -> str:
+    """The route of :func:`fwd_route`, from the shape (B, T, H, P, G, N),
+    the dtype and the data pointers of x, Bm and Cm."""
+    if dtype != torch.bfloat16:
+        return "cuda-cores"
+    return ("warpgroup" if _hopper_shape(shape, dtype, ptrs, chunk)
+            else "mma.sync")
+
+
+def fwd_route(x: torch.Tensor, Bm: torch.Tensor, Cm: torch.Tensor,
+              chunk: int = MAX_CHUNK) -> str:
+    """The route :func:`mamba2_ssd` takes on CUDA tensors, by dtype and
+    shape alone: "cuda-cores" for f32 (the first port's scan); for bf16
+    at N = P = chunk = 64 with x, Bm, Cm 16-byte aligned (a TMA map
+    describes them; y is the wrapper's own) and any number of B/C groups,
+    "warpgroup" (one warpgroup a (batch, head) walking the chunks on TMA
+    and wgmma, any T: zamba2's serve and train paths); "mma.sync" for
+    every other bf16 input (chunk 50, N or P below 64, unaligned views)."""
+    return _fwd_route((*x.shape, Bm.shape[2], Bm.shape[3]), x.dtype,
+                      [a.data_ptr() for a in (x, Bm, Cm)], chunk)
 
 
 def _forward(x, dt, A, Bm, Cm, state0, chunk):
@@ -172,18 +220,20 @@ def _forward(x, dt, A, Bm, Cm, state0, chunk):
         return y, state
     if T == 0:
         return y, state.copy_(state0)
+    route = fwd_route(x, Bm, Cm, chunk)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = launch(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                      Bm.data_ptr(), Cm.data_ptr(), state0.data_ptr(),
                      y.data_ptr(), state.data_ptr(), B, T, H, P, G, N,
-                     pick_chunk(T, chunk), _DTYPES[x.dtype], stream)
+                     pick_chunk(T, chunk), FWD_ROUTES.index(route), stream)
     if err != 0:
         raise RuntimeError(f"mamba2_ssd kernel launch failed: CUDA error "
                            f"{err}")
     with _count_lock:
         mamba2_ssd.launches += 1
         mamba2_ssd.shapes[(B, T, H, P, G, N)] += 1
+        mamba2_ssd.routes[route] += 1
     return y, state
 
 
@@ -245,9 +295,10 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     (H,), state0 (B,H,N,P) float32 → (y (B,T,H,P) in x's dtype, state_T
     (B,H,N,P) float32), with the chunk the JAX wrapper picks.
 
-    CUDA tensors launch the kernel on the current stream (one launch,
-    counted in ``mamba2_ssd.launches``, its (B, T, H, P, G, N) counted in
-    ``mamba2_ssd.shapes``); CPU tensors take the plain version. Anything
+    CUDA tensors launch the kernel of :func:`fwd_route`'s route on the
+    current stream (one launch, counted in ``mamba2_ssd.launches``, its
+    (B, T, H, P, G, N) counted in ``mamba2_ssd.shapes`` and its route in
+    ``mamba2_ssd.routes``); CPU tensors take the plain version. Anything
     else raises. When grad mode is on and an input requires grad, the call
     records an ``autograd.Function`` whose backward is
     :func:`mamba2_ssd_bwd`."""
@@ -263,6 +314,7 @@ def mamba2_ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
 mamba2_ssd.launches = 0
 mamba2_ssd.shapes = collections.Counter()
+mamba2_ssd.routes = collections.Counter()   # calls by fwd_route's name
 
 
 # --------------------------------------------------------------------------- #
@@ -383,11 +435,7 @@ def mamba2_ssd_bwd_plain(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     return (dx.to(x.dtype), ddt, dA, dBm.to(Bm.dtype), dCm.to(Cm.dtype), dS)
 
 
-# The backward's routes, as the launcher's dtype codes 0, 1, 2 name them
-BWD_ROUTES = ("cuda-cores", "mma.sync", "cluster")
-CLUSTER_DIM = 64          # the cluster route's chunk, N and P
-CLUSTER_MAX_CHUNKS = 8    # its largest cluster, the portable size
-CLUSTER_MAX_HEADS = 16    # the most heads a block of it walks
+CLUSTER_MAX_HEADS = 16    # the most heads a block of the backward's walks
 
 
 def _bwd_route(shape, dtype: torch.dtype, ptrs, chunk: int) -> str:
@@ -396,10 +444,8 @@ def _bwd_route(shape, dtype: torch.dtype, ptrs, chunk: int) -> str:
     B, T, H, P, G, N = shape
     if dtype != torch.bfloat16:
         return "cuda-cores"
-    c = pick_chunk(T, chunk) if T else chunk
-    cluster = (c == CLUSTER_DIM and N == P == CLUSTER_DIM and G == 1
-               and 1 <= T // c <= CLUSTER_MAX_CHUNKS
-               and all(p % 16 == 0 for p in ptrs))
+    cluster = (_hopper_shape(shape, dtype, ptrs, chunk) and G == 1
+               and T // CLUSTER_DIM <= CLUSTER_MAX_CHUNKS)
     return "cluster" if cluster else "mma.sync"
 
 

@@ -829,6 +829,69 @@ def test_mamba2_ssd_kernel_matches_plain(cuda, shape, dtype):
     torch.testing.assert_close(state, ref_state, atol=tol, rtol=tol)
 
 
+# the forward's Hopper route, the warpgroup kernel: zamba2's serve shape,
+# B H = 112 at 8 chunks, 9 and 16 chunks, G = 2, 3 chunks, one chunk, 5
+# chunks at G = 2, 6 heads in 3 groups, B H = 64; beside them chunk 50,
+# which keeps mma.sync
+SSD_FWD_CASES = [((4, 512, 112, 64, 1, 64), "warpgroup"),
+                 ((1, 512, 112, 64, 1, 64), "warpgroup"),
+                 ((1, 576, 2, 64, 1, 64), "warpgroup"),
+                 ((2, 1024, 4, 64, 2, 64), "warpgroup"),
+                 ((2, 192, 8, 64, 1, 64), "warpgroup"),
+                 ((1, 64, 3, 64, 1, 64), "warpgroup"),
+                 ((2, 320, 4, 64, 2, 64), "warpgroup"),
+                 ((1, 448, 6, 64, 3, 64), "warpgroup"),
+                 ((1, 512, 64, 64, 1, 64), "warpgroup"),
+                 ((4, 100, 112, 64, 1, 64), "mma.sync")]
+
+
+@pytest.mark.parametrize("shape,route", SSD_FWD_CASES)
+def test_ssd_forward_route_matches_plain(cuda, shape, route):
+    """The bf16 SSD forward on its route against the plain version, y and
+    the final state, at the bf16 tolerance; one launch counted on the
+    route; a second call gives equal bits."""
+    from repro_torch.kernels import mamba2_ssd
+    args = _ssd_inputs(shape, torch.bfloat16, cuda, seed=4)
+    assert mamba2_ssd.fwd_route(args[0], args[3], args[4]) == route
+    before = mamba2_ssd.mamba2_ssd.routes[route]
+    y, state = mamba2_ssd.mamba2_ssd(*args)
+    torch.cuda.synchronize()
+    assert mamba2_ssd.mamba2_ssd.routes[route] == before + 1
+    ref_y, ref_state = mamba2_ssd.mamba2_ssd_plain(*args)
+    tol = TOLERANCES[torch.bfloat16][1]
+    torch.testing.assert_close(y.float(), ref_y.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(state, ref_state, atol=tol, rtol=tol)
+    y2, state2 = mamba2_ssd.mamba2_ssd(*args)
+    assert torch.equal(y, y2) and torch.equal(state, state2)
+
+
+def test_ssd_forward_unaligned_view_takes_mma_sync(cuda):
+    """x that a TMA map cannot describe (its data 2 bytes past a 16-byte
+    boundary) keeps the mma.sync route, within the tolerance."""
+    from repro_torch.kernels import mamba2_ssd
+    args = _ssd_inputs((1, 128, 2, 64, 1, 64), torch.bfloat16, cuda)
+    flat = torch.empty(args[0].numel() + 1, dtype=torch.bfloat16,
+                       device=cuda)
+    x = flat[1:].view(args[0].shape).copy_(args[0])
+    args = [x, *args[1:]]
+    assert mamba2_ssd.fwd_route(x, args[3], args[4]) == "mma.sync"
+    y, state = mamba2_ssd.mamba2_ssd(*args)
+    ref_y, ref_state = mamba2_ssd.mamba2_ssd_plain(*args)
+    tol = TOLERANCES[torch.bfloat16][1]
+    torch.testing.assert_close(y.float(), ref_y.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(state, ref_state, atol=tol, rtol=tol)
+
+
+def test_ssd_forward_hopper_kernels_fit(cuda):
+    """The warpgroup kernel is one warpgroup with no spill and holds 4
+    blocks an SM (zamba2's 448 (b, h) in one wave)."""
+    from repro_torch.kernels import mamba2_ssd
+    info = mamba2_ssd.kernel_info(64, 64, 64, torch.bfloat16, "warpgroup")
+    assert info["spill_bytes"] == 0, info
+    assert info["threads"] == 128, info
+    assert info["blocks_per_sm"] >= 4, info
+
+
 def _wkv_inputs(shape, dtype, cuda, seed=0):
     B, T, H, N = shape
     rng = np.random.default_rng(seed)

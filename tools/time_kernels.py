@@ -45,9 +45,20 @@ CUDA events, CUPTI busy time by kernel (the cluster kernel, or the walk
 and the chunk kernel, then the sums), the bound and the tree's route
 (``mamba2_ssd.bwd_route`` where the tree has it, else "mma.sync"); then
 the registers, spills, blocks an SM and threads of the tree's compiled
-backward kernels at N = P = chunk = 64. Each mode prints the card and one
-JSON line. Two trees compare on one card when they run in turns in one
-session: parent, change, change, parent.
+backward kernels at N = P = chunk = 64.
+
+    python3 tools/time_kernels.py --src PATH/src --only ssd_fwd
+
+times the bf16 SSD forward alone at zamba2-7b's serve and train shape
+(4, 512, 112, 64, 1, 64), and at (4, 100, 112, 64, 1, 64) and (2, 128, 8,
+64, 2, 64): device time by CUDA events (median of 60), CUPTI busy time,
+the bound and the tree's route (``mamba2_ssd.fwd_route`` where the tree
+has it, else "mma.sync"); then the registers, spills, blocks an SM and
+threads of the tree's compiled bf16 forward kernels at N = P = chunk = 64
+(the mma.sync kernel, and the warpgroup kernel where the tree has it).
+Each mode prints the card and one JSON line. Two trees compare on one
+card when they run in turns in one session: parent, change, change,
+parent.
 """
 
 from __future__ import annotations
@@ -66,9 +77,10 @@ def main() -> None:
     parser.add_argument("--src", required=True,
                         help="the tree's src directory (holds repro_torch)")
     parser.add_argument("--only", choices=("all", "flash_fwd", "flash_bwd",
-                                           "ssd_bwd"),
+                                           "ssd_fwd", "ssd_bwd"),
                         default="all", help="time every kernel, or the bf16 "
-                        "flash forward or backward or the SSD backward alone")
+                        "flash forward or backward or the SSD forward or "
+                        "backward alone")
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     sys.path.insert(1, HERE)
@@ -85,6 +97,9 @@ def main() -> None:
         build_both(args.src, ("flash_attention", "flash_attention_bwd"))
     elif args.only == "ssd_bwd":
         build_both(args.src, ("mamba2_ssd", "mamba2_ssd_bwd"))
+    elif args.only == "ssd_fwd":
+        from repro_torch.kernels._build import load
+        load("mamba2_ssd")
     else:
         for kmod in (anen_distance, flash_attention, mamba2_ssd, rwkv6_wkv):
             kmod.build()
@@ -93,8 +108,8 @@ def main() -> None:
             "empty_kernel_ms": cs.empty_ms()}
     if args.only != "all":
         part = {"flash_fwd": flash_forward, "flash_bwd": flash_backward,
-                "ssd_bwd": ssd_backward}[args.only]
-        rows.update(part(cs, mamba2_ssd if args.only == "ssd_bwd"
+                "ssd_fwd": ssd_forward, "ssd_bwd": ssd_backward}[args.only]
+        rows.update(part(cs, mamba2_ssd if args.only.startswith("ssd")
                          else flash_attention))
         print(rows["card"])
         print(json.dumps(rows))
@@ -251,12 +266,42 @@ def flash_backward(cs, flash_attention) -> dict:
     return rows
 
 
-SSD_BWD_TIMED = ((4, 512, 112, 64, 1, 64), (4, 100, 112, 64, 1, 64),
+SSD_TIMED = ((4, 512, 112, 64, 1, 64), (4, 100, 112, 64, 1, 64),
                  (2, 128, 8, 64, 2, 64))
 
 
+
+def ssd_forward(cs, mamba2_ssd) -> dict:
+    """The bf16 SSD forward at ``SSD_TIMED``: device ms, CUPTI busy
+    ms, the bound and the route; then the compiled forward kernels at N =
+    P = chunk = 64."""
+    import torch
+    rows = {}
+    route = getattr(mamba2_ssd, "fwd_route", None)
+    for shape in SSD_TIMED:
+        args = cs.ssd_inputs(shape, "bfloat16")
+        fn = lambda: mamba2_ssd.mamba2_ssd(*args)  # noqa: E731
+        row = {"ms": cs.device_ms(fn),
+               "busy_ms": cs.busy_ms(fn, f"mamba2_ssd {shape}"),
+               "route": (route(args[0], args[3], args[4]) if route
+                         else "mma.sync")}
+        row.update(cs.ssd_bound(shape, 2))
+        rows[f"mamba2_ssd bfloat16 {shape}"] = row
+    info = mamba2_ssd.kernel_info(64, 64, 64, torch.bfloat16)
+    rows["mamba2_ssd mma.sync registers/spill/blocks/threads"] = [
+        info["registers"], info["spill_bytes"], info["blocks_per_sm"],
+        info["threads"]]
+    if route:
+        info = mamba2_ssd.kernel_info(64, 64, 64, torch.bfloat16,
+                                      "warpgroup")
+        rows["mamba2_ssd warpgroup registers/spill/blocks/threads"] = [
+            info["registers"], info["spill_bytes"], info["blocks_per_sm"],
+            info["threads"]]
+    return rows
+
+
 def ssd_backward(cs, mamba2_ssd) -> dict:
-    """The bf16 SSD backward at ``SSD_BWD_TIMED`` as the train step calls
+    """The bf16 SSD backward at ``SSD_TIMED`` as the train step calls
     it: device ms, busy ms by kernel, the bound and the route; then the
     compiled backward kernels at N = P = chunk = 64 (the cluster kernel
     where the tree has it, and the mma.sync route's chunk kernel and
@@ -264,7 +309,7 @@ def ssd_backward(cs, mamba2_ssd) -> dict:
     import torch
     rows = {}
     route = getattr(mamba2_ssd, "bwd_route", None)
-    for shape in SSD_BWD_TIMED:
+    for shape in SSD_TIMED:
         args, dout, _ = cs.scan_bwd_inputs("mamba2_ssd", shape, "bfloat16")
         fn = lambda: mamba2_ssd.mamba2_ssd_bwd(*args, dout)  # noqa: E731
         parts = {}

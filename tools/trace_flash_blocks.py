@@ -5,7 +5,8 @@
 Copies the tree's ``repro_torch`` into ``build/trace_flash/``, adds clock
 marks to ``flash_fwd_wg_kernel`` (consumer warpgroup 0, and both
 warpgroups' ends; each block also records its SM and its start on the
-global timer), builds that copy, launches it at the main-path shapes in
+global timer; ``tools/trace_marks.py`` splices them), builds that copy
+with the package's own loader, launches it at the main-path shapes in
 both modes and prints, for each, the median and 10th / 90th percentile
 of each phase's end (microseconds from the block's start: clock64 cycles
 over the clock rate each block measured against the global timer), the
@@ -24,17 +25,18 @@ import os
 import shutil
 import sys
 
-HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from trace_marks import HERE, readers, splice
+
 SHAPES = ((4, 512, 48, 128), (4, 512, 32, 112), (4, 512, 12, 128))
 PHASES = (("Q and first K landed", 2), ("first tile done", 3),
           ("kv loop done", 4), ("last P V done", 5),
           ("warpgroup 0 stored", 6), ("warpgroup 1 stored", 7))
 
-# (anchor, text put before it) in csrc/flash_attention.cu; each anchor must
-# occur once
+# (anchor, mark, after) in csrc/flash_attention.cu; each anchor must occur
+# once
 MARKS = (
     ("constexpr int kWgBlockQ = 128;",
-     "__device__ unsigned long long g_trace[1 << 14][10];\n"),
+     "__device__ unsigned long long g_trace[1 << 14][10];\n", False),
     ("  if (threadIdx.x == 256) {\n    hp::prefetch_tensormap(&tm_q);",
      "  const long long c0 = clock64();\n"
      "  if (threadIdx.x == 0 && blockIdx.x < (1 << 14)) {\n"
@@ -54,15 +56,19 @@ MARKS = (
      "    asm volatile(\"mov.u64 %0, %%globaltimer;\" : \"=l\"(ns));\n"
      "    g_trace[blockIdx.x][8] = clock64() - c0;\n"
      "    g_trace[blockIdx.x][9] = ns;\n"
-     "  };\n"),
+     "  };\n", False),
     ("    turn();\n    hp::wgmma_fence();\n    issue_qk(0);",
-     "    if (wg == 0) mark(2);\n"),
+     "    if (wg == 0) mark(2);\n", False),
     ("\n    for (int j = 1; j < n_mine; ++j) {",
-     "\n    if (wg == 0) mark(3);"),
-    ("    const int last = n_mine - 1;", "    if (wg == 0) mark(4);\n"),
-    ("    // epilogue: O / l in bf16", "    if (wg == 0) mark(5);\n"),
+     "\n    if (wg == 0) mark(3);", False),
+    ("    const int last = n_mine - 1;", "    if (wg == 0) mark(4);\n",
+     False),
+    ("    // epilogue: O / l in bf16", "    if (wg == 0) mark(5);\n", False),
+    ("      hp::tma_store_wait_read();\n    }\n",
+     "    mark(6 + wg);\n"
+     "    if (threadIdx.x == 128 && blockIdx.x < (1 << 14)) stamp();\n",
+     True),
 )
-END_ANCHOR = "      hp::tma_store_wait_read();\n    }\n"
 
 
 def instrument(src: str, dst: str) -> None:
@@ -73,19 +79,8 @@ def instrument(src: str, dst: str) -> None:
     path = os.path.join(dst, "repro_torch", "kernels", "csrc",
                         "flash_attention.cu")
     text = open(path).read()
-    for anchor, before in MARKS:
-        if text.count(anchor) != 1:
-            raise SystemExit(f"anchor not found once: {anchor!r}")
-        text = text.replace(anchor, before + anchor)
-    if text.count(END_ANCHOR) != 1:
-        raise SystemExit(f"anchor not found once: {END_ANCHOR!r}")
-    text = text.replace(
-        END_ANCHOR, END_ANCHOR + "    mark(6 + wg);\n"
-        "    if (threadIdx.x == 128 && blockIdx.x < (1 << 14)) stamp();\n")
-    text += ('\nextern "C" int flash_trace_read(void* host, size_t bytes) {\n'
-             "  return static_cast<int>(cudaMemcpyFromSymbol(host, g_trace, "
-             "bytes));\n}\n")
-    open(path, "w").write(text)
+    text = splice(text, MARKS, "tools/trace_flash_blocks.py")
+    open(path, "w").write(text + readers("g_trace"))
 
 
 def main() -> None:
@@ -105,8 +100,8 @@ def main() -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels._build import load
     lib = load("flash_attention")
-    lib.flash_trace_read.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
-    lib.flash_trace_read.restype = ctypes.c_int
+    lib.trace_read_g_trace.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
+    lib.trace_read_g_trace.restype = ctypes.c_int
     print(cs.card_line())
     for shape in SHAPES:
         B, S, H, _ = shape
@@ -118,7 +113,7 @@ def main() -> None:
             run()
             torch.cuda.synchronize()
             buf = np.zeros((1 << 14, 10), dtype=np.uint64)
-            if lib.flash_trace_read(buf.ctypes.data, buf.nbytes) != 0:
+            if lib.trace_read_g_trace(buf.ctypes.data, buf.nbytes) != 0:
                 raise SystemExit("reading the marks failed")
             t = buf[:blocks].astype(np.int64)
             # cycles a microsecond, from the global timer (ns) over a block

@@ -2,8 +2,9 @@
 
     python3 tools/trace_ssd_chain.py [--src PATH/src]
 
-Copies the tree's ``csrc`` into ``build/trace_ssd_chain/``, adds marks to
-``ssd_bwd_cluster_kernel`` and builds that copy with the tree's nvcc flags;
+Copies ``csrc/mamba2_ssd_bwd.cu`` of the tree into
+``build/trace_ssd_chain/``, adds marks to ``ssd_bwd_cluster_kernel`` and
+builds that copy with the tree's nvcc flags (``tools/trace_marks.py``);
 then calls it at zamba2's train shape (4, 512, 112, 64, 1, 64) in bf16, as
 the train step does (no final-state gradient, ``cluster_heads(H)`` heads a
 block), and prints:
@@ -27,16 +28,14 @@ from __future__ import annotations
 import argparse
 import ctypes
 import os
-import shutil
 import statistics
-import subprocess
 import sys
 
-HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+from trace_marks import GLOBALTIMER, HERE, build, read, readers, splice
+
 SHAPE = (4, 512, 112, 64, 1, 64)
 PHASES = ("vectors", "x, dy wait", "U, V", "chain, tiles, sum", "rows t",
           "rows s", "rest")
-GT = 'asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(_gt));'
 DEFS = '''
 __device__ unsigned long long g_phase[64 * 16];
 __device__ unsigned long long g_chain[8 * 64 * 4];
@@ -44,10 +43,11 @@ __device__ unsigned long long g_chain[8 * 64 * 4];
 #define PHASE(n) if (threadIdx.x == 0 && blockIdx.x == 3 && TRACED) \\
   g_phase[i * 16 + (n)] = clock64();
 #define CHAIN(n) if (threadIdx.x == 0 && TRACED) { unsigned long long _gt; \\
-  ''' + GT + ''' g_chain[(blockIdx.x * 64 + i) * 4 + (n)] = _gt; }
+  ''' + GLOBALTIMER + ''' g_chain[(blockIdx.x * 64 + i) * 4 + (n)] = _gt; }
 '''
 # (anchor, mark, after): each anchor occurs once in csrc/mamba2_ssd_bwd.cu
 MARKS = (
+    ("namespace {\n\nconstexpr int kThreads = 512;", DEFS, False),
     ("  for (int i = 0; i < heads; ++i) {\n", "    PHASE(0)\n", True),
     ("    __syncthreads();   // (1) the head's vectors\n", "    PHASE(1)\n",
      True),
@@ -69,28 +69,6 @@ MARKS = (
     ("    // the sum of S o dS', from the f32 copies the chain left\n",
      "    CHAIN(3)\n", False),
 )
-READ = '''
-extern "C" int trace_read(unsigned long long* phase,
-                          unsigned long long* chain) {
-  cudaError_t e = cudaMemcpyFromSymbol(phase, g_phase, sizeof(g_phase));
-  if (e != cudaSuccess) return static_cast<int>(e);
-  return static_cast<int>(cudaMemcpyFromSymbol(chain, g_chain,
-                                               sizeof(g_chain)));
-}
-'''
-
-
-def marked_source(text: str) -> str:
-    anchor = "namespace {\n\nconstexpr int kThreads = 512;"
-    if text.count(anchor) != 1:
-        raise SystemExit("the kernel's source no longer has the marks' "
-                         "anchors: update tools/trace_ssd_chain.py")
-    text = text.replace(anchor, DEFS + anchor)
-    for anchor, mark, after in MARKS:
-        if text.count(anchor) != 1:
-            raise SystemExit(f"anchor not found once: {anchor!r}")
-        text = text.replace(anchor, anchor + mark if after else mark + anchor)
-    return text + READ
 
 
 def main() -> None:
@@ -102,24 +80,12 @@ def main() -> None:
     sys.path.insert(1, HERE)
     import torch
     import chip_smoke as cs
-    from repro_torch.kernels import _build, mamba2_ssd
+    from repro_torch.kernels import mamba2_ssd
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
-    out = os.path.join(HERE, "build", "trace_ssd_chain")
-    shutil.rmtree(out, ignore_errors=True)
-    os.makedirs(out)
-    csrc = os.path.join(src, "repro_torch", "kernels", "csrc")
-    for name in os.listdir(csrc):
-        if name.endswith(".cuh"):
-            shutil.copy(os.path.join(csrc, name), out)
-    with open(os.path.join(out, "k.cu"), "w") as f:
-        f.write(marked_source(open(os.path.join(csrc,
-                                                "mamba2_ssd_bwd.cu")).read()))
-    lib_path = os.path.join(out, "libtrace.so")
-    subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", lib_path,
-                    os.path.join(out, "k.cu")], check=True,
-                   capture_output=True)
-    lib = ctypes.CDLL(lib_path)
+    lib = build(src, "trace_ssd_chain", "mamba2_ssd_bwd.cu",
+                lambda text: splice(text, MARKS, "tools/trace_ssd_chain.py")
+                + readers("g_phase", "g_chain"))
     launch = lib.mamba2_ssd_bwd_launch
     launch.argtypes = [ctypes.c_void_p] * 19 + [ctypes.c_int] * 9 + [
         ctypes.c_void_p]
@@ -152,10 +118,8 @@ def main() -> None:
           f"{cs.device_ms(lambda: mamba2_ssd.mamba2_ssd_bwd(*(x, dt, A, Bm, Cm, s0), dout))}")
     marked()
     torch.cuda.synchronize()
-    phase = (ctypes.c_ulonglong * (64 * 16))()
-    chain = (ctypes.c_ulonglong * (8 * 64 * 4))()
-    if lib.trace_read(phase, chain) != 0:
-        raise RuntimeError("trace_read failed")
+    phase = read(lib, "g_phase", ctypes.c_ulonglong, 64 * 16)
+    chain = read(lib, "g_chain", ctypes.c_ulonglong, 8 * 64 * 4)
     at = lambda k, i, n: chain[(k * 64 + i) * 4 + n]  # noqa: E731
     t0 = min(at(k, 0, 0) for k in range(K))
     s_hops, d_hops = [], []
