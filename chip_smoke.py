@@ -150,7 +150,17 @@ a second bf16 call must give equal bits, the warpgroup kernel must spill
 nothing and fit 4 blocks an SM (so that zamba2's 448 (b, h) run in one
 wave), and every SSD forward of zamba2-7b's serve path and
 zamba2-7b-45l's train step must take the warpgroup route
-(``mamba2_ssd.routes``).
+(``mamba2_ssd.routes``). The bf16 WKV forward at N = chunk = 64 (any T a
+multiple of 64) takes Hopper's TMA and wgmma, three warpgroups a (b, h):
+the elementwise pass on two, a chunk ahead of the products on the third.
+Each WKV forward compare names its route and must take the one
+``WKV_FWD_ROUTES`` gives its shape (the main shape, one batch row of its
+heads and two chunks on wgmma; chunk 50, chunk 1 and N below 64 on
+mma.sync), a second bf16 call must give equal bits, the wgmma route is
+also held with the decay drawn to reach both clamps (``WKV_CLAMPED``), its
+kernel must spill nothing and fit 2 blocks an SM, and every WKV forward of
+rwkv6-3b's serve path and train step must take the wgmma route
+(``rwkv6_wkv.routes``; all of them, 256, summed over the paths).
 
 Flash attention's non-causal mode (``flash_attention(causal=False)``,
 bidirectional attention, the JAX kernel's ``causal=False``) is held the
@@ -326,12 +336,20 @@ SSD_FWD_ROUTES = {SSD_MAIN: "warpgroup", (4, 100, 112, 64, 1, 64): "mma.sync",
                   (2, 192, 8, 64, 1, 64): "warpgroup",
                   (1, 576, 8, 64, 2, 64): "warpgroup"}
 SSD_SHAPES = tuple(SSD_FWD_ROUTES)
-# the serve shape, a ragged T (chunk 50) and a prime T (chunk 1); then the
-# tensor-core route's padding: N = 16, 24 (element-wise tile fills), 32
-# and 5, at chunks 50 and 1
-WKV_SHAPES = (WKV_MAIN, (4, 100, 40, 64), (1, 97, 2, 64), (2, 100, 3, 16),
-              (1, 97, 2, 16), (2, 100, 3, 24), (1, 97, 2, 24),
-              (2, 100, 4, 32), (1, 100, 2, 5))
+# the WKV forward's shapes with the route each takes in bf16
+# (rwkv6_wkv.fwd_route): at N = chunk = 64 the wgmma kernel (the serve
+# shape, one batch row of its heads, two chunks); mma.sync for a ragged T
+# (chunk 50), a prime T (chunk 1) and the padding of N = 16, 24
+# (element-wise tile fills), 32 and 5, at chunks 50 and 1
+WKV_FWD_ROUTES = {WKV_MAIN: "wgmma", (1, 512, 40, 64): "wgmma",
+                  (2, 128, 3, 64): "wgmma", (4, 100, 40, 64): "mma",
+                  (1, 97, 2, 64): "mma", (2, 100, 3, 16): "mma",
+                  (1, 97, 2, 16): "mma", (2, 100, 3, 24): "mma",
+                  (1, 97, 2, 24): "mma", (2, 100, 4, 32): "mma",
+                  (1, 100, 2, 5): "mma"}
+WKV_SHAPES = tuple(WKV_FWD_ROUTES)
+# the wgmma route with the decay drawn to reach both clamps
+WKV_CLAMPED = ((2, 128, 3, 64),)
 # the JAX kernel tests' tolerances (tests/test_kernels.py), atol = rtol;
 # the WKV state's is 10x its output's
 TOLERANCE = {"flash_attention": {"float32": 2e-5, "bfloat16": 2e-2},
@@ -2006,19 +2024,42 @@ def compare_ssd(shape, dtype: str) -> float:
     return max(err, s_err)
 
 
-def compare_wkv(shape, dtype: str) -> float:
+def compare_wkv(shape, dtype: str, clamped: bool = False) -> float:
+    """The forward kernel against its plain version, out and the final
+    state (at 10x out's tolerance), on the route ``WKV_FWD_ROUTES`` gives
+    the shape (f32: the CUDA cores); in bf16 a second call must give equal
+    bits. ``clamped``: w drawn as ``scan_bwd_inputs`` draws it to reach
+    both clamps."""
     import torch
-    from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv, rwkv6_wkv_plain
-    args = wkv_inputs(shape, dtype)
+    from repro_torch.kernels.rwkv6_wkv import (fwd_route, rwkv6_wkv,
+                                               rwkv6_wkv_plain)
+    if clamped:
+        args = scan_bwd_inputs("rwkv6_wkv", shape, dtype, clamped=True)[0]
+    else:
+        args = wkv_inputs(shape, dtype)
+    route = fwd_route(*args[:4])
+    want = WKV_FWD_ROUTES[tuple(shape)] if dtype == "bfloat16" else "f32"
+    what = (f"rwkv6_wkv {shape} {dtype}{' clamped' if clamped else ''} "
+            f"({route} route)")
+    check(route == want, f"{what}: the shape takes the {want} route")
+    before = rwkv6_wkv.routes[route]
     out, state = rwkv6_wkv(*args)
     ref_out, ref_state = rwkv6_wkv_plain(*args)
     torch.cuda.synchronize()
+    check(rwkv6_wkv.routes[route] == before + 1,
+          f"{what}: one launch on its route")
     tol = TOLERANCE["rwkv6_wkv"][dtype]
-    err = held_close(out, ref_out, tol, f"rwkv6_wkv out {shape} {dtype}")
-    s_err = held_close(state, ref_state, tol * 10,
-                       f"rwkv6_wkv state {shape} {dtype}")
-    print(f"rwkv6_wkv {shape} {dtype}: max abs err out {err} state {s_err} "
-          f"(tolerance {tol}, state {tol * 10})")
+    err = held_close(out, ref_out, tol, f"{what} out")
+    s_err = held_close(state, ref_state, tol * 10, f"{what} state")
+    if dtype == "bfloat16":
+        out2, state2 = rwkv6_wkv(*args)
+        torch.cuda.synchronize()
+        check(torch.equal(out, out2) and torch.equal(state, state2),
+              f"{what}: equal bits on a second call")
+    print(f"{what}: max abs err out {err} state {s_err} (tolerance {tol}, "
+          f"state {tol * 10})"
+          + ("; a second call gives equal bits" if dtype == "bfloat16"
+             else ""))
     return err
 
 
@@ -2202,7 +2243,8 @@ def compiled_kernels(anen_n: int) -> dict:
             N, P, pick_chunk(T), dtype,
             "warpgroup" if dtype == torch.bfloat16 else None)
         info[("rwkv6_wkv", name)] = rwkv6_wkv.kernel_info(
-            WKV_MAIN[3], pick_chunk(WKV_MAIN[1]), dtype)
+            WKV_MAIN[3], pick_chunk(WKV_MAIN[1]), dtype,
+            "wgmma" if dtype == torch.bfloat16 else None)
         info[("mamba2_ssd_bwd", name)] = mamba2_ssd.bwd_kernel_info(
             N, P, pick_chunk(T), dtype,
             "cluster" if dtype == torch.bfloat16 else "chunk")
@@ -2210,6 +2252,8 @@ def compiled_kernels(anen_n: int) -> dict:
             WKV_MAIN[3], pick_chunk(WKV_MAIN[1]), dtype)
     info[("mamba2_ssd", "bfloat16", "mma.sync")] = mamba2_ssd.kernel_info(
         N, P, pick_chunk(T), torch.bfloat16)
+    info[("rwkv6_wkv", "bfloat16", "mma")] = rwkv6_wkv.kernel_info(
+        WKV_MAIN[3], pick_chunk(WKV_MAIN[1]), torch.bfloat16)
     for part in ("chunk", "walk"):
         info[("mamba2_ssd_bwd", "bfloat16", part)] = \
             mamba2_ssd.bwd_kernel_info(N, P, pick_chunk(T), torch.bfloat16,
@@ -2246,6 +2290,12 @@ def compiled_kernels(anen_n: int) -> dict:
           and wg["blocks_per_sm"] >= 4,
           f"the SSD forward's warpgroup kernel: one warpgroup, no spill, 4 "
           f"blocks an SM (zamba2's {B * H} (b, h) in one wave) ({wg})")
+    wg = info[("rwkv6_wkv", "bfloat16")]
+    check(wg["spill_bytes"] == 0 and wg["threads"] == 384
+          and wg["blocks_per_sm"] >= 2,
+          f"the WKV forward's wgmma kernel: three warpgroups, no spill, 2 "
+          f"blocks an SM (rwkv6-3b's {WKV_MAIN[0] * WKV_MAIN[2]} (b, h) in "
+          f"one wave) ({wg})")
     return info
 
 
@@ -2424,7 +2474,8 @@ def time_ssd(shape) -> dict:
 def time_wkv(shape, dtype: str = "bfloat16") -> dict:
     """The bf16 route (tensor cores) against its bound at the tensor-core
     rate; the f32 route (CUDA cores) against its bound at the f32 rate."""
-    from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv, rwkv6_wkv_plain
+    from repro_torch.kernels.rwkv6_wkv import (fwd_route, rwkv6_wkv,
+                                               rwkv6_wkv_plain)
     args = wkv_inputs(shape, dtype)
     kernel = lambda: rwkv6_wkv(*args)                         # noqa: E731
     plain = lambda: rwkv6_wkv_plain(*args)                    # noqa: E731
@@ -2434,7 +2485,8 @@ def time_wkv(shape, dtype: str = "bfloat16") -> dict:
            "busy_ms": busy_ms(kernel, tag + " kernel"),
            "plain_ms": busy_ms(plain, tag + " plain"),
            "library_ms": None,
-           "call_ms": call_ms(kernel)}
+           "call_ms": call_ms(kernel),
+           "route": fwd_route(*args[:4])}
     if dtype == "bfloat16":
         row.update(wkv_bound(shape, 2))
     else:
@@ -2526,13 +2578,14 @@ def run_serve_path(traffic: dict) -> dict:
               f"{name}: {want * n} launches on the {arch} serve path")
     for name, shape in MAIN_SHAPES[arch].items():
         check(set(shapes[name]) == {shape}, f"{name} ran at {shape}")
-    check_ssd_fwd_routes(arch, launches)
+    check_scan_fwd_routes(arch, launches)
     return {"launches": launches, "session": sess, "wall_s": wall,
             "stats": stats}
 
 
-def check_ssd_fwd_routes(arch: str, launches: dict) -> None:
-    """Every SSD forward launch of a path took the warpgroup route."""
+def check_scan_fwd_routes(arch: str, launches: dict) -> None:
+    """Every SSD forward launch of a path took the warpgroup route, and
+    every WKV forward launch the wgmma route."""
     from repro_torch.kernels import KERNELS
     if launches["mamba2_ssd"]:
         routes = dict(KERNELS["mamba2_ssd"].routes)
@@ -2540,6 +2593,18 @@ def check_ssd_fwd_routes(arch: str, launches: dict) -> None:
         check(routes == {"warpgroup": launches["mamba2_ssd"]},
               f"{arch}: every SSD forward took the warpgroup route "
               f"({routes})")
+    if launches["rwkv6_wkv"]:
+        routes = dict(KERNELS["rwkv6_wkv"].routes)
+        print(f"{arch} rwkv6_wkv routes: {routes}")
+        check(routes == {"wgmma": launches["rwkv6_wkv"]},
+              f"{arch}: every WKV forward took the wgmma route ({routes})")
+        WKV_WGMMA_LAUNCHES[arch] = (WKV_WGMMA_LAUNCHES.get(arch, 0)
+                                    + routes["wgmma"])
+
+
+# WKV forward launches on the wgmma route by arch, serve and train paths
+# summed (check_scan_fwd_routes)
+WKV_WGMMA_LAUNCHES = {}
 
 
 def greedy(logits):
@@ -2619,8 +2684,8 @@ def profile_steps(label: str, cfg, params, prefill_step, decode_step,
             kind = ("flash_attention" if "flash_fwd" in key else
                     "mamba2_ssd" if any(f"ssd_{r}kernel" in key for r in (
                         "", "tc_", "wg_")) else
-                    "rwkv6_wkv" if "wkv_kernel" in key
-                    or "wkv_tc_kernel" in key else
+                    "rwkv6_wkv" if any(f"wkv_{r}kernel" in key for r in (
+                        "", "tc_", "wg_")) else
                     "matmul" if any(w in key.lower() for w in (
                         "nvjet", "gemm", "gemv", "cutlass", "xmma", "sm90_"))
                     else "other")
@@ -3100,7 +3165,7 @@ def run_train_path(run: dict) -> tuple:
               f"{arch} {name}: {want * n} launches on the train path")
     for name, shape in TRAIN_SHAPES[arch].items():
         check(set(shapes[name]) == {shape}, f"{arch} {name} ran at {shape}")
-    check_ssd_fwd_routes(arch, launches)
+    check_scan_fwd_routes(arch, launches)
     ssd_routes = dict(KERNELS["mamba2_ssd_bwd"].routes)
     if launches["mamba2_ssd_bwd"]:
         print(f"{arch} mamba2_ssd_bwd routes: {ssd_routes}")
@@ -3490,6 +3555,10 @@ def main() -> None:
             errors["mamba2_ssd"].append(compare_ssd(shape, dtype))
         for shape in WKV_SHAPES:
             errors["rwkv6_wkv"].append(compare_wkv(shape, dtype))
+        if dtype == "bfloat16":
+            for shape in WKV_CLAMPED:
+                errors["rwkv6_wkv"].append(
+                    compare_wkv(shape, dtype, clamped=True))
         for shape in SSD_BWD_SHAPES:
             errors["mamba2_ssd_bwd"].append(
                 compare_scan_bwd("mamba2_ssd", shape, dtype))
@@ -3557,6 +3626,12 @@ def main() -> None:
     launches = {name: sum(path.get(name, 0) for path in by_path.values())
                 for name in timed}
     print(f"model kernel launches by path: {by_path}")
+    print(f"rwkv6_wkv launches on the wgmma route by path: "
+          f"{WKV_WGMMA_LAUNCHES}")
+    check(launches["rwkv6_wkv"] > 0
+          and sum(WKV_WGMMA_LAUNCHES.values()) == launches["rwkv6_wkv"],
+          f"all {launches['rwkv6_wkv']} WKV forwards of the main paths took "
+          f"the wgmma route ({WKV_WGMMA_LAUNCHES})")
 
     record = {"kernels": [{
         "name": "anen_distance",
@@ -3701,6 +3776,14 @@ def main() -> None:
     wkv_entry = next(e for e in record["kernels"]
                      if e["name"] == "rwkv6_wkv")
     wkv_entry.update(
+        route_bf16=timed["rwkv6_wkv"]["route"],
+        busy_ms=timed["rwkv6_wkv"]["busy_ms"],
+        compiled_wgmma={k: compiled[("rwkv6_wkv", "bfloat16")][k]
+                        for k in ("registers", "spill_bytes",
+                                  "blocks_per_sm", "threads")},
+        compiled_mma={k: compiled[("rwkv6_wkv", "bfloat16", "mma")][k]
+                      for k in ("registers", "spill_bytes",
+                                "blocks_per_sm")},
         f32_ms=wkv_f32["ms"], f32_busy_ms=wkv_f32["busy_ms"],
         f32_plain_ms=wkv_f32["plain_ms"], f32_bound_ms=wkv_f32["bound_ms"])
     # the non-causal mode (causal=False) of the flash kernels, apart:

@@ -2,8 +2,9 @@
 // copies, warpgroup register rebalancing, wgmma and thread block clusters
 // (distributed shared memory), plus the host-side encoding of TMA tensor
 // maps. Used by the bf16 flash attention forward (csrc/flash_attention.cu)
-// and backward (csrc/flash_attention_bwd.cu) and the SSD forward's and
-// backward's Hopper routes (csrc/mamba2_ssd{,_bwd}.cu); tensor_core.cuh
+// and backward (csrc/flash_attention_bwd.cu), the SSD forward's and
+// backward's Hopper routes (csrc/mamba2_ssd{,_bwd}.cu) and the WKV
+// forward's (csrc/rwkv6_wkv.cu); tensor_core.cuh
 // holds the Ampere-style mma.sync helpers the other kernels use.
 //
 // wgmma.mma_async.m64nNk16 (bf16 operands, f32 sums) is issued by the 128

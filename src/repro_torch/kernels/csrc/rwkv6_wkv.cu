@@ -25,11 +25,42 @@
 // and f32 u and states, the function moves about 57.7 MB: about 17 us at
 // 3.35 TB/s. Its work is about 2.7 GFLOP (four c x c x N or c x N x N
 // products per chunk and head): 2.7 us on the bf16 tensor cores, 40 us in
-// f32 on the CUDA cores. So the bf16 route is bound by bytes once its
-// products are on the tensor cores, and what stands between it and that
+// f32 on the CUDA cores. So the bf16 routes are bound by bytes once their
+// products are on the tensor cores, and what stands between them and that
 // bound is latency: the chunks of a head form one dependent chain.
 //
-// bf16 route (wkv_tc_kernel, the serve path): the four products run on the
+// The dtype and shape pick the route (rwkv6_wkv.py::fwd_route, the
+// launcher's dtype code): f32 the CUDA cores (0); bf16 at N = chunk = 64
+// with r, k, v, w, out 16-byte aligned (TMA maps describe them) three
+// warpgroups a (b, h) on Hopper's TMA and wgmma (2), any T a multiple of 64
+// (rwkv6-3b's serve and train paths); every other bf16 input mma.sync (1).
+//
+// bf16 wgmma route (wkv_wg_kernel): what is serial from chunk to chunk is
+// only S_c = diag(exp(cum[c-1])) (S_{c-1} + k_over^T v) and the readout
+// r_dec . S_{c-1}; the scores, the intra-chunk output and k_over^T v do not
+// read S. So the elementwise pass that forms r_dec and k_over (the
+// latency-bound part: log-space sums, exponentials, splits) runs on two
+// warpgroups of its own, a chunk ahead of the products, and a third
+// warpgroup runs every product on wgmma with S in f32 registers. 160
+// blocks of 384 threads at the serve shape, 2 an SM (setmaxnreg: 128
+// registers for the products, 56 for each pass warpgroup; 112,896 bytes of
+// shared memory), all in one wave; one (b, h) a block, since each further
+// split of a head over value columns would repeat the pass and the scores.
+// The decay is carried as a running product of max(w, 1e-8) clamped at
+// e^-30 (two reciprocals an element instead of a log and two exponentials;
+// the same clamps as max(cumsum(log w), -30)), and the diagonal bonus
+// sum_n r u k rides on the scores' diagonal into scores . v. Every f32
+// operand of a product is split into bf16 hi + lo as on the mma.sync route
+// (below): r_dec, k_over, the masked scores (with the bonus) and S; 40
+// wgmma m64n64k16 a chunk. What bounds it now is the products' warpgroup:
+// about 0.73 us of tensor-core time a chunk (40 x 32 cycles, each also
+// reading its two 2 KB operands from shared memory at 128 B a cycle), the
+// masking and splitting of the scores and the split of S between them;
+// PERF.md gives the measured phases (tools/trace_wkv_fwd.py).
+// tests/test_torch_wkv_hopper_route.py emulates its arithmetic.
+//
+// bf16 mma.sync route (wkv_tc_kernel: chunk below 64, N below 64,
+// unaligned views): the four products run on the
 // tensor cores as mma.sync.m16n8k16, bf16 operands and f32 sums. Every
 // operand that is f32 inside the kernel (r_dec, k_over, the masked scores
 // and the carried state) is split into two bf16 parts, x = hi + lo with
@@ -97,6 +128,7 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
 #include "tensor_core.cuh"
 
 namespace {
@@ -805,6 +837,473 @@ int info_tc(int* info) {
                          info);
 }
 
+
+// --------------------------------------------------------------------------
+// bf16 wgmma route on Hopper: one warpgroup a (b, h) walks the chunks, TMA
+// tiles and wgmma, every f32 operand split into bf16 hi + lo (N = chunk =
+// 64, any number of chunks)
+// --------------------------------------------------------------------------
+
+using hp::desc_k;
+using hp::desc_mn;
+using hp::kSwTile;
+using hp::sw;
+
+constexpr int kMmaThreads = 128;            // the products' warpgroup
+constexpr int kPassThreads = 256;           // the two pass warpgroups
+constexpr int kWgThreads = kMmaThreads + kPassThreads;
+constexpr int kStages = 2;                  // of each ring
+constexpr int kMmaRegs = 128;               // by setmaxnreg; 3 x 80 in all
+constexpr int kPassRegs = 56;
+// a stage of chunk tiles: r, k, w by TMA, then r_dec's hi and lo in place
+// of r and k, k_over's in place of w and in X
+constexpr int kRkwx = 4 * kSwTile;
+// byte offsets from the 1024-aligned base: the r, k, w, X stages, v's
+// stages, the state's hi and lo tiles, out's tile, the pass's column
+// products of w (two sets of 8 x 64 f32), each stage's vectors
+// (exp(cum[c-1]) and the diagonal bonus, 2 x 64 f32) and u
+constexpr int kOffV = kStages * kRkwx;
+constexpr int kOffS = kOffV + kStages * kSwTile;
+constexpr int kOffOut = kOffS + 2 * kSwTile;
+constexpr int kOffTot = kOffOut + kSwTile;
+constexpr int kOffVec = kOffTot + 2 * 8 * 64 * static_cast<int>(sizeof(float));
+constexpr int kOffU = kOffVec + kStages * 128 * static_cast<int>(sizeof(float));
+constexpr size_t kWgSmem = 1024 + kOffU + 64 * sizeof(float);
+// named barriers: 1 the pass's warpgroups, 2 the products'
+constexpr int kBarPass = 1, kBarMma = 2;
+// e^-30, the clamp of the cumulative decay
+constexpr float kClampExp = 9.357623e-14f;
+
+__device__ __forceinline__ float rcp(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float2 ld_sw(const unsigned char* tile, int row,
+                                        int col) {
+  return tc::unpack_bf16(
+      *reinterpret_cast<const uint32_t*>(tile + sw(row, col)));
+}
+
+__device__ __forceinline__ void st_sw(unsigned char* tile, int row, int col,
+                                      uint32_t v) {
+  *reinterpret_cast<uint32_t*>(tile + sw(row, col)) = v;
+}
+
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr,
+                                            const uint32_t (&r)[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+      :: "r"(addr), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
+}
+
+// A warpgroup's 64 x 64 f32 D fragment into swizzled bf16 tiles (rows as
+// the fragment's) by stmatrix, four 8 x 8 blocks an instruction, lane l
+// giving row l % 8 of block l / 8: rounded once into `hi_tile`, or with
+// kSplit split into hi and lo (x = hi + lo), lo into `lo_tile`.
+template <bool kSplit>
+__device__ __forceinline__ void st_frag(uint32_t hi_tile, uint32_t lo_tile,
+                                        const float (&d)[32]) {
+  const int lane = threadIdx.x & 31;
+  const int m = lane >> 3;
+  const int row = 16 * ((threadIdx.x >> 5) & 3) + (m & 1) * 8 + (lane & 7);
+#pragma unroll
+  for (int j = 0; j < 8; j += 2) {
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      split_bf16(d[4 * j + 2 * i], d[4 * j + 2 * i + 1], h[i], l[i]);
+    }
+    const uint32_t o = sw(row, 8 * (j + (m >> 1)));
+    stmatrix_x4(hi_tile + o, h);
+    if (kSplit) stmatrix_x4(lo_tile + o, l);
+  }
+}
+
+// The elementwise pass of one chunk, by the 256 threads of the two pass
+// warpgroups, whose r, k and w tiles (swizzled as TMA wrote them) start at
+// `st`: warp w (0..7) takes the chunk's rows 8 w..8 w + 7, lane l key
+// channels 2 l and 2 l + 1 (a warp's load is one 128-byte row). The decay
+// is carried as a product, exp(cum) = max(prod_s max(w_s, 1e-8), e^-30),
+// the same clamps as the Pallas body's log-space sums: w's running product
+// down the warp's rows, the warps' column products through `tot`, one
+// barrier; then, w read again, e = max(the earlier warps' products x the
+// running product, e^-30), r_dec = r (e / w) and k_over = k / e, each split
+// into bf16 hi and lo in place: r_dec in r's and k's tiles, k_over in w's
+// and X. vec[0..63] gets exp(cum[c-1]) of each key channel (the state
+// rows' decay), vec[64..127] the diagonal bonus sum_n r u k of each row (a
+// fixed tree of shuffles over the warp).
+__device__ __forceinline__ void wkv_pass(unsigned char* st, float* tot,
+                                         float* vec, const float* us) {
+  const int warp = (threadIdx.x - kMmaThreads) >> 5;
+  const int lane = threadIdx.x & 31;
+  const int r0 = 8 * warp;
+  const int n0 = 2 * lane;
+  unsigned char* rt = st;
+  unsigned char* kt = st + kSwTile;
+  unsigned char* wt = st + 2 * kSwTile;
+  unsigned char* xt = st + 3 * kSwTile;
+  float run0 = 1.0f, run1 = 1.0f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const float2 wv = ld_sw(wt, r0 + i, n0);
+    run0 *= fmaxf(wv.x, 1e-8f);
+    run1 *= fmaxf(wv.y, 1e-8f);
+  }
+  *reinterpret_cast<float2*>(tot + warp * 64 + n0) = make_float2(run0, run1);
+  hp::bar_sync(kBarPass, kPassThreads);   // every warp's column products
+  float pre0 = 1.0f, pre1 = 1.0f;
+#pragma unroll
+  for (int q = 0; q < 7; ++q) {
+    if (q < warp) {
+      const float2 tq = *reinterpret_cast<const float2*>(tot + q * 64 + n0);
+      pre0 *= tq.x;
+      pre1 *= tq.y;
+    }
+  }
+  if (warp == 7) {
+    vec[n0] = fmaxf(pre0 * run0, kClampExp);
+    vec[n0 + 1] = fmaxf(pre1 * run1, kClampExp);
+  }
+  const float u0 = us[n0], u1 = us[n0 + 1];
+  float dp[8];
+  float inc0 = 1.0f, inc1 = 1.0f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int row = r0 + i;
+    const float2 wv = ld_sw(wt, row, n0);
+    const float w0 = fmaxf(wv.x, 1e-8f), w1 = fmaxf(wv.y, 1e-8f);
+    inc0 *= w0;
+    inc1 *= w1;
+    const float e0 = fmaxf(pre0 * inc0, kClampExp);
+    const float e1 = fmaxf(pre1 * inc1, kClampExp);
+    const float2 rv = ld_sw(rt, row, n0);
+    const float2 kv = ld_sw(kt, row, n0);
+    dp[i] = fmaf(rv.y * u1, kv.y, rv.x * u0 * kv.x);
+    uint32_t hi, lo;
+    split_bf16(rv.x * (e0 * rcp(w0)), rv.y * (e1 * rcp(w1)), hi, lo);
+    st_sw(rt, row, n0, hi);
+    st_sw(kt, row, n0, lo);
+    split_bf16(kv.x * rcp(e0), kv.y * rcp(e1), hi, lo);
+    st_sw(wt, row, n0, hi);
+    st_sw(xt, row, n0, lo);
+  }
+  // the bonus of each row, summed over the warp's lanes: halving over lane
+  // bits 16, 8, 4 leaves lane l row 4 b4 + 2 b3 + b2 (b the bits of l),
+  // summed over 8 lanes; then bits 2 and 1
+#define WKV_HALVE(W, BIT)                                                  \
+  _Pragma("unroll") for (int i = 0; i < W; ++i) {                          \
+    const bool upper = (lane & BIT) != 0;                                  \
+    const float send = upper ? dp[i] : dp[i + W];                          \
+    const float keep = upper ? dp[i + W] : dp[i];                          \
+    dp[i] = keep + __shfl_xor_sync(0xffffffffu, send, BIT);                \
+  }
+  WKV_HALVE(4, 16)
+  WKV_HALVE(2, 8)
+  WKV_HALVE(1, 4)
+#undef WKV_HALVE
+  float bonus = dp[0] + __shfl_xor_sync(0xffffffffu, dp[0], 2);
+  bonus += __shfl_xor_sync(0xffffffffu, bonus, 1);
+  if ((lane & 3) == 0) {
+    vec[64 + r0 + 4 * ((lane >> 4) & 1) + 2 * ((lane >> 3) & 1) +
+        ((lane >> 2) & 1)] = bonus;
+  }
+  hp::fence_proxy_async();   // the tiles, for the wgmma that read them
+}
+
+// One block of three warpgroups per (b, h) walks the chunks in order. The
+// two pass warpgroups (warps 4-11, 48 registers) run the elementwise pass of
+// each chunk (wkv_pass) as soon as its r, k, w have come by TMA, one chunk
+// ahead of the products; the products' warpgroup (warps 0-3, 144
+// registers) holds the state S in f32 registers (the wgmma D fragment:
+// rows n, columns m) and its hi and lo copies in shared memory, and issues
+// the TMA copies. What stays serial from chunk to chunk is the state's
+// elementwise decay, its copy, and the readout that reads it. Chunk c, with
+// r_dec(c) and k_over(c) in its stage's tiles:
+//   1. the scores = r_dec . k_over^T (wgmma), then a second group: y =
+//      r_dec . S_{c-1} (S's hi and lo tiles) and S += k_over^T . v
+//      (k_over's tiles transposed), each f32 operand as hi + lo (hi.hi +
+//      hi.lo + lo.hi; one product of each part with the exact bf16 v);
+//   2. while the second group runs, the scores masked strictly lower in
+//      f32 with the diagonal bonus sum_n r u k on the diagonal and split as
+//      A fragments; y += scores . v (wgmma, chained onto the readout);
+//   3. once every warp's products are done, chunk c + 2's r, k, w are
+//      loaded into the stage they read, S = exp(cum[c-1]) S (the same as
+//      exp(cum[c-1]) S_{c-1} + k_scaled^T v) goes to its hi and lo tiles
+//      and y in bf16 to out's tile (stmatrix), stored by TMA at the start
+//      of the next chunk.
+// Tried and dropped: issuing chunk c + 1's scores before chunk c's tiles
+// are written (ptxas then serialises the wgmma, C7515, and spills), and
+// splitting S while y's last products run (no faster; 8 bytes spill).
+// Maps: r, k, v, w, out as (N, H, T, B) of bf16, 128-byte swizzled boxes of
+// 64 columns x 64 rows. Barriers: TMA's (r, k, w and v stages), the pass's
+// (a stage's tiles and vectors in), one named barrier a chunk in the pass
+// and two in the products'.
+__global__ void __launch_bounds__(kWgThreads, 2)
+wkv_wg_kernel(const __grid_constant__ CUtensorMap tm_r,
+              const __grid_constant__ CUtensorMap tm_k,
+              const __grid_constant__ CUtensorMap tm_v,
+              const __grid_constant__ CUtensorMap tm_w,
+              const __grid_constant__ CUtensorMap tm_out,
+              const float* __restrict__ u, const float* __restrict__ state0,
+              float* __restrict__ state_out, int T_len, int H) {
+  // r, k, w stages in (TMA), v stages in (TMA), a stage's pass done
+  __shared__ __align__(8) uint64_t full[3 * kStages];
+  extern __shared__ unsigned char smem_raw[];
+  // the base aligned to 1024 by an offset into the shared array, so that
+  // every access through it compiles to shared loads and stores
+  unsigned char* smem =
+      smem_raw + ((1024 - (hp::smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = hp::smem_u32(smem);
+  float* tot = reinterpret_cast<float*>(smem + kOffTot);
+  float* vecs = reinterpret_cast<float*>(smem + kOffVec);
+  float* us = reinterpret_cast<float*>(smem + kOffU);
+  const uint32_t bar_rkw = hp::smem_u32(full);
+  const uint32_t bar_v = bar_rkw + 8 * kStages;
+  const uint32_t bar_pass = bar_v + 8 * kStages;
+  const int tid = threadIdx.x;
+  const int h = blockIdx.x;
+  const int b = blockIdx.y;
+  const int K = T_len / 64;
+  auto load_rkw = [&](int c) {
+    const int st = c & 1;
+    const uint32_t dst = base + st * kRkwx;
+    const uint32_t bar = bar_rkw + 8 * st;
+    hp::mbar_expect_tx(bar, 3 * kSwTile);
+    hp::tma_load_4d(dst, &tm_r, bar, 0, h, 64 * c, b);
+    hp::tma_load_4d(dst + kSwTile, &tm_k, bar, 0, h, 64 * c, b);
+    hp::tma_load_4d(dst + 2 * kSwTile, &tm_w, bar, 0, h, 64 * c, b);
+  };
+  auto load_v = [&](int c) {
+    const int st = c & 1;
+    const uint32_t bar = bar_v + 8 * st;
+    hp::mbar_expect_tx(bar, kSwTile);
+    hp::tma_load_4d(base + kOffV + st * kSwTile, &tm_v, bar, 0, h, 64 * c,
+                    b);
+  };
+  if (tid == 0) {
+    hp::prefetch_tensormap(&tm_r);
+    hp::prefetch_tensormap(&tm_k);
+    hp::prefetch_tensormap(&tm_v);
+    hp::prefetch_tensormap(&tm_w);
+    hp::prefetch_tensormap(&tm_out);
+#pragma unroll
+    for (int i = 0; i < 2 * kStages; ++i) hp::mbar_init(bar_rkw + 8 * i, 1);
+#pragma unroll
+    for (int i = 0; i < kStages; ++i) {
+      hp::mbar_init(bar_pass + 8 * i, kPassThreads);
+    }
+    hp::fence_barrier_init();
+    load_rkw(0);
+    load_v(0);
+    if (K > 1) {
+      load_rkw(1);
+      load_v(1);
+    }
+  }
+  if (tid >= kMmaThreads && tid < kMmaThreads + 64) {
+    us[tid - kMmaThreads] = u[h * 64 + tid - kMmaThreads];
+  }
+  __syncthreads();   // the barriers and u
+
+  if (tid >= kMmaThreads) {
+    // the pass warpgroups
+    hp::setmaxnreg_dec<kPassRegs>();
+    for (int c = 0; c < K; ++c) {
+      const int st = c & 1;
+      hp::mbar_wait(bar_rkw + 8 * st, (c >> 1) & 1);
+      wkv_pass(smem + st * kRkwx, tot + st * 512, vecs + st * 128, us);
+      hp::mbar_arrive(bar_pass + 8 * st);
+    }
+    return;
+  }
+
+  // the products' warpgroup
+  hp::setmaxnreg_inc<kMmaRegs>();
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int r0 = 16 * warp;
+  const uint32_t s_hi = base + kOffS;
+  const uint32_t s_lo = s_hi + kSwTile;
+  const uint32_t o_tile = base + kOffOut;
+  const uint64_t d_sh = desc_mn(s_hi, 0), d_sl = desc_mn(s_lo, 0);
+  const size_t bh = static_cast<size_t>(b) * H + h;
+  float S[32];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float2 v = *reinterpret_cast<const float2*>(
+          state0 + bh * 4096 + (r0 + g + 8 * hh) * 64 + 8 * j + 2 * t);
+      S[2 * hh + 4 * j] = v.x;
+      S[2 * hh + 4 * j + 1] = v.y;
+    }
+  st_frag<true>(s_hi, s_lo, S);
+  hp::fence_proxy_async();
+
+  for (int c = 0; c < K; ++c) {
+    // S_{c-1}'s tiles and chunk c - 1's out tile are in; every read of
+    // chunk c - 1's v is done
+    hp::bar_sync(kBarMma, kMmaThreads);
+    if (tid == 0) {
+      if (c >= 1) {
+        hp::tma_store_4d(&tm_out, o_tile, 0, h, 64 * (c - 1), b);
+        hp::tma_store_commit();
+      }
+      if (c >= 1 && c + 1 < K) load_v(c + 1);
+    }
+    const int st = c & 1;
+    const uint32_t rd_hi = base + st * kRkwx;
+    const uint32_t vt = base + kOffV + st * kSwTile;
+    hp::mbar_wait(bar_pass + 8 * st, (c >> 1) & 1);
+    hp::mbar_wait(bar_v + 8 * st, (c >> 1) & 1);
+    // this chunk's vectors, read before the pass of chunk c + 2 may write
+    // them (it waits for the load issued below)
+    const float* vec = vecs + st * 128;
+    const float p0 = vec[r0 + g], p1 = vec[r0 + g + 8];
+    const float dg0 = vec[64 + r0 + g], dg1 = vec[72 + r0 + g];
+
+    // 1. scores = r_dec . k_over^T; then y = r_dec . S_{c-1} and S +=
+    // k_over^T . v, a second group. Descriptors at k step 0; a k step adds
+    // 2 (32 bytes on, K-major) or 128 (16 rows of 128 bytes, MN-major) to
+    // the address field, which never carries out (shared memory < 256 KB)
+    const uint64_t d_rh = desc_k(rd_hi, 0);
+    const uint64_t d_rl = desc_k(rd_hi + kSwTile, 0);
+    const uint64_t d_kh = desc_k(rd_hi + 2 * kSwTile, 0);
+    const uint64_t d_kl = desc_k(rd_hi + 3 * kSwTile, 0);
+    const uint64_t d_khT = desc_mn(rd_hi + 2 * kSwTile, 0);
+    const uint64_t d_klT = desc_mn(rd_hi + 3 * kSwTile, 0);
+    const uint64_t d_v = desc_mn(vt, 0);
+    float y[32], sc[32];
+    hp::fence_regs(S);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      hp::mma_ss(sc, d_rh + 2 * kk, d_kh + 2 * kk, kk > 0);
+      hp::mma_ss(sc, d_rh + 2 * kk, d_kl + 2 * kk, 1);
+      hp::mma_ss(sc, d_rl + 2 * kk, d_kh + 2 * kk, 1);
+    }
+    hp::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      hp::mma_ss_t<0, 1>(y, d_rh + 2 * kk, d_sh + 128 * kk, kk > 0);
+      hp::mma_ss_t<0, 1>(y, d_rh + 2 * kk, d_sl + 128 * kk, 1);
+      hp::mma_ss_t<0, 1>(y, d_rl + 2 * kk, d_sh + 128 * kk, 1);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      hp::mma_ss_t<1, 1>(S, d_khT + 128 * kk, d_v + 128 * kk, 1);
+      hp::mma_ss_t<1, 1>(S, d_klT + 128 * kk, d_v + 128 * kk, 1);
+    }
+    hp::wgmma_commit();
+    hp::wgmma_wait<1>();
+    hp::fence_regs(sc);
+
+    // 2. while the second group runs: the scores strictly lower, the bonus
+    // on the diagonal, split as A fragments; y += scores . v (chained onto
+    // the readout)
+    uint32_t ph[4][4], pl[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int tt = r0 + g + 8 * (e >> 1);
+        const int ss = 8 * j + 2 * t + (e & 1);
+        if (ss >= tt) {
+          sc[4 * j + e] = ss == tt ? ((e >> 1) ? dg1 : dg0) : 0.0f;
+        }
+      }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        split_bf16(sc[8 * kk + 2 * q], sc[8 * kk + 2 * q + 1], ph[kk][q],
+                   pl[kk][q]);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      hp::mma_rs(y, ph[kk], d_v + 128 * kk, 1);
+      hp::mma_rs(y, pl[kk], d_v + 128 * kk, 1);
+    }
+    hp::wgmma_commit();
+    hp::wgmma_wait<0>();
+    hp::fence_regs(S);
+    hp::fence_regs(y);
+    hp::fence_regs(ph);
+    hp::fence_regs(pl);
+
+    // 3. every warp's products have read S_{c-1}'s tiles and this stage's
+    // r_dec and k_over: chunk c + 2's r, k, w into it, while S =
+    // exp(cum[c-1]) S goes to its hi and lo tiles and y in bf16 to out's
+    // tile (stored at the next chunk's start), which chunk c - 1's store
+    // must have read
+    if (tid == 0) hp::tma_store_wait_read();
+    hp::bar_sync(kBarMma, kMmaThreads);
+    if (tid == 0 && c + 2 < K) load_rkw(c + 2);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      S[4 * j] *= p0;
+      S[4 * j + 1] *= p0;
+      S[4 * j + 2] *= p1;
+      S[4 * j + 3] *= p1;
+    }
+    st_frag<true>(s_hi, s_lo, S);
+    st_frag<false>(o_tile, 0, y);
+    hp::fence_proxy_async();
+  }
+  hp::bar_sync(kBarMma, kMmaThreads);
+  if (tid == 0) {
+    hp::tma_store_4d(&tm_out, o_tile, 0, h, 64 * (K - 1), b);
+    hp::tma_store_commit();
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh)
+      *reinterpret_cast<float2*>(state_out + bh * 4096 +
+                                 (r0 + g + 8 * hh) * 64 + 8 * j + 2 * t) =
+          make_float2(S[4 * j + 2 * hh], S[4 * j + 2 * hh + 1]);
+  if (tid == 0) hp::tma_store_wait_read();
+}
+
+int set_smem_wg() {
+  return static_cast<int>(cudaFuncSetAttribute(
+      wkv_wg_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kWgSmem)));
+}
+
+int launch_wg(const void* r, const void* k, const void* v, const void* w,
+              const float* u, const float* state0, void* out,
+              float* state_out, int B, int T_len, int H,
+              cudaStream_t stream) {
+  const int err = set_smem_wg();
+  if (err != 0) return err;
+  CUtensorMap tm_r, tm_k, tm_v, tm_w, tm_out;
+  if (!hp::encode_bshd(&tm_r, r, B, T_len, H, 64, 64) ||
+      !hp::encode_bshd(&tm_k, k, B, T_len, H, 64, 64) ||
+      !hp::encode_bshd(&tm_v, v, B, T_len, H, 64, 64) ||
+      !hp::encode_bshd(&tm_w, w, B, T_len, H, 64, 64) ||
+      !hp::encode_bshd(&tm_out, out, B, T_len, H, 64, 64)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  wkv_wg_kernel<<<dim3(H, B), kWgThreads, kWgSmem, stream>>>(
+      tm_r, tm_k, tm_v, tm_w, tm_out, u, state0, state_out, T_len, H);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Whether the wgmma route takes the shape: N = chunk = 64, any number of
+// chunks, and r, k, v, w, out a TMA map can describe (16-byte aligned).
+bool wg_ok(const void* r, const void* k, const void* v, const void* w,
+           const void* out, int T_len, int N, int chunk) {
+  return chunk == 64 && N == 64 && T_len % 64 == 0 && T_len >= 64 &&
+         tc::aligned16(r) && tc::aligned16(k) && tc::aligned16(v) &&
+         tc::aligned16(w) && tc::aligned16(out);
+}
+
 // Dispatch on N padded to 16, 32 or 64.
 template <typename Fn>
 int with_dim(int N, Fn&& fn) {
@@ -816,11 +1315,12 @@ int with_dim(int N, Fn&& fn) {
 
 }  // namespace
 
-// r, k, v, w, out: (B, T, H, N), f32 (dtype 0) or bf16 (dtype 1); u: (H, N)
-// f32; state0, state_out: (B, H, N, N) f32; all contiguous. `chunk`
-// divides T. f32 launches the CUDA-core kernel, bf16 the tensor-core one.
-// Launches on `stream` and returns cudaGetLastError() (0 on success). The
-// caller checks shapes, types and contiguity.
+// r, k, v, w, out: (B, T, H, N), f32 (dtype 0: the CUDA cores) or bf16
+// (dtype 1: the mma.sync route; dtype 2: the wgmma route, which wg_ok must
+// take); u: (H, N) f32; state0, state_out: (B, H, N, N) f32; all
+// contiguous. `chunk` divides T. Launches on `stream` and returns
+// cudaGetLastError() (0 on success). The caller checks shapes, types and
+// contiguity.
 extern "C" int rwkv6_wkv_launch(const void* r, const void* k, const void* v,
                                 const void* w, const float* u,
                                 const float* state0, void* out,
@@ -843,13 +1343,20 @@ extern "C" int rwkv6_wkv_launch(const void* r, const void* k, const void* v,
                                            st);
     });
   }
+  if (dtype == 2) {
+    if (!wg_ok(r, k, v, w, out, T_len, N, chunk)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return launch_wg(r, k, v, w, u, state0, out, state_out, B, T_len, H, st);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The compiled kernel of the route that `dtype` takes at head size N and
-// `chunk`: info[0..5] as tc::kernel_info gives them (registers, static and
-// dynamic shared memory, spill bytes, blocks an SM, threads a block).
-// Returns a CUDA error code (0 on success).
+// `chunk` (dtype 2: the wgmma kernel, N = chunk = 64): info[0..5] as
+// tc::kernel_info gives them (registers, static and dynamic shared memory,
+// spill bytes, blocks an SM, threads a block). Returns a CUDA error code (0
+// on success).
 extern "C" int rwkv6_wkv_info(int N, int chunk, int dtype, int* info) {
   if (N < 1 || N > kMaxN || chunk < 1 || chunk > kMaxChunk) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -866,6 +1373,12 @@ extern "C" int rwkv6_wkv_info(int N, int chunk, int dtype, int* info) {
     return with_dim(N, [&](auto d) {
       return info_tc<decltype(d)::value>(info);
     });
+  }
+  if (dtype == 2) {
+    if (N != 64 || chunk != 64) return static_cast<int>(cudaErrorInvalidValue);
+    const int err = set_smem_wg();
+    if (err != 0) return err;
+    return tc::kernel_info(wkv_wg_kernel, kWgThreads, kWgSmem, info);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

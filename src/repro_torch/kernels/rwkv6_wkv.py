@@ -10,12 +10,15 @@ with log-space decays clamped at −30. Replaces the Pallas kernel
 the CUDA source, with its bound and design, is ``csrc/rwkv6_wkv.cu``.
 
 :func:`rwkv6_wkv` launches a kernel for CUDA tensors and takes
-:func:`rwkv6_wkv_plain` only for CPU tensors. The input dtype picks the
-kernel, and nothing else does: bfloat16 (the serve path) runs on the
-tensor cores, one block per (batch, head) with the state in registers and
-every f32 operand split into two bf16 parts; float32 runs the CUDA-core
-kernel, which meets the f32 tolerance. Neither falls back to the other.
-The plain version is the JAX package's chunked reference
+:func:`rwkv6_wkv_plain` only for CPU tensors. The dtype and shape pick the
+kernel (:func:`fwd_route`), and nothing else does: bfloat16 runs on the
+tensor cores with the state in f32 registers and every f32 operand split
+into two bf16 parts, at N = chunk = 64 with 16-byte aligned inputs (the
+serve and train paths) on Hopper's TMA and wgmma, one block of three
+warpgroups a (batch, head), and otherwise on ``mma.sync``, one block of
+four warps a (batch, head); float32
+runs the CUDA-core kernel, which meets the f32 tolerance. None falls back
+to another. The plain version is the JAX package's chunked reference
 ``models/rwkv6.py::wkv_chunked`` in PyTorch.
 
 The backward: the JAX package trains through ``jax.grad`` of
@@ -42,6 +45,9 @@ from .mamba2_ssd import pick_chunk, upcast
 MAX_CHUNK = 64          # the kernel's largest chunk
 MAX_N = 64              # the kernel's largest head size
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the forward's routes, as its launcher's dtype codes 0, 1, 2 name them
+FWD_ROUTES = ("f32", "mma", "wgmma")
+WGMMA_DIM = 64          # the wgmma route's N and chunk
 
 _count_lock = threading.Lock()
 _launcher = None
@@ -134,12 +140,43 @@ def build() -> None:
     _load_bwd()
 
 
-def kernel_info(N: int, chunk: int, dtype: torch.dtype) -> dict:
+def kernel_info(N: int, chunk: int, dtype: torch.dtype,
+                route: Optional[str] = None) -> dict:
     """Registers, shared memory and blocks an SM of the compiled kernel
-    that ``dtype`` takes at head size N and ``chunk`` (``_build.kernel_info``;
-    needs the card)."""
+    that ``dtype`` takes at head size N and ``chunk``: f32 the CUDA-core
+    kernel, bf16 the mma.sync route's, or with ``route`` "wgmma" that
+    route's (N = chunk = 64). ``_build.kernel_info``; needs the card."""
     from ._build import kernel_info as info
-    return info("rwkv6_wkv", N, chunk, _DTYPES[dtype])
+    code = FWD_ROUTES.index(route) if route else _DTYPES[dtype]
+    return info("rwkv6_wkv", N, chunk, code)
+
+
+def _fwd_route(shape, dtype: torch.dtype, ptrs, chunk: int) -> str:
+    """The route of :func:`fwd_route`, from the shape (B, T, H, N), the
+    dtype and the data pointers of r, k, v and w."""
+    if dtype != torch.bfloat16:
+        return "f32"
+    T, N = shape[1], shape[3]
+    c = pick_chunk(T, chunk) if T else chunk
+    if (N == c == WGMMA_DIM and T >= c
+            and all(p % 16 == 0 for p in ptrs)):
+        return "wgmma"
+    return "mma"
+
+
+def fwd_route(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, chunk: int = MAX_CHUNK) -> str:
+    """The route :func:`rwkv6_wkv` takes on CUDA tensors, by dtype and
+    shape alone: "f32" for float32 (the CUDA-core scan); for bfloat16 at
+    N = 64 with the chunk 64 (T a multiple of 64) and r, k, v, w 16-byte
+    aligned (a TMA map describes them; out is the wrapper's own), any B and
+    H, "wgmma" (per (batch, head) two warpgroups run the elementwise pass a
+    chunk ahead of a third that runs the products on TMA tiles and wgmma:
+    rwkv6-3b's serve and train paths); "mma" (``mma.sync``) for
+    every other bf16 input (N below 64, a chunk below 64, unaligned
+    views)."""
+    return _fwd_route(tuple(r.shape), r.dtype,
+                      [a.data_ptr() for a in (r, k, v, w)], chunk)
 
 
 def _forward(r, k, v, w, u, state0, chunk):
@@ -155,18 +192,20 @@ def _forward(r, k, v, w, u, state0, chunk):
         return out, state
     if T == 0:
         return out, state.copy_(state0)
+    route = fwd_route(r, k, v, w, chunk)
     with torch.cuda.device(r.device):
         stream = torch.cuda.current_stream(r.device).cuda_stream
         err = launch(r.data_ptr(), k.data_ptr(), v.data_ptr(), w.data_ptr(),
                      u.data_ptr(), state0.data_ptr(), out.data_ptr(),
                      state.data_ptr(), B, T, H, N, pick_chunk(T, chunk),
-                     _DTYPES[r.dtype], stream)
+                     FWD_ROUTES.index(route), stream)
     if err != 0:
         raise RuntimeError(f"rwkv6_wkv kernel launch failed: CUDA error "
                            f"{err}")
     with _count_lock:
         rwkv6_wkv.launches += 1
         rwkv6_wkv.shapes[(B, T, H, N)] += 1
+        rwkv6_wkv.routes[route] += 1
     return out, state
 
 
@@ -219,10 +258,10 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B,H,N,N) float32 → (out (B,T,H,N) in r's dtype, state_T (B,H,N,N)
     float32), with the chunk the JAX wrapper picks.
 
-    CUDA tensors launch the kernel of their dtype on the current stream
-    (bfloat16: tensor cores; float32: CUDA cores; one launch,
-    counted in ``rwkv6_wkv.launches``, its (B, T, H, N) counted in
-    ``rwkv6_wkv.shapes``); CPU tensors take the plain version. Anything
+    CUDA tensors launch the kernel of :func:`fwd_route`'s route on the
+    current stream (one launch, counted in ``rwkv6_wkv.launches``, its
+    (B, T, H, N) counted in ``rwkv6_wkv.shapes`` and its route in
+    ``rwkv6_wkv.routes``); CPU tensors take the plain version. Anything
     else raises. When grad mode is on and an input requires grad, the call
     records an ``autograd.Function`` whose backward is
     :func:`rwkv6_wkv_bwd`."""
@@ -238,6 +277,7 @@ def rwkv6_wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 rwkv6_wkv.launches = 0
 rwkv6_wkv.shapes = collections.Counter()
+rwkv6_wkv.routes = collections.Counter()    # calls by fwd_route's name
 
 
 # --------------------------------------------------------------------------- #

@@ -937,8 +937,9 @@ def test_rwkv6_wkv_kernel_matches_plain(cuda, shape, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rwkv6_wkv_route_follows_dtype(cuda, dtype):
-    """bf16 inputs launch the tensor-core kernel and f32 inputs the
-    CUDA-core one, one launch a call, and nothing else on the device."""
+    """bf16 inputs launch a tensor-core kernel (at N = chunk = 64, aligned,
+    the wgmma one) and f32 inputs the CUDA-core one, one launch a call,
+    and nothing else on the device."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels.rwkv6_wkv import rwkv6_wkv
     args = _wkv_inputs((1, 64, 2, 64), dtype, cuda)
@@ -951,7 +952,97 @@ def test_rwkv6_wkv_route_follows_dtype(cuda, dtype):
              if e.device_type == torch.autograd.DeviceType.CUDA
              and "wkv" in e.key]
     assert len(names) == 1, names
-    assert ("wkv_tc_kernel" in names[0]) == (dtype == torch.bfloat16), names
+    assert ("wkv_wg_kernel" in names[0]) == (dtype == torch.bfloat16), names
+    assert "wkv_tc_kernel" not in names[0], names
+
+
+def _wkv_clamped(args, seed=19):
+    """The inputs with w drawn to reach both clamps, in separate channels
+    (ROADMAP C9): a quarter of the channels decay by e^-0.5..e^-3 a step,
+    so the cumsum passes -30 inside a chunk, and the 10th step of every
+    chunk has w = 1e-9 in channel N/2 (as chip_smoke.scan_bwd_inputs)."""
+    w = args[3]
+    B, T, H, N = w.shape
+    q = max(1, N // 4)
+    rng = np.random.default_rng(seed)
+    decay = rng.uniform(0.5, 3.0, (B, T, H, q)).astype(np.float32)
+    w[..., :q] = torch.from_numpy(np.exp(-decay)).to(w.device, w.dtype)
+    w[:, 9::64, :, N // 2] = 1e-9
+    return args
+
+
+# the forward's wgmma route: rwkv6-3b's serve and train shape, one batch
+# row of its heads, and a few heads at 2 chunks
+WKV_WGMMA_SHAPES = [(4, 512, 40, 64), (1, 512, 40, 64), (2, 128, 3, 64)]
+
+
+@pytest.mark.parametrize("draw", ["jax", "clamped"])
+@pytest.mark.parametrize("shape", WKV_WGMMA_SHAPES)
+def test_wkv_forward_wgmma_route_matches_plain(cuda, shape, draw):
+    """The bf16 forward on its wgmma route against the plain version from a
+    nonzero state0: out within the bf16 tolerance, the final state within
+    the WKV state's (10x); one launch counted on the route; a second call
+    gives equal bits."""
+    from repro_torch.kernels import rwkv6_wkv as m
+    args = _wkv_inputs(shape, torch.bfloat16, cuda, seed=3)
+    if draw == "clamped":
+        args = _wkv_clamped(args)
+    assert m.fwd_route(*args[:4]) == "wgmma"
+    before = m.rwkv6_wkv.routes["wgmma"]
+    out, state = m.rwkv6_wkv(*args)
+    torch.cuda.synchronize()
+    assert m.rwkv6_wkv.routes["wgmma"] == before + 1
+    ref_out, ref_state = m.rwkv6_wkv_plain(*args)
+    tol = WKV_TOLERANCES[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(state, ref_state, atol=tol * 10,
+                               rtol=tol * 10)
+    out2, state2 = m.rwkv6_wkv(*args)
+    assert torch.equal(out, out2) and torch.equal(state, state2)
+
+
+def test_wkv_forward_wgmma_kernel_fits(cuda):
+    """The wgmma kernel is three warpgroups (the products' and two of the
+    elementwise pass) with no spill and holds 2 blocks an SM (rwkv6-3b's
+    160 (b, h) in one wave on 132 SMs)."""
+    from repro_torch.kernels import rwkv6_wkv
+    info = rwkv6_wkv.kernel_info(64, 64, torch.bfloat16, "wgmma")
+    assert info["spill_bytes"] == 0, info
+    assert info["threads"] == 384, info
+    assert info["blocks_per_sm"] >= 2, info
+
+
+@pytest.mark.parametrize("shape", WKV_SHAPES[1:])
+def test_wkv_forward_other_bf16_shapes_keep_mma(cuda, shape):
+    """A chunk below 64 or N below 64 keeps the mma.sync route, one launch
+    counted on it."""
+    from repro_torch.kernels import rwkv6_wkv as m
+    args = _wkv_inputs(shape, torch.bfloat16, cuda)
+    assert m.fwd_route(*args[:4]) == "mma"
+    before = m.rwkv6_wkv.routes["mma"]
+    m.rwkv6_wkv(*args)
+    torch.cuda.synchronize()
+    assert m.rwkv6_wkv.routes["mma"] == before + 1
+
+
+def test_wkv_forward_unaligned_view_takes_mma(cuda):
+    """r that a TMA map cannot describe (its data 2 bytes past a 16-byte
+    boundary) keeps the mma.sync route, within the tolerance."""
+    from repro_torch.kernels import rwkv6_wkv as m
+    args = _wkv_inputs((1, 128, 2, 64), torch.bfloat16, cuda)
+    flat = torch.empty(args[0].numel() + 1, dtype=torch.bfloat16,
+                       device=cuda)
+    r = flat[1:].view(args[0].shape).copy_(args[0])
+    args = [r, *args[1:]]
+    assert m.fwd_route(*args[:4]) == "mma"
+    out, state = m.rwkv6_wkv(*args)
+    ref_out, ref_state = m.rwkv6_wkv_plain(*args)
+    tol = WKV_TOLERANCES[torch.bfloat16]
+    torch.testing.assert_close(out.float(), ref_out.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(state, ref_state, atol=tol * 10,
+                               rtol=tol * 10)
 
 
 def test_zamba2_smoke_serve_on_card_matches_cpu(cuda):

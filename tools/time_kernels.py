@@ -56,6 +56,17 @@ the bound and the tree's route (``mamba2_ssd.fwd_route`` where the tree
 has it, else "mma.sync"); then the registers, spills, blocks an SM and
 threads of the tree's compiled bf16 forward kernels at N = P = chunk = 64
 (the mma.sync kernel, and the warpgroup kernel where the tree has it).
+
+    python3 tools/time_kernels.py --src PATH/src --only wkv_fwd
+
+times the bf16 WKV forward alone at rwkv6-3b's serve and train shape
+(4, 512, 40, 64), at one batch row of its heads (1, 512, 40, 64), at
+(2, 128, 3, 64) and at (4, 100, 40, 64) (chunk 50): device time by CUDA
+events (median of 60), CUPTI busy time, the bound and the tree's route
+(``rwkv6_wkv.fwd_route`` where the tree has it, else "mma"); then the
+registers, spills, blocks an SM and threads of the tree's compiled bf16
+forward kernels at N = chunk = 64 (the mma.sync kernel, and the wgmma
+kernel where the tree has it).
 Each mode prints the card and one JSON line. Two trees compare on one
 card when they run in turns in one session: parent, change, change,
 parent.
@@ -77,10 +88,10 @@ def main() -> None:
     parser.add_argument("--src", required=True,
                         help="the tree's src directory (holds repro_torch)")
     parser.add_argument("--only", choices=("all", "flash_fwd", "flash_bwd",
-                                           "ssd_fwd", "ssd_bwd"),
+                                           "ssd_fwd", "ssd_bwd", "wkv_fwd"),
                         default="all", help="time every kernel, or the bf16 "
-                        "flash forward or backward or the SSD forward or "
-                        "backward alone")
+                        "flash forward or backward, the SSD forward or "
+                        "backward or the WKV forward alone")
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     sys.path.insert(1, HERE)
@@ -100,6 +111,9 @@ def main() -> None:
     elif args.only == "ssd_fwd":
         from repro_torch.kernels._build import load
         load("mamba2_ssd")
+    elif args.only == "wkv_fwd":
+        from repro_torch.kernels._build import load
+        load("rwkv6_wkv")
     else:
         for kmod in (anen_distance, flash_attention, mamba2_ssd, rwkv6_wkv):
             kmod.build()
@@ -108,9 +122,11 @@ def main() -> None:
             "empty_kernel_ms": cs.empty_ms()}
     if args.only != "all":
         part = {"flash_fwd": flash_forward, "flash_bwd": flash_backward,
-                "ssd_fwd": ssd_forward, "ssd_bwd": ssd_backward}[args.only]
-        rows.update(part(cs, mamba2_ssd if args.only.startswith("ssd")
-                         else flash_attention))
+                "ssd_fwd": ssd_forward, "ssd_bwd": ssd_backward,
+                "wkv_fwd": wkv_forward}[args.only]
+        mod = {"ssd": mamba2_ssd, "wkv": rwkv6_wkv}.get(args.only[:3],
+                                                        flash_attention)
+        rows.update(part(cs, mod))
         print(rows["card"])
         print(json.dumps(rows))
         return
@@ -295,6 +311,35 @@ def ssd_forward(cs, mamba2_ssd) -> dict:
         info = mamba2_ssd.kernel_info(64, 64, 64, torch.bfloat16,
                                       "warpgroup")
         rows["mamba2_ssd warpgroup registers/spill/blocks/threads"] = [
+            info["registers"], info["spill_bytes"], info["blocks_per_sm"],
+            info["threads"]]
+    return rows
+
+
+WKV_TIMED = ((4, 512, 40, 64), (1, 512, 40, 64), (2, 128, 3, 64),
+             (4, 100, 40, 64))
+
+
+def wkv_forward(cs, rwkv6_wkv) -> dict:
+    """The bf16 WKV forward at ``WKV_TIMED``: device ms, CUPTI busy ms, the
+    bound and the route; then the compiled forward kernels at N = chunk =
+    64."""
+    import torch
+    rows = {}
+    route = getattr(rwkv6_wkv, "fwd_route", None)
+    for shape in WKV_TIMED:
+        args = cs.wkv_inputs(shape, "bfloat16")
+        fn = lambda: rwkv6_wkv.rwkv6_wkv(*args)  # noqa: E731
+        row = {"ms": cs.device_ms(fn),
+               "busy_ms": cs.busy_ms(fn, f"rwkv6_wkv {shape}"),
+               "route": route(*args[:4]) if route else "mma"}
+        row.update(cs.wkv_bound(shape, 2))
+        rows[f"rwkv6_wkv bfloat16 {shape}"] = row
+    routes = ("mma", "wgmma") if route else ("mma",)
+    for name in routes:
+        info = rwkv6_wkv.kernel_info(64, 64, torch.bfloat16,
+                                     *(("wgmma",) if name == "wgmma" else ()))
+        rows[f"rwkv6_wkv {name} registers/spill/blocks/threads"] = [
             info["registers"], info["spill_bytes"], info["blocks_per_sm"],
             info["threads"]]
     return rows
