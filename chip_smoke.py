@@ -80,7 +80,8 @@ plain PyTorch version on the card, and drives the port's paths:
    56 times (28 layers, each recomputed once under remat) and its
    backward kernel (``flash_attention_bwd``) 28 times at (4, 512, 12,
    128); rwkv6-3b at its published width and depth (``rwkv6_wkv`` 64 and
-   ``rwkv6_wkv_bwd`` 32 times a step at (4, 512, 40, 64)); zamba2-7b at
+   ``rwkv6_wkv_bwd`` 32 times a step at (4, 512, 40, 64), every backward
+   on its wgmma route); zamba2-7b at
    its published width with its depth cut to 45 of 81 layers (7 groups of
    6 Mamba-2 layers and the shared block, then 3: ``mamba2_ssd`` 90 and
    ``mamba2_ssd_bwd`` 45 times a step at (4, 512, 112, 64, 1, 64), each
@@ -160,7 +161,18 @@ mma.sync), a second bf16 call must give equal bits, the wgmma route is
 also held with the decay drawn to reach both clamps (``WKV_CLAMPED``), its
 kernel must spill nothing and fit 2 blocks an SM, and every WKV forward of
 rwkv6-3b's serve path and train step must take the wgmma route
-(``rwkv6_wkv.routes``; all of them, 256, summed over the paths).
+(``rwkv6_wkv.routes``; all of them, 256, summed over the paths). The bf16
+WKV backward takes its own wgmma route on the same shapes: one block of
+three warpgroups a (b, h) walks the chunks forwards for their start states
+(bf16 hi + lo tiles to a workspace), then backwards with the state's
+gradient in registers. Each WKV backward compare names its route and
+must take the one its shape calls for, the route is held at the main
+shape, one batch row of its heads and the clamped draw, with and without
+a final-state gradient (``WKV_BWD_WGMMA``), with equal bits on a second
+call, its kernel must spill nothing, and every WKV backward of rwkv6-3b's
+train step must take it (``rwkv6_wkv_bwd.routes``); its busy time is read
+by kernel (the wgmma kernel and du's sum) and the workspace traffic it
+prints is the chunk states' tiles, written once and read once.
 
 Flash attention's non-causal mode (``flash_attention(causal=False)``,
 bidirectional attention, the JAX kernel's ``causal=False``) is held the
@@ -421,6 +433,11 @@ SSD_BWD_SHAPES = (SSD_MAIN, (4, 100, 112, 64, 1, 64), (2, 128, 8, 64, 2, 64),
 WKV_BWD_SHAPES = (WKV_MAIN, (4, 100, 40, 64), (1, 97, 2, 64), (2, 100, 3, 16),
                   (1, 100, 2, 5), (2, 100, 4, 32))
 WKV_BWD_CLAMPED = ((2, 128, 3, 64),)
+# the shapes whose bf16 backward takes the WKV wgmma route (N = chunk = 64),
+# besides the clamped one: the train shape and one batch row of its heads,
+# each held also without a final-state gradient (as the train step calls
+# it)
+WKV_BWD_WGMMA = (WKV_MAIN, (1, 512, 40, 64))
 # The f32 routes of the SSD and WKV backward stay the CUDA-core scans of
 # commit ff86033: the digest (scan_bwd_digest) of their gradients on these
 # inputs, shape by shape, as that commit's kernels give them
@@ -2063,22 +2080,29 @@ def compare_wkv(shape, dtype: str, clamped: bool = False) -> float:
     return err
 
 
-def compare_scan_bwd(name: str, shape, dtype: str,
-                     clamped: bool = False) -> float:
+def compare_scan_bwd(name: str, shape, dtype: str, clamped: bool = False,
+                     with_dstate: bool = True) -> float:
     """A scan's backward kernel against its plain version on the same
-    inputs, output gradient and nonzero final-state gradient, at
-    ``BWD_TOLERANCE``; a second call must give equal bits (its sums over
-    blocks run in a fixed order)."""
+    inputs, output gradient and nonzero final-state gradient (or none,
+    ``with_dstate`` False), at ``BWD_TOLERANCE``; a second call must give
+    equal bits (its sums over blocks run in a fixed order). The call must
+    take the route its shape calls for, and count one launch on it."""
     import torch
     _, _, bwd, bwd_plain = scan_fns(name)
     args, dout, dstate = scan_bwd_inputs(name, shape, dtype, clamped)
-    before = bwd.launches
+    if not with_dstate:
+        dstate = None
+    route = scan_bwd_route(name, args, dout)
+    before = (bwd.launches, bwd.routes[route])
     got = bwd(*args, dout, dstate)
     torch.cuda.synchronize()
-    check(bwd.launches == before + 1, f"{name}_bwd: one launch a call")
+    check((bwd.launches, bwd.routes[route]) == (before[0] + 1,
+                                                  before[1] + 1),
+          f"{name}_bwd: one launch a call, on its {route} route")
     want = bwd_plain(*args, dout, dstate)
     tol = BWD_TOLERANCE[dtype]
-    what = f"{name}_bwd {shape} {dtype}" + (" clamped" if clamped else "")
+    what = (f"{name}_bwd {shape} {dtype}" + (" clamped" if clamped else "")
+            + ("" if with_dstate else " (no dstate_T)"))
     errs = [held_close(a, b, tol, f"{what} {g}")
             for g, a, b in zip(SCAN_GRADS[name], got, want)]
     for g, a, x in zip(SCAN_GRADS[name], got, args):
@@ -2088,12 +2112,16 @@ def compare_scan_bwd(name: str, shape, dtype: str,
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           f"{what}: equal bits on a second call")
-    if name == "mamba2_ssd":
-        route = scan_bwd_route(shape, args, dout)
-        what += f" ({route} route)"
-        if dtype == "bfloat16" and tuple(shape) == SSD_MAIN:
-            check(route == "cluster",
-                  f"{what}: the train shape takes the cluster route")
+    what += f" ({route} route)"
+    if name == "mamba2_ssd" and dtype == "bfloat16" \
+            and tuple(shape) == SSD_MAIN:
+        check(route == "cluster",
+              f"{what}: the train shape takes the cluster route")
+    if name == "rwkv6_wkv" and dtype == "bfloat16":
+        want_route = "wgmma" if shape[3] == 64 and shape[1] % 64 == 0 \
+            else "mma"
+        check(route == want_route, f"{what}: the shape takes the "
+                                   f"{want_route} route")
     if dtype == "float32":
         digest = scan_bwd_digest(got)
         was = SCAN_BWD_F32_DIGEST[(name, tuple(shape), clamped)]
@@ -2106,11 +2134,15 @@ def compare_scan_bwd(name: str, shape, dtype: str,
     return max(errs)
 
 
-def scan_bwd_route(shape, args, dout) -> str:
-    """The SSD backward's route on these inputs, as ``bwd_route`` reports
-    it ("cluster", "mma.sync" or "cuda-cores")."""
-    from repro_torch.kernels.mamba2_ssd import bwd_route
-    return bwd_route(args[0], args[3], args[4], dout)
+def scan_bwd_route(name: str, args, dout) -> str:
+    """A scan backward's route on these inputs, as its ``bwd_route``
+    reports it: SSD "cluster", "mma.sync" or "cuda-cores"; WKV "wgmma",
+    "mma" or "f32"."""
+    if name == "mamba2_ssd":
+        from repro_torch.kernels.mamba2_ssd import bwd_route
+        return bwd_route(args[0], args[3], args[4], dout)
+    from repro_torch.kernels.rwkv6_wkv import bwd_route
+    return bwd_route(*args[:4], dout)
 
 
 def scan_bwd_digest(grads) -> str:
@@ -2126,13 +2158,13 @@ def scan_bwd_digest(grads) -> str:
 
 
 # the bf16 scan backwards' kernels (names as the profiler gives them, e.g.
-# "void (anonymous namespace)::wkv_bwd_chunk_kernel<64>(...)"): SSD's
-# cluster route at the train shape, WKV's walk and chunk kernels; each then
-# its fixed-order sums
+# "void (anonymous namespace)::wg::wkv_bwd_wg_kernel(...)"): SSD's cluster
+# route and WKV's wgmma route at the train shape; each then its
+# fixed-order sums
 SCAN_BWD_KERNEL = re.compile(
-    r"::(?:ssd|wkv)_bwd_(walk|chunk|cluster|reduce)_kernel")
+    r"::(?:ssd|wkv)_bwd_(walk|chunk|cluster|wg|reduce)_kernel")
 SCAN_BWD_PARTS = {"mamba2_ssd": ("cluster", "reduce"),
-                  "rwkv6_wkv": ("walk", "chunk", "reduce")}
+                  "rwkv6_wkv": ("wg", "reduce")}
 
 
 def scan_bwd_workspace_bytes(name: str, shape) -> int:
@@ -2141,7 +2173,9 @@ def scan_bwd_workspace_bytes(name: str, shape) -> int:
     cluster route: the head groups' partial dB and dC and dA's partials
     (the chunk states never leave the cluster); on the mma.sync route the
     chunk states and their gradients (walk to chunk kernel) and the
-    per-head dB and dC. WKV: the chunk states and their gradients."""
+    per-head dB and dC. WKV on the wgmma route: the chunk states' bf16 hi
+    and lo tiles; on the mma.sync route the chunk states and their
+    gradients (f32)."""
     import torch
     from repro_torch.kernels import mamba2_ssd
     from repro_torch.kernels.mamba2_ssd import pick_chunk
@@ -2154,8 +2188,13 @@ def scan_bwd_workspace_bytes(name: str, shape) -> int:
             return 2 * (2 * B * T * groups * N * 4 + B * H * K * 4)
         state = B * H * K * N * P * 4
         return 2 * 2 * state + 2 * 2 * B * T * H * N * 4
+    from repro_torch.kernels import rwkv6_wkv
     B, T, H, N = shape
-    return 2 * 2 * B * H * (T // pick_chunk(T)) * N * N * 4
+    states = B * H * (T // pick_chunk(T)) * N * N * 4
+    if rwkv6_wkv._fwd_route(shape, torch.bfloat16, (0,) * 5,
+                            64) == "wgmma":
+        return 2 * states
+    return 2 * 2 * states
 
 
 def scan_bwd_parts_ms(name: str, fn, reps: int = 10) -> dict:
@@ -2195,10 +2234,10 @@ def time_scan_bwd(name: str, shape) -> dict:
            "call_ms": call_ms(kernel)}
     row.update((ssd_bwd_bound if name == "mamba2_ssd" else wkv_bwd_bound)(
         shape, 2))
-    if name == "mamba2_ssd":
-        row["route"] = scan_bwd_route(shape, args, dout)
+    row["route"] = scan_bwd_route(name, args, dout)
     row["workspace_bytes"] = scan_bwd_workspace_bytes(name, shape)
-    print(f"{name}_bwd {tuple(shape)} bf16: {row['ms']} ms a call "
+    print(f"{name}_bwd {tuple(shape)} bf16 ({row['route']} route): "
+          f"{row['ms']} ms a call "
           f"({row['busy_ms']} busy; by kernel {row['parts_busy_ms']}), "
           f"plain {row['plain_ms']} busy, bound {row['bound_ms']} "
           f"({row['bound_by']}; f32 CUDA-core floor "
@@ -2220,9 +2259,9 @@ def compiled_kernels(anen_n: int) -> dict:
     kernel, which must fit a cluster of the train shape's chunks on the
     card, and the mma.sync route's chunk kernel and walk under keys
     ``("mamba2_ssd_bwd", "bfloat16", "chunk" | "walk")``; WKV bf16: the
-    chunk kernel, and its walk under ``("rwkv6_wkv_bwd", "bfloat16",
-    "walk")``; a spill fails), and ``anen_distance`` at ``anen_n``
-    columns."""
+    wgmma route's kernel, and the mma.sync route's chunk kernel and walk
+    under ``("rwkv6_wkv_bwd", "bfloat16", "chunk" | "walk")``; a spill
+    fails), and ``anen_distance`` at ``anen_n`` columns."""
     import torch
     from repro_torch.kernels import (anen_distance, flash_attention,
                                      mamba2_ssd, rwkv6_wkv)
@@ -2249,7 +2288,8 @@ def compiled_kernels(anen_n: int) -> dict:
             N, P, pick_chunk(T), dtype,
             "cluster" if dtype == torch.bfloat16 else "chunk")
         info[("rwkv6_wkv_bwd", name)] = rwkv6_wkv.bwd_kernel_info(
-            WKV_MAIN[3], pick_chunk(WKV_MAIN[1]), dtype)
+            WKV_MAIN[3], pick_chunk(WKV_MAIN[1]), dtype,
+            "wgmma" if dtype == torch.bfloat16 else "chunk")
     info[("mamba2_ssd", "bfloat16", "mma.sync")] = mamba2_ssd.kernel_info(
         N, P, pick_chunk(T), torch.bfloat16)
     info[("rwkv6_wkv", "bfloat16", "mma")] = rwkv6_wkv.kernel_info(
@@ -2258,8 +2298,10 @@ def compiled_kernels(anen_n: int) -> dict:
         info[("mamba2_ssd_bwd", "bfloat16", part)] = \
             mamba2_ssd.bwd_kernel_info(N, P, pick_chunk(T), torch.bfloat16,
                                        part)
-    info[("rwkv6_wkv_bwd", "bfloat16", "walk")] = rwkv6_wkv.bwd_kernel_info(
-        WKV_MAIN[3], pick_chunk(WKV_MAIN[1]), torch.bfloat16, "walk")
+    for part in ("chunk", "walk"):
+        info[("rwkv6_wkv_bwd", "bfloat16", part)] = \
+            rwkv6_wkv.bwd_kernel_info(WKV_MAIN[3], pick_chunk(WKV_MAIN[1]),
+                                      torch.bfloat16, part)
     for hd in BWD_INFO_HDS:
         for which in ("dkdv", "dq"):
             info[("flash_attention_bwd", "bfloat16", f"{which} hd {hd}")] = \
@@ -2296,6 +2338,11 @@ def compiled_kernels(anen_n: int) -> dict:
           f"the WKV forward's wgmma kernel: three warpgroups, no spill, 2 "
           f"blocks an SM (rwkv6-3b's {WKV_MAIN[0] * WKV_MAIN[2]} (b, h) in "
           f"one wave) ({wg})")
+    wg = info[("rwkv6_wkv_bwd", "bfloat16")]
+    check(wg["spill_bytes"] == 0 and wg["threads"] == 384
+          and wg["blocks_per_sm"] >= 1,
+          f"the WKV backward's wgmma kernel: three warpgroups, no spill, a "
+          f"block an SM ({wg})")
     return info
 
 
@@ -3172,6 +3219,12 @@ def run_train_path(run: dict) -> tuple:
         check(ssd_routes == {"cluster": launches["mamba2_ssd_bwd"]},
               f"{arch}: every SSD backward took the cluster route "
               f"({ssd_routes})")
+    wkv_routes = dict(KERNELS["rwkv6_wkv_bwd"].routes)
+    if launches["rwkv6_wkv_bwd"]:
+        print(f"{arch} rwkv6_wkv_bwd routes: {wkv_routes}")
+        check(wkv_routes == {"wgmma": launches["rwkv6_wkv_bwd"]},
+              f"{arch}: every WKV backward took the wgmma route "
+              f"({wkv_routes})")
     warm = [rec["seconds"] for rec in sess.stats[1:]]
     print(f"train {arch} warm step seconds {warm}, tokens a second "
           f"{[tokens / w for w in warm]}, peak bytes {peak}")
@@ -3568,6 +3621,15 @@ def main() -> None:
         for shape in WKV_BWD_CLAMPED:
             errors["rwkv6_wkv_bwd"].append(
                 compare_scan_bwd("rwkv6_wkv", shape, dtype, clamped=True))
+        if dtype == "bfloat16":
+            # the wgmma route, also without a final-state gradient
+            for shape in WKV_BWD_WGMMA[1:]:
+                errors["rwkv6_wkv_bwd"].append(
+                    compare_scan_bwd("rwkv6_wkv", shape, dtype))
+            for shape in (*WKV_BWD_WGMMA, *WKV_BWD_CLAMPED):
+                errors["rwkv6_wkv_bwd"].append(compare_scan_bwd(
+                    "rwkv6_wkv", shape, dtype,
+                    clamped=shape in WKV_BWD_CLAMPED, with_dstate=False))
         for shape in FLASH_FULL_SHAPES:
             full_errors["flash_attention_noncausal"].append(
                 compare_flash(shape, dtype, causal=False))
@@ -3753,18 +3815,17 @@ def main() -> None:
         and "hd" in key[2]}
     for name in ("mamba2_ssd_bwd", "rwkv6_wkv_bwd"):
         entry = next(e for e in record["kernels"] if e["name"] == name)
-        parts = ("chunk", "walk") if name == "mamba2_ssd_bwd" else ("walk",)
         entry.update(
             parts_busy_ms=timed[name]["parts_busy_ms"],
             workspace_bytes=timed[name]["workspace_bytes"],
+            route_bf16=timed[name]["route"],
             compiled_parts={part: {k: compiled[(name, "bfloat16", part)][k]
                                    for k in ("registers", "spill_bytes",
                                              "blocks_per_sm")}
-                            for part in parts})
+                            for part in ("chunk", "walk")})
         if name == "mamba2_ssd_bwd":
-            entry.update(route_bf16=timed[name]["route"],
-                         max_active_clusters=compiled[
-                             (name, "bfloat16")]["max_active_clusters"])
+            entry.update(max_active_clusters=compiled[
+                (name, "bfloat16")]["max_active_clusters"])
     ssd_entry = next(e for e in record["kernels"]
                      if e["name"] == "mamba2_ssd")
     ssd_entry.update(

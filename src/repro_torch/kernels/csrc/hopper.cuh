@@ -4,7 +4,7 @@
 // maps. Used by the bf16 flash attention forward (csrc/flash_attention.cu)
 // and backward (csrc/flash_attention_bwd.cu), the SSD forward's and
 // backward's Hopper routes (csrc/mamba2_ssd{,_bwd}.cu) and the WKV
-// forward's (csrc/rwkv6_wkv.cu); tensor_core.cuh
+// forward's and backward's (csrc/rwkv6_wkv{,_bwd}.cu); tensor_core.cuh
 // holds the Ampere-style mma.sync helpers the other kernels use.
 //
 // wgmma.mma_async.m64nNk16 (bf16 operands, f32 sums) is issued by the 128
@@ -31,6 +31,8 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tensor_core.cuh"
 
 namespace hp {
 
@@ -125,9 +127,24 @@ __device__ __forceinline__ void tma_store_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
 }
 
+// `bytes` (a multiple of 16) from shared memory at src to global memory at
+// dst, both 16-byte aligned, as one bulk copy in the store's bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           int bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n"
+      :: "l"(reinterpret_cast<uint64_t>(dst)), "r"(src), "r"(bytes)
+      : "memory");
+}
+
 // Wait until the committed stores have read their shared memory.
 __device__ __forceinline__ void tma_store_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Wait until the committed stores are done (their writes performed).
+__device__ __forceinline__ void tma_store_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
 // Orders this thread's generic-proxy writes to shared memory before later
@@ -580,6 +597,57 @@ constexpr int kSwTile = 64 * 128;
 // (16-byte chunk c of row r stored at chunk c ^ (r % 8)); col even.
 __device__ __forceinline__ uint32_t sw(int row, int col) {
   return row * 128 + ((((col >> 3) ^ row) & 7) << 4) + (col & 7) * 2;
+}
+
+// Two neighbouring bf16 values of a swizzled tile (generic pointer to its
+// base) as f32, and a packed pair stored there.
+__device__ __forceinline__ float2 ld_sw(const unsigned char* tile, int row,
+                                        int col) {
+  return tc::unpack_bf16(
+      *reinterpret_cast<const uint32_t*>(tile + sw(row, col)));
+}
+
+__device__ __forceinline__ void st_sw(unsigned char* tile, int row, int col,
+                                      uint32_t v) {
+  *reinterpret_cast<uint32_t*>(tile + sw(row, col)) = v;
+}
+
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr,
+                                            const uint32_t (&r)[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
+      :: "r"(addr), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
+}
+
+// A warpgroup's 64 x 64 f32 D fragment into swizzled bf16 tiles (rows as
+// the fragment's) by stmatrix, four 8 x 8 blocks an instruction, lane l
+// giving row l % 8 of block l / 8: rounded once into `hi_tile`, or with
+// kSplit split into hi and lo (x = hi + lo), lo into `lo_tile`.
+template <bool kSplit>
+__device__ __forceinline__ void st_frag(uint32_t hi_tile, uint32_t lo_tile,
+                                        const float (&d)[32]) {
+  const int lane = threadIdx.x & 31;
+  const int m = lane >> 3;
+  const int row = 16 * ((threadIdx.x >> 5) & 3) + (m & 1) * 8 + (lane & 7);
+#pragma unroll
+  for (int j = 0; j < 8; j += 2) {
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      tc::split_bf16(d[4 * j + 2 * i], d[4 * j + 2 * i + 1], h[i], l[i]);
+    }
+    const uint32_t o = sw(row, 8 * (j + (m >> 1)));
+    stmatrix_x4(hi_tile + o, h);
+    if (kSplit) stmatrix_x4(lo_tile + o, l);
+  }
+}
+
+// 1 / x by the SFU (rcp.approx, flushing denormals to zero).
+__device__ __forceinline__ float rcp_approx(float x) {
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 // Descriptors of k step kk of a swizzled tile: K-major (rows M or N, K

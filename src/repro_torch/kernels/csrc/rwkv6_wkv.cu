@@ -847,6 +847,10 @@ int info_tc(int* info) {
 using hp::desc_k;
 using hp::desc_mn;
 using hp::kSwTile;
+using hp::ld_sw;
+using hp::rcp_approx;
+using hp::st_frag;
+using hp::st_sw;
 using hp::sw;
 
 constexpr int kMmaThreads = 128;            // the products' warpgroup
@@ -873,54 +877,6 @@ constexpr size_t kWgSmem = 1024 + kOffU + 64 * sizeof(float);
 constexpr int kBarPass = 1, kBarMma = 2;
 // e^-30, the clamp of the cumulative decay
 constexpr float kClampExp = 9.357623e-14f;
-
-__device__ __forceinline__ float rcp(float x) {
-  float y;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ float2 ld_sw(const unsigned char* tile, int row,
-                                        int col) {
-  return tc::unpack_bf16(
-      *reinterpret_cast<const uint32_t*>(tile + sw(row, col)));
-}
-
-__device__ __forceinline__ void st_sw(unsigned char* tile, int row, int col,
-                                      uint32_t v) {
-  *reinterpret_cast<uint32_t*>(tile + sw(row, col)) = v;
-}
-
-__device__ __forceinline__ void stmatrix_x4(uint32_t addr,
-                                            const uint32_t (&r)[4]) {
-  asm volatile(
-      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n"
-      :: "r"(addr), "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
-      : "memory");
-}
-
-// A warpgroup's 64 x 64 f32 D fragment into swizzled bf16 tiles (rows as
-// the fragment's) by stmatrix, four 8 x 8 blocks an instruction, lane l
-// giving row l % 8 of block l / 8: rounded once into `hi_tile`, or with
-// kSplit split into hi and lo (x = hi + lo), lo into `lo_tile`.
-template <bool kSplit>
-__device__ __forceinline__ void st_frag(uint32_t hi_tile, uint32_t lo_tile,
-                                        const float (&d)[32]) {
-  const int lane = threadIdx.x & 31;
-  const int m = lane >> 3;
-  const int row = 16 * ((threadIdx.x >> 5) & 3) + (m & 1) * 8 + (lane & 7);
-#pragma unroll
-  for (int j = 0; j < 8; j += 2) {
-    uint32_t h[4], l[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      split_bf16(d[4 * j + 2 * i], d[4 * j + 2 * i + 1], h[i], l[i]);
-    }
-    const uint32_t o = sw(row, 8 * (j + (m >> 1)));
-    stmatrix_x4(hi_tile + o, h);
-    if (kSplit) stmatrix_x4(lo_tile + o, l);
-  }
-}
 
 // The elementwise pass of one chunk, by the 256 threads of the two pass
 // warpgroups, whose r, k and w tiles (swizzled as TMA wrote them) start at
@@ -983,33 +939,17 @@ __device__ __forceinline__ void wkv_pass(unsigned char* st, float* tot,
     const float2 kv = ld_sw(kt, row, n0);
     dp[i] = fmaf(rv.y * u1, kv.y, rv.x * u0 * kv.x);
     uint32_t hi, lo;
-    split_bf16(rv.x * (e0 * rcp(w0)), rv.y * (e1 * rcp(w1)), hi, lo);
+    split_bf16(rv.x * (e0 * rcp_approx(w0)), rv.y * (e1 * rcp_approx(w1)),
+               hi, lo);
     st_sw(rt, row, n0, hi);
     st_sw(kt, row, n0, lo);
-    split_bf16(kv.x * rcp(e0), kv.y * rcp(e1), hi, lo);
+    split_bf16(kv.x * rcp_approx(e0), kv.y * rcp_approx(e1), hi, lo);
     st_sw(wt, row, n0, hi);
     st_sw(xt, row, n0, lo);
   }
-  // the bonus of each row, summed over the warp's lanes: halving over lane
-  // bits 16, 8, 4 leaves lane l row 4 b4 + 2 b3 + b2 (b the bits of l),
-  // summed over 8 lanes; then bits 2 and 1
-#define WKV_HALVE(W, BIT)                                                  \
-  _Pragma("unroll") for (int i = 0; i < W; ++i) {                          \
-    const bool upper = (lane & BIT) != 0;                                  \
-    const float send = upper ? dp[i] : dp[i + W];                          \
-    const float keep = upper ? dp[i + W] : dp[i];                          \
-    dp[i] = keep + __shfl_xor_sync(0xffffffffu, send, BIT);                \
-  }
-  WKV_HALVE(4, 16)
-  WKV_HALVE(2, 8)
-  WKV_HALVE(1, 4)
-#undef WKV_HALVE
-  float bonus = dp[0] + __shfl_xor_sync(0xffffffffu, dp[0], 2);
-  bonus += __shfl_xor_sync(0xffffffffu, bonus, 1);
-  if ((lane & 3) == 0) {
-    vec[64 + r0 + 4 * ((lane >> 4) & 1) + 2 * ((lane >> 3) & 1) +
-        ((lane >> 2) & 1)] = bonus;
-  }
+  // the bonus of each row, summed over the warp's lanes
+  const float bonus = tc::row_sums8(dp);
+  if ((lane & 3) == 0) vec[64 + r0 + tc::row8_of(lane)] = bonus;
   hp::fence_proxy_async();   // the tiles, for the wgmma that read them
 }
 

@@ -201,6 +201,35 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// Row sums of a warp's 8 rows, lane l holding dp[i] of row i (its own
+// columns), by a fixed tree of shuffles: halving over lane bits 16, 8, 4
+// leaves lane l row row8_of(l) = 4 b4 + 2 b3 + b2 (b the bits of l) summed
+// over 8 lanes, then bits 2 and 1 finish it. Returns that row's sum (the
+// same in the four lanes of a quad); dp is overwritten.
+__device__ __forceinline__ int row8_of(int lane) {
+  return 4 * ((lane >> 4) & 1) + 2 * ((lane >> 3) & 1) + ((lane >> 2) & 1);
+}
+
+template <int kW, int kBit>
+__device__ __forceinline__ void halve_rows(float (&dp)[8], int lane) {
+  const bool upper = (lane & kBit) != 0;
+#pragma unroll
+  for (int i = 0; i < kW; ++i) {
+    const float send = upper ? dp[i] : dp[i + kW];
+    const float keep = upper ? dp[i + kW] : dp[i];
+    dp[i] = keep + __shfl_xor_sync(0xffffffffu, send, kBit);
+  }
+}
+
+__device__ __forceinline__ float row_sums8(float (&dp)[8]) {
+  const int lane = threadIdx.x & 31;
+  halve_rows<4, 16>(dp, lane);
+  halve_rows<2, 8>(dp, lane);
+  halve_rows<1, 4>(dp, lane);
+  const float sum = dp[0] + __shfl_xor_sync(0xffffffffu, dp[0], 2);
+  return sum + __shfl_xor_sync(0xffffffffu, sum, 1);
+}
+
 // The sum over the 8 lanes g of one t (the rows of a C tile's column).
 __device__ __forceinline__ float column_sum(float v) {
   v += __shfl_xor_sync(0xffffffffu, v, 4);

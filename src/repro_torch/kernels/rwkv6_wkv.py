@@ -25,7 +25,10 @@ The backward: the JAX package trains through ``jax.grad`` of
 ``wkv_chunked`` (it has no backward kernel). :func:`rwkv6_wkv_bwd`
 computes that gradient with ``csrc/rwkv6_wkv_bwd.cu`` for CUDA tensors and
 :func:`rwkv6_wkv_bwd_plain`, the same equations chunk by chunk in PyTorch,
-for CPU tensors. When grad mode is on and an input requires grad,
+for CPU tensors; :func:`bwd_route` picks its kernels where
+:func:`fwd_route` picks the forward's (at N = chunk = 64, aligned, one
+block of three warpgroups a (batch, head) on TMA and wgmma: rwkv6-3b's
+train path). When grad mode is on and an input requires grad,
 :func:`rwkv6_wkv` records an ``autograd.Function`` whose backward is
 :func:`rwkv6_wkv_bwd`, on either device.
 """
@@ -45,9 +48,10 @@ from .mamba2_ssd import pick_chunk, upcast
 MAX_CHUNK = 64          # the kernel's largest chunk
 MAX_N = 64              # the kernel's largest head size
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# the forward's routes, as its launcher's dtype codes 0, 1, 2 name them
-FWD_ROUTES = ("f32", "mma", "wgmma")
-WGMMA_DIM = 64          # the wgmma route's N and chunk
+# the forward's and the backward's routes, as their launchers' dtype codes
+# 0, 1, 2 name them
+FWD_ROUTES = BWD_ROUTES = ("f32", "mma", "wgmma")
+WGMMA_DIM = 64          # the wgmma routes' N and chunk
 
 _count_lock = threading.Lock()
 _launcher = None
@@ -400,12 +404,29 @@ def bwd_kernel_info(N: int, chunk: int, dtype: torch.dtype,
                     part: str = "chunk") -> dict:
     """Registers, shared memory and blocks an SM of the compiled backward
     kernel for ``dtype`` at head size N and ``chunk``: f32 its one scan
-    kernel; bf16 the ``part`` of its route ("chunk": the chunk kernel,
-    "walk": the walk over the chunk states). ``_build.kernel_info``; needs
-    the card."""
+    kernel; bf16 the ``part`` of a route ("chunk": the mma route's chunk
+    kernel, "walk": its walk over the chunk states, "wgmma": the wgmma
+    route's kernel, N = chunk = 64). ``_build.kernel_info``; needs the
+    card."""
     from ._build import kernel_info as info
-    return info("rwkv6_wkv_bwd", N, chunk, _DTYPES[dtype],
-                int(part == "walk"))
+    code = BWD_ROUTES.index("wgmma") if part == "wgmma" else _DTYPES[dtype]
+    return info("rwkv6_wkv_bwd", N, chunk, code, int(part == "walk"))
+
+
+def bwd_route(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              w: torch.Tensor, dout: torch.Tensor,
+              chunk: int = MAX_CHUNK) -> str:
+    """The route :func:`rwkv6_wkv_bwd` takes on CUDA tensors, by dtype and
+    shape alone, where the forward takes its wgmma route: "f32" for
+    float32 (the CUDA-core scan); for bfloat16 at N = 64 with the chunk 64
+    (T a multiple of 64) and r, k, v, w, dout 16-byte aligned (TMA maps
+    describe them), any B and H, "wgmma" (one block of three warpgroups a
+    (batch, head): the chunk states by a walk forwards, then the gradient
+    by a walk backwards with the state's gradient in registers, every
+    product on wgmma: rwkv6-3b's train path); "mma" (the ``mma.sync``
+    walk and chunk kernels) for every other bf16 input."""
+    return _fwd_route(tuple(r.shape), r.dtype,
+                      [a.data_ptr() for a in (r, k, v, w, dout)], chunk)
 
 
 def rwkv6_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -417,13 +438,20 @@ def rwkv6_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B,H,N,N float32, or None for zeros), each in its input's dtype.
 
     CUDA tensors launch the backward kernels on the current stream (one
-    call, counted in ``rwkv6_wkv_bwd.launches`` and its (B, T, H, N) in
-    ``.shapes``). bf16 runs three CUDA kernels: a walk over the chunks
+    call, counted in ``rwkv6_wkv_bwd.launches``, its (B, T, H, N) in
+    ``.shapes`` and its route in ``.routes``), on the route
+    :func:`bwd_route` names. "wgmma" runs two CUDA kernels: one block of
+    three warpgroups a (batch, head) that walks the chunks forwards,
+    writing each chunk's start state to a workspace as bf16 hi + lo tiles,
+    then backwards with the state's gradient in f32 registers, every
+    product on wgmma (every f32 operand split into bf16 hi + lo, three
+    parts in dscores·k_over and dscoresᵀ·r_dec), and du's fixed-order sum
+    over batches. "mma" runs three: a walk over the chunks
     writing each chunk's start state and its end state's gradient (f32,
     the updates on the tensor cores), every chunk's gradient on the tensor
-    cores (every f32 operand split into bf16 hi + lo), and du's
-    fixed-order sum over batches and chunks; f32 runs two: the CUDA-core
-    scan, then du's sum.
+    cores (``mma.sync``, every f32 operand split into bf16 hi + lo), and
+    du's fixed-order sum over batches and chunks; f32 runs two: the
+    CUDA-core scan, then du's sum.
     CPU tensors take :func:`rwkv6_wkv_bwd_plain`. Anything else raises."""
     _check(r, k, v, w, u, state0)
     if not 1 <= chunk <= MAX_CHUNK:
@@ -459,13 +487,16 @@ def _backward(r, k, v, w, u, state0, dout, dstate_T, chunk):
             dstate0.copy_(dstate_T)
         return dr, dk, dv, dw, du.zero_(), dstate0
     c = pick_chunk(T, chunk)
-    K, dtype = T // c, _DTYPES[r.dtype]
-    tc = r.dtype == torch.bfloat16
+    K = T // c
+    route = bwd_route(r, k, v, w, dout, chunk)
+    tc = route == "mma"
     with torch.cuda.device(r.device):
         f32 = dict(dtype=torch.float32, device=r.device)
-        # the chunk-start states; on the bf16 route also the gradients of
-        # the chunks' end states; du's partials, a (batch, head) each on
-        # the f32 route, a (batch, head, chunk) on the bf16 route
+        # the chunk-start states (f32, or on the wgmma route their bf16 hi
+        # and lo tiles: the same bytes as N x N / 2 floats twice); on the
+        # mma route also the gradients of the chunks' end states; du's
+        # partials, a (batch, head, chunk) each on the mma route, a (batch,
+        # head) on the others
         work = [torch.empty(B * H * K * N * N, **f32),
                 torch.empty(B * H * K * N * N, **f32) if tc else None,
                 torch.empty(B * H * (K if tc else 1) * N, **f32)]
@@ -476,18 +507,20 @@ def _backward(r, k, v, w, u, state0, dout, dstate_T, chunk):
                      dr.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                      dw.data_ptr(), du.data_ptr(), dstate0.data_ptr(),
                      *(0 if a is None else a.data_ptr() for a in work),
-                     B, T, H, N, c, dtype, stream)
+                     B, T, H, N, c, BWD_ROUTES.index(route), stream)
     if err != 0:
         raise RuntimeError(f"rwkv6_wkv_bwd kernel launch failed: CUDA "
                            f"error {err}")
     with _count_lock:
         rwkv6_wkv_bwd.launches += 1
         rwkv6_wkv_bwd.shapes[(B, T, H, N)] += 1
+        rwkv6_wkv_bwd.routes[route] += 1
     return dr, dk, dv, dw, du, dstate0
 
 
 rwkv6_wkv_bwd.launches = 0
 rwkv6_wkv_bwd.shapes = collections.Counter()
+rwkv6_wkv_bwd.routes = collections.Counter()   # calls by bwd_route's name
 
 
 def _bwd_fake(r, k, v, w, u, state0, dout, dstate_T, chunk):

@@ -18,8 +18,10 @@ bf16 forward's wgmma kernel at every padded head dim, S around its tiles
 and both modes (equal bits on a second call), the inputs that take the
 mma.sync kernel instead, and each forward's compiled threads and spills;
 the bf16 backward's wgmma kernels likewise at the train paths' head dims,
-its route by shape and its compiled kernels; a checkpoint restored onto
-an NCCL mesh of one rank with shardings.
+its route by shape and its compiled kernels; the WKV backward's wgmma
+route (with and without a final-state gradient, at the clamps), the
+inputs that keep its mma.sync route, and its compiled kernel; a
+checkpoint restored onto an NCCL mesh of one rank with shardings.
 They skip where ``torch.cuda.is_available()`` is False. This file
 imports nothing of JAX, so it also runs where JAX is not installed:
 
@@ -1043,6 +1045,80 @@ def test_wkv_forward_unaligned_view_takes_mma(cuda):
                                rtol=tol)
     torch.testing.assert_close(state, ref_state, atol=tol * 10,
                                rtol=tol * 10)
+
+
+@pytest.mark.parametrize("with_dstate", [True, False])
+@pytest.mark.parametrize("draw", ["jax", "clamped"])
+@pytest.mark.parametrize("shape", WKV_WGMMA_SHAPES)
+def test_wkv_backward_wgmma_route_matches_plain(cuda, shape, draw,
+                                                with_dstate):
+    """The bf16 backward on its wgmma route (the forward's shapes) against
+    the plain version, from a nonzero state0, with and without a
+    final-state gradient (the train step passes none): every gradient
+    within the bf16 gate, in its input's dtype; one launch counted on the
+    route; a second call gives equal bits; where w = 1e-9, dw is 0."""
+    from repro_torch.kernels import rwkv6_wkv as m
+    args, dout, dstate = _scan_inputs("rwkv6_wkv", shape, torch.bfloat16,
+                                      cuda, seed=3)
+    if draw == "clamped":
+        args = _wkv_clamped(args)
+    ds = dstate if with_dstate else None
+    assert m.bwd_route(*args[:4], dout) == "wgmma"
+    before = m.rwkv6_wkv_bwd.routes["wgmma"]
+    got = m.rwkv6_wkv_bwd(*args, dout, ds)
+    torch.cuda.synchronize()
+    assert m.rwkv6_wkv_bwd.routes["wgmma"] == before + 1
+    want = m.rwkv6_wkv_bwd_plain(*args, dout, ds)
+    tol = BWD_TOLERANCES[torch.bfloat16]
+    for a, b, x in zip(got, want, args):
+        assert a.dtype == x.dtype and a.shape == x.shape
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+    again = m.rwkv6_wkv_bwd(*args, dout, ds)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if draw == "clamped":
+        dw = got[3][:, 9::64, :, 32]
+        assert torch.equal(dw, torch.zeros_like(dw))
+
+
+def test_wkv_backward_wgmma_kernel_fits(cuda):
+    """The backward's wgmma kernel is three warpgroups (the products' and
+    two of the elementwise pass) with no spill, a block an SM."""
+    from repro_torch.kernels import rwkv6_wkv
+    info = rwkv6_wkv.bwd_kernel_info(64, 64, torch.bfloat16, "wgmma")
+    assert info["spill_bytes"] == 0, info
+    assert info["threads"] == 384, info
+    assert info["blocks_per_sm"] >= 1, info
+
+
+@pytest.mark.parametrize("shape", [(4, 100, 40, 64), (2, 100, 3, 16),
+                                   (2, 128, 4, 32)])
+def test_wkv_backward_other_bf16_shapes_keep_mma(cuda, shape):
+    """A chunk below 64 or N below 64 keeps the mma.sync walk and chunk
+    kernels, one launch counted on that route."""
+    from repro_torch.kernels import rwkv6_wkv as m
+    args, dout, dstate = _scan_inputs("rwkv6_wkv", shape, torch.bfloat16,
+                                      cuda)
+    assert m.bwd_route(*args[:4], dout) == "mma"
+    before = m.rwkv6_wkv_bwd.routes["mma"]
+    m.rwkv6_wkv_bwd(*args, dout, dstate)
+    torch.cuda.synchronize()
+    assert m.rwkv6_wkv_bwd.routes["mma"] == before + 1
+
+
+def test_wkv_backward_unaligned_view_takes_mma(cuda):
+    """dout that a TMA map cannot describe (its data 2 bytes past a
+    16-byte boundary) keeps the mma.sync route, within the gate."""
+    from repro_torch.kernels import rwkv6_wkv as m
+    args, dout, dstate = _scan_inputs("rwkv6_wkv", (1, 128, 2, 64),
+                                      torch.bfloat16, cuda)
+    flat = torch.empty(dout.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    dout = flat[1:].view(dout.shape).copy_(dout)
+    assert m.bwd_route(*args[:4], dout) == "mma"
+    got = m.rwkv6_wkv_bwd(*args, dout, dstate)
+    want = m.rwkv6_wkv_bwd_plain(*args, dout, dstate)
+    tol = BWD_TOLERANCES[torch.bfloat16]
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
 
 
 def test_zamba2_smoke_serve_on_card_matches_cpu(cuda):

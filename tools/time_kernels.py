@@ -67,6 +67,18 @@ events (median of 60), CUPTI busy time, the bound and the tree's route
 registers, spills, blocks an SM and threads of the tree's compiled bf16
 forward kernels at N = chunk = 64 (the mma.sync kernel, and the wgmma
 kernel where the tree has it).
+
+    python3 tools/time_kernels.py --src PATH/src --only wkv_bwd
+
+times the bf16 WKV backward alone, as the train step calls it (no
+final-state gradient), at rwkv6-3b's train shape (4, 512, 40, 64), at one
+batch row of its heads (1, 512, 40, 64), at (2, 128, 3, 64) with w drawn
+to reach both clamps and at (4, 100, 40, 64) (chunk 50): device time by
+CUDA events, CUPTI busy time by kernel, the bound and the tree's route
+(``rwkv6_wkv.bwd_route`` where the tree has it, else "mma"); then the
+registers, spills, blocks an SM and threads of the tree's compiled bf16
+backward kernels at N = chunk = 64 (the mma.sync route's chunk kernel and
+walk, and the wgmma kernel where the tree has it).
 Each mode prints the card and one JSON line. Two trees compare on one
 card when they run in turns in one session: parent, change, change,
 parent.
@@ -88,10 +100,11 @@ def main() -> None:
     parser.add_argument("--src", required=True,
                         help="the tree's src directory (holds repro_torch)")
     parser.add_argument("--only", choices=("all", "flash_fwd", "flash_bwd",
-                                           "ssd_fwd", "ssd_bwd", "wkv_fwd"),
+                                           "ssd_fwd", "ssd_bwd", "wkv_fwd",
+                                           "wkv_bwd"),
                         default="all", help="time every kernel, or the bf16 "
                         "flash forward or backward, the SSD forward or "
-                        "backward or the WKV forward alone")
+                        "backward or the WKV forward or backward alone")
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     sys.path.insert(1, HERE)
@@ -114,6 +127,9 @@ def main() -> None:
     elif args.only == "wkv_fwd":
         from repro_torch.kernels._build import load
         load("rwkv6_wkv")
+    elif args.only == "wkv_bwd":
+        from repro_torch.kernels._build import load
+        load("rwkv6_wkv_bwd")
     else:
         for kmod in (anen_distance, flash_attention, mamba2_ssd, rwkv6_wkv):
             kmod.build()
@@ -123,7 +139,7 @@ def main() -> None:
     if args.only != "all":
         part = {"flash_fwd": flash_forward, "flash_bwd": flash_backward,
                 "ssd_fwd": ssd_forward, "ssd_bwd": ssd_backward,
-                "wkv_fwd": wkv_forward}[args.only]
+                "wkv_fwd": wkv_forward, "wkv_bwd": wkv_backward}[args.only]
         mod = {"ssd": mamba2_ssd, "wkv": rwkv6_wkv}.get(args.only[:3],
                                                         flash_attention)
         rows.update(part(cs, mod))
@@ -340,6 +356,44 @@ def wkv_forward(cs, rwkv6_wkv) -> dict:
         info = rwkv6_wkv.kernel_info(64, 64, torch.bfloat16,
                                      *(("wgmma",) if name == "wgmma" else ()))
         rows[f"rwkv6_wkv {name} registers/spill/blocks/threads"] = [
+            info["registers"], info["spill_bytes"], info["blocks_per_sm"],
+            info["threads"]]
+    return rows
+
+
+WKV_BWD_TIMED = ((4, 512, 40, 64, False), (1, 512, 40, 64, False),
+                 (2, 128, 3, 64, True), (4, 100, 40, 64, False))
+
+
+def wkv_backward(cs, rwkv6_wkv) -> dict:
+    """The bf16 WKV backward at ``WKV_BWD_TIMED`` (the third with w at both
+    clamps) as the train step calls it: device ms, busy ms by kernel, the
+    bound and the route; then the compiled backward kernels at N = chunk
+    = 64 (the wgmma kernel where the tree has it, and the mma.sync route's
+    chunk kernel and walk)."""
+    import torch
+    rows = {}
+    route = getattr(rwkv6_wkv, "bwd_route", None)
+    for *shape, clamped in WKV_BWD_TIMED:
+        shape = tuple(shape)
+        args, dout, _ = cs.scan_bwd_inputs("rwkv6_wkv", shape, "bfloat16",
+                                           clamped)
+        fn = lambda: rwkv6_wkv.rwkv6_wkv_bwd(*args, dout)  # noqa: E731
+        parts = {}
+        for key, _, ms in cs.traced_rows(fn, 10):
+            found = cs.SCAN_BWD_KERNEL.search(key)
+            if found:
+                parts[found.group(1)] = parts.get(found.group(1), 0.0) \
+                    + ms / 10
+        row = {"ms": cs.device_ms(fn), "parts_busy_ms": parts,
+               "busy_ms": sum(parts.values()),
+               "route": route(*args[:4], dout) if route else "mma"}
+        row.update(cs.wkv_bwd_bound(shape, 2))
+        rows[f"rwkv6_wkv_bwd bfloat16 {shape}"
+             + (" clamped" if clamped else "")] = row
+    for part in ("wgmma", "chunk", "walk") if route else ("chunk", "walk"):
+        info = rwkv6_wkv.bwd_kernel_info(64, 64, torch.bfloat16, part)
+        rows[f"rwkv6_wkv_bwd {part} registers/spill/blocks/threads"] = [
             info["registers"], info["spill_bytes"], info["blocks_per_sm"],
             info["threads"]]
     return rows
