@@ -23,6 +23,14 @@ device; every import inside them is package-relative):
 * ``data/{__init__,pipeline}.py`` — the deterministic synthetic LM stream
   and its prefetcher (numpy only; ``src/repro/data/``).
 
+Of these the port has since made its own ``telemetry/`` (spans from every
+thread while a ``torch.profiler`` records, on the profiler's clock, with
+each span's parent and task uid), ``rts/local.py`` (spans on the scheduler
+and worker threads) and ``core/{wfprocessor,profiler}.py`` (a span around
+``post_exec``; unread counters and events taken out): each keeps every
+function and class of its original but those it took out
+(``tests/test_torch_verbatim.py``).
+
 Process-global registries (executables, result codecs, telemetry kernel
 labels) are therefore separate objects in the two packages.
 

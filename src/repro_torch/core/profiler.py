@@ -23,7 +23,7 @@ import threading
 import time
 from collections import defaultdict
 from contextlib import contextmanager
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, Tuple
 
 # Canonical category names (keys of the Fig.-7 stacks).
 ENTK_SETUP = "entk_setup"
@@ -54,7 +54,6 @@ class Profiler:
         self._totals: Dict[str, float] = defaultdict(float)
         self._counts: Dict[str, int] = defaultdict(int)
         self._open: Dict[Tuple[str, int], float] = {}
-        self._events: List[Tuple[str, float]] = []
 
     # -- interval API -----------------------------------------------------#
 
@@ -89,10 +88,6 @@ class Profiler:
             self._totals[category] += seconds
             self._counts[category] += count
 
-    def event(self, name: str, t: Optional[float] = None) -> None:
-        with self._lock:
-            self._events.append((name, time.time() if t is None else t))
-
     # -- reads --------------------------------------------------------------#
 
     def totals(self) -> Dict[str, float]:
@@ -102,10 +97,6 @@ class Profiler:
     def counts(self) -> Dict[str, int]:
         with self._lock:
             return dict(self._counts)
-
-    def events(self) -> List[Tuple[str, float]]:
-        with self._lock:
-            return list(self._events)
 
     def report(self) -> str:
         totals = self.totals()

@@ -120,11 +120,6 @@ class WFProcessor:
         self.on_pipeline_final: Optional[Callable[[Pipeline], None]] = None
         self._ns_resume: Dict[str, tuple] = {}
         self._ns_spill: Dict[str, str] = {}
-        # Iteration counters (observability + the no-busy-wait tests): a
-        # schedule pass only happens when a pipeline was actually dirty, so
-        # an idle workflow performs zero passes no matter how long it idles.
-        self.schedule_passes = 0
-        self.dequeue_batches = 0
 
     # -- lifecycle ----------------------------------------------------------#
 
@@ -278,7 +273,6 @@ class WFProcessor:
                             seen.add(uid)
                             pipe = self.index.pipeline(uid)
                             if pipe is not None:
-                                self.schedule_passes += 1
                                 self._schedule_pipeline(pipe, sink, pending)
                         done_tags.append(tag)
                 finally:
@@ -490,7 +484,6 @@ class WFProcessor:
                 self.dequeue_crash_hook()
             if not msgs:
                 continue  # kicked awake
-            self.dequeue_batches += 1
             t0 = time.perf_counter()
             done_tags = []
             sink: List[Any] = []
@@ -770,7 +763,8 @@ class WFProcessor:
             # adaptivity: the hook may append stages to the pipeline (the
             # append listener marks it dirty for Enqueue)
             try:
-                stage.post_exec(stage, pipe)
+                with tel.span("wfp.post_exec", "wfp", stage=stage.name):
+                    stage.post_exec(stage, pipe)
             except Exception:  # noqa: BLE001 - user hook, never fatal
                 self.component_errors.append(
                     f"post_exec[{stage.uid}]: {traceback.format_exc(limit=5)}")

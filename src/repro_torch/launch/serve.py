@@ -30,6 +30,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from .. import telemetry as tel
 from ..core import AppManager, Pipeline, Stage, Task, register_executable
 from ..device import DeviceLike, device_name, resolve_device
 from ..kernels import KERNELS
@@ -76,44 +77,56 @@ class ServeSession:
         The stats record's kernel launch counts are the change of the
         wrappers' global counts over this call: exact when one batch runs
         at a time on the device, as :func:`run_managed` runs them."""
-        cfg, dev = self.cfg, self.device
-        B, S = prompts.shape
-        inputs = torch.as_tensor(np.asarray(prompts), dtype=torch.int32)
-        batch = {"inputs": inputs.to(dev)}
-        if cfg.rope_variant == "mrope":
-            pos = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
-            batch["positions"] = pos[:, None].expand(B, 3, S)
-        launches = {name: fn.launches for name, fn in KERNELS.items()}
-        t0 = time.perf_counter()
-        logits, cache = self.prefill(self.params, batch)
-        # move the prefill cache into a cache with room for the new tokens
-        full = _merge_cache(
-            transformer.init_cache(cfg, B, S + max_new_tokens, dev), cache)
-        prefill_finite = torch.isfinite(logits).all()
-        tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
-        _sync(dev)
-        t1 = time.perf_counter()
-        launched = {f"{name}_launches": fn.launches - launches[name]
-                    for name, fn in KERNELS.items()}
-        out = [tok]
-        decode_finite = torch.ones((), dtype=torch.bool, device=dev)
-        for _ in range(max_new_tokens - 1):
-            logits, full = self.decode(self.params, tok, full)
-            decode_finite &= torch.isfinite(logits).all()
-            tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
-            out.append(tok)
-        tokens = torch.cat(out, dim=1).cpu().numpy()
-        t2 = time.perf_counter()
-        steps = max_new_tokens - 1
-        self.stats.append({
-            "batch": B, "prompt_len": S, "new_tokens": max_new_tokens,
-            "prefill_s": t1 - t0,
-            "decode_s_per_token": (t2 - t1) / steps if steps else None,
-            "prefill_logits_finite": bool(prefill_finite),
-            "decode_logits_finite": bool(decode_finite),
-            **launched,
-        })
-        return tokens
+        with tel.span("serve.generate", "serve"):
+            cfg, dev = self.cfg, self.device
+            B, S = prompts.shape
+            with tel.span("serve.upload", "serve"):
+                inputs = torch.as_tensor(np.asarray(prompts),
+                                         dtype=torch.int32)
+                batch = {"inputs": inputs.to(dev)}
+                if cfg.rope_variant == "mrope":
+                    pos = torch.arange(S, dtype=torch.int32,
+                                       device=dev).expand(B, S)
+                    batch["positions"] = pos[:, None].expand(B, 3, S)
+            launches = {name: fn.launches for name, fn in KERNELS.items()}
+            t0 = time.perf_counter()
+            # the step's call to its return: the host's dispatch of its ops
+            with tel.span("serve.prefill", "serve"):
+                logits, cache = self.prefill(self.params, batch)
+            # move the prefill cache into one with room for the new tokens
+            with tel.span("serve.cache", "serve"):
+                full = _merge_cache(
+                    transformer.init_cache(cfg, B, S + max_new_tokens, dev),
+                    cache)
+            with tel.span("serve.sync", "serve"):
+                prefill_finite = torch.isfinite(logits).all()
+                tok = torch.argmax(logits, dim=-1)[:, None].to(torch.int32)
+                _sync(dev)
+            t1 = time.perf_counter()
+            launched = {f"{name}_launches": fn.launches - launches[name]
+                        for name, fn in KERNELS.items()}
+            out = [tok]
+            with tel.span("serve.decode", "serve"):
+                decode_finite = torch.ones((), dtype=torch.bool, device=dev)
+                for _ in range(max_new_tokens - 1):
+                    logits, full = self.decode(self.params, tok, full)
+                    decode_finite &= torch.isfinite(logits).all()
+                    tok = torch.argmax(logits, dim=-1)[:, None].to(
+                        torch.int32)
+                    out.append(tok)
+            with tel.span("serve.answer", "serve"):
+                tokens = torch.cat(out, dim=1).cpu().numpy()
+            t2 = time.perf_counter()
+            steps = max_new_tokens - 1
+            self.stats.append({
+                "batch": B, "prompt_len": S, "new_tokens": max_new_tokens,
+                "prefill_s": t1 - t0,
+                "decode_s_per_token": (t2 - t1) / steps if steps else None,
+                "prefill_logits_finite": bool(prefill_finite),
+                "decode_logits_finite": bool(decode_finite),
+                **launched,
+            })
+            return tokens
 
 
 def _merge_cache(dst, src):

@@ -24,6 +24,7 @@ import traceback
 from collections import deque
 from typing import Callable, Dict, List, Optional
 
+from .. import telemetry as tel
 from ..core import uid as uidgen
 from ..core.pst import Task
 from .base import (RTS, Pilot, RequeueTask, ResourceDescription,
@@ -180,6 +181,7 @@ class LocalRTS(RTS):
                 if task is None:
                     self._work.wait(timeout=0.05)
                     continue
+                span = tel.span("rts.schedule", "rts", uid=task.uid)
                 self._slots_free -= task.slots
                 cancel_event = threading.Event()
                 worker = threading.Thread(
@@ -187,6 +189,7 @@ class LocalRTS(RTS):
                     name=f"rts-worker-{task.uid}", daemon=True)
                 self._running[task.uid] = _Running(task, worker, cancel_event)
             worker.start()
+            span.end()
 
     def _release(self, task: Task) -> None:
         with self._work:
@@ -212,6 +215,13 @@ class LocalRTS(RTS):
         result = None
         requeue = False
         exc: Optional[str] = None
+        # the task's spans on this thread inherit its uid from this one; the
+        # wait since the ExecManager's submit is an attribute, not a range
+        running = tel.span("rts.task", "rts", uid=task.uid,
+                           executable=task.executable,
+                           queued_ns=(None if task.submitted_at is None else
+                                      int((started - task.submitted_at)
+                                          * 1e9)))
         try:
             if cancel_event.is_set():
                 exit_code = -2
@@ -234,16 +244,19 @@ class LocalRTS(RTS):
             exit_code = 1
             exc = traceback.format_exc(limit=10)
         finally:
+            running.end()
+            delivering = tel.span("rts.deliver", "rts", uid=task.uid)
             self._release(task)
-        if requeue:
-            if not self._stop.is_set():
-                self._requeue(task)
-            return
-        self._deliver(TaskCompletion(
-            uid=task.uid, exit_code=exit_code, result=result, exception=exc,
-            started_at=started, completed_at=time.time(),
-            staging_seconds=staging_s,
-            execution_seconds=time.time() - started - staging_s))
+        with delivering:
+            if requeue:
+                if not self._stop.is_set():
+                    self._requeue(task)
+                return
+            self._deliver(TaskCompletion(
+                uid=task.uid, exit_code=exit_code, result=result,
+                exception=exc, started_at=started, completed_at=time.time(),
+                staging_seconds=staging_s,
+                execution_seconds=time.time() - started - staging_s))
 
     def _execute(self, task: Task, cancel_event: threading.Event,
                  stall: float):

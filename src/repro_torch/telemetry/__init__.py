@@ -7,16 +7,20 @@ Two planes with different cost contracts:
   ``tenant_stats``) with thread-safe typed handles at the same hot-path
   price (one small lock per increment). The process-global ``REGISTRY``
   carries cross-cutting series — per-kernel dispatch-latency quantiles
-  (:data:`~repro.telemetry.metrics.DISPATCH_LATENCY`), jit-cache hit/miss,
-  serve admission and queue waits; component-local registries (one per
-  JaxRTS) carry per-instance series.
-* **Spans** (:class:`SpanTracer`) are gated on :func:`enabled` and
-  zero-cost when off: :func:`span` returns a shared no-op singleton, so an
-  instrumentation point costs one flag check. Enable with :func:`enable`,
-  ``REPRO_TELEMETRY=1`` in the environment, or ``--trace`` on
-  ``benchmarks/run.py``.
+  (:data:`~repro_torch.telemetry.metrics.DISPATCH_LATENCY`), jit-cache
+  hit/miss, serve admission and queue waits; component-local registries
+  (one per :class:`~repro_torch.rts.torch_rts.TorchRTS`) carry
+  per-instance series.
+* **Spans** (:class:`SpanTracer`) record while :func:`enabled` (turned on
+  by :func:`enable` or ``REPRO_TELEMETRY=1`` in the environment) and while
+  a ``torch.profiler`` is recording, on every thread, stamped on the
+  profiler's clock (:mod:`.tracer`). With both off :func:`span` returns
+  a shared no-op singleton, so an instrumentation point costs that check
+  and keeps nothing. ``perfbench/run.py --trace 1`` profiles a stretch of
+  a cell, and its ``program_span`` readers read the ring.
 
-Exports: :func:`export_chrome_trace` (Perfetto-loadable JSON),
+Exports: :func:`export_chrome_trace` (Perfetto-loadable JSON on the
+profiler's timeline, so it overlays ``torch.profiler``'s own trace),
 :func:`prometheus_text` (the serve protocol's ``metrics`` verb),
 :func:`export_jsonl` (the journal-adjacent ``telemetry.jsonl`` snapshot).
 """
@@ -30,7 +34,7 @@ from . import export as _export
 from .metrics import (DISPATCH_LATENCY, Counter, Gauge,  # noqa: F401
                       Histogram, MetricsRegistry)
 from .tracer import (DEFAULT_RING_SIZE, NOOP_SPAN, Span,  # noqa: F401
-                     SpanTracer)
+                     SpanTracer, torch_profiler)
 
 __all__ = [
     "DISPATCH_LATENCY", "Counter", "Gauge", "Histogram", "MetricsRegistry",
@@ -52,6 +56,7 @@ def enable(ring_size: Optional[int] = None) -> None:
     global _enabled, TRACER
     if ring_size is not None and ring_size != TRACER.ring_size:
         TRACER = SpanTracer(ring_size=ring_size)
+    TRACER.rebase()
     _enabled = True
 
 
@@ -61,6 +66,7 @@ def disable() -> None:
 
 
 def enabled() -> bool:
+    """The switch is on (a recording profiler records spans too)."""
     return _enabled
 
 
@@ -73,15 +79,17 @@ def reset() -> None:
 # -- hot-path helpers ------------------------------------------------------- #
 
 def span(name: str, cat: str = "", **attrs: Any):
-    """A context-managed span, or the shared no-op when tracing is off."""
-    if not _enabled:
+    """A context-managed span, or the shared no-op when tracing is off and
+    no profiler records. ``uid=`` names the EnTK task it serves (else its
+    parent's)."""
+    if not (_enabled or torch_profiler._is_profiler_enabled):
         return NOOP_SPAN
     return TRACER.span(name, cat, attrs)
 
 
 def event(name: str, cat: str = "", **attrs: Any) -> None:
     """An instant event on the trace timeline; no-op when tracing is off."""
-    if _enabled:
+    if _enabled or torch_profiler._is_profiler_enabled:
         TRACER.event(name, cat, **attrs)
 
 

@@ -2,10 +2,15 @@
 
 The Chrome-trace export writes complete (``ph: "X"``) events — Perfetto
 and ``chrome://tracing`` nest them by timestamp containment per thread
-track, which matches the tracer's per-thread depth bookkeeping. Monotonic
-nanoseconds convert to the format's microsecond ``ts``/``dur`` fields;
-thread-name metadata events label the tracks (``rts-fusion-drainer-0``,
-``wfp-enqueue``, …) so a fused run reads like the architecture diagram.
+track, which matches the tracer's per-thread depth bookkeeping. It is
+written as ``torch.profiler``'s ``export_chrome_trace`` writes its own:
+microseconds after ``baseTimeNanoseconds``, the Unix-epoch ns at the start
+of the current 7,889,238 s interval (Kineto's chrome-trace base), on the
+process id and native thread ids the profiler's CPU events carry. The two
+files' ``traceEvents`` then share one timeline and one set of thread
+tracks. Thread-name metadata events label the tracks
+(``rts-fusion-drainer-0``, ``wfp-enqueue``, …) so a fused run reads like
+the architecture diagram.
 """
 
 from __future__ import annotations
@@ -19,16 +24,29 @@ from .metrics import MetricsRegistry
 from .tracer import SpanTracer
 
 
-def chrome_trace_events(tracer: SpanTracer) -> List[Dict[str, Any]]:
+#: Kineto's chrome-trace base interval (``ChromeTraceBaseTime``), seconds
+TRACE_BASE_INTERVAL_S = 7_889_238
+
+
+def trace_base_ns() -> int:
+    """The ``baseTimeNanoseconds`` a chrome trace written now carries."""
+    step = TRACE_BASE_INTERVAL_S
+    return int(time.time()) // step * step * 1_000_000_000
+
+
+def chrome_trace_events(tracer: SpanTracer, base_ns: int = 0
+                        ) -> List[Dict[str, Any]]:
     pid = os.getpid()
     events: List[Dict[str, Any]] = []
     threads: Dict[int, str] = {}
     for rec in tracer.snapshot():
         threads.setdefault(rec["tid"], rec.get("thread") or str(rec["tid"]))
+        args = dict(rec.get("attrs") or {}, id=rec["id"],
+                    parent=rec["parent"], uid=rec["uid"])
         ev: Dict[str, Any] = {
             "name": rec["name"], "cat": rec.get("cat") or "repro",
-            "ph": rec.get("ph", "X"), "ts": rec["ts"] / 1000.0,
-            "pid": pid, "tid": rec["tid"], "args": rec.get("attrs") or {},
+            "ph": rec.get("ph", "X"), "ts": (rec["ts"] - base_ns) / 1000.0,
+            "pid": pid, "tid": rec["tid"], "args": args,
         }
         if ev["ph"] == "X":
             ev["dur"] = rec.get("dur", 0) / 1000.0
@@ -43,9 +61,11 @@ def chrome_trace_events(tracer: SpanTracer) -> List[Dict[str, Any]]:
 
 def export_chrome_trace(tracer: SpanTracer, registry: MetricsRegistry,
                         path: str) -> str:
+    base_ns = trace_base_ns()
     doc = {
-        "traceEvents": chrome_trace_events(tracer),
+        "traceEvents": chrome_trace_events(tracer, base_ns),
         "displayTimeUnit": "ms",
+        "baseTimeNanoseconds": base_ns,
         "otherData": {
             "dropped_spans": tracer.dropped_spans,
             "exported_at": time.strftime("%Y-%m-%dT%H:%M:%SZ",

@@ -1,11 +1,11 @@
 """Metrics registry: typed counters/gauges + streaming quantile histograms.
 
-Metric handles are ALWAYS live (unlike spans, which are gated on
-:func:`repro.telemetry.enabled`): a counter increment costs one small lock
-— the same price the scattered ``fusion_stats`` dict increments used to
-pay, but now race-free and shared across threads by construction. This is
-what lets the registry replace the JaxRTS stats dicts (the ISSUE-9
-satellite race fix) without changing hot-path cost.
+Metric handles are ALWAYS live (unlike spans, which record only while
+:func:`repro_torch.telemetry.enabled` or a profiler records): a counter
+increment costs one small lock — the same price the scattered
+``fusion_stats`` dict increments used to pay, but race-free and shared
+across threads by construction. This is what lets the registry replace
+the TorchRTS stats dicts without changing hot-path cost.
 
 Histograms bucket observations on a log scale (``GAMMA = 1.05`` — ≤5 %
 relative error per bucket), so p50/p90/p99 are streaming estimates with

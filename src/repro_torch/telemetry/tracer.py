@@ -1,32 +1,56 @@
-"""Span tracer: bounded-ring, monotonic-ns, nested spans with attrs.
+"""Span tracer: a bounded ring of nested spans, from every thread, on the
+profiler's clock.
 
-Design constraints (ISSUE 9):
-
-* **zero-cost-when-off** — the module-level :func:`repro.telemetry.span`
-  helper returns a shared no-op singleton when tracing is disabled; the
-  only cost at an instrumentation point is one attribute check. Nothing in
-  this file runs unless tracing was explicitly enabled.
-* **thread-safe, exact nesting** — span depth is tracked per thread in a
-  ``threading.local`` stack, so concurrent begin/end from many threads can
-  never interleave each other's nesting; the ring append takes one lock.
+* **zero-cost-when-off** — the module-level :func:`repro_torch.telemetry.span`
+  helper returns a shared no-op singleton unless tracing was enabled or a
+  ``torch.profiler`` is recording; the only cost at an instrumentation
+  point is that check. Nothing in this file runs otherwise.
+* **every thread, exact nesting** — each thread keeps its own stack of open
+  spans (``threading.local``), so concurrent begin/end from many threads
+  never interleave each other's nesting. A record carries its ``id``, its
+  ``parent`` (the span open on the same thread when it began) and the
+  ``uid`` of the EnTK task it serves: given where the worker starts the
+  task, inherited from the parent below it. A wait that crosses threads is
+  an attribute of the span that ends it (``queued_ns`` on ``rts.task``).
+* **one clock** — durations are ``time.monotonic_ns()``; a record's ``ts``
+  is Unix-epoch ns, the clock ``torch.profiler`` stamps its events with
+  (``kineto_results.trace_start_ns()`` plus an event's offset): monotonic
+  ns plus one offset, taken when the tracer starts, is cleared or is
+  enabled (:meth:`SpanTracer.rebase`). Ring spans and the profiler's
+  events lie on one timeline. ``tid`` is the thread's native id, the one
+  the profiler's own events carry.
+* **the profiler's thread** — ``torch.profiler`` records ranges only on
+  the thread that started it; there each span is also a
+  ``record_function`` range of the same name, which the span's own times
+  lie within. A record made while a profiler recorded has ``profiled``
+  true.
 * **bounded memory** — completed spans land in a ring of ``ring_size``
   records; overflow drops the OLDEST record and increments
   ``dropped_spans`` (surfaced as a metric and in the Chrome-trace export),
   so a long-running service can keep tracing without unbounded growth.
-
-Timestamps are ``time.monotonic_ns()`` — immune to wall-clock steps, and
-exactly what the Chrome-trace ``ts``/``dur`` microsecond fields want after
-a ``/1000``.
 """
 
 from __future__ import annotations
 
+import itertools
 import threading
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional
 
+import torch
+from torch.autograd import profiler as torch_profiler
+
 DEFAULT_RING_SIZE = 65_536
+
+_IDS = itertools.count(1)
+
+
+def profiling() -> bool:
+    """A ``torch.profiler`` is recording (read from the module global that
+    every thread sees; the C check is true only on the profiler's own
+    thread)."""
+    return torch_profiler._is_profiler_enabled
 
 
 class _NoopSpan:
@@ -54,7 +78,8 @@ class Span:
     """One open span; closes via :meth:`end` or as a context manager."""
 
     __slots__ = ("_tracer", "name", "cat", "attrs", "t0", "tid", "thread",
-                 "depth", "_done")
+                 "depth", "_done", "id", "parent", "uid", "profiled",
+                 "_twin")
 
     def __init__(self, tracer: "SpanTracer", name: str, cat: str,
                  attrs: Dict[str, Any]) -> None:
@@ -62,11 +87,23 @@ class Span:
         self.name = name
         self.cat = cat
         self.attrs = attrs
-        cur = threading.current_thread()
-        self.tid = cur.ident or 0
-        self.thread = cur.name
-        self.depth = tracer._push_depth()
+        self.tid = threading.get_native_id()
+        self.thread = threading.current_thread().name
+        self.id = next(_IDS)
+        stack = tracer._stack()
+        up = stack[-1] if stack else None
+        self.parent = up.id if up is not None else None
+        uid = attrs.pop("uid", None)
+        self.uid = uid if uid is not None else (
+            up.uid if up is not None else None)
+        self.depth = len(stack)
+        stack.append(self)
         self._done = False
+        self.profiled = profiling()
+        self._twin = None
+        if self.profiled and torch._C._autograd._profiler_enabled():
+            self._twin = torch_profiler.record_function(name)
+            self._twin.__enter__()
         self.t0 = time.monotonic_ns()
 
     def set(self, **attrs: Any) -> "Span":
@@ -78,11 +115,19 @@ class Span:
             return
         self._done = True
         dur = time.monotonic_ns() - self.t0
-        self._tracer._pop_depth()
+        if self._twin is not None:
+            self._twin.__exit__(None, None, None)
+        stack = self._tracer._stack()
+        if stack and stack[-1] is self:
+            stack.pop()
+        elif self in stack:
+            stack.remove(self)
         self._tracer._record({
-            "ph": "X", "name": self.name, "cat": self.cat, "ts": self.t0,
-            "dur": dur, "tid": self.tid, "thread": self.thread,
-            "depth": self.depth, "attrs": self.attrs,
+            "ph": "X", "name": self.name, "cat": self.cat,
+            "ts": self.t0 + self._tracer.offset_ns, "dur": dur,
+            "tid": self.tid, "thread": self.thread, "depth": self.depth,
+            "id": self.id, "parent": self.parent, "uid": self.uid,
+            "profiled": self.profiled, "attrs": self.attrs,
         })
 
     def __enter__(self) -> "Span":
@@ -102,16 +147,21 @@ class SpanTracer:
         self._lock = threading.Lock()
         self._local = threading.local()
         self._dropped = 0
+        self.offset_ns = 0
+        self.rebase()
+
+    def rebase(self) -> None:
+        """Take the offset from monotonic to Unix-epoch ns anew (it moves
+        only when the wall clock is stepped)."""
+        self.offset_ns = time.time_ns() - time.monotonic_ns()
 
     # -- per-thread nesting ------------------------------------------------- #
 
-    def _push_depth(self) -> int:
-        depth = getattr(self._local, "depth", 0)
-        self._local.depth = depth + 1
-        return depth
-
-    def _pop_depth(self) -> None:
-        self._local.depth = max(0, getattr(self._local, "depth", 1) - 1)
+    def _stack(self) -> List[Span]:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
 
     # -- recording ---------------------------------------------------------- #
 
@@ -132,12 +182,16 @@ class SpanTracer:
 
     def event(self, name: str, cat: str = "", **attrs: Any) -> None:
         """Instant event (a point on the timeline, no duration)."""
-        cur = threading.current_thread()
+        stack = self._stack()
+        up = stack[-1] if stack else None
         self._record({
             "ph": "i", "name": name, "cat": cat,
-            "ts": time.monotonic_ns(), "dur": 0, "tid": cur.ident or 0,
-            "thread": cur.name, "depth": getattr(self._local, "depth", 0),
-            "attrs": attrs,
+            "ts": time.monotonic_ns() + self.offset_ns, "dur": 0,
+            "tid": threading.get_native_id(),
+            "thread": threading.current_thread().name, "depth": len(stack),
+            "id": next(_IDS), "parent": up.id if up is not None else None,
+            "uid": up.uid if up is not None else None,
+            "profiled": profiling(), "attrs": attrs,
         })
 
     # -- introspection ------------------------------------------------------ #
@@ -160,3 +214,4 @@ class SpanTracer:
         with self._lock:
             self._ring.clear()
             self._dropped = 0
+        self.rebase()
