@@ -56,8 +56,15 @@ plain PyTorch version on the card, and drives the port's paths:
    batch); then its smoke configuration on the card against the CPU;
 5. serving the attention stack's dense family the same way, with the same
    traffic: stablelm-12b (``flash_attention`` 40 launches a batch at head
-   dim 160) and minitron-4b (32 at head dim 128), each with its smoke
-   configuration on the card against the CPU;
+   dim 160), minitron-4b (32 at head dim 128) and chatglm3-6b (28 at
+   (4, 512, 32, 128)), each with its smoke configuration on the card
+   against the CPU. On every serve path (3-7) each prefill and decode
+   step runs its norms as fused ``rms_norm`` launches, counted exactly
+   (``norm_launches_per_prefill``: 2 a layer and the final norm on the
+   attention stack, 57 a chatglm3-6b batch), none on the plain chain
+   (but RWKV's float32 second norm); the kernel itself is held to the
+   plain chain (h equal bits, y within one bf16 ulp, no spill) and timed
+   beside it (``check_norm``);
 6. the vlm and audio families at their published widths through the step
    functions on precomputed bf16 embeddings, as the JAX package runs them
    (its serve driver takes token ids only): qwen2-vl-2b with (B, 3, S)
@@ -197,6 +204,7 @@ The last two lines of standard output are the kernels' JSON record and
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import json
 import math
@@ -212,7 +220,7 @@ SRC = os.path.join(HERE, "src")
 # every CUDA source of the port (src/repro_torch/kernels/csrc/<name>.cu)
 KERNEL_SOURCES = ("anen_distance", "flash_attention", "flash_attention_bwd",
                   "mamba2_ssd", "mamba2_ssd_bwd", "rwkv6_wkv",
-                  "rwkv6_wkv_bwd")
+                  "rwkv6_wkv_bwd", "rms_norm")
 
 
 def _load_costs():
@@ -236,6 +244,7 @@ distance_bound = _costs.distance_bound
 flash_bound, flash_bwd_bound = _costs.flash_bound, _costs.flash_bwd_bound
 ssd_bound, ssd_bwd_bound = _costs.ssd_bound, _costs.ssd_bwd_bound
 wkv_bound, wkv_bwd_bound = _costs.wkv_bound, _costs.wkv_bwd_bound
+norm_bound = _costs.norm_bound
 
 MAIN = dict(seed=0, ny=428, nx=614, n_hist=365, per_iter=1024, max_iters=4,
             n_tasks=8, slots=4, timeout=900.0)
@@ -285,7 +294,8 @@ RWKV_SERVE = dict(SERVE, arch="rwkv6-3b")
 # the attention stack: two dense configurations served with the same
 # traffic, then the vlm and audio ones on embeddings through the steps
 DENSE_SERVES = (dict(SERVE, arch="stablelm-12b"),
-                dict(SERVE, arch="minitron-4b"))
+                dict(SERVE, arch="minitron-4b"),
+                dict(SERVE, arch="chatglm3-6b"))
 EMBED_RUNS = (dict(arch="qwen2-vl-2b", batch_size=4, prompt_len=512,
                    decode_steps=15),
               dict(arch="musicgen-medium", batch_size=4, prompt_len=512,
@@ -295,6 +305,7 @@ SSD_MAIN = (4, 512, 112, 64, 1, 64)       # (B, T, H, P, G, N)
 WKV_MAIN = (4, 512, 40, 64)               # (B, T, H, N)
 FLASH_STABLELM = (4, 512, 32, 160)
 FLASH_MINITRON = (4, 512, 24, 128)
+FLASH_CHATGLM = (4, 512, 32, 128)
 FLASH_QWEN2_VL = (4, 512, 12, 128)
 FLASH_MUSICGEN = (4, 512, 24, 64)
 FLASH_MANAGED_TRAIN = (8, 128, 4, 32)     # minitron-4b smoke, run_managed
@@ -316,6 +327,7 @@ MAIN_SHAPES = {"zamba2-7b": {"flash_attention": FLASH_MAIN,
                "rwkv6-3b": {"rwkv6_wkv": WKV_MAIN},
                "stablelm-12b": {"flash_attention": FLASH_STABLELM},
                "minitron-4b": {"flash_attention": FLASH_MINITRON},
+               "chatglm3-6b": {"flash_attention": FLASH_CHATGLM},
                "qwen2-vl-2b": {"flash_attention": FLASH_QWEN2_VL},
                "musicgen-medium": {"flash_attention": FLASH_MUSICGEN},
                "dbrx-132b-10l": {"flash_attention": FLASH_DBRX},
@@ -511,8 +523,9 @@ def build_kernels() -> float:
         check(proc.returncode == 0, f"build of {name}.cu: {err}")
         print(f"built {name}: {out.strip()}\n{err.strip()}")
     from repro_torch.kernels import (anen_distance, flash_attention,
-                                     mamba2_ssd, rwkv6_wkv)
-    for kmod in (anen_distance, flash_attention, mamba2_ssd, rwkv6_wkv):
+                                     mamba2_ssd, rms_norm, rwkv6_wkv)
+    for kmod in (anen_distance, flash_attention, mamba2_ssd, rwkv6_wkv,
+                 rms_norm):
         kmod.build()     # the scans' build() loads their backward too
     return time.perf_counter() - t0
 
@@ -2346,6 +2359,79 @@ def compiled_kernels(anen_n: int) -> dict:
     return info
 
 
+# the fused residual add and RMSNorm: chatglm3-6b's 4 x 512 prefill, its
+# final norm's rows, and the widest row at many rows
+NORM_SHAPES = ((2048, 4096), (4, 4096), (8192, 4096), (1024, 8192))
+NORM_TIMED = (2048, 4096)
+
+
+def check_norm() -> dict:
+    """The fused norm against the plain chain on the card at
+    ``NORM_SHAPES``, with and without the residual add: h the bits of x +
+    delta, y within one bf16 ulp, the same bits on a second call, one
+    launch a call on the fused route, and no spill; then its device time
+    (warm, CUDA events) beside the chain's busy time and its bound at
+    ``NORM_TIMED``."""
+    import torch
+    from repro_torch.kernels import rms_norm as rn
+    rows = []
+    for shape in NORM_SHAPES:
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        x = torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        delta = torch.randn(*shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+        scale = torch.rand(shape[1], generator=gen, device="cuda") + 0.5
+        for with_delta in (True, False):
+            d = delta if with_delta else None
+            check(rn.fwd_route(x, scale, d) == "fused",
+                  f"rms_norm at {shape} takes the fused route")
+            before = rn.rms_norm.launches
+            if with_delta:
+                (h, y), (h2, y2) = (rn.add_rms_norm(x, delta, scale, 1e-5)
+                                    for _ in range(2))
+                ref = x + delta
+                check(torch.equal(h.view(torch.int16), ref.view(torch.int16))
+                      and torch.equal(h2.view(torch.int16),
+                                      h.view(torch.int16)),
+                      f"rms_norm at {shape}: h == x + delta bit for bit")
+            else:
+                y, y2 = (rn.rms_norm(x, scale, 1e-5) for _ in range(2))
+                ref = x
+            torch.cuda.synchronize()
+            plain = rn.rms_norm_plain(ref, scale, 1e-5)
+            ulps = int((y.view(torch.int16).int()
+                        - plain.view(torch.int16).int()).abs().max())
+            info = rn.kernel_info(*shape, with_delta)
+            row = {"shape": list(shape), "delta": with_delta,
+                   "max_ulps": ulps, **info}
+            print(f"rms_norm {row}")
+            check(rn.rms_norm.launches == before + 2,
+                  f"rms_norm at {shape}: one launch a call")
+            check(ulps <= 1, f"rms_norm at {shape}, delta {with_delta}: y "
+                             f"within one bf16 ulp of the chain ({ulps})")
+            check(torch.equal(y2.view(torch.int16), y.view(torch.int16)),
+                  f"rms_norm at {shape}: equal bits on a second call")
+            check(info["spill_bytes"] == 0,
+                  f"rms_norm at {shape}, delta {with_delta}: no spill "
+                  f"({info})")
+            if tuple(shape) == NORM_TIMED:
+                row["ms"] = device_ms(
+                    (lambda: rn.add_rms_norm(x, delta, scale, 1e-5))
+                    if with_delta else (lambda: rn.rms_norm(x, scale, 1e-5)))
+                row["plain_ms"] = busy_ms(
+                    (lambda: rn.rms_norm_plain(x + delta, scale, 1e-5))
+                    if with_delta
+                    else (lambda: rn.rms_norm_plain(x, scale, 1e-5)),
+                    f"rms_norm plain at {shape}")
+                row.update({k: v for k, v in norm_bound(
+                    shape, 2, with_delta).items()
+                    if k in ("bound_ms", "bound_by")})
+                print(f"rms_norm timed (warm L2) {row}")
+            rows.append(row)
+    return {"rows": rows}
+
+
 def time_flash(shape, causal: bool = True) -> dict:
     """The forward kernel (device time, busy time), its plain version
     (busy time) and ``scaled_dot_product_attention`` on the same inputs
@@ -2557,6 +2643,41 @@ def per_batch_launches(cfg) -> dict:
             "rwkv6_wkv": 0}
 
 
+def norm_launches_per_prefill(cfg) -> int:
+    """Fused norm launches one served batch's prefill makes: each
+    attention application's two pre-norms (the second with the residual
+    add in front of it), each Mamba-2 layer's pre-norm and gated
+    out-norm, each RWKV layer's first pre-norm (its second is taken of the
+    float32 sum, on the plain chain by design), and the final norm. A
+    decode step makes as many."""
+    L = cfg.n_layers
+    if cfg.family == "ssm":
+        return L + 1
+    if cfg.family == "hybrid":
+        return 2 * L + 2 * (L // cfg.attn_every) + 1
+    return 2 * L + 1
+
+
+# fused norm launches by serve path (check_norm_routes)
+NORM_LAUNCHES = {}
+
+
+def check_norm_routes(arch: str, cfg, launches: int, routes: dict,
+                      want: int) -> None:
+    """``want`` fused norm launches on a path, each its own fused call,
+    and (but for RWKV's float32 second norm) no norm on the plain
+    chain."""
+    NORM_LAUNCHES[arch] = launches
+    print(f"{arch} rms_norm launches {launches} (want {want}), routes "
+          f"{routes}")
+    check(launches == want and routes.get("fused", 0) == launches,
+          f"{arch}: {want} fused norm launches on the path (got "
+          f"{launches}, routes {routes})")
+    if cfg.family != "ssm":
+        check(routes.get("plain", 0) == 0,
+              f"{arch}: every serve norm on the fused route ({routes})")
+
+
 def release_sessions() -> None:
     """Drop the served models' weights, so that a serve phase's peak memory
     is its own (the AnEn dataset stays cached)."""
@@ -2611,15 +2732,23 @@ def run_serve_path(traffic: dict) -> dict:
         check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()),
               f"{t.name} tokens in [0, {cfg.vocab_size})")
     stats = sess.stats[-n:]
+    norms = norm_launches_per_prefill(cfg)
     for rec in stats:
         print(f"  batch: prefill_s={rec['prefill_s']} decode_s_per_token="
               f"{rec['decode_s_per_token']} launches="
-              f"{ {k: rec[k + '_launches'] for k in per_batch} }")
+              f"{ {k: rec[k + '_launches'] for k in per_batch} } "
+              f"rms_norm_launches={rec['rms_norm_launches']}")
         check(rec["prefill_logits_finite"], "prefill logits finite")
         check(rec["decode_logits_finite"], "decode logits finite")
         for name, want in per_batch.items():
             check(rec[f"{name}_launches"] == want,
                   f"{name}: {want} launches per batch")
+        check(rec["rms_norm_launches"] == norms,
+              f"{arch}: {norms} fused norms a batch's prefill (got "
+              f"{rec['rms_norm_launches']})")
+    check_norm_routes(arch, cfg, launches["rms_norm"],
+                      dict(KERNELS["rms_norm"].routes),
+                      norms * n * traffic["max_new_tokens"])
     for name, want in per_batch.items():
         check(launches[name] == want * n,
               f"{name}: {want * n} launches on the {arch} serve path")
@@ -2986,6 +3115,9 @@ def run_embed_path(run: dict) -> dict:
     for name, want in per_batch_launches(cfg).items():
         check(launches[name] == want, f"{name}: {want} launches on the "
                                       f"{arch} path (got {launches[name]})")
+    check_norm_routes(arch, cfg, launches["rms_norm"],
+                      dict(KERNELS["rms_norm"].routes),
+                      norm_launches_per_prefill(cfg) * (1 + n))
     for name, shape in MAIN_SHAPES[arch].items():
         check(set(shapes[name]) == {shape}, f"{name} ran at {shape}")
     profile_steps(arch, cfg, params, prefill, decode, batch,
@@ -3397,7 +3529,8 @@ DRYRUN_FLOP_TOL = 1e-6
 DRYRUN_OPS = {"flash_fwd": "flash_attention",
               "flash_bwd": "flash_attention_bwd",
               "ssd_fwd": "mamba2_ssd", "ssd_bwd": "mamba2_ssd_bwd",
-              "wkv_fwd": "rwkv6_wkv", "wkv_bwd": "rwkv6_wkv_bwd"}
+              "wkv_fwd": "rwkv6_wkv", "wkv_bwd": "rwkv6_wkv_bwd",
+              "rms_norm": "rms_norm", "add_rms_norm": "rms_norm"}
 
 
 def real_inputs(cfg, shape, device):
@@ -3464,7 +3597,10 @@ def dryrun_check(arch: str, kind: str, batch: int, seq: int) -> dict:
     flops = matmul_flops_of(fn, *args)
     del args
     release_all()
-    want = {DRYRUN_OPS[op]: n for op, n in rec["launches"].items()}
+    want = collections.Counter()
+    for op, n in rec["launches"].items():
+        want[DRYRUN_OPS[op]] += n
+    want = dict(want)
     got = {k: n for k, n in launches.items() if n}
     err = abs(pred - peak) / peak
     flop_err = abs(rec["per_device"]["matmul_flops"] - flops) / flops
@@ -3645,6 +3781,7 @@ def main() -> None:
     full_errors["flash_attention_bwd_noncausal"].append(
         compare_flash_bwd_unaligned(FLASH_UNALIGNED, causal=False))
     compiled = compiled_kernels(main_shape[2])
+    norm = check_norm()
     full_compiled = compiled_full_kernels()
     fwd_compiled = compiled_forward_kernels()
     bwd_compiled = compiled_backward_kernels()
@@ -3878,6 +4015,20 @@ def main() -> None:
         if base == "flash_attention_bwd":
             record["kernels"][-1].update(parts_busy_ms=row["parts_busy_ms"],
                                          route_bf16=row["route"])
+    timed_norms = [r for r in norm["rows"] if "ms" in r]
+    record["kernels"].append({
+        "name": "rms_norm", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rms_norm.cu",
+        # no TPU kernel: the JAX package leaves its norms to XLA
+        "replaces": "src/repro/models/mlp.py:11",
+        "launches": {arch: path_norms for arch, path_norms in
+                     NORM_LAUNCHES.items()},
+        "max_ulps": max(r["max_ulps"] for r in norm["rows"]),
+        "timed": timed_norms,
+        "compiled": [{k: r[k] for k in ("shape", "delta", "registers",
+                                        "spill_bytes", "blocks_per_sm",
+                                        "threads")}
+                     for r in norm["rows"]]})
     for entry in record["kernels"]:
         info = compiled.get((entry["name"], entry.get("dtype", "float32")))
         if info is not None:

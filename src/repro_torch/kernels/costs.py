@@ -15,6 +15,7 @@ data sheet, at its 700 W limit): spec-sheet figures, not measurements.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Sequence
 
 # published peaks of one H100 SXM5 80GB (NVIDIA data sheet, 700 W)
@@ -144,6 +145,18 @@ def wkv_bwd_bound(shape, elem: int, chunk: int = MAX_CHUNK) -> dict:
 # Per call, from the op's arguments
 # --------------------------------------------------------------------------- #
 
+def norm_bound(shape, elem: int, delta: bool = False) -> dict:
+    """RMSNorm of (rows, D): x read and y written once in the input type
+    (and, with the residual add, delta read and h written once too), the
+    f32 scale read once; a square, a sum and two products an element (and
+    the add), on the CUDA cores."""
+    rows, d = shape
+    n = rows * d
+    bytes_ = (4 if delta else 2) * n * elem + 4 * d
+    flops = (5.0 if delta else 4.0) * n
+    return _bound(bytes_, flops, FP32_FLOPS_PER_S)
+
+
 def _ssd_shape(x, Bm) -> tuple:
     return (*x.shape, Bm.shape[2], Bm.shape[3])
 
@@ -180,8 +193,9 @@ def _wkv_workspace(shape, bf16: bool, chunk: int) -> int:
 def op_cost(op: str, args: Sequence) -> Dict[str, float]:
     """{"flops", "bytes", "workspace"} of one call of the kernel op
     ``op`` (``flash_fwd``, ``flash_bwd``, ``ssd_fwd``, ``ssd_bwd``,
-    ``wkv_fwd``, ``wkv_bwd``) on ``args``, its positional arguments
-    (tensors, or anything with ``.shape`` and ``.dtype``)."""
+    ``wkv_fwd``, ``wkv_bwd``, ``rms_norm``, ``add_rms_norm``) on ``args``,
+    its positional arguments (tensors, or anything with ``.shape`` and
+    ``.dtype``)."""
     elem = args[0].dtype.itemsize
     bf16 = elem == 2
     work = 0
@@ -204,6 +218,10 @@ def op_cost(op: str, args: Sequence) -> Dict[str, float]:
         shape = tuple(args[0].shape)
         b = wkv_bwd_bound(shape, elem, args[8])
         work = _wkv_workspace(shape, bf16, args[8])
+    elif op in ("rms_norm", "add_rms_norm"):
+        shape = tuple(args[0].shape)
+        b = norm_bound((math.prod(shape[:-1]), shape[-1]), elem,
+                       op == "add_rms_norm")
     else:
         raise KeyError(f"no cost for kernel op {op!r}")
     return {"flops": b["flops"], "bytes": b["bytes"], "workspace": work}

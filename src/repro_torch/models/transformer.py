@@ -37,7 +37,7 @@ from ..device import DeviceLike, resolve_device
 from . import mamba2, moe, pspec_ctx, rwkv6
 from .attention import attention, decode_attention, update_cache
 from .config import ModelConfig
-from .mlp import gated_mlp, init_gated_mlp, normal, rms_norm
+from .mlp import add_rms_norm, gated_mlp, init_gated_mlp, normal, rms_norm
 from .pspec_ctx import constrain
 from .rope import apply_rope, default_positions
 
@@ -281,8 +281,8 @@ def attn_decode_block(p: Dict, x: torch.Tensor, cfg: ModelConfig,
 def _mlp_residual(mlp: Dict, ln2: torch.Tensor, x: torch.Tensor,
                   cfg: ModelConfig, attn_out: torch.Tensor) -> torch.Tensor:
     """The second half of a pre-norm layer: x + a, then + MLP(norm)."""
-    x = x + _residual(attn_out, cfg)
-    return x + _residual(gated_mlp(mlp, _normed(x, ln2, cfg), cfg), cfg)
+    x, h = _add_normed(x, attn_out, ln2, cfg)
+    return x + _residual(gated_mlp(mlp, h, cfg), cfg)
 
 
 def _residual(y: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -300,6 +300,15 @@ def _normed(x: torch.Tensor, scale: torch.Tensor, cfg: ModelConfig
     activation context (the input of its projections: the all-gather
     GSPMD inserts after a sequence-parallel residual)."""
     return constrain(rms_norm(x, scale, cfg.norm_eps), "dp", None, None)
+
+
+def _add_normed(x: torch.Tensor, attn_out: torch.Tensor,
+                scale: torch.Tensor, cfg: ModelConfig
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x + a, the pre-norm of that sum as :func:`_normed` gives it): the
+    residual add and the norm after it, one launch on the fused route."""
+    x, h = add_rms_norm(x, _residual(attn_out, cfg), scale, cfg.norm_eps)
+    return x, constrain(h, "dp", None, None)
 
 
 def _layer(tree: Dict, i: int) -> Dict:
@@ -419,9 +428,8 @@ def _ffn_residual(p: Dict, h: torch.Tensor, cfg: ModelConfig,
     if "moe" not in p:
         return _mlp_residual(p["mlp"], p["norms"]["ln2"], h, cfg,
                              attn_out), None
-    h = h + _residual(attn_out, cfg)
-    m, aux = moe.moe_apply(p["moe"], _normed(h, p["norms"]["ln2"], cfg),
-                           cfg)
+    h, normed = _add_normed(h, attn_out, p["norms"]["ln2"], cfg)
+    m, aux = moe.moe_apply(p["moe"], normed, cfg)
     return h + _residual(m, cfg), aux
 
 

@@ -21,7 +21,10 @@ the bf16 backward's wgmma kernels likewise at the train paths' head dims,
 its route by shape and its compiled kernels; the WKV backward's wgmma
 route (with and without a final-state gradient, at the clamps), the
 inputs that keep its mma.sync route, and its compiled kernel; a
-checkpoint restored onto an NCCL mesh of one rank with shardings.
+checkpoint restored onto an NCCL mesh of one rank with shardings; the
+fused residual add and RMSNorm against the plain chain (each served
+width, strided rows, no spill), chatglm3-6b's smoke prefill on its fused
+route and train steps that launch no norm.
 They skip where ``torch.cuda.is_available()`` is False. This file
 imports nothing of JAX, so it also runs where JAX is not installed:
 
@@ -1119,6 +1122,157 @@ def test_wkv_backward_unaligned_view_takes_mma(cuda):
     tol = BWD_TOLERANCES[torch.bfloat16]
     for a, b in zip(got, want):
         torch.testing.assert_close(a.float(), b.float(), atol=tol, rtol=tol)
+
+
+# --------------------------------------------------------------------------- #
+# The fused residual add and RMSNorm (the pre-norms of every bf16 serve path)
+# --------------------------------------------------------------------------- #
+
+# (rows, D): chatglm3-6b's prefill and final norm, then each served width
+# with many rows (blocks of up to 128 threads) and with few (one vector a
+# thread); 3 x 7 x 128 narrower than a warp's vectors
+NORM_SHAPES = [(8192, 4096), (4, 4096), (1000, 1536), (3, 1536),
+               (1000, 3584), (3, 3584), (1000, 6144), (3, 6144),
+               (21, 128), (300, 8192)]
+
+
+def _norm_inputs(rows, d, cuda, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(rows, d, generator=gen, device=cuda).to(torch.bfloat16)
+    delta = (torch.randn(rows, d, generator=gen, device=cuda) * 0.5).to(
+        torch.bfloat16)
+    scale = torch.rand(d, generator=gen, device=cuda) + 0.5
+    return x, delta, scale
+
+
+def _within_one_ulp(a, b):
+    """Two bf16 tensors of one sign pattern differ by at most one unit in
+    the last place (their bit patterns by at most 1)."""
+    ia = a.view(torch.int16).to(torch.int32)
+    ib = b.view(torch.int16).to(torch.int32)
+    return bool(((ia - ib).abs() <= 1).all())
+
+
+@pytest.mark.parametrize("with_delta", [True, False])
+@pytest.mark.parametrize("shape", NORM_SHAPES)
+def test_rms_norm_kernel_matches_the_chain(cuda, shape, with_delta):
+    """One launch on the fused route: h the bits of x + delta, y within one
+    bf16 ulp of the plain chain run on the card, and the same bits on a
+    second call."""
+    from repro_torch.kernels import rms_norm as rn
+    x, delta, scale = _norm_inputs(*shape, cuda)
+    assert rn.fwd_route(x, scale, delta if with_delta else None) == "fused"
+    before = (rn.rms_norm.launches, rn.rms_norm.routes["fused"])
+    if with_delta:
+        h, y = rn.add_rms_norm(x, delta, scale, 1e-5)
+        h2, y2 = rn.add_rms_norm(x, delta, scale, 1e-5)
+        ref = x + delta
+        assert torch.equal(h.view(torch.int16), ref.view(torch.int16))
+        assert torch.equal(h2.view(torch.int16), h.view(torch.int16))
+    else:
+        y = rn.rms_norm(x, scale, 1e-5)
+        y2 = rn.rms_norm(x, scale, 1e-5)
+        ref = x
+    torch.cuda.synchronize()
+    assert (rn.rms_norm.launches, rn.rms_norm.routes["fused"]) == (
+        before[0] + 2, before[1] + 2)
+    assert _within_one_ulp(y, rn.rms_norm_plain(ref, scale, 1e-5))
+    assert torch.equal(y2.view(torch.int16), y.view(torch.int16))
+
+
+@pytest.mark.parametrize("with_delta", [True, False])
+def test_rms_norm_kernel_takes_strided_rows(cuda, with_delta):
+    """The final norm's rows h[:, -1:] of a (4, 300, 4096) prefill, row
+    stride 300 x 4096, as they are (no copy)."""
+    from repro_torch.kernels import rms_norm as rn
+    x, delta, scale = _norm_inputs(4 * 300, 4096, cuda, seed=1)
+    last = x.view(4, 300, 4096)[:, -1:]
+    d_last = delta.view(4, 300, 4096)[:, -1:]
+    assert not last.is_contiguous() and rn._row_stride(last) == 300 * 4096
+    if with_delta:
+        h, y = rn.add_rms_norm(last, d_last, scale, 1e-5)
+        ref = last + d_last
+        assert torch.equal(h.view(torch.int16), ref.view(torch.int16))
+    else:
+        y, ref = rn.rms_norm(last, scale, 1e-5), last
+    assert y.shape == (4, 1, 4096) and y.is_contiguous()
+    assert _within_one_ulp(y, rn.rms_norm_plain(ref, scale, 1e-5))
+
+
+def test_rms_norm_refused_launch_raises(cuda):
+    """Past the route, the launcher's own checks refuse a shape it does not
+    take, and the wrapper raises: nothing falls back."""
+    from repro_torch.kernels import rms_norm as rn
+    x, _, scale = _norm_inputs(4, 4096, cuda)
+    with pytest.raises(RuntimeError, match="rms_norm kernel launch failed"):
+        # rows of 4092, 8 bytes past an aligned base
+        rn._launch(x[:, 4:], None, scale[4:], 1e-5)
+
+
+@pytest.mark.parametrize("shape", [(8192, 4096), (4, 4096), (8192, 8192),
+                                   (4, 8192), (1000, 3584), (1000, 6144)])
+def test_rms_norm_kernel_fits(cuda, shape):
+    """No spill, with and without the add; blocks of up to 128 threads
+    with many rows (at least 4 an SM), one thread a vector with few."""
+    from repro_torch.kernels import rms_norm as rn
+    for with_delta in (True, False):
+        info = rn.kernel_info(*shape, with_delta)
+        assert info["spill_bytes"] == 0, (shape, with_delta, info)
+        if shape[0] > 264:
+            assert info["threads"] <= 128, info
+            assert info["blocks_per_sm"] >= 4, info
+        else:
+            assert info["threads"] == shape[1] // 8, info
+
+
+def test_chatglm3_smoke_prefill_on_the_fused_route(cuda, monkeypatch):
+    """chatglm3-6b's smoke configuration served on the card: every norm
+    of the prefill on the fused route (2 a layer and the final one), the
+    session's stats counting them, and its logits within the serve tests'
+    tolerance of the same prefill with every norm on the plain chain."""
+    from repro_torch.kernels import rms_norm as rn
+    from repro_torch.launch.serve import ServeSession
+    cpu = ServeSession("chatglm3-6b", smoke=True, device="cpu")
+    gpu = ServeSession("chatglm3-6b", smoke=True, device=cuda,
+                       params=_to(cpu.params, cuda))
+    n = 2 * gpu.cfg.n_layers + 1
+    tokens = np.random.default_rng(0).integers(0, gpu.cfg.vocab_size,
+                                                (4, 100))
+    batch = {"inputs": torch.from_numpy(tokens).to(cuda)}
+    before = (rn.rms_norm.launches, dict(rn.rms_norm.routes))
+    lg, _ = gpu.prefill(gpu.params, batch)
+    torch.cuda.synchronize()
+    assert rn.rms_norm.launches - before[0] == n
+    assert rn.rms_norm.routes["fused"] - before[1].get("fused", 0) == n
+    assert rn.rms_norm.routes["plain"] == before[1].get("plain", 0)
+    gpu.generate(tokens, 4)
+    assert gpu.stats[-1]["rms_norm_launches"] == n
+    monkeypatch.setattr(rn, "fwd_route", lambda *a, **k: "plain")
+    launches = rn.rms_norm.launches
+    lp, _ = gpu.prefill(gpu.params, batch)
+    assert rn.rms_norm.launches == launches
+    torch.testing.assert_close(lg, lp, atol=0.08, rtol=0.05)
+
+
+@pytest.mark.parametrize("arch", ["chatglm3-6b", "qwen2-vl-2b"])
+def test_train_step_launches_no_norm(cuda, arch):
+    """Under grad every norm keeps the plain chain: a bf16 smoke train
+    step launches no norm kernel."""
+    from repro_torch.data import make_stream
+    from repro_torch.kernels import rms_norm as rn
+    from repro_torch.models import steps
+    from repro_torch.models.config import get_config
+    cfg = get_config(arch, smoke=True)
+    batch = {k: torch.from_numpy(v).to(cuda)
+             for k, v in make_stream(cfg, 64, 2).batch(0).items()}
+    state = steps.init_train_state(cfg, 0, cuda)
+    before = (rn.rms_norm.launches, rn.rms_norm.routes["fused"],
+              rn.rms_norm.routes["plain"])
+    state, metrics = steps.make_train_step(cfg)(state, batch)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(metrics["loss"]))
+    assert (rn.rms_norm.launches, rn.rms_norm.routes["fused"]) == before[:2]
+    assert rn.rms_norm.routes["plain"] > before[2]
 
 
 def test_zamba2_smoke_serve_on_card_matches_cpu(cuda):

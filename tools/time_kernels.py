@@ -79,6 +79,18 @@ CUDA events, CUPTI busy time by kernel, the bound and the tree's route
 registers, spills, blocks an SM and threads of the tree's compiled bf16
 backward kernels at N = chunk = 64 (the mma.sync route's chunk kernel and
 walk, and the wgmma kernel where the tree has it).
+
+    python3 tools/time_kernels.py --src PATH/src --only rms_norm
+
+times the fused residual add and RMSNorm against the plain chain it
+replaces (the add, then eight float32 launches), in turns (fused, plain,
+plain, fused), at (8192, 4096), (1024, 4096) and (4, 4096) in bf16, with
+and without the add: device time by CUDA events (median of 60, an event
+between calls) and CUPTI busy time (the kernels alone), each call on the
+next of enough distinct inputs to fill four times the 50 MB L2, so that
+every read comes from device memory; each against its HBM bound;
+then the compiled kernel's registers, spills, blocks an SM and threads at
+each shape. The tree must have the kernel (``kernels/rms_norm.py``).
 Each mode prints the card and one JSON line. Two trees compare on one
 card when they run in turns in one session: parent, change, change,
 parent.
@@ -101,10 +113,11 @@ def main() -> None:
                         help="the tree's src directory (holds repro_torch)")
     parser.add_argument("--only", choices=("all", "flash_fwd", "flash_bwd",
                                            "ssd_fwd", "ssd_bwd", "wkv_fwd",
-                                           "wkv_bwd"),
+                                           "wkv_bwd", "rms_norm"),
                         default="all", help="time every kernel, or the bf16 "
                         "flash forward or backward, the SSD forward or "
-                        "backward or the WKV forward or backward alone")
+                        "backward, the WKV forward or backward or the fused "
+                        "norm alone")
     args = parser.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     sys.path.insert(1, HERE)
@@ -130,6 +143,9 @@ def main() -> None:
     elif args.only == "wkv_bwd":
         from repro_torch.kernels._build import load
         load("rwkv6_wkv_bwd")
+    elif args.only == "rms_norm":
+        from repro_torch.kernels._build import load
+        load("rms_norm")
     else:
         for kmod in (anen_distance, flash_attention, mamba2_ssd, rwkv6_wkv):
             kmod.build()
@@ -139,9 +155,12 @@ def main() -> None:
     if args.only != "all":
         part = {"flash_fwd": flash_forward, "flash_bwd": flash_backward,
                 "ssd_fwd": ssd_forward, "ssd_bwd": ssd_backward,
-                "wkv_fwd": wkv_forward, "wkv_bwd": wkv_backward}[args.only]
+                "wkv_fwd": wkv_forward, "wkv_bwd": wkv_backward,
+                "rms_norm": norm_timing}[args.only]
         mod = {"ssd": mamba2_ssd, "wkv": rwkv6_wkv}.get(args.only[:3],
                                                         flash_attention)
+        if args.only == "rms_norm":
+            from repro_torch.kernels import rms_norm as mod
         rows.update(part(cs, mod))
         print(rows["card"])
         print(json.dumps(rows))
@@ -429,6 +448,62 @@ def ssd_backward(cs, mamba2_ssd) -> dict:
         rows[f"mamba2_ssd_bwd {part} registers/spill/blocks/threads"] = [
             info["registers"], info["spill_bytes"], info["blocks_per_sm"],
             info["threads"]]
+    return rows
+
+
+
+NORM_TIMED = ((8192, 4096), (1024, 4096), (4, 4096))
+L2_BYTES = 50 * 2 ** 20
+
+
+def norm_timing(cs, rms_norm) -> dict:
+    """The fused norm and the plain chain at ``NORM_TIMED``, with and
+    without the add, in turns on inputs that leave the L2 cold; then the
+    compiled kernel at each shape (module docstring)."""
+    import itertools
+    import torch
+    rows = {}
+    for shape in NORM_TIMED:
+        n, d = shape
+        # x and delta of a call; enough of them to fill the L2 four times
+        n_sets = max(2, -(-4 * L2_BYTES // (4 * n * d)))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        sets = [tuple(torch.randn(n, d, generator=gen, device="cuda").to(
+            torch.bfloat16) for _ in range(2)) for _ in range(n_sets)]
+        scale = torch.rand(d, generator=gen, device="cuda") + 0.5
+        for with_delta in (True, False):
+            cycle = itertools.cycle(sets)
+
+            def fused():
+                x, delta = next(cycle)
+                if with_delta:
+                    return rms_norm.add_rms_norm(x, delta, scale, 1e-5)
+                return rms_norm.rms_norm(x, scale, 1e-5)
+
+            def plain():
+                x, delta = next(cycle)
+                return rms_norm.rms_norm_plain(
+                    x + delta if with_delta else x, scale, 1e-5)
+            x0, d0 = sets[0]
+            route = rms_norm.fwd_route(x0, scale, d0 if with_delta else None)
+            assert route == "fused", route
+            times = {"fused": [], "plain": []}
+            for name in ("fused", "plain", "plain", "fused"):
+                times[name].append(cs.device_ms(
+                    fused if name == "fused" else plain))
+            row = {"fused_ms": times["fused"], "plain_ms": times["plain"],
+                   "fused_busy_ms": cs.busy_ms(fused, f"rms_norm {shape}"),
+                   "plain_busy_ms": cs.busy_ms(plain, f"chain {shape}"),
+                   "inputs": n_sets}
+            row.update(cs.norm_bound(shape, 2, with_delta))
+            row["hbm_bound_share"] = row["bound_ms"] / max(times["fused"])
+            rows[f"rms_norm {shape} delta={with_delta}"] = row
+            info = rms_norm.kernel_info(n, d, with_delta)
+            rows[f"rms_norm {shape} delta={with_delta} "
+                 f"registers/spill/blocks/threads"] = [
+                info["registers"], info["spill_bytes"],
+                info["blocks_per_sm"], info["threads"]]
+        del sets
     return rows
 
 
